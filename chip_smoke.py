@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's main path once on an NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths once on an NVIDIA GPU and check them.
 
 Run from the repository root with one CUDA device:
 
@@ -8,27 +8,53 @@ Phases (any failure exits nonzero and prints no result):
 
 1. Device: the card's name and power limit (nvidia-smi), torch, CUDA and
    nvcc versions. Without a CUDA device it stops here with exit code 1.
-2. Build: nvcc compiles the Stockham kernel from `watfft_tpu_torch/ops/csrc`.
-3. Kernel against its plain torch version on the card, every power-of-two
-   n = 2..4096, forward and inverse, at batch 3 and at 2^22/n (limit 1e-6
-   of the largest output); at batch 3 also against the f64 numpy oracle
-   (MAX_REL 5e-6), and per-bin and roundtrip checks at n = 64, 1024, 4096.
-4. Main path at full size: `create_fft_f32(1024, device="cuda")` on a
+2. Build: nvcc compiles every kernel source of `watfft_tpu_torch/ops/csrc`
+   (the c2c Stockham kernel and the fused real kernels), one process per
+   source, all at once.
+3. c2c kernel against its plain torch version on the card, every
+   power-of-two n = 2..4096, forward and inverse, at batch 3 and at 2^22/n
+   (limit 1e-6 of the largest output); at batch 3 also against the f64
+   numpy oracle (MAX_REL 5e-6), and per-bin and roundtrip checks at
+   n = 64, 1024, 4096.
+4. c2c main path at full size: `create_fft_f32(1024, device="cuda")` on a
    [4096, 1024] complex64 tensor (BASELINE config 4) — forward, inverse,
    roundtrip, the plane entry points and a backward — against cuFFT in
    complex128, with the kernel's launch count for that run.
    A conjugated view (`x.conj()`, whose storage holds x) goes through too.
-5. Times at 2^22 points per n: the kernel in three layouts, its plain
+5. c2c times at 2^22 points per n: the kernel in three layouts, its plain
    version, torch.fft (cuFFT) and a device copy of the same bytes — device
    time (CUDA events, median of 25 after warm-up) and the host's time per
    call.
 6. Host time per call at a small batch (8 x 1024, where the host, not the
-   card, bounds back-to-back calls): the wrapper without and with autograd,
-   `FFTContext.forward` and cuFFT, each over 200 calls.
+   card, bounds back-to-back calls): the c2c wrapper without and with
+   autograd, `FFTContext.forward` and cuFFT, and the real path's wrapper,
+   `RFFTContext.forward` and torch.fft.rfft, each over 200 calls.
+7. Real kernels against their plain versions, every power-of-two
+   n = 4..8192, forward and inverse, the fused r2c / c2r kernels and the
+   hybrid (the c2c kernel through strides), batch-major, time-major and
+   interleaved-complex layouts, at batch 3 and 2^22/n real points (limit
+   1e-6 of the largest output; the inverse on spectra whose DC and Nyquist
+   rows have nonzero imaginary parts). At batch 3 also against the f64
+   oracle (MAX_REL), and per-bin and roundtrip checks at n = 64, 1024, 4096.
+8. Real main path at full size: `create_rfft_f32(1024, device="cuda")` on
+   [4096, 1024] f32 (BASELINE config 4) — forward, inverse, roundtrip,
+   both plane forms (the folded time-major view [n, 8, W] runs the hybrid)
+   and a backward through each direction — against torch.fft in float64
+   (the inverse on a Hermitian-valid spectrum), with each kernel's launch
+   count for that run.
+9. STFT at the same scale: `stft(x, n_fft=1024, hop=256)` on 4095*256 +
+   1024 samples (4096 frames) against framing x window -> torch.fft.rfft in
+   float64, and `istft` back, with the launch counts of that run.
+10. Real times at 2^22 real points per n (at n = 1024 that is the main
+   path's shape): fused r2c and c2r, the hybrid forward and inverse and
+   their c2c core launches alone, the plain versions, torch.fft.rfft /
+   irfft (cuFFT, the library call the port never makes) and a device copy
+   of the same bytes; at n = 1024 also the time-major forms.
 
-The line before the last is a JSON object naming each kernel of the path
-with its launch count, error and times; the last line is
-{"ok": true, "device": {...}}.
+The line before the last is a JSON object naming each kernel of the paths
+with its launch count, error, times and the least time the card could take
+(its bytes at 3.35 TB/s or its flops at 67 TFLOP/s, whichever is larger);
+the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -41,17 +67,23 @@ import time
 
 import torch
 
-from watfft_tpu_torch import create_fft_f32
+from watfft_tpu_torch import create_fft_f32, create_rfft_f32
+from watfft_tpu_torch import stft as wstft
 from watfft_tpu_torch.ops import _build
+from watfft_tpu_torch.ops import rfft as rf
 from watfft_tpu_torch.ops import stockham as st
 from watfft_tpu_torch.reference import dft as ref
 from watfft_tpu_torch.utils.accuracy import rel_errors
 from watfft_tpu_torch.utils.tolerances import MAX_REL, PER_BIN, ROUNDTRIP
 
 KERNEL_LIMIT = 1e-6      # kernel vs plain version: max |diff| / max |plain|
-POINTS = 1 << 22         # 32 MiB of complex64 per buffer at every n
+POINTS = 1 << 22         # 32 MiB of complex64 (16 MiB of f32) per buffer at every n
 MAIN_N, MAIN_B = 1024, 4096
 SIZES = [1 << k for k in range(1, 13)]
+REAL_SIZES = [1 << k for k in range(2, 14)]
+STFT_HOP = 256
+# the card's published peaks (H100 SXM data sheet): HBM bytes/s, FP32 flop/s
+PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
 
 
 class Failed(Exception):
@@ -76,6 +108,10 @@ def rand_complex(shape, gen, dev) -> torch.Tensor:
     re = torch.rand(shape, generator=gen, device=dev) * 2 - 1
     im = torch.rand(shape, generator=gen, device=dev) * 2 - 1
     return torch.complex(re, im)
+
+
+def rand_real(shape, gen, dev) -> torch.Tensor:
+    return torch.rand(shape, generator=gen, device=dev) * 2 - 1
 
 
 def rel_diff(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -229,11 +265,16 @@ def phase_host(dev, gen, name: str, limit: str) -> None:
     ctx = create_fft_f32(n, device="cuda")
     x = rand_complex((batch, n), gen, dev)
     xg = x.clone().requires_grad_()
+    rctx = create_rfft_f32(n, device="cuda")
+    xr = rand_real((batch, n), gen, dev)
     fns = {
         "wrapper": lambda: st.stockham_fft(x),
         "wrapper_autograd": lambda: st.stockham_fft(xg),
         "ctx_forward": lambda: ctx.forward(x),
         "cufft": lambda: torch.fft.fft(x),
+        "rfft_wrapper": lambda: rf.rfft(xr),
+        "rctx_forward": lambda: rctx.forward(xr),
+        "cufft_rfft": lambda: torch.fft.rfft(xr),
     }
     row = {}
     for key, fn in fns.items():
@@ -242,6 +283,280 @@ def phase_host(dev, gen, name: str, limit: str) -> None:
         row[key + "_call_ms"] = call_ms
     print(json.dumps({"phase": "host", "n": n, "batch": batch, **row,
                       "card": name, "power_limit": limit}), flush=True)
+
+
+def zero_counts() -> None:
+    st.launches = 0
+    for key in rf.launches:
+        rf.launches[key] = 0
+
+
+def counts() -> dict:
+    return {"stockham_c2c": st.launches, **rf.launches}
+
+
+def hermitian_valid(spec: torch.Tensor) -> torch.Tensor:
+    """spec with the imaginary parts of its DC and Nyquist bins set to 0:
+    the spectra cuFFT's c2r defines a result for."""
+    spec = spec.clone()
+    spec[..., 0] = spec[..., 0].real
+    spec[..., -1] = spec[..., -1].real
+    return spec
+
+
+def phase_real_kernel_vs_plain(dev, gen) -> None:
+    for n in REAL_SIZES:
+        m = n // 2
+        worst = 0.0
+        for batch in (3, POINTS // n):
+            x = rand_real((batch, n), gen, dev)
+            spec = torch.complex(rand_real((batch, m + 1), gen, dev),
+                                 rand_real((batch, m + 1), gen, dev))
+            want, want_inv = rf.plain_rfft(x), rf.plain_irfft(spec)
+            xt = x.T.contiguous()
+            sre, sim = spec.real.contiguous(), spec.imag.contiguous()
+            for fused in (True, False):
+                fwd_nb = rf.rfft_nb_fused if fused else rf.rfft_nb
+                inv_nb = rf.irfft_nb_fused if fused else rf.irfft_nb
+                diffs = {
+                    "fwd_complex": rel_diff(rf.rfft(x, fused), want),
+                    "fwd_bm": rel_diff(torch.complex(*rf.rfft_bm(x, fused)), want),
+                    "fwd_nb": rel_diff(torch.complex(*fwd_nb(xt)).T, want),
+                    "inv_complex": rel_diff(rf.irfft(spec, fused), want_inv),
+                    "inv_bm": rel_diff(rf.irfft_bm(sre, sim, fused), want_inv),
+                    "inv_nb": rel_diff(inv_nb(sre.T.contiguous(), sim.T.contiguous()).T,
+                                       want_inv),
+                }
+                worst = max(worst, *diffs.values())
+                check(max(diffs.values()) <= KERNEL_LIMIT,
+                      f"real n={n} batch={batch} fused={fused}: kernel vs plain {diffs}")
+            if batch == 3:
+                xs = x.double().cpu().numpy()
+                e = rel_errors(rf.rfft(x).cpu().numpy(), ref.real_dft(xs))[0]
+                check(e <= MAX_REL["float32"], f"real n={n}: forward max rel {e:.3e} vs oracle")
+                hs = hermitian_valid(spec.cdouble()).cpu().numpy()
+                got = rf.irfft(torch.from_numpy(hs).to(dev, torch.complex64))
+                e_inv = rel_errors(got.cpu().numpy(), ref.real_idft(hs, n))[0]
+                check(e_inv <= MAX_REL["float32"],
+                      f"real n={n}: inverse max rel {e_inv:.3e} vs oracle")
+        line = {"phase": "real_kernel_vs_plain", "n": n, "max_rel_diff": worst}
+        if n in (64, 1024, 4096):
+            t = torch.arange(n, device=dev, dtype=torch.float64)
+            k = torch.arange(m + 1, device=dev, dtype=torch.float64)
+            basis = torch.cos(2 * torch.pi * torch.outer(k, t) / n).float()  # [bin, time]
+            expect = torch.diag(torch.full((m + 1,), n / 2, device=dev, dtype=torch.float64))
+            expect[0, 0] = expect[m, m] = n
+            per_bin = (rf.rfft(basis).cdouble() - expect).abs().max().item()
+            x = rand_real((3, n), gen, dev)
+            rt = (rf.irfft(rf.rfft(x)) - x).abs().max().item()
+            check(per_bin < PER_BIN["float32"](n), f"real n={n}: per-bin error {per_bin:.3e}")
+            check(rt < ROUNDTRIP["float32"], f"real n={n}: roundtrip error {rt:.3e}")
+            line.update(per_bin_err=per_bin, roundtrip_err=rt)
+        print(json.dumps(line), flush=True)
+
+
+def phase_real_main_path(dev, gen) -> tuple[dict, dict]:
+    n, m = MAIN_N, MAIN_N // 2
+    ctx = create_rfft_f32(n, device="cuda")
+    x = rand_real((MAIN_B, n), gen, dev)
+    spec = hermitian_valid(torch.fft.rfft(rand_real((MAIN_B, n), gen, dev).double()))
+    spec32 = spec.to(torch.complex64)
+    g = torch.complex(rand_real((MAIN_B, m + 1), gen, dev), rand_real((MAIN_B, m + 1), gen, dev))
+    ybar = rand_real((MAIN_B, n), gen, dev)
+    x_t = x.T.contiguous()
+    folded = x_t.view(n, 8, MAIN_B // 8)
+    xg, sg = x.clone().requires_grad_(), spec32.clone().requires_grad_()
+    torch.cuda.synchronize()
+
+    zero_counts()
+    y = ctx.forward(x)
+    xi = ctx.inverse(spec32)
+    back = ctx.inverse(y)
+    pre, pim = ctx.forward_planes(x)
+    bx = ctx.inverse_planes(spec32.real, spec32.imag)
+    nre, nim = ctx.forward_planes_nb(x_t)
+    fre, fim = ctx.forward_planes_nb(folded)           # the hybrid, as in the JAX API
+    fback = ctx.inverse_planes_nb(fre, fim)
+    ctx.forward(xg).backward(g)
+    ctx.inverse(sg).backward(ybar)
+    torch.cuda.synchronize()
+    launches = counts()
+    want = {"stockham_c2c": 2, "rfft_r2c_fused": 5, "irfft_c2r_fused": 5,
+            "real_core_fwd": 1, "real_core_inv": 1}
+    check(launches == want, f"real main path: launches {launches}, expected {want}")
+
+    x64 = x.double()
+    fwd_err = rel_errors(y.cpu().numpy(), torch.fft.rfft(x64).cpu().numpy())[0]
+    inv_err = rel_errors(xi.cpu().numpy(), torch.fft.irfft(spec, n).cpu().numpy())[0]
+    rt_err = max((back - x).abs().max().item(), (fback.reshape(n, -1).T - x).abs().max().item())
+    planes_diff = max(rel_diff(torch.complex(pre, pim), y), rel_diff(torch.complex(nre, nim).T, y),
+                      rel_diff(bx, xi))
+    hybrid_diff = rel_diff(torch.complex(fre, fim).reshape(m + 1, -1).T, y)
+    # backward: torch.fft.rfft's own gradient (same convention: the
+    # imaginary end rows are constants); the inverse's is the JAX adjoint
+    # identity, VJP(irfft)(y) = rfft(y)/m with its end-row corrections
+    x64g = x64.clone().requires_grad_()
+    torch.fft.rfft(x64g).backward(g.cdouble())
+    grad_fwd_err = rel_errors(xg.grad.cpu().numpy(), x64g.grad.cpu().numpy())[0]
+    r = torch.fft.rfft(ybar.double())
+    gre = r.real.clone()
+    gre[:, [0, m]] *= 0.5
+    gim = r.imag.clone()
+    gim[:, 0], gim[:, m] = -0.5 * r.real[:, m], -0.5 * r.real[:, 0]
+    grad_inv_err = rel_errors(sg.grad.cpu().numpy(), (torch.complex(gre, gim) / m).cpu().numpy())[0]
+    # each kernel against its plain version on the same inputs (the hybrid's
+    # inverse again on spec32, off the counted run)
+    plain_y, plain_xi = rf.plain_rfft(x), rf.plain_irfft(spec32)
+    hyb_fwd = torch.complex(fre, fim).reshape(m + 1, -1).T
+    hyb_inv = rf.irfft_nb(spec32.real.T.contiguous(), spec32.imag.T.contiguous()).T
+    errs = {"rfft_r2c_fused": (y - plain_y).abs().max().item(),
+            "irfft_c2r_fused": (xi - plain_xi).abs().max().item(),
+            "real_core_fwd": (hyb_fwd - plain_y).abs().max().item(),
+            "real_core_inv": (hyb_inv - plain_xi).abs().max().item()}
+    print(json.dumps({"phase": "real_main_path", "n": n, "batch": MAIN_B, "launches": launches,
+                      "fwd_max_rel_vs_torch_fft_f64": fwd_err,
+                      "inv_max_rel_vs_torch_fft_f64": inv_err, "roundtrip_err": rt_err,
+                      "planes_vs_complex": planes_diff, "folded_hybrid_vs_fused": hybrid_diff,
+                      "grad_fwd_max_rel_vs_torch_f64": grad_fwd_err,
+                      "grad_inv_max_rel_vs_adjoint_f64": grad_inv_err,
+                      "kernel_vs_plain_max_abs": errs}), flush=True)
+    check(fwd_err <= MAX_REL["float32"], f"real main path forward: max rel {fwd_err:.3e}")
+    check(inv_err <= MAX_REL["float32"], f"real main path inverse: max rel {inv_err:.3e}")
+    check(rt_err < ROUNDTRIP["float32"], f"real main path roundtrip: {rt_err:.3e}")
+    check(planes_diff <= KERNEL_LIMIT, f"real plane entry points vs complex: {planes_diff:.3e}")
+    check(hybrid_diff <= KERNEL_LIMIT, f"folded hybrid vs fused: {hybrid_diff:.3e}")
+    check(grad_fwd_err <= MAX_REL["float32"], f"rfft backward: max rel {grad_fwd_err:.3e}")
+    check(grad_inv_err <= MAX_REL["float32"], f"irfft backward: max rel {grad_inv_err:.3e}")
+    check(bool(torch.isfinite(y).all()) and y.shape == (MAIN_B, m + 1), "real main path output")
+    return launches, errs
+
+
+def phase_stft(dev, gen) -> dict:
+    n_fft, hop = MAIN_N, STFT_HOP
+    sig = rand_real(((MAIN_B - 1) * hop + n_fft,), gen, dev)
+    torch.cuda.synchronize()
+    zero_counts()
+    re, im = wstft.stft(sig, n_fft=n_fft, hop=hop)
+    back = wstft.istft(re, im, n_fft=n_fft, hop=hop, length=sig.shape[-1])
+    torch.cuda.synchronize()
+    launches = counts()
+    want_counts = {"stockham_c2c": 0, "rfft_r2c_fused": 1, "irfft_c2r_fused": 1,
+                   "real_core_fwd": 0, "real_core_inv": 0}
+    check(launches == want_counts, f"stft: launches {launches}, expected {want_counts}")
+    w = torch.as_tensor(wstft.get_window("hann", n_fft), device=dev, dtype=torch.float64)
+    want = torch.fft.rfft(sig.double().unfold(-1, n_fft, hop) * w)
+    err = rel_errors(torch.complex(re, im).cpu().numpy(), want.cpu().numpy())[0]
+    rt = (back - sig)[n_fft:-n_fft].abs().max().item()  # the ends: window power ~0
+    print(json.dumps({"phase": "stft", "samples": sig.shape[-1], "frames": re.shape[-2],
+                      "bins": re.shape[-1], "launches": launches,
+                      "max_rel_vs_torch_fft_f64": err, "istft_roundtrip_err": rt}), flush=True)
+    check(re.shape == (MAIN_B, n_fft // 2 + 1), f"stft output shape {tuple(re.shape)}")
+    check(err <= MAX_REL["float32"], f"stft: max rel {err:.3e} vs torch.fft in float64")
+    check(rt < ROUNDTRIP["float32"], f"istft roundtrip: {rt:.3e}")
+    return launches
+
+
+def phase_real_times(dev, gen, name: str, limit: str) -> dict:
+    times = {}
+    for n in REAL_SIZES:
+        m, batch = n // 2, POINTS // n
+        x = rand_real((batch, n), gen, dev)
+        spec = torch.complex(rand_real((batch, m + 1), gen, dev),
+                             rand_real((batch, m + 1), gen, dev))
+        xv = x.view(batch, n).T  # the hybrid's [n, B] views, batch-major
+        zre, zim = (torch.empty(batch, m, device=dev).T for _ in range(2))
+        z = torch.complex(rand_real((batch, m), gen, dev), rand_real((batch, m), gen, dev))
+        zv = torch.view_as_real(z).view(batch, m, 2)
+        out = torch.empty(batch, n, device=dev)
+        fwd_t, inv_t = rf.device_rtables(n, False, dev), rf.device_rtables(n, True, dev)
+        c = fwd_t.core
+        ci = inv_t.core
+        fns = {
+            "r2c_fused": lambda: rf.rfft(x),
+            "c2r_fused": lambda: rf.irfft(spec),
+            "hybrid_fwd": lambda: rf.rfft(x, fused=False),
+            "hybrid_inv": lambda: rf.irfft(spec, fused=False),
+            "core_fwd": lambda: st.fft_views(xv[0::2], xv[1::2], zre, zim, False, c),
+            "core_inv": lambda: st.fft_views(zv[..., 0].T, zv[..., 1].T, out.T[0::2],
+                                             out.T[1::2], True, ci),
+            "plain_r2c": lambda: rf.plain_rfft(x),
+            "plain_c2r": lambda: rf.plain_irfft(spec),
+            "plain_core_fwd": lambda: st.run_stages(xv[0::2], xv[1::2], m, False, c.offsets,
+                                                    c.stages, c.twre, c.twim),
+            "plain_core_inv": lambda: st.run_stages(zv[..., 0].T, zv[..., 1].T, m, True,
+                                                    ci.offsets, ci.stages, ci.twre, ci.twim),
+            "lib_rfft": lambda: torch.fft.rfft(x),
+            "lib_irfft": lambda: torch.fft.irfft(spec, n),
+            "lib_core_fwd": lambda: torch.fft.fft(torch.view_as_complex(x.view(batch, m, 2))),
+            "lib_core_inv": lambda: torch.fft.ifft(z),
+            "copy": lambda: out.copy_(x),  # the 8 B per real point the r2c moves
+        }
+        if n == MAIN_N:
+            x_t = x.T.contiguous()
+            sre_t, sim_t = spec.real.T.contiguous(), spec.imag.T.contiguous()
+            fns.update({
+                "r2c_fused_nb": lambda: rf.rfft_nb_fused(x_t),
+                "c2r_fused_nb": lambda: rf.irfft_nb_fused(sre_t, sim_t),
+                "hybrid_fwd_folded": lambda: rf.rfft_nb(x_t.view(n, 8, -1)),
+            })
+        row = {}
+        for key, fn in fns.items():
+            dev_ms, call_ms = time_ms(fn)
+            row[key + "_ms"] = dev_ms
+            row[key + "_call_ms"] = call_ms
+        times[n] = row
+        print(json.dumps({"phase": "real_times", "n": n, "batch": batch, **row,
+                          "card": name, "power_limit": limit}), flush=True)
+    return times
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time in ms the card could take: bytes over its memory rate
+    or flops over its FP32 rate, whichever is larger, and which one."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernels_line(c2c: dict, real_launches: dict, real_errs: dict, times: dict,
+                 real_times: dict, name: str, limit: str) -> dict:
+    """Each kernel at the main path's shape, 4096 transforms of n = 1024:
+    bytes count each input read once and each output written once; flops
+    are 5 m log2 m per m-point complex FFT and 10 per bin of the Hermitian
+    post or pre."""
+    n, b, m = MAIN_N, MAIN_B, MAIN_N // 2
+    lg = m.bit_length() - 1
+    c2c_t, rt = times[n], real_times[n]
+    real_bytes = 4 * n * b + 8 * (m + 1) * b       # f32 signal + complex64 spectrum
+    core_bytes = 4 * n * b + 8 * m * b             # f32 signal + complex64 core planes
+    rows = [
+        ("stockham_c2c", "watfft_tpu_torch/ops/csrc/stockham.cu",
+         "watfft_tpu/ops/pallas_stockham.py:260", ["watfft_tpu/ops/pallas_stockham.py:355"],
+         c2c["launches"], c2c["max_abs_err"], c2c_t["kernel_fwd_ms"], c2c_t["plain_fwd_ms"],
+         bound(16 * n * b, 5 * n * (n.bit_length() - 1) * b), c2c_t["cufft_fwd_ms"]),
+        ("stockham_c2c_real_core_fwd", "watfft_tpu_torch/ops/csrc/stockham.cu",
+         "watfft_tpu/ops/pallas_rfft.py:167", ["watfft_tpu/ops/pallas_rfft.py:288"],
+         real_launches["real_core_fwd"], real_errs["real_core_fwd"], rt["core_fwd_ms"],
+         rt["plain_core_fwd_ms"], bound(core_bytes, 5 * m * lg * b), rt["lib_core_fwd_ms"]),
+        ("stockham_c2c_real_core_inv", "watfft_tpu_torch/ops/csrc/stockham.cu",
+         "watfft_tpu/ops/pallas_rfft.py:193", ["watfft_tpu/ops/pallas_rfft.py:304"],
+         real_launches["real_core_inv"], real_errs["real_core_inv"], rt["core_inv_ms"],
+         rt["plain_core_inv_ms"], bound(core_bytes, 5 * m * lg * b), rt["lib_core_inv_ms"]),
+        ("rfft_r2c_fused", "watfft_tpu_torch/ops/csrc/rfft.cu",
+         "watfft_tpu/ops/pallas_rfft.py:563", [],
+         real_launches["rfft_r2c_fused"], real_errs["rfft_r2c_fused"], rt["r2c_fused_ms"],
+         rt["plain_r2c_ms"], bound(real_bytes, (5 * m * lg + 10 * (m + 1)) * b),
+         rt["lib_rfft_ms"]),
+        ("irfft_c2r_fused", "watfft_tpu_torch/ops/csrc/rfft.cu",
+         "watfft_tpu/ops/pallas_rfft.py:604", [],
+         real_launches["irfft_c2r_fused"], real_errs["irfft_c2r_fused"], rt["c2r_fused_ms"],
+         rt["plain_c2r_ms"], bound(real_bytes, (5 * m * lg + 10 * m) * b), rt["lib_irfft_ms"]),
+    ]
+    return {"kernels": [
+        {"name": kname, "route": "cuda", "source": src, "replaces": repl,
+         "also_replaces": also, "launches": launches, "max_abs_err": err, "ms": ms,
+         "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib_ms,
+         "card": name, "power_limit": limit}
+        for kname, src, repl, also, launches, err, ms, plain_ms, bnd, lib_ms in rows]}
 
 
 def main() -> int:
@@ -271,18 +586,16 @@ def main() -> int:
         launches, max_abs_err = phase_main_path(dev, gen)
         times = phase_times(dev, gen, name, limit)
         phase_host(dev, gen, name, limit)
+        phase_real_kernel_vs_plain(dev, gen)
+        real_launches, real_errs = phase_real_main_path(dev, gen)
+        phase_stft(dev, gen)
+        real_times = phase_real_times(dev, gen, name, limit)
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
-    main_t = times[MAIN_N]
-    print(json.dumps({"kernels": [{
-        "name": "stockham_c2c", "route": "cuda",
-        "source": "watfft_tpu_torch/ops/csrc/stockham.cu",
-        "replaces": "watfft_tpu/ops/pallas_stockham.py:260",
-        "also_replaces": "watfft_tpu/ops/pallas_stockham.py:355",
-        "launches": launches, "max_abs_err": max_abs_err,
-        "ms": main_t["kernel_fwd_ms"], "plain_ms": main_t["plain_fwd_ms"],
-        "card": name, "power_limit": limit}]}), flush=True)
+    print(json.dumps(kernels_line({"launches": launches, "max_abs_err": max_abs_err},
+                                  real_launches, real_errs, times, real_times, name, limit)),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,5 +1,6 @@
-"""The port's slice (watfft_tpu_torch: create_fft_f32, FFTContext, fft, ifft)
-against the JAX package's public API.
+"""The port's complex slice (watfft_tpu_torch: create_fft_f32, FFTContext,
+fft, ifft) against the JAX package's public API, on the CPU
+(`device="cpu"`: the kernels' plain versions).
 
 The JAX API is forced onto its Pallas Stockham kernel in interpret mode
 (config.FORCE_INTERPRET, as tests/test_planner.py does); otherwise it would
@@ -49,7 +50,7 @@ def test_slice_matches_jax_api(n, lead, interpret_mode):
     3D [n, 8, W] dispatch (api.py:263, _kernel_dma3d)."""
     x = _signal(lead + (n,), seed=n + len(lead))
     jctx = watfft_tpu.create_fft_f32(n)
-    pctx = wtt.create_fft_f32(n)
+    pctx = wtt.create_fft_f32(n, device="cpu")
     xt = torch.from_numpy(x)
 
     _close(pctx.forward(xt).numpy(), jctx.forward(x))
@@ -63,14 +64,14 @@ def test_slice_matches_jax_api(n, lead, interpret_mode):
     pre, pim = pctx.forward_planes_nb(torch.from_numpy(ret), torch.from_numpy(imt))
     _close(_c(pre, pim), _c(*jctx.forward_planes_nb(ret, imt)))
 
-    _close(wtt.fft(xt).numpy(), watfft_tpu.fft(x))
-    _close(wtt.ifft(xt).numpy(), watfft_tpu.ifft(x))
+    _close(wtt.fft(xt, device="cpu").numpy(), watfft_tpu.fft(x))
+    _close(wtt.ifft(xt, device="cpu").numpy(), watfft_tpu.ifft(x))
 
 
 @pytest.mark.parametrize("n", [2, 32, 512, 4096])
 def test_slice_entry_points_meet_oracle(n):
     x = _signal((2, 3, n), seed=n)
-    ctx = wtt.create_fft_f32(n)
+    ctx = wtt.create_fft_f32(n, device="cpu")
     fwd, inv = ref.dft(x), ref.idft(x)
     assert rel_errors(ctx.forward(torch.from_numpy(x)).numpy(), fwd)[0] <= MAX_REL["float32"]
     assert rel_errors(ctx.inverse(x).numpy(), inv)[0] <= MAX_REL["float32"]
@@ -86,7 +87,7 @@ def test_reference_signals_meet_oracle(name):
     single frequency, ...) through forward and inverse at n = 256."""
     n = 256
     x = ref.make_signal(name, n)
-    ctx = wtt.create_fft_f32(n)
+    ctx = wtt.create_fft_f32(n, device="cpu")
     X = ctx.forward(x.astype(np.complex64))
     assert rel_errors(X.numpy(), ref.dft(x))[0] <= MAX_REL["float32"]
     back = ctx.inverse(X).numpy()
@@ -108,7 +109,7 @@ def test_large_n_raises_not_implemented():
     with pytest.raises(NotImplementedError, match="A7"):
         wtt.create_fft_f32(8192)
     with pytest.raises(NotImplementedError, match="A7"):
-        wtt.fft(torch.zeros(8192, dtype=torch.complex64))
+        wtt.fft(torch.zeros(8192, dtype=torch.complex64), device="cpu")
 
 
 def test_float64_raises_not_implemented():
@@ -120,11 +121,11 @@ def test_other_device_raises():
     with pytest.raises(ValueError, match="CPU or CUDA"):
         wtt.create_fft_f32(16, device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        wtt.fft(torch.zeros(16, dtype=torch.complex64, device="meta"))
+        wtt.fft(torch.zeros(16, dtype=torch.complex64), device="meta")
 
 
 def test_wrong_length_raises():
-    ctx = wtt.create_fft_f32(16)
+    ctx = wtt.create_fft_f32(16, device="cpu")
     with pytest.raises(ValueError, match="planned for size 16"):
         ctx.forward(torch.zeros(3, 32, dtype=torch.complex64))
     with pytest.raises(ValueError, match="planned for size 16"):
@@ -136,3 +137,18 @@ def test_context_device_moves_inputs():
     y = ctx.forward(np.ones((2, 8), np.complex128))
     assert y.device.type == "cpu" and y.dtype == torch.complex64
     assert torch.allclose(y[:, 0], torch.full((2,), 8.0 + 0j))
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked_for():
+    """The entry points run on the card by default: without a CUDA device
+    they raise, naming CUDA, instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    x = torch.zeros(2, 16, dtype=torch.complex64)
+    for make in (lambda: wtt.create_fft_f32(16), lambda: wtt.FFTContext(16),
+                 lambda: wtt.create_rfft_f32(16), lambda: wtt.RFFTContext(16),
+                 lambda: wtt.fft(x), lambda: wtt.ifft(x), lambda: wtt.rfft(x.real),
+                 lambda: wtt.irfft(x[..., :9])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    assert wtt.fft(x, device="cpu").device.type == "cpu"

@@ -1,4 +1,6 @@
-"""The Hopper Stockham kernel on the card, against its plain torch version.
+"""The Hopper kernels on the card (the Stockham c2c kernel, the fused r2c
+and c2r real kernels, and the hybrid real path that drives the c2c kernel
+through strides), against their plain torch versions.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no JAX, so it runs on a GPU host that has none; tests/conftest.py imports
@@ -13,7 +15,9 @@ import torch
 
 import watfft_tpu_torch as wtt
 from watfft_tpu_torch import convert
+from watfft_tpu_torch.ops import rfft as rf
 from watfft_tpu_torch.ops import stockham as st
+from watfft_tpu_torch import stft
 from watfft_tpu_torch.utils.tolerances import MAX_REL
 
 pytestmark = pytest.mark.cuda
@@ -112,3 +116,84 @@ def test_kernel_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="tables on cpu"):
         st.stockham_fft_nb(torch.zeros(16, 2, device=dev), torch.zeros(16, 2, device=dev),
                            tables=cpu_tables)
+
+
+# -- the real path ----------------------------------------------------------------
+
+def _r(shape, seed, dev):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("n", [1 << k for k in range(2, 14)])
+def test_real_kernels_match_plain_all_layouts(n, dev):
+    """Fused (r2c/c2r) and hybrid, forward and inverse, in every layout,
+    on ragged batches; the inverse on spectra with nonzero imaginary DC and
+    Nyquist parts."""
+    m = n // 2
+    for batch in (1, 3, 257):
+        x = _r((batch, n), seed=n + batch, dev=dev)
+        want = rf.plain_rfft(x)
+        spec = torch.complex(_r((batch, m + 1), 1, dev), _r((batch, m + 1), 2, dev))
+        want_inv = rf.plain_irfft(spec)
+        sre, sim = spec.real.contiguous(), spec.imag.contiguous()
+        for fused in (True, False):
+            fwd_nb = rf.rfft_nb_fused if fused else rf.rfft_nb
+            inv_nb = rf.irfft_nb_fused if fused else rf.irfft_nb
+            assert _rel(rf.rfft(x, fused), want) <= KERNEL_LIMIT
+            assert _rel(torch.complex(*rf.rfft_bm(x, fused)), want) <= KERNEL_LIMIT
+            assert _rel(torch.complex(*fwd_nb(x.T.contiguous())).T, want) <= KERNEL_LIMIT
+            assert _rel(rf.irfft(spec, fused), want_inv) <= KERNEL_LIMIT
+            assert _rel(rf.irfft_bm(sre, sim, fused), want_inv) <= KERNEL_LIMIT
+            assert _rel(inv_nb(sre.T.contiguous(), sim.T.contiguous()).T, want_inv) <= KERNEL_LIMIT
+
+
+def test_real_calls_launch_their_kernels(dev):
+    ctx = wtt.create_rfft_f32(256, device=dev)
+    x = _r((64, 256), seed=3, dev=dev)
+    before, c2c = dict(rf.launches), st.launches
+    spec = ctx.forward(x)
+    ctx.inverse(spec)
+    re, im = ctx.forward_planes_nb(x.T.reshape(256, 8, 8))  # the folded view: hybrid
+    ctx.inverse_planes_nb(re, im)
+    assert rf.launches["rfft_r2c_fused"] == before["rfft_r2c_fused"] + 1
+    assert rf.launches["irfft_c2r_fused"] == before["irfft_c2r_fused"] + 1
+    assert rf.launches["real_core_fwd"] == before["real_core_fwd"] + 1
+    assert rf.launches["real_core_inv"] == before["real_core_inv"] + 1
+    assert st.launches == c2c + 2
+
+
+def test_real_backward_runs_the_other_direction(dev):
+    n = 512
+    x = _r((6, n), seed=4, dev=dev).requires_grad_()
+    g = torch.complex(_r((6, n // 2 + 1), 5, dev), _r((6, n // 2 + 1), 6, dev))
+    wtt.rfft(x).backward(g)
+    xc = x.detach().cpu().requires_grad_()
+    rf.rfft(xc).backward(g.cpu())
+    assert _rel(x.grad.cpu(), xc.grad) <= KERNEL_LIMIT
+    s = g.clone().requires_grad_()
+    y = _r((6, n), seed=7, dev=dev)
+    wtt.irfft(s).backward(y)
+    sc = g.cpu().requires_grad_()
+    rf.irfft(sc).backward(y.cpu())
+    assert _rel(s.grad.cpu(), sc.grad) <= KERNEL_LIMIT
+
+
+def test_stft_on_the_card(dev):
+    x = _r((2, 63 * 64 + 256), seed=8, dev=dev)
+    re, im = stft.stft(x, n_fft=256, hop=64)
+    w = torch.as_tensor(stft.get_window("hann", 256), device=dev, dtype=torch.float64)
+    want = torch.fft.rfft(x.double().unfold(-1, 256, 64) * w)
+    assert re.shape == (2, 64, 129)
+    assert _rel(torch.complex(re, im).to(torch.complex128), want) <= MAX_REL["float32"]
+    back = stft.istft(re, im, n_fft=256, hop=64)
+    assert (back[..., 256:-256] - x[..., 256:-256]).abs().max().item() < 1e-5
+
+
+def test_real_kernels_refuse_what_they_do_not_take(dev):
+    with pytest.raises(TypeError, match="float32"):
+        rf.rfft(torch.zeros(2, 64, device=dev, dtype=torch.float64))
+    big = rf.make_rtables([(64, 1), (16, 64)], [-1, 0], np.ones(63 * 16), np.zeros(63 * 16),
+                          np.ones(1025), np.zeros(1025), False, dev)
+    with pytest.raises(RuntimeError, match="radix outside"):
+        rf.rfft_nb_fused(torch.zeros(2048, 4, device=dev), tables=big)

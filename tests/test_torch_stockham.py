@@ -14,8 +14,11 @@ import numpy as np
 import pytest
 import torch
 
+from watfft_tpu.ops import pallas_rfft as jpr
 from watfft_tpu.ops import pallas_stockham as jst
+from watfft_tpu.ops import rfft as jrfft
 from watfft_tpu_torch import convert
+from watfft_tpu_torch.ops import rfft as rf
 from watfft_tpu_torch.ops import stockham as st
 from watfft_tpu_torch.reference import dft as ref
 from watfft_tpu_torch.utils.accuracy import rel_errors
@@ -41,6 +44,8 @@ def _rel_to_max(got, want):
 
 @pytest.mark.parametrize("n", [1 << k for k in range(1, 14)])
 def test_tables_bit_equal_to_jax(n, monkeypatch):
+    """The Stockham plan and twiddle pack, and for n >= 4 the real FFT's
+    post twiddles (watfft_tpu/ops/rfft.py and pallas_rfft.py's _Cache)."""
     monkeypatch.setattr(jst, "_PLAN_OVERRIDES", {})
     assert st.stage_plan(n) == jst.stage_plan(n)
     for inverse in (False, True):
@@ -49,6 +54,12 @@ def test_tables_bit_equal_to_jax(n, monkeypatch):
         assert poff == joff
         assert pre.dtype == jre.dtype == np.float32
         assert np.array_equal(pre, jre) and np.array_equal(pim, jim)
+        if n >= 4:
+            pw = rf.rfft_post_twiddles(n, inverse)
+            for jw in (jrfft.rfft_post_twiddles(n, inverse), jpr._Cache.get(n, inverse)):
+                assert pw[0].dtype == jw[0].dtype == np.float32
+                assert np.array_equal(pw[0], jw[0].reshape(-1))
+                assert np.array_equal(pw[1], jw[1].reshape(-1))
 
 
 def test_default_plan_caps_radix_at_16():

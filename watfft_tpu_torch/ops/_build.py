@@ -1,11 +1,12 @@
 """Builds the port's CUDA kernels at first use and loads them with ctypes.
 
-`nvcc` compiles the `.cu` sources under `csrc/` — and nothing else — for
-Hopper (`sm_90a`) into one shared library with a plain C interface, under
+`nvcc` compiles each `.cu` source under `csrc/` — and nothing else — for
+Hopper (`sm_90a`), all sources at once in parallel processes, and links the
+objects into one shared library with a plain C interface, under
 `build/watfft_tpu_torch/` at the repository root (git-ignored). The file
-name carries a hash of the sources, so an edited kernel is rebuilt and an
-unchanged one is loaded as it is. A failed build raises with the
-compiler's output; nothing falls back.
+name carries a hash of the sources and the shared headers (`.cuh`), so an
+edited kernel or header is rebuilt and an unchanged one is loaded as it is.
+A failed build raises with the compiler's output; nothing falls back.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ __all__ = ["library", "build_info"]
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "watfft_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Filled by `library()`: the library's path and the compiler's report
 # (ptxas -v: registers, shared memory and spills per kernel; empty when an
@@ -43,11 +44,39 @@ def _nvcc() -> str:
                        "CUDA toolkit (put nvcc on PATH or set CUDA_HOME)")
 
 
+def _compile(sources: list[Path], out: Path) -> str:
+    """One nvcc per source, all started together, then one link; returns
+    the compilers' output. Raises if any step fails."""
+    nvcc = _nvcc()
+    objs = [out.with_name(f"{out.stem}.{src.stem}.o") for src in sources]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objs)]
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)) for cmd in cmds]
+    log, failed = "", []
+    for cmd, proc in procs:
+        text = proc.communicate()[0]
+        log += text
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{text}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    cmd = [nvcc, "-shared", "-o", str(out), *map(str, objs)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
+                           f"{proc.stdout}{proc.stderr}")
+    for obj in objs:
+        obj.unlink()
+    return log
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     sources = sorted(_CSRC.glob("*.cu"))
     digest = hashlib.sha256()
-    for src in sources:
+    for src in sorted(_CSRC.glob("*.cu*")):  # the sources and the shared .cuh headers
+        digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     out = _BUILD_DIR / f"libwatfft_kernels-{digest.hexdigest()[:16]}.so"
@@ -55,11 +84,7 @@ def library() -> ctypes.CDLL:
     if not out.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+        log = _compile(sources, tmp)
         os.replace(tmp, out)  # atomic: a concurrent process never loads half a file
     lib = ctypes.CDLL(str(out))
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
@@ -67,6 +92,14 @@ def library() -> ctypes.CDLL:
     lib.watfft_stockham_c2c.argtypes = [p, p, p, p, i64, i64, i64, i64, i32, i64,
                                         p, p, ip, ip, i32, i32, p]
     lib.watfft_stockham_c2c.restype = i32
+    # (x, x_sn, x_sb, yre, yim, y_sn, y_sb, n, batch, twre, twim, radices,
+    #  offsets, nstages, wre, wim, stream) and the c2r mirror of it
+    lib.watfft_rfft_r2c.argtypes = [p, i64, i64, p, p, i64, i64, i32, i64,
+                                    p, p, ip, ip, i32, p, p, p]
+    lib.watfft_rfft_r2c.restype = i32
+    lib.watfft_irfft_c2r.argtypes = [p, p, i64, i64, p, i64, i64, i32, i64,
+                                     p, p, ip, ip, i32, p, p, p]
+    lib.watfft_irfft_c2r.restype = i32
     lib.watfft_error_string.argtypes = [i32]
     lib.watfft_error_string.restype = ctypes.c_char_p
     build_info.update(path=str(out), log=log)

@@ -1,0 +1,220 @@
+// The Stockham stage engine shared by the port's kernels (stockham.cu,
+// rfft.cu): the stage plan, the radix-2 network, one radix-R stage on a
+// transform in shared memory, the stage loop, the tile walk between device
+// and shared memory, and the host-side plan check and block shape.
+//
+// A block holds T whole transforms of N = 2^log2n points in shared memory,
+// S float2 apart (row k of a transform at pad(k)); each transform takes
+// N/P threads (P = the plan's largest radix), each doing P/R radix-R
+// butterflies per stage. See stockham.cu for the design and what bounds it.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kMaxStages = 16;
+constexpr int kBlockThreads = 256;
+
+constexpr int kErrArgs = -1;      // n, batch or stage count out of range
+constexpr int kErrPlan = -2;      // radix not in {2,4,8,16}, or product != n
+constexpr int kErrTooLong = -3;   // a transform needs more than one block
+
+struct Plan {
+  int log2n;
+  int nstages;
+  int radix[kMaxStages];
+  int log2l[kMaxStages];   // l = product of the radices of earlier stages
+  int twoff[kMaxStages];   // offset into the twiddle pack, -1: twiddle-free
+};
+
+// Row k of a transform in shared memory: one float2 of padding every 16.
+__device__ __forceinline__ int pad(int k) { return k + (k >> 4); }
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 w) {
+  return make_float2(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
+}
+
+// w16^j = exp(-2 pi i j / 16) for j < 8, rounded to f32 (the constants of
+// pallas_stockham.py:_small_dft: math.cos/sin of the f64 angle, taken as
+// weak-typed f32). Index j = q * 16 / R for the R-point network's w_R^q.
+__device__ __forceinline__ float2 w16(int j, bool inverse) {
+  constexpr float kRe[8] = {1.0f, 0.9238795042037964f, 0.7071067690849304f,
+                            0.3826834261417389f, 0.0f, -0.3826834261417389f,
+                            -0.7071067690849304f, -0.9238795042037964f};
+  constexpr float kIm[8] = {-0.0f, -0.3826834261417389f, -0.7071067690849304f,
+                            -0.9238795042037964f, -1.0f, -0.9238795042037964f,
+                            -0.7071067690849304f, -0.3826834261417389f};
+  return make_float2(kRe[j], inverse ? -kIm[j] : kIm[j]);
+}
+
+// R-point DFT of in[0], in[S], ..., in[(R-1)S] into out[0..R), by the
+// recursive radix-2 network of pallas_stockham.py:_small_dft (even terms,
+// odd terms, combine). Fully unrolled: every index is a constant.
+template <int R, int S, bool INV>
+__device__ __forceinline__ void small_dft(const float2* in, float2* out) {
+  if constexpr (R == 1) {
+    out[0] = in[0];
+  } else {
+    constexpr int H = R / 2;
+    float2 e[H], o[H];
+    small_dft<H, 2 * S, INV>(in, e);
+    small_dft<H, 2 * S, INV>(in + S, o);
+#pragma unroll
+    for (int q = 0; q < H; ++q) {
+      float2 t;
+      if (q == 0) {
+        t = o[0];
+      } else if (4 * q == R) {  // w = -+i: (re, im) -> (+-im, -+re)
+        t = INV ? make_float2(-o[q].y, o[q].x) : make_float2(o[q].y, -o[q].x);
+      } else {
+        t = cmul(o[q], w16(q * (16 / R), INV));
+      }
+      out[q] = make_float2(e[q].x + t.x, e[q].y + t.y);
+      out[q + H] = make_float2(e[q].x - t.x, e[q].y - t.y);
+    }
+  }
+}
+
+// One radix-R stage on the transform at c (shared memory), in place. The
+// thread does butterflies i = th + m*tpt, m < P/R, of the q = n/R in the
+// stage: inputs c[p*q + i], outputs to rows j*R*l + s*l + k (i = j*l + k).
+template <int R, int P, bool INV>
+__device__ __forceinline__ void stage(float2* c, int th, int tpt, int n,
+                                      int log2l, int twoff, bool fold,
+                                      const float* __restrict__ twre,
+                                      const float* __restrict__ twim) {
+  constexpr int M = P / R;
+  const int q = n / R;
+  const float inv_n = 1.0f / n;
+  float2 v[P];
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const int i = th + m * tpt;
+#pragma unroll
+    for (int p = 0; p < R; ++p) v[m * R + p] = c[pad(p * q + i)];
+    if (twoff >= 0) {
+#pragma unroll
+      for (int p = 1; p < R; ++p) {
+        const int w = twoff + (p - 1) * q + i;
+        v[m * R + p] = cmul(v[m * R + p], make_float2(__ldg(twre + w), __ldg(twim + w)));
+      }
+    }
+    if (fold) {  // inverse final stage: the p >= 1 twiddles already hold 1/n
+#pragma unroll
+      for (int p = 0; p < R; ++p) {
+        if (p == 0 || twoff < 0) {
+          v[m * R + p].x *= inv_n;
+          v[m * R + p].y *= inv_n;
+        }
+      }
+    }
+  }
+  __syncthreads();  // every read of this stage is done before any write
+  const int lmask = (1 << log2l) - 1;
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const int i = th + m * tpt;
+    const int base = ((i >> log2l) * R << log2l) + (i & lmask);
+    float2 out[R];
+    small_dft<R, 1, INV>(v + m * R, out);
+#pragma unroll
+    for (int s = 0; s < R; ++s) c[pad(base + (s << log2l))] = out[s];
+  }
+  __syncthreads();
+}
+
+template <int R, int P, bool INV>
+__device__ __forceinline__ void stage_if(int radix, float2* c, int th, int tpt,
+                                         int n, int log2l, int twoff, bool fold,
+                                         const float* __restrict__ twre,
+                                         const float* __restrict__ twim) {
+  if constexpr (R <= P) {
+    if (radix == R) stage<R, P, INV>(c, th, tpt, n, log2l, twoff, fold, twre, twim);
+  }
+}
+
+// Every stage of the plan on the transform at c, thread th of its tpt; the
+// inverse folds 1/n into the last stage. Ends with a block sync.
+template <int P, bool INV>
+__device__ __forceinline__ void run_stages(float2* c, int th, int tpt, const Plan& plan,
+                                           const float* __restrict__ twre,
+                                           const float* __restrict__ twim) {
+  const int n = 1 << plan.log2n;
+  for (int s = 0; s < plan.nstages; ++s) {
+    const int r = plan.radix[s], ll = plan.log2l[s], off = plan.twoff[s];
+    const bool fold = INV && s == plan.nstages - 1;
+    stage_if<2, P, INV>(r, c, th, tpt, n, ll, off, fold, twre, twim);
+    stage_if<4, P, INV>(r, c, th, tpt, n, ll, off, fold, twre, twim);
+    stage_if<8, P, INV>(r, c, th, tpt, n, ll, off, fold, twre, twim);
+    stage_if<16, P, INV>(r, c, th, tpt, n, ll, off, fold, twre, twim);
+  }
+}
+
+// Calls f(t, k, g) for point k of transform t of the block's tile, g being
+// its element offset in device memory. The walk runs along whichever of the
+// two strides is smaller, so neighbouring threads touch neighbouring
+// addresses; transforms past the end of the batch are skipped.
+template <typename F>
+__device__ __forceinline__ void for_tile(int log2n, int T, int count, int64_t first,
+                                         int64_t sn, int64_t sb, F f) {
+  const int n = 1 << log2n, tile = T << log2n;
+  if (sn <= sb) {
+    for (int e = threadIdx.x; e < tile; e += blockDim.x) {
+      const int t = e >> log2n, k = e & (n - 1);
+      if (t < count) f(t, k, (first + t) * sb + (int64_t)k * sn);
+    }
+  } else {
+    for (int e = threadIdx.x; e < tile; e += blockDim.x) {
+      const int k = e / T, t = e - k * T;
+      if (t < count) f(t, k, (first + t) * sb + (int64_t)k * sn);
+    }
+  }
+}
+
+// Blocks per SM each instance must fit, i.e. its register budget. Measured
+// on the H100 (one card, in turns): P = 16 at 3 blocks (80 registers, ~100
+// bytes of spills) ran 10% faster at n >= 16 than unbounded (128
+// registers, 2 blocks), and 4 blocks spilled twice as much for no gain.
+// The P <= 8 instances keep the counts they take unbounded (62 and 32
+// registers); naming any bound at all let the compiler take 80 and 48,
+// and n = 8 and n = 4 ran 22% and 14% slower.
+constexpr int min_blocks(int P) { return P == 16 ? 3 : P == 8 ? 4 : 8; }
+
+// Host side: checks a plan given as its radices and twiddle-pack offsets
+// for an n-point transform and fills `plan`, the largest radix `maxr` and
+// the transforms per block `T`. Returns 0 or a kErr code.
+inline int make_plan(int n, int64_t batch, const int* radices, const int* twoffsets,
+                     int nstages, Plan& plan, int& maxr, int& T) {
+  if (n < 2 || (n & (n - 1)) || batch < 1 || nstages < 1 || nstages > kMaxStages) {
+    return kErrArgs;
+  }
+  plan = Plan{};
+  plan.nstages = nstages;
+  int log2l = 0;
+  maxr = 1;
+  for (int s = 0; s < nstages; ++s) {
+    const int r = radices[s];
+    if (r != 2 && r != 4 && r != 8 && r != 16) return kErrPlan;
+    plan.radix[s] = r;
+    plan.log2l[s] = log2l;
+    plan.twoff[s] = twoffsets[s];
+    log2l += __builtin_ctz(r);
+    maxr = r > maxr ? r : maxr;
+  }
+  if ((1 << log2l) != n) return kErrPlan;
+  plan.log2n = log2l;
+  const int tpt = n / maxr;  // threads per transform
+  if (tpt > kBlockThreads) return kErrTooLong;
+  T = kBlockThreads / tpt;  // transforms per block
+  if ((batch + T - 1) / T > 0x7fffffff) return kErrArgs;
+  return 0;
+}
+
+// Float2 slots per transform in shared memory: odd, so transforms start on
+// distinct banks.
+inline int smem_stride(int n) { return (n + (n >> 4)) | 1; }
+
+}  // namespace

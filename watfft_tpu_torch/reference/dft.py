@@ -1,7 +1,9 @@
 """O(N^2) reference DFT ground truth + deterministic signal generators.
 
-numpy-only copy of `watfft_tpu/reference/dft.py` (the complex half: `dft`,
-`idft`, `seeded_rng`, `make_signal`). The port cannot import that module:
+numpy-only copy of `watfft_tpu/reference/dft.py` (`dft`, `idft`,
+`real_dft`, `real_idft`, `seeded_rng`, `make_signal`). The real pair is
+computed in blocks of bins, so n = 8192 needs ~100 MB, not the full n x n
+matrix. The port cannot import that module:
 importing anything under `watfft_tpu` imports JAX, and a CUDA host need not
 have JAX. Everything here is host-side numpy float64 — the oracle that the
 port's tests and `chip_smoke.py` hold the kernel against.
@@ -11,7 +13,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["dft", "idft", "SIGNALS", "make_signal", "seeded_rng"]
+__all__ = ["dft", "idft", "real_dft", "real_idft", "SIGNALS", "make_signal",
+           "seeded_rng"]
 
 
 def dft(x: np.ndarray, axis: int = -1) -> np.ndarray:
@@ -29,6 +32,48 @@ def idft(x: np.ndarray, axis: int = -1) -> np.ndarray:
     n = x.shape[axis]
     w = _dft_matrix(n, sign=+1.0) / n
     return np.moveaxis(np.tensordot(np.moveaxis(x, axis, -1), w, axes=([-1], [0])), -1, axis)
+
+
+_BLOCK = 512  # bins per block of the real oracle's matrix
+
+
+def _phases(n: int, k0: int, k1: int) -> np.ndarray:
+    """2 pi (t*k mod n) / n for t = 0..n-1 and bins k0..k1-1: [n, k1-k0]."""
+    t = np.arange(n, dtype=np.int64)
+    return 2.0 * np.pi * (np.outer(t, np.arange(k0, k1, dtype=np.int64)) % n) / n
+
+
+def real_dft(x: np.ndarray, axis: int = -1) -> np.ndarray:
+    """Real-input DFT returning the N//2+1 Hermitian-unique bins, complex128
+    (tests/dft-reference.js:62-88, realDFT, of wat-fft)."""
+    x = np.moveaxis(np.asarray(x).astype(np.float64), axis, -1)
+    n = x.shape[-1]
+    bins = n // 2 + 1
+    out = np.empty(x.shape[:-1] + (bins,), np.complex128)
+    for k0 in range(0, bins, _BLOCK):
+        k1 = min(k0 + _BLOCK, bins)
+        ang = _phases(n, k0, k1)
+        out[..., k0:k1] = x @ np.cos(ang) - 1j * (x @ np.sin(ang))
+    return np.moveaxis(out, -1, axis)
+
+
+def real_idft(spec: np.ndarray, n: int, axis: int = -1) -> np.ndarray:
+    """Inverse of real_dft: N//2+1 bins -> N real samples (1/N normalized),
+    the real part of the inverse DFT of the Hermitian extension; so the
+    imaginary parts of the DC and Nyquist bins do not enter (to rounding)."""
+    spec = np.moveaxis(np.asarray(spec).astype(np.complex128), axis, -1)
+    bins = n // 2 + 1
+    if spec.shape[-1] != bins:
+        raise ValueError(f"expected {bins} bins for n={n}, got {spec.shape[-1]}")
+    weight = np.full(bins, 2.0)
+    weight[0] = weight[-1] = 1.0  # DC and Nyquist appear once in the extension
+    spec = spec * weight / n
+    out = np.zeros(spec.shape[:-1] + (n,))
+    for k0 in range(0, bins, _BLOCK):
+        k1 = min(k0 + _BLOCK, bins)
+        ang = _phases(n, k0, k1).T  # [bins in block, n]
+        out += spec[..., k0:k1].real @ np.cos(ang) - spec[..., k0:k1].imag @ np.sin(ang)
+    return np.moveaxis(out, -1, axis)
 
 
 def _dft_matrix(n: int, sign: float) -> np.ndarray:
