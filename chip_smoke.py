@@ -50,11 +50,39 @@ Phases (any failure exits nonzero and prints no result):
    their c2c core launches alone, the plain versions, torch.fft.rfft /
    irfft (cuFFT, the library call the port never makes) and a device copy
    of the same bytes; at n = 1024 also the time-major forms.
+11. Large-N kernels against their plain versions, every n = 2^13..2^24:
+   each mode (the cube at n <= 2^14, pipe2 and 2d at every n), forward
+   and inverse, three layouts (complex64, batch-major and time-major
+   planes), batch 3 and 2^24/n (limit 1e-6 of the largest output); at
+   batch 3 also against torch.fft.fft in complex128 (MAX_REL), and a
+   roundtrip at 2^16 and 2^24.
+12. Large main path at full size: `create_fft_f32(2**20, device="cuda")`
+   on [16, 2^20] complex64 (BASELINE config 5, the planner's pipe2) —
+   forward, inverse, roundtrip, both plane forms and a backward, against
+   cuFFT in complex128, with each kernel's launch count for that run;
+   then the same calls at [2048, 8192], where the planner takes the cube.
+13. Large real path: `create_rfft_f32(2**20, device="cuda")` on [16, 2^20]
+   f32 — forward, inverse on a Hermitian-valid spectrum, roundtrip, the
+   plane forms and a backward through each direction, against torch.fft
+   in float64, with the launch counts.
+14. `fft_large` (one flat sequence, the "2d" mode) at n = 2^20 and 2^24,
+   the matmul surface (`forward_planes_fourstep`) at 2^16, and the
+   planner's route at n = 2^25 (the matmul surface), batch 1, against
+   torch.fft.fft in complex128, with the launch counts.
+15. Large times at 2^24 points per call for every n = 2^13..2^24: each mode
+   (complex64 layout; pipe2 also time-major), stage 1 and stage 2 launched
+   alone (time-major [n2, n1, b] blocks), the split's other order at 2^15
+   and 2^21, the plain version (3 calls), torch.fft.fft and a device copy
+   of the same bytes; then cube against pipe2 over batches at 2^13 and
+   2^14, the planner's crossover; and the large real path at its main
+   shape (each direction, its core alone, torch.fft.rfft / irfft).
 
 The line before the last is a JSON object naming each kernel of the paths
 with its launch count, error, times and the least time the card could take
 (its bytes at 3.35 TB/s or its flops at 67 TFLOP/s, whichever is larger);
-the last line is {"ok": true, "device": {...}}.
+the last line is {"ok": true, "device": {...}}. Phase 3 also holds the
+c2c kernel against its plain version in the batch-major planes layout
+(`stockham_fft_bm`, the port of `_kernel_bm`).
 """
 
 from __future__ import annotations
@@ -67,9 +95,10 @@ import time
 
 import torch
 
-from watfft_tpu_torch import create_fft_f32, create_rfft_f32
+from watfft_tpu_torch import create_fft_f32, create_rfft_f32, planner
 from watfft_tpu_torch import stft as wstft
 from watfft_tpu_torch.ops import _build
+from watfft_tpu_torch.ops import large as lg
 from watfft_tpu_torch.ops import rfft as rf
 from watfft_tpu_torch.ops import stockham as st
 from watfft_tpu_torch.reference import dft as ref
@@ -82,6 +111,14 @@ MAIN_N, MAIN_B = 1024, 4096
 SIZES = [1 << k for k in range(1, 13)]
 REAL_SIZES = [1 << k for k in range(2, 14)]
 STFT_HOP = 256
+LARGE_POINTS = 1 << 24   # 128 MiB of complex64 per buffer at every large n
+LARGE_SIZES = [1 << k for k in range(13, 25)]
+LARGE_N, LARGE_B = 1 << 20, 16
+CUBE_N, CUBE_B = 1 << 13, 2048
+SINGLE_SIZES = (1 << 20, 1 << 24)        # fft_large, one flat sequence
+FOURSTEP_N, PLANNER_FOURSTEP_N = 1 << 16, 1 << 25
+CROSSOVER_BATCHES = (16, 64, 132, 264, 1024)
+LARGE_SRC = "watfft_tpu_torch/ops/csrc/large.cu"
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s, FP32 flop/s
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
 
@@ -149,16 +186,19 @@ def phase_kernel_vs_plain(dev, gen) -> None:
         for batch in (3, POINTS // n):
             x = rand_complex((batch, n), gen, dev)
             xt_re, xt_im = x.real.T.contiguous(), x.imag.T.contiguous()
+            x_re, x_im = x.real.contiguous(), x.imag.contiguous()
             for inverse in (False, True):
                 y = st.stockham_fft(x, inverse)
                 p = st.plain_fft(x, inverse)
                 d = rel_diff(y, p)
                 tre, tim = st.stockham_fft_nb(xt_re, xt_im, inverse)
                 d_nb = rel_diff(torch.complex(tre, tim).T, p)
-                worst = max(worst, d, d_nb)
-                check(d <= KERNEL_LIMIT and d_nb <= KERNEL_LIMIT,
+                bre, bim = st.stockham_fft_bm(x_re, x_im, inverse)
+                d_bm = rel_diff(torch.complex(bre, bim), p)
+                worst = max(worst, d, d_nb, d_bm)
+                check(max(d, d_nb, d_bm) <= KERNEL_LIMIT,
                       f"n={n} batch={batch} inverse={inverse}: kernel vs plain "
-                      f"{d:.3e} (complex) {d_nb:.3e} (time-major)")
+                      f"{d:.3e} (complex) {d_nb:.3e} (time-major) {d_bm:.3e} (batch-major)")
                 if batch == 3:
                     xs = x.cpu().numpy()
                     exp = ref.idft(xs) if inverse else ref.dft(xs)
@@ -188,7 +228,7 @@ def phase_main_path(dev, gen) -> tuple[int, float]:
     xg = x.clone().requires_grad_()
     torch.cuda.synchronize()
 
-    st.launches = 0
+    zero_counts()
     y = ctx.forward(x)
     xi = ctx.inverse(x)
     back = ctx.inverse(y)
@@ -197,7 +237,7 @@ def phase_main_path(dev, gen) -> tuple[int, float]:
     ctx.forward(xg).backward(g)
     torch.cuda.synchronize()
     launches = st.launches
-    check(launches == 7, f"main path: {launches} kernel launches for 7 calls")
+    check(counts() == expect(stockham_c2c=7), f"main path: launches {counts()} for 7 calls")
 
     x128 = x.to(torch.complex128)
     fwd_err = rel_errors(y.cpu().numpy(), torch.fft.fft(x128).cpu().numpy())[0]
@@ -289,10 +329,20 @@ def zero_counts() -> None:
     st.launches = 0
     for key in rf.launches:
         rf.launches[key] = 0
+    for key in lg.launches:
+        lg.launches[key] = 0
 
 
 def counts() -> dict:
-    return {"stockham_c2c": st.launches, **rf.launches}
+    return {"stockham_c2c": st.launches, **rf.launches,
+            **{"large_" + k: v for k, v in lg.launches.items()}}
+
+
+def expect(**launched) -> dict:
+    """The counts of a run that launched these kernels and no other."""
+    want = {key: 0 for key in counts()}
+    want.update(launched)
+    return want
 
 
 def hermitian_valid(spec: torch.Tensor) -> torch.Tensor:
@@ -381,8 +431,8 @@ def phase_real_main_path(dev, gen) -> tuple[dict, dict]:
     ctx.inverse(sg).backward(ybar)
     torch.cuda.synchronize()
     launches = counts()
-    want = {"stockham_c2c": 2, "rfft_r2c_fused": 5, "irfft_c2r_fused": 5,
-            "real_core_fwd": 1, "real_core_inv": 1}
+    want = expect(stockham_c2c=2, rfft_r2c_fused=5, irfft_c2r_fused=5, real_core_fwd=1,
+                  real_core_inv=1)
     check(launches == want, f"real main path: launches {launches}, expected {want}")
 
     x64 = x.double()
@@ -440,8 +490,7 @@ def phase_stft(dev, gen) -> dict:
     back = wstft.istft(re, im, n_fft=n_fft, hop=hop, length=sig.shape[-1])
     torch.cuda.synchronize()
     launches = counts()
-    want_counts = {"stockham_c2c": 0, "rfft_r2c_fused": 1, "irfft_c2r_fused": 1,
-                   "real_core_fwd": 0, "real_core_inv": 0}
+    want_counts = expect(rfft_r2c_fused=1, irfft_c2r_fused=1)
     check(launches == want_counts, f"stft: launches {launches}, expected {want_counts}")
     w = torch.as_tensor(wstft.get_window("hann", n_fft), device=dev, dtype=torch.float64)
     want = torch.fft.rfft(sig.double().unfold(-1, n_fft, hop) * w)
@@ -510,6 +559,330 @@ def phase_real_times(dev, gen, name: str, limit: str) -> dict:
     return times
 
 
+def c128(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """torch.fft (cuFFT) in complex128: the reference of the large phases."""
+    x = x.to(torch.complex128)
+    return torch.fft.ifft(x) if inverse else torch.fft.fft(x)
+
+
+def phase_large_kernel_vs_plain(dev, gen) -> None:
+    for n in LARGE_SIZES:
+        modes = [m for m in lg.MODES if m != "cube" or n <= planner.CUBE_MAX_N]
+        worst = 0.0
+        for batch in (3, LARGE_POINTS // n):
+            x = rand_complex((batch, n), gen, dev)
+            re, im = x.real.contiguous(), x.imag.contiguous()
+            re_t, im_t = re.T.contiguous(), im.T.contiguous()
+            for inverse in (False, True):
+                p = lg.plain_fft_large(x, inverse)
+                for mode in modes:
+                    diffs = {
+                        "complex": rel_diff(lg.fft_large_complex(x, inverse, mode=mode), p),
+                        "bm": rel_diff(torch.complex(*lg.fft_large_bm(re, im, inverse, mode=mode)),
+                                       p),
+                        "nb": rel_diff(torch.complex(*lg.fft_large_nb(re_t, im_t, inverse,
+                                                                      mode=mode)).T, p),
+                    }
+                    worst = max(worst, *diffs.values())
+                    check(max(diffs.values()) <= KERNEL_LIMIT,
+                          f"large n={n} batch={batch} inverse={inverse} mode={mode}: "
+                          f"kernel vs plain {diffs}")
+                if batch == 3:
+                    e = rel_errors(lg.fft_large_complex(x, inverse).cpu().numpy(),
+                                   c128(x, inverse).cpu().numpy())[0]
+                    check(e <= MAX_REL["float32"],
+                          f"large n={n} inverse={inverse}: max rel {e:.3e} vs torch.fft c128")
+        line = {"phase": "large_kernel_vs_plain", "n": n, "split": lg.large_split(n),
+                "modes": modes, "max_rel_diff": worst}
+        if n in (1 << 16, 1 << 24):
+            x = rand_complex((1, n), gen, dev)
+            rt = (lg.fft_large_complex(lg.fft_large_complex(x), True) - x).abs().max().item()
+            check(rt < ROUNDTRIP["float32"], f"large n={n}: roundtrip error {rt:.3e}")
+            line["roundtrip_err"] = rt
+        print(json.dumps(line), flush=True)
+
+
+def _c2c_calls(n: int, batch: int, gen, dev) -> dict:
+    """The entry points of create_fft_f32(n) on [batch, n] complex64, with
+    the counts of the run and their errors against cuFFT in complex128."""
+    ctx = create_fft_f32(n, device="cuda")
+    x = rand_complex((batch, n), gen, dev)
+    g = rand_complex((batch, n), gen, dev)
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    re_t, im_t = re.T.contiguous(), im.T.contiguous()
+    xg = x.clone().requires_grad_()
+    torch.cuda.synchronize()
+    zero_counts()
+    y = ctx.forward(x)
+    xi = ctx.inverse(x)
+    back = ctx.inverse(y)
+    pre, pim = ctx.forward_planes(re, im)
+    nre, nim = ctx.forward_planes_nb(re_t, im_t)
+    ctx.forward(xg).backward(g)
+    torch.cuda.synchronize()
+    launches = counts()
+    res = {"n": n, "batch": batch, "route": planner.c2c_kernel(n, "float32", batch),
+           "launches": launches,
+           "fwd_max_rel_vs_cufft_c128": rel_errors(y.cpu().numpy(), c128(x).cpu().numpy())[0],
+           "inv_max_rel_vs_cufft_c128": rel_errors(xi.cpu().numpy(),
+                                                   c128(x, True).cpu().numpy())[0],
+           "roundtrip_err": (back - x).abs().max().item(),
+           "planes_vs_complex": max(rel_diff(torch.complex(pre, pim), y),
+                                    rel_diff(torch.complex(nre, nim).T, y)),
+           "grad_vs_conj_transform": (xg.grad - ctx.inverse(g) * n).abs().max().item(),
+           "grad_max_rel_vs_cufft_c128": rel_errors(xg.grad.cpu().numpy(),
+                                                    (c128(g, True) * n).cpu().numpy())[0],
+           "kernel_vs_plain_max_abs": (y - lg.plain_fft_large(x)).abs().max().item()}
+    check(bool(torch.isfinite(y).all()) and y.shape == x.shape, f"large n={n} output")
+    for key in ("fwd_max_rel_vs_cufft_c128", "inv_max_rel_vs_cufft_c128",
+                "grad_max_rel_vs_cufft_c128"):
+        check(res[key] <= MAX_REL["float32"], f"large main path n={n}: {key} {res[key]:.3e}")
+    check(res["roundtrip_err"] < ROUNDTRIP["float32"], f"large n={n}: roundtrip")
+    check(res["planes_vs_complex"] <= KERNEL_LIMIT, f"large n={n}: plane entry points")
+    check(res["grad_vs_conj_transform"] == 0.0, f"large n={n}: backward vs n * inverse")
+    return res
+
+
+def phase_large_main_path(dev, gen) -> tuple[dict, dict]:
+    """The main path at BASELINE config 5's shape (pipe2), then the cube's."""
+    main = _c2c_calls(LARGE_N, LARGE_B, gen, dev)
+    check(main["route"] == "large-pipe2" and main["launches"] == expect(large_stage1=7,
+                                                                          large_stage2=7),
+          f"large main path: route {main['route']}, launches {main['launches']}")
+    print(json.dumps({"phase": "large_main_path", **main}), flush=True)
+    # the planner runs time-major [n, 2048] planes through pipe2 (large_mode)
+    cube = _c2c_calls(CUBE_N, CUBE_B, gen, dev)
+    check(cube["route"] == "large-cube"
+          and cube["launches"] == expect(large_cube=6, large_stage1=1, large_stage2=1),
+          f"cube path: route {cube['route']}, launches {cube['launches']}")
+    print(json.dumps({"phase": "large_cube_path", **cube}), flush=True)
+    return main, cube
+
+
+def phase_large_real_main_path(dev, gen) -> dict:
+    n, m, b = LARGE_N, LARGE_N // 2, LARGE_B
+    ctx = create_rfft_f32(n, device="cuda")
+    x = rand_real((b, n), gen, dev)
+    spec = hermitian_valid(torch.fft.rfft(rand_real((b, n), gen, dev).double()))
+    spec32 = spec.to(torch.complex64)
+    g = torch.complex(rand_real((b, m + 1), gen, dev), rand_real((b, m + 1), gen, dev))
+    ybar = rand_real((b, n), gen, dev)
+    x_t = x.T.contiguous()
+    xg, sg = x.clone().requires_grad_(), spec32.clone().requires_grad_()
+    torch.cuda.synchronize()
+    zero_counts()
+    y = ctx.forward(x)
+    xi = ctx.inverse(spec32)
+    back = ctx.inverse(y)
+    pre, pim = ctx.forward_planes(x)
+    bx = ctx.inverse_planes(spec32.real, spec32.imag)
+    nre, nim = ctx.forward_planes_nb(x_t)
+    nback = ctx.inverse_planes_nb(nre, nim)
+    ctx.forward(xg).backward(g)
+    ctx.inverse(sg).backward(ybar)
+    torch.cuda.synchronize()
+    launches = counts()
+    # 11 m-point core transforms: 7 calls and 2 backwards through the other direction
+    want = expect(large_stage1=11, large_stage2=11)
+    check(launches == want, f"large real path: launches {launches}, expected {want}")
+    x64 = x.double()
+    fwd_err = rel_errors(y.cpu().numpy(), torch.fft.rfft(x64).cpu().numpy())[0]
+    inv_err = rel_errors(xi.cpu().numpy(), torch.fft.irfft(spec, n).cpu().numpy())[0]
+    rt_err = max((back - x).abs().max().item(), (nback.T - x).abs().max().item())
+    planes_diff = max(rel_diff(torch.complex(pre, pim), y), rel_diff(torch.complex(nre, nim).T, y),
+                      rel_diff(bx, xi))
+    x64g = x64.clone().requires_grad_()
+    torch.fft.rfft(x64g).backward(g.cdouble())
+    grad_fwd_err = rel_errors(xg.grad.cpu().numpy(), x64g.grad.cpu().numpy())[0]
+    r = torch.fft.rfft(ybar.double())
+    gre = r.real.clone()
+    gre[:, [0, m]] *= 0.5
+    gim = r.imag.clone()
+    gim[:, 0], gim[:, m] = -0.5 * r.real[:, m], -0.5 * r.real[:, 0]
+    grad_inv_err = rel_errors(sg.grad.cpu().numpy(), (torch.complex(gre, gim) / m).cpu().numpy())[0]
+    res = {"phase": "large_real_main_path", "n": n, "batch": b, "launches": launches,
+           "fwd_max_rel_vs_torch_fft_f64": fwd_err, "inv_max_rel_vs_torch_fft_f64": inv_err,
+           "roundtrip_err": rt_err, "planes_vs_complex": planes_diff,
+           "grad_fwd_max_rel_vs_torch_f64": grad_fwd_err,
+           "grad_inv_max_rel_vs_adjoint_f64": grad_inv_err}
+    print(json.dumps(res), flush=True)
+    check(fwd_err <= MAX_REL["float32"], f"large real forward: max rel {fwd_err:.3e}")
+    check(inv_err <= MAX_REL["float32"], f"large real inverse: max rel {inv_err:.3e}")
+    check(rt_err < ROUNDTRIP["float32"], f"large real roundtrip: {rt_err:.3e}")
+    check(planes_diff <= KERNEL_LIMIT, f"large real plane entry points: {planes_diff:.3e}")
+    check(grad_fwd_err <= MAX_REL["float32"], f"large rfft backward: {grad_fwd_err:.3e}")
+    check(grad_inv_err <= MAX_REL["float32"], f"large irfft backward: {grad_inv_err:.3e}")
+    check(bool(torch.isfinite(y).all()) and y.shape == (b, m + 1), "large real output")
+    return res
+
+
+def phase_large_real_times(dev, gen, name: str, limit: str) -> None:
+    """The large real path at the main shape: each direction, its m-point
+    core alone (the c2c kernels on the complex view of the signal) and
+    torch.fft.rfft / irfft."""
+    n, m, b = LARGE_N, LARGE_N // 2, LARGE_B
+    ctx = create_rfft_f32(n, device="cuda")
+    x = rand_real((b, n), gen, dev)
+    spec = ctx.forward(x)
+    z = torch.view_as_complex(x.view(b, m, 2))
+    fns = {"rfft_large": lambda: ctx.forward(x), "irfft_large": lambda: ctx.inverse(spec),
+           "core_fwd": lambda: lg.fft_large_complex(z),
+           "core_inv": lambda: lg.fft_large_complex(z, True),
+           "lib_rfft": lambda: torch.fft.rfft(x), "lib_irfft": lambda: torch.fft.irfft(spec, n)}
+    row = {}
+    for key, fn in fns.items():
+        dev_ms, call_ms = time_ms(fn)
+        row[key + "_ms"] = dev_ms
+        row[key + "_call_ms"] = call_ms
+    print(json.dumps({"phase": "large_real_times", "n": n, "batch": b, **row, "card": name,
+                      "power_limit": limit}), flush=True)
+
+
+def phase_large_single(dev, gen) -> dict:
+    """fft_large (the 2d mode on one flat sequence) at 2^20 and 2^24, with
+    counts; the matmul surface at 2^16 and through the planner at 2^25."""
+    xs = {n: rand_complex((n,), gen, dev) for n in SINGLE_SIZES}
+    torch.cuda.synchronize()
+    zero_counts()
+    ys = {n: lg.fft_large(x.real.contiguous(), x.imag.contiguous()) for n, x in xs.items()}
+    torch.cuda.synchronize()
+    launches = counts()
+    check(launches == expect(large_postmul=2, large_outer=2),
+          f"fft_large: launches {launches}")
+    line = {"phase": "large_single", "launches": launches}
+    for n, x in xs.items():
+        e = rel_errors(torch.complex(*ys[n]).cpu().numpy(), c128(x).cpu().numpy())[0]
+        check(e <= MAX_REL["float32"], f"fft_large n={n}: max rel {e:.3e}")
+        line[f"fft_large_{n}_max_rel_vs_cufft_c128"] = e
+    x = rand_complex((4, FOURSTEP_N), gen, dev)
+    ctx = create_fft_f32(FOURSTEP_N, device="cuda")
+    fs = torch.complex(*ctx.forward_planes_fourstep(x.real, x.imag))
+    e = rel_errors(fs.cpu().numpy(), c128(x).cpu().numpy())[0]
+    check(e <= MAX_REL["float32"], f"fourstep surface n={FOURSTEP_N}: max rel {e:.3e}")
+    line[f"fourstep_{FOURSTEP_N}_max_rel_vs_cufft_c128"] = e
+    n = PLANNER_FOURSTEP_N
+    check(planner.c2c_kernel(n, "float32", 1) == "fourstep", "the planner's route past 2^24")
+    x = rand_complex((1, n), gen, dev)
+    zero_counts()
+    y = create_fft_f32(n, device="cuda").forward(x)
+    torch.cuda.synchronize()
+    e = rel_errors(y.cpu().numpy(), c128(x).cpu().numpy())[0]
+    check(e <= MAX_REL["float32"], f"planner route n=2^25: max rel {e:.3e}")
+    check(counts() == expect(), f"the matmul surface launched kernels: {counts()}")
+    line[f"planner_{n}_max_rel_vs_cufft_c128"] = e
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def phase_large_times(dev, gen, name: str, limit: str) -> dict:
+    times = {}
+    for n in LARGE_SIZES:
+        batch = LARGE_POINTS // n
+        n1, n2 = lg.large_split(n)
+        x = rand_complex((batch, n), gen, dev)
+        x3re = x.real.T.contiguous().view(n2, n1, batch)
+        x3im = x.imag.T.contiguous().view(n2, n1, batch)
+        re_t, im_t = x3re.view(n, batch), x3im.view(n, batch)
+        out = torch.empty_like(x)
+        fns = {"pipe2": lambda: lg.fft_large_complex(x, mode="pipe2"),
+               "pipe2_inv": lambda: lg.fft_large_complex(x, True, mode="pipe2"),
+               "2d": lambda: lg.fft_large_complex(x, mode="2d"),
+               "pipe2_nb": lambda: lg.fft_large_nb(re_t, im_t, mode="pipe2"),
+               "stage1": lambda: lg.stage1(x3re, x3im),
+               "stage2": lambda: lg.stage2(x3re, x3im),
+               "cufft_fwd": lambda: torch.fft.fft(x),
+               "cufft_stage1": lambda: torch.fft.fft(x.view(batch, n2, n1), dim=1),
+               "copy": lambda: out.copy_(x)}
+        if n <= planner.CUBE_MAX_N:
+            fns["cube"] = lambda: lg.fft_large_complex(x, mode="cube")
+            fns["cube_inv"] = lambda: lg.fft_large_complex(x, True, mode="cube")
+            fns["cube_nb"] = lambda: lg.fft_large_nb(re_t, im_t, mode="cube")
+        if n in (1 << 15, 1 << 21):
+            fns["pipe2_split_n2_n1"] = lambda: lg.fft_large_complex(x, split=(n2, n1),
+                                                                    mode="pipe2")
+        row = {}
+        for key, fn in fns.items():
+            dev_ms, call_ms = time_ms(fn)
+            row[key + "_ms"] = dev_ms
+            row[key + "_call_ms"] = call_ms
+        dev_ms, call_ms = time_ms(lambda: lg.plain_fft_large(x), reps=3, warmup=1)
+        row["plain_ms"], row["plain_call_ms"] = dev_ms, call_ms
+        times[n] = row
+        print(json.dumps({"phase": "large_times", "n": n, "batch": batch, "split": [n1, n2],
+                          **row, "card": name, "power_limit": limit}), flush=True)
+    for n in (1 << 13, planner.CUBE_MAX_N):
+        row = {}
+        for batch in CROSSOVER_BATCHES:
+            x = rand_complex((batch, n), gen, dev)
+            for mode in ("cube", "pipe2"):
+                row[f"{mode}_b{batch}_ms"] = time_ms(
+                    lambda: lg.fft_large_complex(x, mode=mode))[0]
+        print(json.dumps({"phase": "large_crossover", "n": n, **row, "card": name,
+                          "power_limit": limit}), flush=True)
+    return times
+
+
+def large_kernel_rows(main: dict, cube: dict, single: dict, times: dict, dev, gen) -> list:
+    """The large kernels' rows of the kernels line: each timed alone at the
+    shape its path gives it, against its plain version on the same inputs.
+    Stage 1 and 2 at the main path's [16, 2^20] ([n2, n1, b] blocks), the
+    cube at the cube path's [2048, 8192], the post-multiply and the outer
+    pass at fft_large's n = 2^20 (one sequence, [n2, n1])."""
+    rows = []
+    n, b = LARGE_N, LARGE_B
+    n1, n2 = lg.large_split(n)
+    x = rand_complex((b, n), gen, dev)
+    x3 = (x.real.T.contiguous().view(n2, n1, b), x.imag.T.contiguous().view(n2, n1, b))
+    c3 = lg.plain_stage1(*x3)
+    lt = lg.device_large_tables(n, False, dev)
+    err1 = (torch.complex(*lg.stage1(*x3)) - torch.complex(*c3)).abs().max().item()
+    err2 = (torch.complex(*lg.stage2(*c3)) - torch.complex(*lg.plain_stage2(*c3))).abs().max().item()
+    plain1 = time_ms(lambda: lg.plain_stage1(*x3), reps=3, warmup=1)[0]
+    plain2 = time_ms(lambda: lg.plain_stage2(*c3), reps=3, warmup=1)[0]
+    t = times[n]
+    pass_bytes, tw_bytes = 16 * n * b, 8 * n
+    rows.append(("large_stage1", "watfft_tpu/ops/large.py:136", [], main["launches"]["large_stage1"],
+                 err1, t["stage1_ms"], plain1,
+                 bound(pass_bytes, 5 * n * (n2.bit_length() - 1) * b), t["cufft_stage1_ms"]))
+    rows.append(("large_stage2", "watfft_tpu/ops/large.py:250", [], main["launches"]["large_stage2"],
+                 err2, t["stage2_ms"], plain2,
+                 bound(pass_bytes + tw_bytes, (5 * (n1.bit_length() - 1) + 6) * n * b), None))
+    # the cube at the cube path's shape
+    cn, cb = CUBE_N, CUBE_B
+    xc = rand_complex((cb, cn), gen, dev)
+    errc = (lg.fft_large_complex(xc, mode="cube") - lg.plain_fft_large(xc)).abs().max().item()
+    plainc = time_ms(lambda: lg.plain_fft_large(xc), reps=3, warmup=1)[0]
+    rows.append(("large_cube", "watfft_tpu/ops/large.py:177", [], cube["launches"]["large_cube"],
+                 errc, times[cn]["cube_ms"], plainc,
+                 bound(16 * cn * cb + 8 * cn, (5 * (cn.bit_length() - 1) + 6) * cn * cb),
+                 times[cn]["cufft_fwd_ms"]))
+    # fft_large at 2^20: the post-multiplying pass [n2, n1] and the outer pass
+    s = rand_complex((n2, n1), gen, dev)
+    pm = (lt.pmre.view(n2, n1), lt.pmim.view(n2, n1))
+    sre, sim = s.real.contiguous(), s.imag.contiguous()
+    post = st.stockham_fft_nb_postmul(sre, sim, *pm)
+    errp = (torch.complex(*post) - torch.complex(*st.plain_postmul(sre, sim, *pm))).abs().max().item()
+    outer_out = (torch.empty(n, device=dev), torch.empty(n, device=dev))
+
+    def outer(plain=False):
+        # C [n2, n1] -> D[k1, k2] at row k1*n2 + k2, as fft_large's second pass
+        lg.strided_c2c((post[0].view(-1), post[1].view(-1)), outer_out, n1, (1, n2, 1),
+                       [(n2, n1, 1, n1), (1, n, n, 0)], False, lt.t2, "outer", plain=plain)
+        return torch.complex(*outer_out)
+    erro = (outer() - outer(plain=True)).abs().max().item()
+    ms_p = time_ms(lambda: st.stockham_fft_nb_postmul(sre, sim, *pm))[0]
+    plain_p = time_ms(lambda: st.plain_postmul(sre, sim, *pm), reps=3, warmup=1)[0]
+    ms_o = time_ms(outer)[0]
+    plain_o = time_ms(lambda: outer(plain=True), reps=3, warmup=1)[0]
+    rows.append(("large_postmul", "watfft_tpu/ops/pallas_stockham.py:291", [],
+                 single["launches"]["large_postmul"], errp, ms_p, plain_p,
+                 bound(24 * n, (5 * (n2.bit_length() - 1) + 6) * n), None))
+    rows.append(("large_outer_c2c", "watfft_tpu/ops/pallas_stockham.py:260", [],
+                 single["launches"]["large_outer"], erro, ms_o, plain_o,
+                 bound(16 * n, 5 * (n1.bit_length() - 1) * n), None))
+    return [(name, LARGE_SRC, *rest) for name, *rest in rows]
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     """The least time in ms the card could take: bytes over its memory rate
     or flops over its FP32 rate, whichever is larger, and which one."""
@@ -518,38 +891,41 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
 
 
 def kernels_line(c2c: dict, real_launches: dict, real_errs: dict, times: dict,
-                 real_times: dict, name: str, limit: str) -> dict:
-    """Each kernel at the main path's shape, 4096 transforms of n = 1024:
-    bytes count each input read once and each output written once; flops
-    are 5 m log2 m per m-point complex FFT and 10 per bin of the Hermitian
-    post or pre."""
+                 real_times: dict, large_rows: list, name: str, limit: str) -> dict:
+    """Each kernel at the main path's shape, 4096 transforms of n = 1024
+    (the large kernels at theirs, `large_kernel_rows`): bytes count each
+    input read once and each output written once; flops are 5 m log2 m per
+    m-point complex FFT, 10 per bin of the Hermitian post or pre and 6 per
+    point of a complex multiply."""
     n, b, m = MAIN_N, MAIN_B, MAIN_N // 2
-    lg = m.bit_length() - 1
+    log_m = m.bit_length() - 1
     c2c_t, rt = times[n], real_times[n]
     real_bytes = 4 * n * b + 8 * (m + 1) * b       # f32 signal + complex64 spectrum
     core_bytes = 4 * n * b + 8 * m * b             # f32 signal + complex64 core planes
     rows = [
         ("stockham_c2c", "watfft_tpu_torch/ops/csrc/stockham.cu",
-         "watfft_tpu/ops/pallas_stockham.py:260", ["watfft_tpu/ops/pallas_stockham.py:355"],
+         "watfft_tpu/ops/pallas_stockham.py:260", ["watfft_tpu/ops/pallas_stockham.py:355",
+                                                   "watfft_tpu/ops/pallas_stockham.py:435"],
          c2c["launches"], c2c["max_abs_err"], c2c_t["kernel_fwd_ms"], c2c_t["plain_fwd_ms"],
          bound(16 * n * b, 5 * n * (n.bit_length() - 1) * b), c2c_t["cufft_fwd_ms"]),
         ("stockham_c2c_real_core_fwd", "watfft_tpu_torch/ops/csrc/stockham.cu",
          "watfft_tpu/ops/pallas_rfft.py:167", ["watfft_tpu/ops/pallas_rfft.py:288"],
          real_launches["real_core_fwd"], real_errs["real_core_fwd"], rt["core_fwd_ms"],
-         rt["plain_core_fwd_ms"], bound(core_bytes, 5 * m * lg * b), rt["lib_core_fwd_ms"]),
+         rt["plain_core_fwd_ms"], bound(core_bytes, 5 * m * log_m * b), rt["lib_core_fwd_ms"]),
         ("stockham_c2c_real_core_inv", "watfft_tpu_torch/ops/csrc/stockham.cu",
          "watfft_tpu/ops/pallas_rfft.py:193", ["watfft_tpu/ops/pallas_rfft.py:304"],
          real_launches["real_core_inv"], real_errs["real_core_inv"], rt["core_inv_ms"],
-         rt["plain_core_inv_ms"], bound(core_bytes, 5 * m * lg * b), rt["lib_core_inv_ms"]),
+         rt["plain_core_inv_ms"], bound(core_bytes, 5 * m * log_m * b), rt["lib_core_inv_ms"]),
         ("rfft_r2c_fused", "watfft_tpu_torch/ops/csrc/rfft.cu",
          "watfft_tpu/ops/pallas_rfft.py:563", [],
          real_launches["rfft_r2c_fused"], real_errs["rfft_r2c_fused"], rt["r2c_fused_ms"],
-         rt["plain_r2c_ms"], bound(real_bytes, (5 * m * lg + 10 * (m + 1)) * b),
+         rt["plain_r2c_ms"], bound(real_bytes, (5 * m * log_m + 10 * (m + 1)) * b),
          rt["lib_rfft_ms"]),
         ("irfft_c2r_fused", "watfft_tpu_torch/ops/csrc/rfft.cu",
          "watfft_tpu/ops/pallas_rfft.py:604", [],
          real_launches["irfft_c2r_fused"], real_errs["irfft_c2r_fused"], rt["c2r_fused_ms"],
-         rt["plain_c2r_ms"], bound(real_bytes, (5 * m * lg + 10 * m) * b), rt["lib_irfft_ms"]),
+         rt["plain_c2r_ms"], bound(real_bytes, (5 * m * log_m + 10 * m) * b), rt["lib_irfft_ms"]),
+        *large_rows,
     ]
     return {"kernels": [
         {"name": kname, "route": "cuda", "source": src, "replaces": repl,
@@ -590,11 +966,19 @@ def main() -> int:
         real_launches, real_errs = phase_real_main_path(dev, gen)
         phase_stft(dev, gen)
         real_times = phase_real_times(dev, gen, name, limit)
+        phase_large_kernel_vs_plain(dev, gen)
+        main, cube = phase_large_main_path(dev, gen)
+        phase_large_real_main_path(dev, gen)
+        single = phase_large_single(dev, gen)
+        large_times = phase_large_times(dev, gen, name, limit)
+        phase_large_real_times(dev, gen, name, limit)
+        large_rows = large_kernel_rows(main, cube, single, large_times, dev, gen)
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     print(json.dumps(kernels_line({"launches": launches, "max_abs_err": max_abs_err},
-                                  real_launches, real_errs, times, real_times, name, limit)),
+                                  real_launches, real_errs, times, real_times, large_rows,
+                                  name, limit)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

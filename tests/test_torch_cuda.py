@@ -1,6 +1,7 @@
 """The Hopper kernels on the card (the Stockham c2c kernel, the fused r2c
-and c2r real kernels, and the hybrid real path that drives the c2c kernel
-through strides), against their plain torch versions.
+and c2r real kernels, the hybrid real path that drives the c2c kernel
+through strides, and the four-step kernels of the large-N path), against
+their plain torch versions.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no JAX, so it runs on a GPU host that has none; tests/conftest.py imports
@@ -15,6 +16,7 @@ import torch
 
 import watfft_tpu_torch as wtt
 from watfft_tpu_torch import convert
+from watfft_tpu_torch.ops import large as lg
 from watfft_tpu_torch.ops import rfft as rf
 from watfft_tpu_torch.ops import stockham as st
 from watfft_tpu_torch import stft
@@ -197,3 +199,94 @@ def test_real_kernels_refuse_what_they_do_not_take(dev):
                           np.ones(1025), np.zeros(1025), False, dev)
     with pytest.raises(RuntimeError, match="radix outside"):
         rf.rfft_nb_fused(torch.zeros(2048, 4, device=dev), tables=big)
+
+
+# -- the large-N four-step path -----------------------------------------------------
+
+@pytest.mark.parametrize("n", [1 << 13, 1 << 14, 1 << 16])
+def test_large_modes_match_plain_all_layouts(n, dev):
+    """Every mode in three layouts, on ragged batches (the cube only where
+    it holds a transform), forward and inverse."""
+    for batch in (1, 3, 257):
+        x = _x((batch, n), seed=n + batch, dev=dev)
+        re, im = x.real.contiguous(), x.imag.contiguous()
+        for inverse in (False, True):
+            want = lg.plain_fft_large(x, inverse)
+            for mode in lg.MODES:
+                if mode == "cube" and n > 1 << 14:
+                    continue
+                assert _rel(lg.fft_large_complex(x, inverse, mode=mode), want) <= KERNEL_LIMIT
+                bre, bim = lg.fft_large_bm(re, im, inverse, mode=mode)
+                assert _rel(torch.complex(bre, bim), want) <= KERNEL_LIMIT
+                tre, tim = lg.fft_large_nb(re.T.contiguous(), im.T.contiguous(), inverse,
+                                           mode=mode)
+                assert _rel(torch.complex(tre, tim).T, want) <= KERNEL_LIMIT
+
+
+def test_large_kernels_match_plain_one_by_one(dev):
+    """Stage 1 (#11), stage 2 (#13), the cube (#12, 68 KB and 136 KB of
+    shared memory: over the 48 KB a launch gets without opting in) and the
+    post-multiply (#3) against their plain versions."""
+    for n1, n2, b in ((128, 64, 5), (128, 128, 3), (1024, 1024, 2)):
+        xre, xim = _r((n2, n1, b), 1, dev), _r((n2, n1, b), 2, dev)
+        for inverse in (False, True):
+            p1 = lg.plain_stage1(xre, xim, inverse)
+            assert _rel(torch.complex(*lg.stage1(xre, xim, inverse)), torch.complex(*p1)) \
+                <= KERNEL_LIMIT
+            p2 = torch.complex(*lg.plain_stage2(*p1, inverse))
+            assert _rel(torch.complex(*lg.stage2(*p1, inverse)), p2) <= KERNEL_LIMIT
+            if n1 * n2 <= 1 << 14:
+                assert _rel(torch.complex(*lg.cube(xre, xim, inverse)), p2) <= KERNEL_LIMIT
+    xre, xim, pre, pim = (_r((4096, 33), s, dev) for s in range(4))
+    for inverse in (False, True):
+        got = st.stockham_fft_nb_postmul(xre, xim, pre, pim, inverse)
+        want = st.plain_postmul(xre, xim, pre, pim, inverse)
+        assert _rel(torch.complex(*got), torch.complex(*want)) <= KERNEL_LIMIT
+
+
+def test_large_context_launches_and_oracle(dev):
+    ctx = wtt.create_fft_f32(1 << 14, device=dev)
+    for batch, kernel in ((200, "cube"), (4, "stage1")):  # by planner.CUBE_MIN_BATCH
+        x = _x((batch, 1 << 14), seed=batch, dev=dev)
+        before = dict(lg.launches)
+        y = ctx.forward(x)
+        assert lg.launches[kernel] == before[kernel] + 1
+        want = torch.fft.fft(x.to(torch.complex128))
+        assert _rel(y.to(torch.complex128), want) <= MAX_REL["float32"]
+        assert (ctx.inverse(y) - x).abs().max().item() < 1e-4
+
+
+def test_large_conj_view_and_backward(dev):
+    n = 1 << 15
+    x = _x((3, n), seed=9, dev=dev)
+    want = torch.fft.fft(x.conj().to(torch.complex128))
+    assert _rel(wtt.fft(x.conj()).to(torch.complex128), want) <= MAX_REL["float32"]
+    g = _x((3, n), seed=10, dev=dev)
+    xg = x.clone().requires_grad_()
+    wtt.fft(xg).backward(g)
+    want_grad = torch.fft.ifft(g.to(torch.complex128)) * n
+    assert _rel(xg.grad.to(torch.complex128), want_grad) <= MAX_REL["float32"]
+
+
+def test_large_real_path_on_the_card(dev):
+    n = 1 << 16
+    ctx = wtt.create_rfft_f32(n, device=dev)
+    x = _r((5, n), seed=11, dev=dev)
+    before = dict(lg.launches)
+    y = ctx.forward(x)
+    assert lg.launches["stage2"] == before["stage2"] + 1
+    want = torch.fft.rfft(x.double())
+    assert _rel(y.to(torch.complex128), want) <= MAX_REL["float32"]
+    assert _rel(y.cpu(), lg.rfft_large(x.cpu())) <= KERNEL_LIMIT
+    assert (ctx.inverse(y) - x).abs().max().item() < 1e-4
+
+
+def test_large_kernels_refuse_what_they_do_not_take(dev):
+    with pytest.raises(TypeError, match="float32"):
+        lg.fft_large_nb(*(torch.zeros(8192, 2, device=dev, dtype=torch.float64),) * 2)
+    x = torch.zeros(64, 64, 2, device=dev)
+    with pytest.raises(RuntimeError, match="cube kernel's range"):
+        lg.cube(x, x)  # n = 4096: under the cube's 8192 points
+    cpu_tables = lg.device_large_tables(8192, False, "cpu")
+    with pytest.raises(ValueError, match="tables on cpu"):
+        lg.fft_large_nb(*(torch.zeros(8192, 2, device=dev),) * 2, tables=cpu_tables)

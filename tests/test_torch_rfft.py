@@ -356,10 +356,10 @@ def test_planner_routes_the_real_path_to_the_fused_kernel():
     for n in ALL_N:
         for direction in ("forward", "inverse"):
             assert planner.r2c_kernel(n, "float32", direction) == "rfft-fused"
-    with pytest.raises(NotImplementedError, match="A7"):
-        planner.r2c_kernel(16384, "float32")
-    with pytest.raises(NotImplementedError, match="A7"):
-        wtt.create_rfft_f32(16384, device="cpu")
+    assert planner.r2c_kernel(16384, "float32") == "rfft-large"
+    assert wtt.create_rfft_f32(16384, device="cpu").bins == 8193
+    with pytest.raises(NotImplementedError, match="not ported"):
+        planner.r2c_kernel(1 << 26, "float32")
     with pytest.raises(NotImplementedError, match="A10"):
         wtt.RFFTContext(64, dtype="float64", device="cpu")
     for n in (0, 2, 3, 12):

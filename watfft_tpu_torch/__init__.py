@@ -1,8 +1,11 @@
 """watfft_tpu_torch — the PyTorch and CUDA port of watfft_tpu.
 
-The batched f32 complex FFT over power-of-two n = 2..4096 and the f32 real
-FFT (rfft / irfft) over n = 4..8192, forward and inverse, behind the JAX
-package's plan-once context API, and the STFT pipeline on the real FFT
+The batched f32 complex FFT over power-of-two n >= 2 (the Stockham kernel
+to n = 4096, the four-step kernels to 2^24, matmuls past that) and the f32
+real FFT (rfft / irfft) over n = 4..2^25, forward and inverse, behind the
+JAX package's plan-once context API, the large-N functions of
+`watfft_tpu/ops/large.py` (`fft_large`, `fft_large_nb`, `rfft_large_nb`,
+`irfft_large_nb`, `large_split`), and the STFT pipeline on the real FFT
 (`watfft_tpu_torch.stft`). Contexts run on the CUDA device by default,
 where every call launches kernels written for Hopper (`ops/csrc/*.cu`,
 built with nvcc at first use); with `device="cpu"` they run the kernels'
@@ -12,6 +15,8 @@ plain torch versions. Needs torch and numpy, never JAX.
 from . import stft
 from .api import (FFTContext, RFFTContext, create_fft_f32, create_rfft_f32, fft,
                   ifft, irfft, rfft)
+from .ops.large import fft_large, fft_large_nb, irfft_large_nb, large_split, rfft_large_nb
 
 __all__ = ["FFTContext", "RFFTContext", "create_fft_f32", "create_rfft_f32",
-           "fft", "ifft", "rfft", "irfft", "stft"]
+           "fft", "ifft", "rfft", "irfft", "fft_large", "fft_large_nb", "rfft_large_nb",
+           "irfft_large_nb", "large_split", "stft"]

@@ -6,12 +6,17 @@ Counterpart of `watfft_tpu/api.py` for the port's slices:
   take complex tensors [..., n], `forward_planes` / `inverse_planes` take
   batch-major re/im planes [..., n], and `forward_planes_nb` /
   `inverse_planes_nb` take time-major planes [n, ...]. `fft` / `ifft` are
-  the one-shot forms. The inverse is normalized (1/n).
+  the one-shot forms. The inverse is normalized (1/n). The planner picks
+  the kernels per call: the Stockham kernel for n <= 4096, the four-step
+  kernels (cube or two-pass, by batch) for n = 8192 .. 2^24, and the
+  matmul surface past that; `forward_planes_fourstep` /
+  `inverse_planes_fourstep` run the matmul surface at any n.
 * `create_rfft_f32(size)` returns an `RFFTContext`: `forward` real
   [..., n] -> complex [..., n//2+1] and `inverse` back; `forward_planes` /
   `inverse_planes` on batch-major planes; `forward_planes_nb` /
   `inverse_planes_nb` on time-major [n, ...] <-> [n//2+1, ...]. `rfft` /
-  `irfft` are the one-shot forms.
+  `irfft` are the one-shot forms. n <= 8192 runs the fused kernels, n =
+  16384 .. 2^25 the m = n/2-point core on the four-step kernels.
 
 Differences from the JAX package, by design:
 
@@ -33,9 +38,10 @@ import numpy as np
 import torch
 
 from . import planner
+from .ops import fourstep, large
 from .ops import rfft as rf
 from .ops import stockham
-from .plan import is_power_of_two
+from .plan import build_tree, is_power_of_two
 
 __all__ = ["FFTContext", "RFFTContext", "create_fft_f32", "create_rfft_f32",
            "fft", "ifft", "rfft", "irfft"]
@@ -77,20 +83,52 @@ class FFTContext(_Context):
         super().__init__(n, dtype, 2)
         planner.c2c_kernel(self.size, dtype)  # raises for what the port lacks
         self.device = stockham.check_device(device)
+        self._fourstep = {}
+
+    def _kind(self, x, axis: int) -> str:
+        return planner.c2c_kernel(self.size, self.dtype, x.numel() // x.shape[axis],
+                                  time_major=axis == 0)
+
+    def _fourstep_tables(self, inverse: bool):
+        """The matmul surface's tables, built at first use."""
+        if inverse not in self._fourstep:
+            tree = build_tree(self.size, inverse=inverse, dtype=np.float32)
+            self._fourstep[inverse] = (fourstep.fft_tables(tree, self.device),
+                                       fourstep.shape_info(tree))
+        return self._fourstep[inverse]
+
+    def _fourstep_bm(self, re, im, inverse: bool):
+        return fourstep.apply_tables(re, im, *self._fourstep_tables(inverse))
 
     def _complex(self, x, inverse: bool):
         x = self._prep(x, torch.complex64, -1, self.size)
-        return stockham.stockham_fft(x, inverse)
+        kind = self._kind(x, -1)
+        if kind == "stockham":
+            return stockham.stockham_fft(x, inverse)
+        if kind == "fourstep":
+            return torch.complex(*self._fourstep_bm(x.real, x.imag, inverse))
+        return large.fft_large_complex(x, inverse, mode=kind[len("large-"):])
 
     def _bm(self, re, im, inverse: bool):
         re = self._prep(re, torch.float32, -1, self.size)
         im = self._prep(im, torch.float32, -1, self.size)
-        return stockham.stockham_fft_bm(re, im, inverse)
+        kind = self._kind(re, -1)
+        if kind == "stockham":
+            return stockham.stockham_fft_bm(re, im, inverse)
+        if kind == "fourstep":
+            return self._fourstep_bm(re, im, inverse)
+        return large.fft_large_bm(re, im, inverse, mode=kind[len("large-"):])
 
     def _nb(self, re, im, inverse: bool):
         re = self._prep(re, torch.float32, 0, self.size)
         im = self._prep(im, torch.float32, 0, self.size)
-        return stockham.stockham_fft_nb(re, im, inverse)
+        kind = self._kind(re, 0)
+        if kind == "stockham":
+            return stockham.stockham_fft_nb(re, im, inverse)
+        if kind == "fourstep":  # the matmul surface runs along the last axis
+            ore, oim = self._fourstep_bm(re.movedim(0, -1), im.movedim(0, -1), inverse)
+            return ore.movedim(-1, 0), oim.movedim(-1, 0)
+        return large.fft_large_nb(re, im, inverse, mode=kind[len("large-"):])
 
     # -- complex tensors [..., n] ----------------------------------------------
     def forward(self, x):
@@ -113,18 +151,32 @@ class FFTContext(_Context):
     def inverse_planes_nb(self, xre, xim):
         return self._nb(xre, xim, inverse=True)
 
+    # -- the matmul surface, at any n (watfft_tpu/api.py:237-241) ---------------
+    def forward_planes_fourstep(self, xre, xim):
+        return self._fourstep_bm(self._prep(xre, torch.float32, -1, self.size),
+                                 self._prep(xim, torch.float32, -1, self.size), False)
+
+    def inverse_planes_fourstep(self, xre, xim):
+        return self._fourstep_bm(self._prep(xre, torch.float32, -1, self.size),
+                                 self._prep(xim, torch.float32, -1, self.size), True)
+
 
 class RFFTContext(_Context):
     """Real FFT context: forward real [..., n] -> [..., n//2+1] complex,
     inverse back, normalized (reference analog: createRFFTf32,
-    index.js:156 of wat-fft). The planner's kernel runs every entry point
-    but one: the sublane-folded time-major view [n, 8, W] runs the hybrid
-    (the c2c kernel through strides, the Hermitian post/pre in torch), as
-    the JAX API runs it there (watfft_tpu/api.py:426-428, :441-443)."""
+    index.js:156 of wat-fft). The planner's route runs every entry point:
+    the fused kernels up to n = 8192 ("rfft-fused"), the m-point core on
+    the four-step kernels with the Hermitian post/pre in torch past it
+    ("rfft-large"). One exception: on the fused route the sublane-folded
+    time-major view [n, 8, W] runs the hybrid (the c2c kernel through
+    strides, the Hermitian post/pre in torch), as the JAX API runs it there
+    (watfft_tpu/api.py:426-428, :441-443)."""
 
     def __init__(self, n: int, dtype: str = "float32", device="cuda"):
         super().__init__(n, dtype, 4)
-        self._fused = planner.r2c_kernel(self.size, dtype, "forward") == "rfft-fused"
+        kind = planner.r2c_kernel(self.size, dtype, "forward")
+        self._large = kind == "rfft-large"
+        self._fused = kind == "rfft-fused"
         self._fused_inv = planner.r2c_kernel(self.size, dtype, "inverse") == "rfft-fused"
         self.device = stockham.check_device(device)
         self.bins = self.size // 2 + 1
@@ -132,25 +184,29 @@ class RFFTContext(_Context):
     # -- complex spectra [..., n//2+1] ------------------------------------------
     def forward(self, x):
         x = self._prep(x, torch.float32, -1, self.size)
-        return rf.rfft(x, self._fused)
+        return large.rfft_large(x) if self._large else rf.rfft(x, self._fused)
 
     def inverse(self, x):
         x = self._prep(x, torch.complex64, -1, self.bins)
-        return rf.irfft(x, self._fused_inv)
+        return large.irfft_large(x) if self._large else rf.irfft(x, self._fused_inv)
 
     # -- batch-major planes [..., n//2+1] ---------------------------------------
     def forward_planes(self, x):
         x = self._prep(x, torch.float32, -1, self.size)
-        return rf.rfft_bm(x, self._fused)
+        return large.rfft_large_bm(x) if self._large else rf.rfft_bm(x, self._fused)
 
     def inverse_planes(self, xre, xim):
         xre = self._prep(xre, torch.float32, -1, self.bins)
         xim = self._prep(xim, torch.float32, -1, self.bins)
+        if self._large:
+            return large.irfft_large_bm(xre, xim)
         return rf.irfft_bm(xre, xim, self._fused_inv)
 
     # -- time-major planes [n, ...] <-> [n//2+1, ...] ----------------------------
     def forward_planes_nb(self, x):
         x = self._prep(x, torch.float32, 0, self.size)
+        if self._large:
+            return large.rfft_large_nb(x)
         if _folded(x) or not self._fused:
             return rf.rfft_nb(x)
         return rf.rfft_nb_fused(x)
@@ -158,6 +214,8 @@ class RFFTContext(_Context):
     def inverse_planes_nb(self, xre, xim):
         xre = self._prep(xre, torch.float32, 0, self.bins)
         xim = self._prep(xim, torch.float32, 0, self.bins)
+        if self._large:
+            return large.irfft_large_nb(xre, xim)
         if _folded(xre) or not self._fused_inv:
             return rf.irfft_nb(xre, xim)
         return rf.irfft_nb_fused(xre, xim)

@@ -7,17 +7,21 @@ measured TPU plan overrides included) and puts them on a device, so the
 port can run exactly the JAX plan; `rfft_tables_from_jax` does the same
 for the real FFT, whose m = n/2-point core plan comes with the post-twiddle
 columns of `watfft_tpu.ops.rfft.rfft_post_twiddles` (or `pallas_rfft`'s
-`_Cache`). The plain versions run any such plan; the CUDA kernels refuse
-radices above 16, as they refuse them from any source. Nothing here
+`_Cache`). `large_tables_from_jax` carries the four-step tables across:
+the twiddle grid of `watfft_tpu.ops.large._TwCache.get` and the n2- and
+n1-point stage plans and packs. The plain versions run any such plan; the
+CUDA kernels refuse radices above 16 (the JAX plans of n = 1024..8192 have
+radix-32/64 stages), as they refuse them from any source. Nothing here
 imports JAX.
 """
 
 from __future__ import annotations
 
+from .ops.large import LargeTables, make_large_tables
 from .ops.rfft import RTables, make_rtables
 from .ops.stockham import Tables, make_tables
 
-__all__ = ["tables_from_jax", "rfft_tables_from_jax"]
+__all__ = ["tables_from_jax", "rfft_tables_from_jax", "large_tables_from_jax"]
 
 
 def tables_from_jax(stages, offsets, twre, twim, device="cpu") -> Tables:
@@ -32,3 +36,14 @@ def rfft_tables_from_jax(stages, offsets, twre, twim, wre, wim, inverse: bool,
     direction, as for `tables_from_jax`; wre/wim: the post-twiddle columns
     w_n^{-+k} (m+1 values forward, m inverse; any shape)."""
     return make_rtables(stages, offsets, twre, twim, wre, wim, inverse, device)
+
+
+def large_tables_from_jax(pmre, pmim, stages1, offsets1, tw1re, tw1im,
+                          stages2, offsets2, tw2re, tw2im, inverse: bool,
+                          device="cpu") -> LargeTables:
+    """pmre/pmim: the [n2, n1] twiddle grid T[k2, j1]; stages1 ... tw1im:
+    the n2-point plan and pack (stage 1); stages2 ... tw2im: the n1-point
+    ones (stage 2), each as for `tables_from_jax`, all of one direction."""
+    t1 = make_tables(stages1, offsets1, tw1re, tw1im, device)
+    t2 = make_tables(stages2, offsets2, tw2re, tw2im, device)
+    return make_large_tables(t2.n, t1.n, pmre, pmim, t1, t2, inverse)

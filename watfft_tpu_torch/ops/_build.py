@@ -100,6 +100,19 @@ def library() -> ctypes.CDLL:
     lib.watfft_irfft_c2r.argtypes = [p, p, i64, i64, p, i64, i64, i32, i64,
                                      p, p, ip, ip, i32, p, p, p]
     lib.watfft_irfft_c2r.restype = i32
+    # (xre, xim, yre, yim, x_sn, x_sa, x_sb, y_sn, y_sa, y_sb, pmre, pmim,
+    #  m_sn, m_sa, m_sb, mul, n, inner, batch, twre, twim, radices, offsets,
+    #  nstages, inverse, stream)
+    lib.watfft_strided_c2c.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, i64, p, p,
+                                       i64, i64, i64, i32, i32, i64, i64,
+                                       p, p, ip, ip, i32, i32, p]
+    lib.watfft_strided_c2c.restype = i32
+    # (xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n1, n2, batch, pmre, pmim,
+    #  the n2-point twre, twim, radices, offsets, nstages, the n1-point ones,
+    #  inverse, stream)
+    lib.watfft_large_cube.argtypes = [p, p, p, p, i64, i64, i64, i64, i32, i32, i64, p, p,
+                                      p, p, ip, ip, i32, p, p, ip, ip, i32, i32, p]
+    lib.watfft_large_cube.restype = i32
     lib.watfft_error_string.argtypes = [i32]
     lib.watfft_error_string.restype = ctypes.c_char_p
     build_info.update(path=str(out), log=log)

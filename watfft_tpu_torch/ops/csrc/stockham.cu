@@ -45,8 +45,9 @@
 //    follow pallas_stockham.py:_small_dft and :_stage.
 //
 // The stage engine, the tile walk and the plan check live in stockham.cuh,
-// which the real-FFT kernels (rfft.cu) share; the hybrid real path also
-// drives this kernel itself, through strides (watfft_tpu_torch/ops/rfft.py).
+// which the real-FFT kernels (rfft.cu) and the four-step kernels (large.cu)
+// share; the hybrid real path also drives this kernel itself, through
+// strides (watfft_tpu_torch/ops/rfft.py).
 //
 // C interface (loaded with ctypes): watfft_stockham_c2c launches on the
 // given stream, allocates nothing, and returns cudaGetLastError() after the
@@ -140,6 +141,8 @@ const char* watfft_error_string(int code) {
     case kErrArgs: return "n, batch or stage count out of range";
     case kErrPlan: return "stage plan has a radix outside {2,4,8,16} or does not multiply to n";
     case kErrTooLong: return "transform too long for one thread block";
+    case kErrSplit: return "four-step factors outside the cube kernel's range (16 <= n1, n2; "
+                           "8192 <= n1*n2, and its shared memory within the card's limit)";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

@@ -7,6 +7,13 @@
 // S float2 apart (row k of a transform at pad(k)); each transform takes
 // N/P threads (P = the plan's largest radix), each doing P/R radix-R
 // butterflies per stage. See stockham.cu for the design and what bounds it.
+//
+// Three policies widen the engine for the four-step kernels (large.cu)
+// without changing what the c2c and real kernels compile to: the rows of a
+// transform in shared memory (`Contig`, or `Strided` for the cube's column
+// pass), the batch offset in device memory (`Batch1`, or `Batch2` for a
+// batch over two axes) and, in large.cu, a complex multiply in the load or
+// the store.
 
 #pragma once
 
@@ -21,6 +28,7 @@ constexpr int kBlockThreads = 256;
 constexpr int kErrArgs = -1;      // n, batch or stage count out of range
 constexpr int kErrPlan = -2;      // radix not in {2,4,8,16}, or product != n
 constexpr int kErrTooLong = -3;   // a transform needs more than one block
+constexpr int kErrSplit = -4;     // four-step factors out of the cube's range
 
 struct Plan {
   int log2n;
@@ -32,6 +40,33 @@ struct Plan {
 
 // Row k of a transform in shared memory: one float2 of padding every 16.
 __device__ __forceinline__ int pad(int k) { return k + (k >> 4); }
+
+// Where row k of the transform at c sits, as an index into c: its own
+// padded rows (every kernel's default), or every 2^log2rs-th slot from
+// `base` of a larger padded array (a column of the cube's [n2, n1] block).
+struct Contig {
+  __device__ __forceinline__ int operator()(int k) const { return pad(k); }
+};
+struct Strided {
+  int base, log2rs;
+  __device__ __forceinline__ int operator()(int k) const { return pad(base + (k << log2rs)); }
+};
+
+// Offset in device memory of batch entry b: b*sb (one batch axis), or
+// (b % inner)*sb + (b / inner)*sb2 (two axes, `inner` entries along the
+// first). `sb` is the stride the tile walk compares with the row stride.
+struct Batch1 {
+  int64_t sb;
+  __device__ __forceinline__ int64_t operator()(int64_t b) const { return b * sb; }
+};
+struct Batch2 {
+  int64_t sb, sb2;
+  uint32_t inner;
+  __device__ __forceinline__ int64_t operator()(int64_t b) const {
+    const uint32_t u = (uint32_t)b, o = u / inner;
+    return (int64_t)(u - o * inner) * sb + (int64_t)o * sb2;
+  }
+};
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 w) {
   return make_float2(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
@@ -80,9 +115,10 @@ __device__ __forceinline__ void small_dft(const float2* in, float2* out) {
 
 // One radix-R stage on the transform at c (shared memory), in place. The
 // thread does butterflies i = th + m*tpt, m < P/R, of the q = n/R in the
-// stage: inputs c[p*q + i], outputs to rows j*R*l + s*l + k (i = j*l + k).
-template <int R, int P, bool INV>
-__device__ __forceinline__ void stage(float2* c, int th, int tpt, int n,
+// stage: inputs at rows p*q + i, outputs to rows j*R*l + s*l + k (i = j*l + k),
+// row r at c[rows(r)].
+template <int R, int P, bool INV, typename Rows>
+__device__ __forceinline__ void stage(float2* c, Rows rows, int th, int tpt, int n,
                                       int log2l, int twoff, bool fold,
                                       const float* __restrict__ twre,
                                       const float* __restrict__ twim) {
@@ -94,7 +130,7 @@ __device__ __forceinline__ void stage(float2* c, int th, int tpt, int n,
   for (int m = 0; m < M; ++m) {
     const int i = th + m * tpt;
 #pragma unroll
-    for (int p = 0; p < R; ++p) v[m * R + p] = c[pad(p * q + i)];
+    for (int p = 0; p < R; ++p) v[m * R + p] = c[rows(p * q + i)];
     if (twoff >= 0) {
 #pragma unroll
       for (int p = 1; p < R; ++p) {
@@ -121,57 +157,66 @@ __device__ __forceinline__ void stage(float2* c, int th, int tpt, int n,
     float2 out[R];
     small_dft<R, 1, INV>(v + m * R, out);
 #pragma unroll
-    for (int s = 0; s < R; ++s) c[pad(base + (s << log2l))] = out[s];
+    for (int s = 0; s < R; ++s) c[rows(base + (s << log2l))] = out[s];
   }
   __syncthreads();
 }
 
-template <int R, int P, bool INV>
-__device__ __forceinline__ void stage_if(int radix, float2* c, int th, int tpt,
+template <int R, int P, bool INV, typename Rows>
+__device__ __forceinline__ void stage_if(int radix, float2* c, Rows rows, int th, int tpt,
                                          int n, int log2l, int twoff, bool fold,
                                          const float* __restrict__ twre,
                                          const float* __restrict__ twim) {
   if constexpr (R <= P) {
-    if (radix == R) stage<R, P, INV>(c, th, tpt, n, log2l, twoff, fold, twre, twim);
+    if (radix == R) stage<R, P, INV>(c, rows, th, tpt, n, log2l, twoff, fold, twre, twim);
   }
 }
 
 // Every stage of the plan on the transform at c, thread th of its tpt; the
-// inverse folds 1/n into the last stage. Ends with a block sync.
-template <int P, bool INV>
+// inverse folds 1/n into the last stage. Ends with a block sync, so every
+// thread of the block must call it.
+template <int P, bool INV, typename Rows = Contig>
 __device__ __forceinline__ void run_stages(float2* c, int th, int tpt, const Plan& plan,
                                            const float* __restrict__ twre,
-                                           const float* __restrict__ twim) {
+                                           const float* __restrict__ twim,
+                                           Rows rows = Rows{}) {
   const int n = 1 << plan.log2n;
   for (int s = 0; s < plan.nstages; ++s) {
     const int r = plan.radix[s], ll = plan.log2l[s], off = plan.twoff[s];
     const bool fold = INV && s == plan.nstages - 1;
-    stage_if<2, P, INV>(r, c, th, tpt, n, ll, off, fold, twre, twim);
-    stage_if<4, P, INV>(r, c, th, tpt, n, ll, off, fold, twre, twim);
-    stage_if<8, P, INV>(r, c, th, tpt, n, ll, off, fold, twre, twim);
-    stage_if<16, P, INV>(r, c, th, tpt, n, ll, off, fold, twre, twim);
+    stage_if<2, P, INV>(r, c, rows, th, tpt, n, ll, off, fold, twre, twim);
+    stage_if<4, P, INV>(r, c, rows, th, tpt, n, ll, off, fold, twre, twim);
+    stage_if<8, P, INV>(r, c, rows, th, tpt, n, ll, off, fold, twre, twim);
+    stage_if<16, P, INV>(r, c, rows, th, tpt, n, ll, off, fold, twre, twim);
   }
 }
 
 // Calls f(t, k, g) for point k of transform t of the block's tile, g being
-// its element offset in device memory. The walk runs along whichever of the
-// two strides is smaller, so neighbouring threads touch neighbouring
-// addresses; transforms past the end of the batch are skipped.
-template <typename F>
-__device__ __forceinline__ void for_tile(int log2n, int T, int count, int64_t first,
-                                         int64_t sn, int64_t sb, F f) {
+// its element offset in device memory (batch entry first + t at bat(...)).
+// The walk runs along whichever of the row stride and the batch stride
+// bat.sb is smaller, so neighbouring threads touch neighbouring addresses;
+// transforms past the end of the batch are skipped.
+template <typename B, typename F>
+__device__ __forceinline__ void for_tile_b(int log2n, int T, int count, int64_t first,
+                                           int64_t sn, B bat, F f) {
   const int n = 1 << log2n, tile = T << log2n;
-  if (sn <= sb) {
+  if (sn <= bat.sb) {
     for (int e = threadIdx.x; e < tile; e += blockDim.x) {
       const int t = e >> log2n, k = e & (n - 1);
-      if (t < count) f(t, k, (first + t) * sb + (int64_t)k * sn);
+      if (t < count) f(t, k, bat(first + t) + (int64_t)k * sn);
     }
   } else {
     for (int e = threadIdx.x; e < tile; e += blockDim.x) {
       const int k = e / T, t = e - k * T;
-      if (t < count) f(t, k, (first + t) * sb + (int64_t)k * sn);
+      if (t < count) f(t, k, bat(first + t) + (int64_t)k * sn);
     }
   }
+}
+
+template <typename F>
+__device__ __forceinline__ void for_tile(int log2n, int T, int count, int64_t first,
+                                         int64_t sn, int64_t sb, F f) {
+  for_tile_b(log2n, T, count, first, sn, Batch1{sb}, f);
 }
 
 // Blocks per SM each instance must fit, i.e. its register budget. Measured

@@ -31,6 +31,10 @@ along axis 0, the batch along axis 1, any strides):
 * the fused kernels (`rfft_nb_fused` / `irfft_nb_fused`): `csrc/rfft.cu`,
   deinterleave + stages + Hermitian post (or pre + stages + re-interleave)
   in one pass; they port `_rfft_fused_kernel` and `_irfft_fused_kernel`.
+* the large route (`ops/large.py`, `rfft_large*` / `irfft_large*`, for
+  n > 8192): the hybrid's shape with the m-point core on the four-step
+  kernels (`large.fft_large_views`), as `watfft_tpu/ops/large.py`'s
+  `rfft_large_nb` / `irfft_large_nb` run it.
 
 Batch-major planes (`rfft_bm` / `irfft_bm`) and complex tensors (`rfft` /
 `irfft`) run the same code through other strides. Every form is
@@ -52,6 +56,7 @@ import numpy as np
 import torch
 
 from . import stockham
+from .large import fft_large_views
 from .stockham import Tables, check_device, fft_views
 
 __all__ = ["rfft_post_twiddles", "RTables", "make_rtables", "device_rtables",
@@ -119,6 +124,11 @@ def _cached_rtables(n: int, inverse: bool, device: torch.device) -> RTables:
 def device_rtables(n: int, inverse: bool, device) -> RTables:
     """The port's own real-FFT tables for (n, direction), once per device."""
     return _cached_rtables(int(n), bool(inverse), check_device(device))
+
+
+@functools.cache
+def _cached_post(n: int, inverse: bool, device: torch.device):
+    return tuple(torch.as_tensor(a, device=device) for a in rfft_post_twiddles(n, inverse))
 
 
 def _resolve(tables, n: int, inverse: bool, device) -> RTables:
@@ -234,6 +244,29 @@ def _hybrid_c2r(xre, xim, out, rt: RTables) -> None:
         launches["real_core_inv"] += 1
 
 
+def _large_r2c(xv, ore, oim, w) -> None:
+    """The hybrid's shape on the four-step core: the large kernels read x's
+    even and odd rows as one complex plane; post: torch. w: the forward
+    post twiddles."""
+    n, batch = xv.shape
+    m = n // 2
+    if xv.stride(0) <= xv.stride(1):  # batch-major
+        zre, zim = (xv.new_empty(batch, m).T for _ in range(2))
+    else:
+        zre, zim = (xv.new_empty(m, batch) for _ in range(2))
+    fft_large_views(xv[0::2], xv[1::2], zre, zim, False)
+    re, im = hermitian_post_nb(zre, zim, n, *w)
+    ore.copy_(re)
+    oim.copy_(im)
+
+
+def _large_c2r(xre, xim, out, w) -> None:
+    """Pre: torch; core: the large kernels write z[j] to out's rows 2j and
+    2j + 1 (1/m folded into the two passes' inverse tables)."""
+    zre, zim = hermitian_pre_nb(xre, xim, out.shape[0], *w)
+    fft_large_views(zre, zim, out[0::2], out[1::2], True)
+
+
 def _launch_r2c(x, x_sn, x_sb, yre, yim, y_sn, y_sb, n, batch, rt: RTables) -> None:
     """The r2c kernel on real sequences of x (element j of sequence b at
     j*x_sn + b*x_sb floats) into spectrum planes at the addresses yre, yim
@@ -314,11 +347,21 @@ def _signal_view(t, n: int, batch: int, layout: str):
     return t.view(n, batch) if layout == "nb" else t.view(batch, n).T
 
 
-def _r2c(x, fused: bool, layout: str, tables):
+def _tables(route: str, tables, n: int, inverse: bool, device):
+    """RTables of the fused and hybrid routes; the large route's post
+    twiddles (its core tables are ops/large.py's)."""
+    if route == "large":
+        if tables is not None:
+            raise ValueError("the large real route takes no RTables")
+        return _cached_post(n, inverse, check_device(device))
+    return _resolve(tables, n, inverse, device)
+
+
+def _r2c(x, route: str, layout: str, tables):
     if x.is_complex():
         raise TypeError(f"the real FFT takes a real signal, got {x.dtype}")
     n = x.shape[0] if layout == "nb" else x.shape[-1]
-    rt = _resolve(tables, n, False, x.device)
+    rt = _tables(route, tables, n, False, x.device)
     x = stockham._dense(x)
     m1 = n // 2 + 1
     batch = x.numel() // n
@@ -328,14 +371,16 @@ def _r2c(x, fused: bool, layout: str, tables):
         out = (x.new_empty(x.shape[:-1] + (m1,)), x.new_empty(x.shape[:-1] + (m1,)))
     else:
         out = (x.new_empty(x.shape[:-1] + (m1,), dtype=x.dtype.to_complex()),)
-    if batch and fused and x.device.type == "cuda":
+    if batch and route == "fused" and x.device.type == "cuda":
         _launch_r2c(x, *_strides(layout if layout == "nb" else "bm", n, batch),
                     *_spectrum(layout, batch, m1, *out), n, batch, rt)
     elif batch:
         xv = _signal_view(x, n, batch, layout)
         ore, oim = _spectrum_views(layout, batch, m1, *out)
-        if not fused:
+        if route == "hybrid":
             _hybrid_r2c(xv, ore, oim, rt)
+        elif route == "large":
+            _large_r2c(xv, ore, oim, rt)
         else:
             re, im = _plain_r2c(xv, rt)
             ore.copy_(re)
@@ -343,7 +388,7 @@ def _r2c(x, fused: bool, layout: str, tables):
     return out if layout != "complex" else out[0]
 
 
-def _c2r(re, im, fused: bool, layout: str, tables):
+def _c2r(re, im, route: str, layout: str, tables):
     if layout == "complex":
         if not re.is_complex():
             raise TypeError(f"the complex inverse takes a complex spectrum, got {re.dtype}")
@@ -352,7 +397,7 @@ def _c2r(re, im, fused: bool, layout: str, tables):
                          f"{re.device} vs {im.shape} {im.dtype} {im.device}")
     m1 = re.shape[0] if layout == "nb" else re.shape[-1]
     n = 2 * (m1 - 1)
-    rt = _resolve(tables, n, True, re.device)
+    rt = _tables(route, tables, n, True, re.device)
     re = stockham._dense(re)
     im = None if im is None else stockham._dense(im)
     batch = re.numel() // m1
@@ -360,14 +405,16 @@ def _c2r(re, im, fused: bool, layout: str, tables):
         out = re.new_empty((n,) + re.shape[1:])
     else:
         out = re.new_empty(re.shape[:-1] + (n,), dtype=re.real.dtype)
-    if batch and fused and out.device.type == "cuda":
+    if batch and route == "fused" and out.device.type == "cuda":
         _launch_c2r(re, *_spectrum(layout, batch, m1, re, im), out,
                     *_strides(layout if layout == "nb" else "bm", n, batch), n, batch, rt)
     elif batch:
         xre, xim = _spectrum_views(layout, batch, m1, re, im)
         ov = _signal_view(out, n, batch, layout)
-        if not fused:
+        if route == "hybrid":
             _hybrid_c2r(xre, xim, ov, rt)
+        elif route == "large":
+            _large_c2r(xre, xim, ov, rt)
         else:
             ov.copy_(_plain_c2r(xre, xim, rt))
     return out
@@ -385,9 +432,9 @@ def _ends(m: int, end: float, like, ax: int):
 
 class _R2C(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, fused, layout, tables):
-        ctx.fused, ctx.layout = fused, layout
-        return _r2c(x, fused, layout, tables)
+    def forward(ctx, x, route, layout, tables):
+        ctx.route, ctx.layout = route, layout
+        return _r2c(x, route, layout, tables)
 
     @staticmethod
     def backward(ctx, *g):
@@ -399,20 +446,20 @@ class _R2C(torch.autograd.Function):
         m = gre.shape[ax] - 1
         gre = gre * _ends(m, 2.0, gre, ax)
         gim = gim * _ends(m, 0.0, gim, ax)
-        return _C2R.apply(gre, gim, ctx.fused, layout, None) * float(m), None, None, None
+        return _C2R.apply(gre, gim, ctx.route, layout, None) * float(m), None, None, None
 
 
 class _C2R(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, re, im, fused, layout, tables):
-        ctx.fused, ctx.layout = fused, layout
-        return _c2r(re, im, fused, layout, tables)
+    def forward(ctx, re, im, route, layout, tables):
+        ctx.route, ctx.layout = route, layout
+        return _c2r(re, im, route, layout, tables)
 
     @staticmethod
     def backward(ctx, y):
         layout = "bm" if ctx.layout == "complex" else ctx.layout
         ax = 0 if layout == "nb" else -1
-        gre, gim = _R2C.apply(y, ctx.fused, layout, None)
+        gre, gim = _R2C.apply(y, ctx.route, layout, None)
         m = gre.shape[ax] - 1
         r0, rm = gre.narrow(ax, 0, 1), gre.narrow(ax, m, 1)
         gre = gre * _ends(m, 0.5, gre, ax)
@@ -423,16 +470,20 @@ class _C2R(torch.autograd.Function):
         return gre * s, gim * s, None, None, None
 
 
-def _forward(x, fused, layout, tables):
+def _forward(x, route: str, layout, tables):
     if stockham._wants_grad(x):
-        return _R2C.apply(x, fused, layout, tables)
-    return _r2c(x, fused, layout, tables)
+        return _R2C.apply(x, route, layout, tables)
+    return _r2c(x, route, layout, tables)
 
 
-def _inverse(re, im, fused, layout, tables):
+def _inverse(re, im, route: str, layout, tables):
     if stockham._wants_grad(*(t for t in (re, im) if t is not None)):
-        return _C2R.apply(re, im, fused, layout, tables)
-    return _c2r(re, im, fused, layout, tables)
+        return _C2R.apply(re, im, route, layout, tables)
+    return _c2r(re, im, route, layout, tables)
+
+
+def _route(fused: bool) -> str:
+    return "fused" if fused else "hybrid"
 
 
 # -- public forms --------------------------------------------------------------
@@ -441,48 +492,48 @@ def rfft_nb(x, tables: RTables | None = None):
     """Hybrid real FFT on time-major real [n, ...] -> spectrum planes
     [n//2+1, ...]: the c2c kernel through strides, the Hermitian post in
     torch. `[n, b]` and the `[n, 8, W]` view alike; any batch."""
-    return _forward(x, False, "nb", tables)
+    return _forward(x, "hybrid", "nb", tables)
 
 
 def irfft_nb(xre, xim, tables: RTables | None = None):
     """Hybrid normalized inverse on time-major planes [m+1, ...] -> real
     [2m, ...]: the Hermitian pre in torch, the c2c kernel through strides."""
-    return _inverse(xre, xim, False, "nb", tables)
+    return _inverse(xre, xim, "hybrid", "nb", tables)
 
 
 def rfft_nb_fused(x, tables: RTables | None = None):
     """Fused real FFT, time-major real [n, ...] -> planes [n//2+1, ...]:
     one pass of the r2c kernel."""
-    return _forward(x, True, "nb", tables)
+    return _forward(x, "fused", "nb", tables)
 
 
 def irfft_nb_fused(xre, xim, tables: RTables | None = None):
     """Fused normalized inverse, time-major planes [m+1, ...] -> real
     [2m, ...]: one pass of the c2r kernel."""
-    return _inverse(xre, xim, True, "nb", tables)
+    return _inverse(xre, xim, "fused", "nb", tables)
 
 
 def rfft_bm(x, fused: bool = True, tables: RTables | None = None):
     """Real FFT on batch-major real [..., n] -> planes [..., n//2+1]."""
-    return _forward(x, bool(fused), "bm", tables)
+    return _forward(x, _route(fused), "bm", tables)
 
 
 def irfft_bm(xre, xim, fused: bool = True, tables: RTables | None = None):
     """Normalized inverse on batch-major planes [..., m+1] -> real [..., 2m]."""
-    return _inverse(xre, xim, bool(fused), "bm", tables)
+    return _inverse(xre, xim, _route(fused), "bm", tables)
 
 
 def rfft(x, fused: bool = True, tables: RTables | None = None):
     """Real FFT over the last axis: real [..., n] -> complex [..., n//2+1].
     On CUDA the kernel writes the interleaved complex64 storage itself."""
-    return _forward(x, bool(fused), "complex", tables)
+    return _forward(x, _route(fused), "complex", tables)
 
 
 def irfft(x, fused: bool = True, tables: RTables | None = None):
     """Normalized inverse over the last axis: complex [..., m+1] -> real
     [..., 2m]. Reads the imaginary parts of the DC and Nyquist bins, as the
     JAX package does."""
-    return _inverse(x, None, bool(fused), "complex", tables)
+    return _inverse(x, None, _route(fused), "complex", tables)
 
 
 def plain_rfft(x, tables: RTables | None = None):

@@ -42,7 +42,8 @@ import torch
 
 __all__ = ["stage_plan", "make_twiddle_pack", "run_stages", "plain_fft",
            "Tables", "make_tables", "device_tables", "fft_views", "stockham_fft_nb",
-           "stockham_fft_bm", "stockham_fft", "launches"]
+           "stockham_fft_bm", "stockham_fft", "stockham_fft_nb_postmul", "plain_postmul",
+           "launches"]
 
 # Kernel launches made by the CUDA wrapper since the count was last reset.
 launches = 0
@@ -442,3 +443,38 @@ def stockham_fft(x, inverse: bool = False, tables: Tables | None = None):
     if _wants_grad(x):
         return _ComplexFFT.apply(x, bool(inverse), tables)
     return _complex(x, bool(inverse), tables)
+
+
+# -- #3: the stages with a complex multiply in the store --------------------------
+
+def _postmul(xre, xim, pmre, pmim, inverse, tables, plain):
+    from .large import MUL_STORE, strided_c2c
+
+    if not (xre.shape == xim.shape == pmre.shape == pmim.shape) or xre.dim() != 2:
+        raise ValueError(f"x and pm must be [n, b] planes of one shape, got "
+                         f"{tuple(xre.shape)}, {tuple(xim.shape)}, {tuple(pmre.shape)}, "
+                         f"{tuple(pmim.shape)}")
+    n, b = xre.shape
+    tables = _resolve(tables, n, bool(inverse), xre.device)
+    x = (_dense(xre), _dense(xim))
+    pm = (_dense(pmre), _dense(pmim))
+    out = (torch.empty_like(x[0]), torch.empty_like(x[1]))
+    # [n, b] time-major planes: one batch axis, the other of count 1
+    strided_c2c(x, out, n, (b, b, b), [(b, 1, 1, 1), (1, 0, 0, 0)], bool(inverse), tables,
+                "postmul", pm=pm, mul=MUL_STORE, plain=plain)
+    return out
+
+
+def stockham_fft_nb_postmul(xre, xim, pmre, pmim, inverse: bool = False,
+                            tables: Tables | None = None):
+    """Batched FFT on time-major planes [n, b] followed by the elementwise
+    complex multiply with (pmre, pmim) [n, b], fused into the kernel's store
+    (#3 `_kernel_postmul`; the CUDA kernel is csrc/large.cu's strided c2c
+    kernel, counted in `large.launches["postmul"]`). Any batch."""
+    return _postmul(xre, xim, pmre, pmim, inverse, tables, plain=False)
+
+
+def plain_postmul(xre, xim, pmre, pmim, inverse: bool = False, tables: Tables | None = None):
+    """The plain version of `stockham_fft_nb_postmul` on any device:
+    `run_stages`, then the complex multiply."""
+    return _postmul(xre, xim, pmre, pmim, inverse, tables, plain=True)
