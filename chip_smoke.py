@@ -76,6 +76,27 @@ Phases (any failure exits nonzero and prints no result):
    of the same bytes; then cube against pipe2 over batches at 2^13 and
    2^14, the planner's crossover; and the large real path at its main
    shape (each direction, its core alone, torch.fft.rfft / irfft).
+16. 2D kernels against their plain versions: the 2D cube at every
+   power-of-two h, w >= 2 with h*w <= 2^14, forward and inverse, at batch 3
+   in three layouts (batch-major planes, interleaved complex64, native
+   [h, w, B]), the square sizes and the extremes 2x8192, 8192x2 also at
+   2^20 points; the 2-pass route and each of its passes alone at
+   h, w in {16, 256, 4096} (limit 1e-6 of the largest output); at batch 3
+   also against torch.fft.fft2 in complex128 (MAX_REL).
+17. 2D main path at full size: `fft2` / `ifft2` on one 4096 x 4096
+   complex64 image (BASELINE config 5's 2D shape, the 2-pass route),
+   `rfft2` / `irfft2` on 4096 x 4096 f32, `fft2` on [1024, 128, 128] (the
+   cube) and [64, 512, 512] (2-pass), and `fft2_nb` on native
+   [512, 512, 64] planes (the native row pass): forward, inverse,
+   roundtrip and a backward against torch.fft in complex128 / float64,
+   with each kernel's launch count for that run.
+18. 2D times at 2^24 points per call, squares h = w = 16..4096 and the
+   rectangles 128x8192, 8192x128, 2x4096: the cube, the 2-pass route, each
+   pass alone, the native layout, the plain version (3 calls),
+   torch.fft.fft2 (the library call the port never makes) and a device
+   copy of the same bytes; rfft2 / irfft2 with the torch recombination
+   timed alone; then cube against 2-pass over batches and layouts, the
+   planner's crossover.
 
 The line before the last is a JSON object naming each kernel of the paths
 with its launch count, error, times and the least time the card could take
@@ -95,9 +116,11 @@ import time
 
 import torch
 
+import watfft_tpu_torch as wtt
 from watfft_tpu_torch import create_fft_f32, create_rfft_f32, planner
 from watfft_tpu_torch import stft as wstft
 from watfft_tpu_torch.ops import _build
+from watfft_tpu_torch.ops import fft2 as f2
 from watfft_tpu_torch.ops import large as lg
 from watfft_tpu_torch.ops import rfft as rf
 from watfft_tpu_torch.ops import stockham as st
@@ -119,6 +142,18 @@ SINGLE_SIZES = (1 << 20, 1 << 24)        # fft_large, one flat sequence
 FOURSTEP_N, PLANNER_FOURSTEP_N = 1 << 16, 1 << 25
 CROSSOVER_BATCHES = (16, 64, 132, 264, 1024)
 LARGE_SRC = "watfft_tpu_torch/ops/csrc/large.cu"
+# the 2D cube at every h*w <= 2^14; squares and extremes also at 2^20 points
+FFT2_PAIRS = [(1 << a, 1 << b) for a in range(1, 14) for b in range(1, 15 - a)]
+FFT2_WIDE = [(1 << k, 1 << k) for k in range(1, 8)] + [(2, 1 << 13), (1 << 13, 2)]
+FFT2_PASS_SIZES = (16, 256, 4096)
+FFT2_POINTS, FFT2_TIME_POINTS = 1 << 20, 1 << 24
+FFT2_MAIN = 4096                           # one 4096 x 4096 image (BASELINE config 5)
+FFT2_CUBE_SHAPE, FFT2_2PASS_SHAPE = (1024, 128, 128), (64, 512, 512)
+FFT2_TIME_SHAPES = [(1 << k, 1 << k) for k in range(4, 13)] + [(128, 8192), (8192, 128),
+                                                                  (2, 4096)]
+FFT2_CROSS_SHAPES = [(64, 64), (64, 128), (128, 128), (16, 1024), (1024, 16)]
+FFT2_CROSS_BATCHES = (1, 16, 64, 256, 1024)
+FFT2_SRC = "watfft_tpu_torch/ops/csrc/fft2.cu"
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s, FP32 flop/s
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
 
@@ -331,11 +366,13 @@ def zero_counts() -> None:
         rf.launches[key] = 0
     for key in lg.launches:
         lg.launches[key] = 0
+    for key in f2.launches:
+        f2.launches[key] = 0
 
 
 def counts() -> dict:
     return {"stockham_c2c": st.launches, **rf.launches,
-            **{"large_" + k: v for k, v in lg.launches.items()}}
+            **{"large_" + k: v for k, v in lg.launches.items()}, **f2.launches}
 
 
 def expect(**launched) -> dict:
@@ -883,6 +920,371 @@ def large_kernel_rows(main: dict, cube: dict, single: dict, times: dict, dev, ge
     return [(name, LARGE_SRC, *rest) for name, *rest in rows]
 
 
+# -- the 2D path ------------------------------------------------------------------
+
+def c128_2d(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """torch.fft.fft2 (cuFFT) in complex128: the reference of the 2D phases."""
+    x = x.to(torch.complex128)
+    return torch.fft.ifft2(x) if inverse else torch.fft.fft2(x)
+
+
+def max_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The max_rel of `rel_errors` computed on the card: |got - want| over
+    max(|want|, the rms of |want|), in double precision."""
+    dt = torch.complex128 if want.is_complex() else torch.float64
+    got, want = got.to(dt), want.to(dt)
+    scale = max(want.abs().square().mean().sqrt().item(), 1e-300)
+    return ((got - want).abs() / want.abs().clamp_min(scale)).max().item()
+
+
+def native(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The native [h, w, B] planes of a complex [B, h, w] batch."""
+    xn = x.permute(1, 2, 0)
+    return xn.real.contiguous(), xn.imag.contiguous()
+
+
+def from_native(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    return torch.complex(re, im).permute(2, 0, 1)
+
+
+def phase_fft2_kernel_vs_plain(dev, gen) -> None:
+    worst, n_checked = 0.0, 0
+    for h, w in FFT2_PAIRS:
+        batches = (3, FFT2_POINTS // (h * w)) if (h, w) in FFT2_WIDE else (3,)
+        for batch in batches:
+            x = rand_complex((batch, h, w), gen, dev)
+            re, im = x.real.contiguous(), x.imag.contiguous()
+            nre, nim = native(x)
+            for inverse in (False, True):
+                p = f2.plain_fft2(x, inverse)
+                y = f2._complex_route(x, inverse, "fft2-cube")
+                diffs = {
+                    "complex": rel_diff(y, p),
+                    "bm": rel_diff(torch.complex(*f2._planes_route(re, im, inverse,
+                                                                   "fft2-cube")), p),
+                    "nb": rel_diff(from_native(*f2._nb_route(nre, nim, inverse,
+                                                             "fft2-cube")), p),
+                }
+                worst = max(worst, *diffs.values())
+                n_checked += 3
+                check(max(diffs.values()) <= KERNEL_LIMIT,
+                      f"fft2 cube {h}x{w} batch={batch} inverse={inverse}: kernel vs plain {diffs}")
+                if batch == 3:
+                    e = rel_diff(y.to(torch.complex128), c128_2d(x, inverse))
+                    check(e <= MAX_REL["float32"],
+                          f"fft2 cube {h}x{w} inverse={inverse}: {e:.3e} vs torch.fft c128")
+    print(json.dumps({"phase": "fft2_cube_vs_plain", "pairs": len(FFT2_PAIRS),
+                      "wide_pairs": FFT2_WIDE, "checks": n_checked, "max_rel_diff": worst}),
+          flush=True)
+    for h in FFT2_PASS_SIZES:
+        for w in FFT2_PASS_SIZES:
+            batch = max(1, FFT2_POINTS // (h * w))
+            x = rand_complex((batch, h, w), gen, dev)
+            nre, nim = native(x)
+            rre, rim = x.real.reshape(-1, w).contiguous(), x.imag.reshape(-1, w).contiguous()
+            line = {"phase": "fft2_passes_vs_plain", "h": h, "w": w, "batch": batch}
+            for inverse in (False, True):
+                p = f2.plain_fft2(x, inverse)
+                diffs = {
+                    "2pass_complex": rel_diff(f2._complex_route(x, inverse, "fft2-2pass"), p),
+                    "2pass_nb": rel_diff(from_native(*f2._nb_route(nre, nim, inverse,
+                                                                   "fft2-2pass")), p),
+                    "cols": rel_diff(torch.complex(*f2.fft2_cols(nre, nim, inverse)),
+                                     torch.complex(*f2.plain_fft2_cols(nre, nim, inverse))),
+                    "k2": rel_diff(torch.complex(*f2.fft2_k2(nre, nim, inverse)),
+                                   torch.complex(*f2.plain_fft2_k2(nre, nim, inverse))),
+                    "rows": rel_diff(torch.complex(*f2.fft2_rows(rre, rim, inverse)),
+                                     torch.complex(*f2.plain_fft2_rows(rre, rim, inverse))),
+                }
+                check(max(diffs.values()) <= KERNEL_LIMIT,
+                      f"fft2 passes {h}x{w} inverse={inverse}: kernel vs plain {diffs}")
+                line.update({f"{k}_{'inv' if inverse else 'fwd'}": v for k, v in diffs.items()})
+            x3 = x[:3]
+            e = rel_diff(f2._complex_route(x3, False, "fft2-2pass").to(torch.complex128),
+                         c128_2d(x3))
+            check(e <= MAX_REL["float32"], f"fft2 2-pass {h}x{w}: {e:.3e} vs torch.fft c128")
+            line["max_rel_vs_torch_fft_c128"] = e
+            print(json.dumps(line), flush=True)
+
+
+def _fft2_calls(shape, gen, dev) -> dict:
+    """fft2 / ifft2 on complex64 `shape`: forward, inverse, roundtrip and a
+    backward, with the counts of the run and the errors against torch.fft
+    in complex128."""
+    h, w = shape[-2:]
+    x = rand_complex(shape, gen, dev)
+    g = rand_complex(shape, gen, dev)
+    xg = x.clone().requires_grad_()
+    torch.cuda.synchronize()
+    zero_counts()
+    y = wtt.fft2(x)
+    xi = wtt.ifft2(x)
+    back = wtt.ifft2(y)
+    wtt.fft2(xg).backward(g)
+    torch.cuda.synchronize()
+    launches = counts()
+    p = f2.plain_fft2(x)
+    res = {"shape": list(shape), "route": planner.fft2_kernel(h, w, x.numel() // (h * w),
+                                                              "complex"),
+           "launches": launches,
+           "fwd_max_rel_vs_torch_fft_c128": max_rel(y, c128_2d(x)),
+           "inv_max_rel_vs_torch_fft_c128": max_rel(xi, c128_2d(x, True)),
+           "roundtrip_err": (back - x).abs().max().item(),
+           "grad_max_rel_vs_torch_fft_c128": max_rel(xg.grad, c128_2d(g, True) * (h * w)),
+           "kernel_vs_plain_max_abs": (y - p).abs().max().item(),
+           "kernel_vs_plain_rel": rel_diff(y, p)}
+    check(res["kernel_vs_plain_rel"] <= KERNEL_LIMIT,
+          f"fft2 {shape}: kernels vs plain {res['kernel_vs_plain_rel']:.3e}")
+    check(bool(torch.isfinite(y).all()) and y.shape == x.shape, f"fft2 {shape} output")
+    for key in ("fwd_max_rel_vs_torch_fft_c128", "inv_max_rel_vs_torch_fft_c128",
+                "grad_max_rel_vs_torch_fft_c128"):
+        check(res[key] <= MAX_REL["float32"], f"fft2 {shape}: {key} {res[key]:.3e}")
+    check(res["roundtrip_err"] < ROUNDTRIP["float32"], f"fft2 {shape}: roundtrip")
+    return res
+
+
+def phase_fft2_main_path(dev, gen) -> dict:
+    out = {}
+    # 5 transforms per run: forward, two inverses, the backward's forward and inverse
+    single = _fft2_calls((FFT2_MAIN, FFT2_MAIN), gen, dev)
+    check(single["route"] == "fft2-2pass" and single["launches"] == expect(
+        fft2_cols=5, fft2_rows=5, stockham_c2c=5),
+        f"fft2 {FFT2_MAIN}^2: route {single['route']}, launches {single['launches']}")
+    print(json.dumps({"phase": "fft2_main_path", **single}), flush=True)
+    out["single"] = single
+    cube = _fft2_calls(FFT2_CUBE_SHAPE, gen, dev)
+    check(cube["route"] == "fft2-cube" and cube["launches"] == expect(fft2_cube=5),
+          f"fft2 {FFT2_CUBE_SHAPE}: route {cube['route']}, launches {cube['launches']}")
+    print(json.dumps({"phase": "fft2_cube_path", **cube}), flush=True)
+    out["cube"] = cube
+    two = _fft2_calls(FFT2_2PASS_SHAPE, gen, dev)
+    check(two["route"] == "fft2-2pass" and two["launches"] == expect(
+        fft2_cols=5, fft2_rows=5, stockham_c2c=5),
+        f"fft2 {FFT2_2PASS_SHAPE}: route {two['route']}, launches {two['launches']}")
+    print(json.dumps({"phase": "fft2_2pass_path", **two}), flush=True)
+    out["2pass"] = two
+
+    # native [h, w, B] planes: the column pass and the native row pass (#14)
+    b, h, w = FFT2_2PASS_SHAPE
+    x = rand_complex((b, h, w), gen, dev)
+    nre, nim = native(x)
+    gre, gim = native(rand_complex((b, h, w), gen, dev))
+    are, aim = nre.clone().requires_grad_(), nim.clone().requires_grad_()
+    torch.cuda.synchronize()
+    zero_counts()
+    yre, yim = wtt.fft2_nb(nre, nim)
+    bre, bim = wtt.fft2_nb(yre, yim, inverse=True)
+    ore, oim = wtt.fft2_nb(are, aim)
+    (ore * gre + oim * gim).sum().backward()
+    torch.cuda.synchronize()
+    launches = counts()
+    check(launches == expect(fft2_cols=4, fft2_k2=4),
+          f"fft2_nb {h}x{w}x{b}: launches {launches}")
+    y = from_native(yre, yim)
+    g = from_native(gre, gim)
+    p = f2.plain_fft2(x)
+    res = {"shape": [h, w, b], "route": planner.fft2_kernel(h, w, b, "nb"), "launches": launches,
+           "fwd_max_rel_vs_torch_fft_c128": max_rel(y, c128_2d(x)),
+           "roundtrip_err": (from_native(bre, bim) - x).abs().max().item(),
+           "grad_max_rel_vs_torch_fft_c128": max_rel(from_native(are.grad, aim.grad),
+                                                     c128_2d(g, True) * (h * w)),
+           "kernel_vs_plain_max_abs": (y - p).abs().max().item(),
+           "kernel_vs_plain_rel": rel_diff(y, p)}
+    print(json.dumps({"phase": "fft2_native_path", **res}), flush=True)
+    check(res["kernel_vs_plain_rel"] <= KERNEL_LIMIT,
+          f"fft2_nb: kernels vs plain {res['kernel_vs_plain_rel']:.3e}")
+    for key in ("fwd_max_rel_vs_torch_fft_c128", "grad_max_rel_vs_torch_fft_c128"):
+        check(res[key] <= MAX_REL["float32"], f"fft2_nb: {key} {res[key]:.3e}")
+    check(res["roundtrip_err"] < ROUNDTRIP["float32"], "fft2_nb roundtrip")
+    out["native"] = res
+
+    # the real path at the 4096 x 4096 shape
+    n = FFT2_MAIN
+    xr = rand_real((n, n), gen, dev)
+    spec = torch.fft.rfft2(rand_real((n, n), gen, dev).double())
+    spec32 = spec.to(torch.complex64)
+    gs = torch.complex(rand_real((n, n // 2 + 1), gen, dev), rand_real((n, n // 2 + 1), gen, dev))
+    xg = xr.clone().requires_grad_()
+    torch.cuda.synchronize()
+    zero_counts()
+    yr = wtt.rfft2(xr)
+    xi = wtt.irfft2(spec32)
+    back = wtt.irfft2(yr)
+    wtt.rfft2(xg).backward(gs)
+    torch.cuda.synchronize()
+    launches = counts()
+    # 5 half-width transforms [4096, 2048]: two rfft2, two irfft2, the backward
+    check(launches == expect(fft2_cols=5, fft2_rows=5, stockham_c2c=5),
+          f"rfft2 {n}^2: launches {launches}")
+    x64 = xr.double().requires_grad_()
+    torch.fft.rfft2(x64).backward(gs.cdouble())
+    res = {"shape": [n, n], "launches": launches,
+           "fwd_max_rel_vs_torch_fft_f64": max_rel(yr, torch.fft.rfft2(xr.double())),
+           "inv_max_rel_vs_torch_fft_f64": max_rel(xi, torch.fft.irfft2(spec, (n, n))),
+           "roundtrip_err": (back - xr).abs().max().item(),
+           "grad_max_rel_vs_torch_fft_f64": max_rel(xg.grad, x64.grad)}
+    print(json.dumps({"phase": "rfft2_main_path", **res}), flush=True)
+    for key in ("fwd_max_rel_vs_torch_fft_f64", "inv_max_rel_vs_torch_fft_f64",
+                "grad_max_rel_vs_torch_fft_f64"):
+        check(res[key] <= MAX_REL["float32"], f"rfft2: {key} {res[key]:.3e}")
+    check(res["roundtrip_err"] < ROUNDTRIP["float32"], "rfft2 roundtrip")
+    check(bool(torch.isfinite(yr).all()) and yr.shape == (n, n // 2 + 1), "rfft2 output")
+    out["real"] = res
+    return out
+
+
+def _passes(x, h, w, batch, inverse=False):
+    """The 2-pass route's passes on the complex layout, as `fft2_complex`
+    launches them: col(plain=False) writes batch-major planes c from x,
+    row(plain=False) writes the interleaved `out` from c. Returns
+    (col, row, c, out)."""
+    xo, xs = f2._operand("complex", x, None), f2._strides("complex", h, w, batch)
+    c = tuple(torch.empty(batch * h * w, device=x.device) for _ in range(2))
+    cs = f2._strides("bm", h, w, batch)
+    out = torch.empty_like(x)
+    yo = f2._operand("complex", out, None)
+    th, tw = (st.device_tables(n, inverse, x.device) for n in (h, w))
+    return (lambda plain=False: f2._cols(xo, xs, c, cs, h, w, batch, inverse, th, plain),
+            lambda plain=False: f2._rows(c, cs, yo, xs, h, w, batch, inverse, tw, plain),
+            c, out)
+
+
+def phase_fft2_times(dev, gen, name: str, limit: str) -> dict:
+    times = {}
+    for h, w in FFT2_TIME_SHAPES:
+        batch = FFT2_TIME_POINTS // (h * w)
+        x = rand_complex((batch, h, w), gen, dev)
+        nre, nim = native(x)
+        out = torch.empty_like(x)
+        fns = {"planner": lambda: f2.fft2_complex(x),
+               "lib_fft2": lambda: torch.fft.fft2(x),
+               "lib_fft2_inv": lambda: torch.fft.ifft2(x),
+               "lib_cols": lambda: torch.fft.fft(x, dim=-2),
+               "lib_rows": lambda: torch.fft.fft(x, dim=-1),
+               "copy": lambda: out.copy_(x)}
+        if h * w <= planner.CUBE_MAX_N:
+            fns.update({"cube": lambda: f2._complex_route(x, False, "fft2-cube"),
+                        "cube_inv": lambda: f2._complex_route(x, True, "fft2-cube"),
+                        "cube_nb": lambda: f2._nb_route(nre, nim, False, "fft2-cube")})
+        if max(h, w) <= planner.STOCKHAM_MAX_N:
+            cols, rows, _, _ = _passes(x, h, w, batch)
+            fns.update({"2pass": lambda: f2._complex_route(x, False, "fft2-2pass"),
+                        "2pass_inv": lambda: f2._complex_route(x, True, "fft2-2pass"),
+                        "2pass_nb": lambda: f2._nb_route(nre, nim, False, "fft2-2pass"),
+                        "cols": cols, "rows": rows,
+                        "cols_nb": lambda: f2.fft2_cols(nre, nim),
+                        "k2_nb": lambda: f2.fft2_k2(nre, nim)})
+        row = {"route": planner.fft2_kernel(h, w, batch, "complex")}
+        for key, fn in fns.items():
+            dev_ms, call_ms = time_ms(fn)
+            row[key + "_ms"] = dev_ms
+            row[key + "_call_ms"] = call_ms
+        row["plain_ms"], row["plain_call_ms"] = time_ms(lambda: f2.plain_fft2(x), reps=3,
+                                                        warmup=1)
+        # the real path: the half-width transform and the torch recombination
+        xr = rand_real((batch, h, w), gen, dev)
+        spec = torch.fft.rfft2(xr)
+        zre, zim = (t.contiguous() for t in f2.fft2_planes(xr[..., 0::2].contiguous(),
+                                                           xr[..., 1::2].contiguous()))
+        sre, sim = spec.real.contiguous(), spec.imag.contiguous()
+        rfns = {"rfft2": lambda: f2.rfft2_planes(xr),
+                "irfft2": lambda: f2.irfft2_planes(sre, sim),
+                "rfft2_core": lambda: f2._transform(xr, None, False, "real", "bm", None, None),
+                "herm2_post": lambda: f2.herm2_post_nb(zre, zim, w, -2, -1),
+                "herm2_pre": lambda: f2.herm2_pre_nb(sre, sim, w, -2, -1),
+                "lib_rfft2": lambda: torch.fft.rfft2(xr),
+                "lib_irfft2": lambda: torch.fft.irfft2(spec, (h, w))}
+        for key, fn in rfns.items():
+            row[key + "_ms"] = time_ms(fn)[0]
+        times[(h, w)] = row
+        print(json.dumps({"phase": "fft2_times", "h": h, "w": w, "batch": batch, **row,
+                          "card": name, "power_limit": limit}), flush=True)
+    for h, w in FFT2_CROSS_SHAPES:
+        row = {}
+        for batch in FFT2_CROSS_BATCHES:
+            x = rand_complex((batch, h, w), gen, dev)
+            nre, nim = native(x)
+            for route in ("fft2-cube", "fft2-2pass"):
+                r = route[len("fft2-"):]
+                row[f"{r}_b{batch}_ms"] = time_ms(lambda: f2._complex_route(x, False, route))[0]
+                row[f"{r}_nb_b{batch}_ms"] = time_ms(
+                    lambda: f2._nb_route(nre, nim, False, route))[0]
+        print(json.dumps({"phase": "fft2_crossover", "h": h, "w": w, **row, "card": name,
+                          "power_limit": limit}), flush=True)
+    return times
+
+
+def fft2_kernel_rows(main: dict, times: dict, dev, gen) -> list:
+    """The 2D kernels' rows of the kernels line, each at the shape its main
+    path gives it: the cube at [1024, 128, 128]; the column pass and #16 at
+    the single 4096 x 4096 image; #14 at native [512, 512, 64]. Each is
+    held there against its plain version: max |diff| / max |plain| within
+    KERNEL_LIMIT, in both directions where the main path runs both."""
+    rows, rels = [], {}
+
+    def held(name, kernel, plain):
+        """max |kernel - plain| over the pairs, checked relative to max |plain|."""
+        err = max((a - p).abs().max().item() for a, p in zip(kernel, plain))
+        rels[name] = rel = err / max(p.abs().max().item() for p in plain)
+        check(rel <= KERNEL_LIMIT, f"{name} at its main-path shape: {rel:.3e} vs plain")
+        return err
+
+    b, h, w = FFT2_CUBE_SHAPE
+    n = b * h * w
+    x = rand_complex((b, h, w), gen, dev)
+    err = max(held(f"fft2_cube {FFT2_CUBE_SHAPE} inverse={inv}",
+                   [f2._complex_route(x, inv, "fft2-cube")], [f2.plain_fft2(x, inv)])
+              for inv in (False, True))
+    plain = time_ms(lambda: f2.plain_fft2(x), reps=3, warmup=1)[0]
+    t = times[(h, w)]
+    rows.append(("fft2_cube", FFT2_SRC, "watfft_tpu/ops/fft2.py:129", [],
+                 main["cube"]["launches"]["fft2_cube"], err, t["cube_ms"], plain,
+                 bound(16 * n, 5 * n * ((h * w).bit_length() - 1)), t["lib_fft2_ms"]))
+    # the single image's passes, as fft2() and ifft2() run them
+    m = FFT2_MAIN
+    xm = rand_complex((m, m), gen, dev)
+    err_c = err_r = 0.0
+    for inv in (False, True):
+        col, row, c, out = _passes(xm, m, m, 1, inv)
+        col()
+        kernel_c = [t.clone() for t in c]
+        col(plain=True)
+        err_c = max(err_c, held(f"fft2_cols {m}^2 inverse={inv}", kernel_c, c))
+        row()
+        kernel_y = out.clone()
+        row(plain=True)
+        err_r = max(err_r, held(f"fft2_rows {m}^2 inverse={inv}", [kernel_y], [out]))
+    col, row, _, _ = _passes(xm, m, m, 1)
+    plain_c = time_ms(lambda: col(plain=True), reps=3, warmup=1)[0]
+    plain_r = time_ms(lambda: row(plain=True), reps=3, warmup=1)[0]
+    t = times[(m, m)]
+    n = m * m
+    flops = 5 * n * (m.bit_length() - 1)
+    single = main["single"]["launches"]
+    rows.append(("fft2_cols", LARGE_SRC, "watfft_tpu/ops/large.py:136",
+                 ["watfft_tpu/ops/fft2.py:191"], single["fft2_cols"], err_c, t["cols_ms"], plain_c,
+                 bound(16 * n, flops), t["lib_cols_ms"]))
+    rows.append(("fft2_rows", "watfft_tpu_torch/ops/csrc/stockham.cu",
+                 "watfft_tpu/ops/fft2.py:241", [], single["fft2_rows"], err_r, t["rows_ms"], plain_r,
+                 bound(16 * n, flops), t["lib_rows_ms"]))
+    # #14 on the native main path's [512, 512, 64] planes
+    b, h, w = FFT2_2PASS_SHAPE
+    n = b * h * w
+    nre, nim = native(rand_complex((b, h, w), gen, dev))
+    err_k = max(held(f"fft2_k2 native [{h}, {w}, {b}] inverse={inv}",
+                     f2.fft2_k2(nre, nim, inv), f2.plain_fft2_k2(nre, nim, inv))
+                for inv in (False, True))
+    plain_k = time_ms(lambda: f2.plain_fft2_k2(nre, nim), reps=3, warmup=1)[0]
+    xn = torch.complex(nre, nim)
+    lib_k = time_ms(lambda: torch.fft.fft(xn, dim=1))[0]
+    rows.append(("fft2_k2", LARGE_SRC, "watfft_tpu/ops/fft2.py:91", [],
+                 main["native"]["launches"]["fft2_k2"], err_k, times[(h, w)]["k2_nb_ms"], plain_k,
+                 bound(16 * n, 5 * n * (w.bit_length() - 1)), lib_k))
+    print(json.dumps({"phase": "fft2_kernels_at_main_shapes", "rel_diff_vs_plain": rels}),
+          flush=True)
+    return rows
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     """The least time in ms the card could take: bytes over its memory rate
     or flops over its FP32 rate, whichever is larger, and which one."""
@@ -891,9 +1293,11 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
 
 
 def kernels_line(c2c: dict, real_launches: dict, real_errs: dict, times: dict,
-                 real_times: dict, large_rows: list, name: str, limit: str) -> dict:
+                 real_times: dict, large_rows: list, fft2_rows: list, name: str,
+                 limit: str) -> dict:
     """Each kernel at the main path's shape, 4096 transforms of n = 1024
-    (the large kernels at theirs, `large_kernel_rows`): bytes count each
+    (the large kernels at theirs, `large_kernel_rows`, the 2D kernels at
+    theirs, `fft2_kernel_rows`): bytes count each
     input read once and each output written once; flops are 5 m log2 m per
     m-point complex FFT, 10 per bin of the Hermitian post or pre and 6 per
     point of a complex multiply."""
@@ -926,6 +1330,7 @@ def kernels_line(c2c: dict, real_launches: dict, real_errs: dict, times: dict,
          real_launches["irfft_c2r_fused"], real_errs["irfft_c2r_fused"], rt["c2r_fused_ms"],
          rt["plain_c2r_ms"], bound(real_bytes, (5 * m * log_m + 10 * m) * b), rt["lib_irfft_ms"]),
         *large_rows,
+        *fft2_rows,
     ]
     return {"kernels": [
         {"name": kname, "route": "cuda", "source": src, "replaces": repl,
@@ -973,12 +1378,16 @@ def main() -> int:
         large_times = phase_large_times(dev, gen, name, limit)
         phase_large_real_times(dev, gen, name, limit)
         large_rows = large_kernel_rows(main, cube, single, large_times, dev, gen)
+        phase_fft2_kernel_vs_plain(dev, gen)
+        fft2_main = phase_fft2_main_path(dev, gen)
+        fft2_times = phase_fft2_times(dev, gen, name, limit)
+        fft2_rows = fft2_kernel_rows(fft2_main, fft2_times, dev, gen)
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     print(json.dumps(kernels_line({"launches": launches, "max_abs_err": max_abs_err},
                                   real_launches, real_errs, times, real_times, large_rows,
-                                  name, limit)),
+                                  fft2_rows, name, limit)),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -150,7 +150,12 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
     for make in (lambda: wtt.create_fft_f32(16), lambda: wtt.FFTContext(16),
                  lambda: wtt.create_rfft_f32(16), lambda: wtt.RFFTContext(16),
                  lambda: wtt.fft(x), lambda: wtt.ifft(x), lambda: wtt.rfft(x.real),
-                 lambda: wtt.irfft(x[..., :9])):
+                 lambda: wtt.irfft(x[..., :9]), lambda: wtt.fft2(x), lambda: wtt.ifft2(x),
+                 lambda: wtt.rfft2(x.real.reshape(2, 4, 4)),
+                 lambda: wtt.irfft2(x.reshape(2, 4, 4)[..., :3])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     assert wtt.fft(x, device="cpu").device.type == "cpu"
+    assert wtt.fft2(x, device="cpu").device.type == "cpu"
+    assert wtt.rfft2(x.real.reshape(2, 4, 4), device="cpu").shape == (2, 4, 3)
+    assert wtt.irfft2(x.reshape(2, 4, 4)[..., :3], device="cpu").shape == (2, 4, 4)

@@ -1,7 +1,7 @@
 """The Hopper kernels on the card (the Stockham c2c kernel, the fused r2c
 and c2r real kernels, the hybrid real path that drives the c2c kernel
-through strides, and the four-step kernels of the large-N path), against
-their plain torch versions.
+through strides, the four-step kernels of the large-N path and the 2D
+path's cube and passes), against their plain torch versions.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no JAX, so it runs on a GPU host that has none; tests/conftest.py imports
@@ -16,6 +16,7 @@ import torch
 
 import watfft_tpu_torch as wtt
 from watfft_tpu_torch import convert
+from watfft_tpu_torch.ops import fft2 as f2
 from watfft_tpu_torch.ops import large as lg
 from watfft_tpu_torch.ops import rfft as rf
 from watfft_tpu_torch.ops import stockham as st
@@ -290,3 +291,115 @@ def test_large_kernels_refuse_what_they_do_not_take(dev):
     cpu_tables = lg.device_large_tables(8192, False, "cpu")
     with pytest.raises(ValueError, match="tables on cpu"):
         lg.fft_large_nb(*(torch.zeros(8192, 2, device=dev),) * 2, tables=cpu_tables)
+
+
+# -- the 2D path ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("h,w", [(2, 2), (4, 64), (32, 8), (128, 128), (8192, 2), (2, 8192)])
+def test_fft2_cube_matches_plain_all_layouts(h, w, dev):
+    """#15: the cube in three layouts, on ragged batches (images per block:
+    128 at 2x2), forward and inverse."""
+    for batch in (1, 3, 257):
+        x = _x((batch, h, w), seed=h + w + batch, dev=dev)
+        re, im = x.real.contiguous(), x.imag.contiguous()
+        xn = x.permute(1, 2, 0)
+        nre, nim = xn.real.contiguous(), xn.imag.contiguous()
+        for inverse in (False, True):
+            want = f2.plain_fft2(x, inverse)
+            before = f2.launches["fft2_cube"]
+            assert _rel(f2._complex_route(x, inverse, "fft2-cube"), want) <= KERNEL_LIMIT
+            bre, bim = f2._planes_route(re, im, inverse, "fft2-cube")
+            assert _rel(torch.complex(bre, bim), want) <= KERNEL_LIMIT
+            yre, yim = f2._nb_route(nre, nim, inverse, "fft2-cube")
+            assert _rel(torch.complex(yre, yim).permute(2, 0, 1), want) <= KERNEL_LIMIT
+            assert f2.launches["fft2_cube"] == before + 3
+
+
+@pytest.mark.parametrize("h,w", [(16, 256), (256, 16), (4096, 16), (16, 4096)])
+def test_fft2_passes_match_plain(h, w, dev):
+    """The column pass, #14 (native row pass) and #16 (row pass on the c2c
+    kernel), alone and as the 2-pass route."""
+    b = 3
+    xre, xim = _r((h, w, b), 1, dev), _r((h, w, b), 2, dev)
+    for inverse in (False, True):
+        for f, p in ((f2.fft2_cols, f2.plain_fft2_cols), (f2.fft2_k2, f2.plain_fft2_k2)):
+            assert _rel(torch.complex(*f(xre, xim, inverse)),
+                        torch.complex(*p(xre, xim, inverse))) <= KERNEL_LIMIT
+        rre, rim = xre.view(-1, w), xim.view(-1, w)
+        assert _rel(torch.complex(*f2.fft2_rows(rre, rim, inverse)),
+                    torch.complex(*f2.plain_fft2_rows(rre, rim, inverse))) <= KERNEL_LIMIT
+        x = _x((b, h, w), seed=h * w, dev=dev)
+        before = dict(f2.launches)
+        y = f2._complex_route(x, inverse, "fft2-2pass")
+        assert _rel(y, f2.plain_fft2(x, inverse)) <= KERNEL_LIMIT
+        assert f2.launches["fft2_cols"] == before["fft2_cols"] + 1
+        assert f2.launches["fft2_rows"] == before["fft2_rows"] + 1
+
+
+def test_fft2_api_on_the_card(dev):
+    """fft2 / ifft2 / rfft2 / irfft2 against torch.fft in double precision,
+    a backward, and the axes route (an axis over 4096)."""
+    x = _x((2, 64, 128), seed=5, dev=dev)
+    want = torch.fft.fft2(x.to(torch.complex128))
+    assert _rel(wtt.fft2(x).to(torch.complex128), want) <= MAX_REL["float32"]
+    assert (wtt.ifft2(wtt.fft2(x)) - x).abs().max().item() < 1e-4
+    r = _r((2, 64, 128), 6, dev)
+    assert _rel(wtt.rfft2(r).to(torch.complex128), torch.fft.rfft2(r.double())) <= MAX_REL["float32"]
+    assert (wtt.irfft2(wtt.rfft2(r)) - r).abs().max().item() < 1e-4
+    xg = x.clone().requires_grad_()
+    g = _x((2, 64, 128), seed=7, dev=dev)
+    wtt.fft2(xg).backward(g)
+    assert _rel(xg.grad.to(torch.complex128),
+                torch.fft.ifft2(g.to(torch.complex128)) * 64 * 128) <= MAX_REL["float32"]
+    xa = _x((8192, 4), seed=8, dev=dev)
+    assert _rel(wtt.fft2(xa).to(torch.complex128),
+                torch.fft.fft2(xa.to(torch.complex128))) <= MAX_REL["float32"]
+
+
+def _radix_tables(n, radix, inverse, dev):
+    """Tables for n with every stage of one radix (a plan of the caller's
+    own), packed by the rule of `stockham.make_twiddle_pack`."""
+    stages, l = [], 1
+    while l < n:
+        stages.append((radix, l))
+        l *= radix
+    sign = 1.0 if inverse else -1.0
+    res, ims, offsets = [], [], []
+    for idx, (r, l) in enumerate(stages):
+        if l == 1:
+            offsets.append(-1)
+            continue
+        offsets.append(sum(len(a) for a in res))
+        k = np.arange(n // r) % l
+        scale = 1.0 / n if inverse and idx == len(stages) - 1 else 1.0
+        for p in range(1, r):
+            ang = sign * 2.0 * np.pi * ((p * k) % (r * l)) / (r * l)
+            res.append(scale * np.cos(ang))
+            ims.append(scale * np.sin(ang))
+    return st.make_tables(stages, offsets, np.concatenate(res), np.concatenate(ims), dev)
+
+
+@pytest.mark.parametrize("h,w", [(4096, 2), (2, 4096)])
+def test_fft2_cube_takes_plans_of_small_radix(h, w, dev):
+    """A 4096-point plan of radix 8 takes 512 threads a transform, more than
+    the cube's usual 256 under 2^14 points: the block widens to them."""
+    for inverse in (False, True):
+        tables = tuple(_radix_tables(n, 8, inverse, dev) if n == 4096
+                       else st.device_tables(n, inverse, dev) for n in (h, w))
+        x = _x((3, h, w), seed=h, dev=dev)
+        before = f2.launches["fft2_cube"]
+        y = f2._complex_route(x, inverse, "fft2-cube", tables)
+        assert f2.launches["fft2_cube"] == before + 1
+        assert _rel(y, f2.plain_fft2(x, inverse, tables)) <= KERNEL_LIMIT
+        want = (torch.fft.ifft2 if inverse else torch.fft.fft2)(x.to(torch.complex128))
+        assert _rel(y.to(torch.complex128), want) <= MAX_REL["float32"]
+
+
+def test_fft2_kernels_refuse_what_they_do_not_take(dev):
+    with pytest.raises(TypeError, match="float32"):
+        f2.fft2_planes(*(torch.zeros(4, 8, 8, device=dev, dtype=torch.float64),) * 2)
+    big = st.make_tables([(64, 1)], [-1], np.ones(1), np.zeros(1), dev)
+    small = st.device_tables(8, False, dev)
+    with pytest.raises(RuntimeError, match="radix outside"):
+        f2._complex_route(torch.zeros(64, 8, device=dev, dtype=torch.complex64), False,
+                          "fft2-cube", (big, small))

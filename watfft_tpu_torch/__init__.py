@@ -5,18 +5,21 @@ to n = 4096, the four-step kernels to 2^24, matmuls past that) and the f32
 real FFT (rfft / irfft) over n = 4..2^25, forward and inverse, behind the
 JAX package's plan-once context API, the large-N functions of
 `watfft_tpu/ops/large.py` (`fft_large`, `fft_large_nb`, `rfft_large_nb`,
-`irfft_large_nb`, `large_split`), and the STFT pipeline on the real FFT
-(`watfft_tpu_torch.stft`). Contexts run on the CUDA device by default,
+`irfft_large_nb`, `large_split`), the 2D FFT over the trailing [h, w] axes
+(`fft2`, `ifft2`, `rfft2`, `irfft2`, `fft2_nb`), and the STFT pipeline on
+the real FFT (`watfft_tpu_torch.stft`). Contexts run on the CUDA device by default,
 where every call launches kernels written for Hopper (`ops/csrc/*.cu`,
 built with nvcc at first use); with `device="cpu"` they run the kernels'
 plain torch versions. Needs torch and numpy, never JAX.
 """
 
 from . import stft
-from .api import (FFTContext, RFFTContext, create_fft_f32, create_rfft_f32, fft,
-                  ifft, irfft, rfft)
+from .api import (FFTContext, RFFTContext, create_fft_f32, create_rfft_f32, fft, fft2,
+                  ifft, ifft2, irfft, irfft2, rfft, rfft2)
+from .ops.fft2 import fft2_nb
 from .ops.large import fft_large, fft_large_nb, irfft_large_nb, large_split, rfft_large_nb
 
 __all__ = ["FFTContext", "RFFTContext", "create_fft_f32", "create_rfft_f32",
-           "fft", "ifft", "rfft", "irfft", "fft_large", "fft_large_nb", "rfft_large_nb",
-           "irfft_large_nb", "large_split", "stft"]
+           "fft", "ifft", "rfft", "irfft", "fft2", "ifft2", "rfft2", "irfft2", "fft2_nb",
+           "fft_large", "fft_large_nb", "rfft_large_nb", "irfft_large_nb", "large_split",
+           "stft"]

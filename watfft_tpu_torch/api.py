@@ -17,6 +17,10 @@ Counterpart of `watfft_tpu/api.py` for the port's slices:
   `inverse_planes_nb` on time-major [n, ...] <-> [n//2+1, ...]. `rfft` /
   `irfft` are the one-shot forms. n <= 8192 runs the fused kernels, n =
   16384 .. 2^25 the m = n/2-point core on the four-step kernels.
+* `fft2` / `ifft2` (complex [..., h, w]) and `rfft2` / `irfft2` (real
+  [..., h, w] <-> complex [..., h, w//2+1]) run the 2D path of
+  `ops/fft2.py` over the trailing axes: the 2D cube kernel for images of
+  h*w <= 2^14 points, the column and row passes above it.
 
 Differences from the JAX package, by design:
 
@@ -38,13 +42,14 @@ import numpy as np
 import torch
 
 from . import planner
+from .ops import fft2 as f2
 from .ops import fourstep, large
 from .ops import rfft as rf
 from .ops import stockham
 from .plan import build_tree, is_power_of_two
 
 __all__ = ["FFTContext", "RFFTContext", "create_fft_f32", "create_rfft_f32",
-           "fft", "ifft", "rfft", "irfft"]
+           "fft", "ifft", "rfft", "irfft", "fft2", "ifft2", "rfft2", "irfft2"]
 
 
 def _check_size(n: int, minimum: int = 2) -> None:
@@ -272,3 +277,37 @@ def irfft(x, device="cuda"):
     on `device`."""
     x = torch.as_tensor(x)
     return _ctx(RFFTContext, 2 * (x.shape[-1] - 1), device).inverse(x)
+
+
+# -- 2D (watfft_tpu/api.py:586-631) --------------------------------------------
+
+def _on(x, device, dtype: torch.dtype) -> torch.Tensor:
+    """x as a `dtype` tensor on `device` (checked: "cuda" raises without CUDA)."""
+    device = stockham.check_device(device)
+    x = torch.as_tensor(x)
+    if x.is_complex() and not dtype.is_complex:
+        raise TypeError(f"expected a real input, got {x.dtype}")
+    return x.to(device=device, dtype=dtype)
+
+
+def fft2(x, device="cuda"):
+    """2D f32 FFT over the trailing [h, w] axes of a complex x, on `device`."""
+    return f2.fft2_complex(_on(x, device, torch.complex64))
+
+
+def ifft2(x, device="cuda"):
+    """Normalized inverse 2D FFT over the trailing [h, w] axes."""
+    return f2.fft2_complex(_on(x, device, torch.complex64), inverse=True)
+
+
+def rfft2(x, device="cuda"):
+    """2D real FFT over the trailing [h, w] axes of a real x -> complex
+    [..., h, w//2+1] (numpy.fft.rfft2 semantics; f32): one half-width 2D
+    FFT and the 2D Hermitian recombination."""
+    return torch.complex(*f2.rfft2_planes(_on(x, device, torch.float32)))
+
+
+def irfft2(x, device="cuda"):
+    """Inverse of `rfft2`: complex [..., h, m+1] -> real [..., h, 2m]."""
+    x = _on(x, device, torch.complex64)
+    return f2.irfft2_planes(x.real, x.imag)

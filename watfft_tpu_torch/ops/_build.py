@@ -113,6 +113,12 @@ def library() -> ctypes.CDLL:
     lib.watfft_large_cube.argtypes = [p, p, p, p, i64, i64, i64, i64, i32, i32, i64, p, p,
                                       p, p, ip, ip, i32, p, p, ip, ip, i32, i32, p]
     lib.watfft_large_cube.restype = i32
+    # (xre, xim, yre, yim, x_sh, x_sw, x_sb, y_sh, y_sw, y_sb, h, w, batch,
+    #  the h-point twre, twim, radices, offsets, nstages, the w-point ones,
+    #  inverse, stream)
+    lib.watfft_fft2_cube.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, i64, i32, i32, i64,
+                                     p, p, ip, ip, i32, p, p, ip, ip, i32, i32, p]
+    lib.watfft_fft2_cube.restype = i32
     lib.watfft_error_string.argtypes = [i32]
     lib.watfft_error_string.restype = ctypes.c_char_p
     build_info.update(path=str(out), log=log)

@@ -179,12 +179,13 @@ def _cmul(are, aim, bre, bim):
 
 
 def strided_c2c(x, y, n: int, sn, axes, inverse: bool, tables: Tables, key: str,
-                pm=None, mul: int = MUL_NONE, plain: bool = False) -> None:
+                pm=None, mul: int = MUL_NONE, plain: bool = False, counts=None) -> None:
     """y = DFT_n(x) (times pm in the store for mul=MUL_STORE; of x times pm
     for mul=MUL_LOAD) over a batch of two axes. sn: the element strides
     (x, y, pm); axes: two (count, x stride, y stride, pm stride) tuples.
     The axis whose x or y stride is smallest becomes the kernel's inner
-    batch axis, so its tiles coalesce."""
+    batch axis, so its tiles coalesce. A launch adds one to counts[key]
+    (default: this module's `launches`)."""
     (na, xa, ya, ma), (nb, xb, yb, mb) = sorted(
         axes, key=lambda a: (a[0] == 1, min(abs(a[1]), abs(a[2]))))
     if na * nb == 0:
@@ -192,7 +193,7 @@ def strided_c2c(x, y, n: int, sn, axes, inverse: bool, tables: Tables, key: str,
     x_sn, y_sn, m_sn = sn
     if _use_kernel(x[0], plain):
         _launch(x, y, n, (x_sn, xa, xb), (y_sn, ya, yb), pm, (m_sn, ma, mb), mul,
-                na, na * nb, inverse, tables, key)
+                na, na * nb, inverse, tables, key, launches if counts is None else counts)
         return
     size = (n, na, nb)
     xre, xim = (_as(t, size, (x_sn, xa, xb)) for t in x)
@@ -216,14 +217,14 @@ def _library(x: torch.Tensor, tables_dev: torch.device):
     return library()
 
 
-def _check(lib, err: int, key: str, n: int, batch: int) -> None:
+def _check(lib, err: int, key: str, n: int, batch: int, counts=launches) -> None:
     if err:
-        raise RuntimeError(f"four-step {key} kernel launch failed (n={n}, batch={batch}): "
+        raise RuntimeError(f"{key} kernel launch failed (n={n}, batch={batch}): "
                            f"{lib.watfft_error_string(err).decode()}")
-    launches[key] += 1
+    counts[key] += 1
 
 
-def _launch(x, y, n, xs, ys, pm, ms, mul, inner, batch, inverse, tables, key) -> None:
+def _launch(x, y, n, xs, ys, pm, ms, mul, inner, batch, inverse, tables, key, counts) -> None:
     lib = _library(x[0], tables.twre.device)
     pmp = (pm[0].data_ptr(), pm[1].data_ptr()) if mul else (None, None)
     with torch.cuda.device(x[0].device):
@@ -232,7 +233,7 @@ def _launch(x, y, n, xs, ys, pm, ms, mul, inner, batch, inverse, tables, key) ->
             *pmp, *ms, mul, n, inner, batch, tables.twre.data_ptr(), tables.twim.data_ptr(),
             tables.c_radices, tables.c_offsets, len(tables.stages), int(inverse),
             torch.cuda.current_stream().cuda_stream)
-    _check(lib, err, key, n, batch)
+    _check(lib, err, key, n, batch, counts)
 
 
 def _launch_cube(x, y, xs, ys, batch, lt: LargeTables) -> None:

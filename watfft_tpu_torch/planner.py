@@ -18,7 +18,8 @@ from __future__ import annotations
 from .plan import is_power_of_two
 
 __all__ = ["STOCKHAM_MAX_N", "RFFT_MAX_N", "LARGE_MIN_N", "CUBE_MAX_N", "CUBE_MIN_BATCH",
-           "LARGE_MAX_N", "RFFT_LARGE_MAX_N", "c2c_kernel", "large_mode", "r2c_kernel"]
+           "LARGE_MAX_N", "RFFT_LARGE_MAX_N", "c2c_kernel", "large_mode", "r2c_kernel",
+           "FFT2_CUBE_MIN_BATCH", "FFT2_NATIVE_MAX_AXIS", "FFT2_NATIVE_MIN_BATCH", "fft2_kernel"]
 
 # One transform per thread block: n/16 threads of at most 256.
 STOCKHAM_MAX_N = 4096
@@ -94,3 +95,48 @@ def r2c_kernel(n: int, dtype: str, direction: str = "forward") -> str:
     raise NotImplementedError(
         f"n={n}: the port's real FFT covers n <= {RFFT_LARGE_MAX_N}; the real "
         f"matmul surface past it is not ported")
+
+
+# The least batch at which the 2D cube beats the 2-pass route, per h*w, in
+# the batch-major and complex layouts. Measured on an H100 80GB HBM3 at a
+# 700 W limit (chip_smoke.py's fft2_crossover phase; PERF.md): at 2^12
+# (64x64) the cube won at every batch from 1 to 1024 (14.7 us against 25.2
+# at 1); at 2^14 (128x128, 16x1024, 1024x16: one 139 KB block of 512
+# threads per SM) the 2-pass route won at batch 1..16 (26.9-27.5 us against
+# 30.8-33.2) and the cube from 64 up (31.8-33.7 against 34.0-36.8).
+FFT2_CUBE_MIN_BATCH = {1 << 14: 64}
+# Native [h, w, B] planes: a cube block that holds one image (h*w >= 4096)
+# reads it B floats apart, uncoalesced; measured at 2^24 points (the same
+# card, chip_smoke.py's fft2_times phase; PERF.md), the cube took 818.7 us
+# at 64x64 and 912.5 at 128x128 against 455.9 and 474.1 for the 2-pass
+# route, whose passes coalesce along B. Past 1024 points on an axis the
+# 2-pass route's own passes slow down (one or two transforms per block:
+# 1027.3 us against the cube's 833.2 at 2x4096), so it takes the native
+# layout only up to there, and above a batch of 16.
+FFT2_NATIVE_MAX_AXIS, FFT2_NATIVE_MIN_BATCH = 1024, 17
+
+
+def fft2_kernel(h: int, w: int, batch: int | None = None, layout: str = "bm") -> str:
+    """The 2D route for power-of-two h, w >= 2 (ops/fft2.py): "fft2-cube"
+    (one kernel, whole images in shared memory) for h*w <= CUBE_MAX_N at a
+    batch of at least FFT2_CUBE_MIN_BATCH[h*w] (or an unknown batch), except
+    the native layout ("nb") with one image per cube block, a batch over 16
+    and axes of at most FFT2_NATIVE_MAX_AXIS; "fft2-2pass" (the column pass,
+    then the row pass) otherwise for h, w <= 4096; "fft2-axes" (an axis over
+    4096 on the large route) beyond. An axis of 8192 (8192 x 2) takes the
+    cube at any batch: the 2-pass route has no such axis."""
+    for n in (h, w):
+        if not is_power_of_two(n) or n < 2:
+            raise ValueError(f"fft2 axes must be powers of two >= 2, got {h}x{w}")
+    hw = h * w
+    if hw <= CUBE_MAX_N:
+        if max(h, w) > STOCKHAM_MAX_N or batch is None:
+            return "fft2-cube"
+        native_2pass = (layout == "nb" and hw >= 4096 and batch >= FFT2_NATIVE_MIN_BATCH
+                        and max(h, w) <= FFT2_NATIVE_MAX_AXIS)
+        if batch >= FFT2_CUBE_MIN_BATCH.get(hw, 1) and not native_2pass:
+            return "fft2-cube"
+        return "fft2-2pass"
+    if max(h, w) <= STOCKHAM_MAX_N:
+        return "fft2-2pass"
+    return "fft2-axes"

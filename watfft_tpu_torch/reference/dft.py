@@ -1,7 +1,7 @@
 """O(N^2) reference DFT ground truth + deterministic signal generators.
 
 numpy-only copy of `watfft_tpu/reference/dft.py` (`dft`, `idft`,
-`real_dft`, `real_idft`, `seeded_rng`, `make_signal`). The real pair is
+`real_dft`, `real_idft`, `dft2`, `seeded_rng`, `make_signal`). The real pair is
 computed in blocks of bins, so n = 8192 needs ~100 MB, not the full n x n
 matrix. The port cannot import that module:
 importing anything under `watfft_tpu` imports JAX, and a CUDA host need not
@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["dft", "idft", "real_dft", "real_idft", "SIGNALS", "make_signal",
+__all__ = ["dft", "idft", "real_dft", "real_idft", "dft2", "SIGNALS", "make_signal",
            "seeded_rng"]
 
 
@@ -74,6 +74,11 @@ def real_idft(spec: np.ndarray, n: int, axis: int = -1) -> np.ndarray:
         ang = _phases(n, k0, k1).T  # [bins in block, n]
         out += spec[..., k0:k1].real @ np.cos(ang) - spec[..., k0:k1].imag @ np.sin(ang)
     return np.moveaxis(out, -1, axis)
+
+
+def dft2(x: np.ndarray) -> np.ndarray:
+    """2D reference DFT over the trailing two axes, complex128."""
+    return dft(dft(x, axis=-1), axis=-2)
 
 
 def _dft_matrix(n: int, sign: float) -> np.ndarray:
