@@ -97,6 +97,26 @@ Phases (any failure exits nonzero and prints no result):
    copy of the same bytes; rfft2 / irfft2 with the torch recombination
    timed alone; then cube against 2-pass over batches and layouts, the
    planner's crossover.
+19. Bluestein kernels against their plain versions: #17 and #18 alone and
+   the fused transform, n = 2..64 and 13 larger n up to 2048, forward and
+   inverse, three layouts (interleaved complex64, batch-major and
+   time-major planes), batch 3 and 2^22/m transforms (limit 1e-6 of the
+   largest output); at batch 3 also against torch.fft.fft in complex128.
+20. Any-n main path at full size through `watfft_tpu_torch.fftlib`:
+   fft / ifft / roundtrip / a backward on [4096, 1000] complex64 (n = 1000,
+   m = 2048), the same rows padded to 1024 (the Stockham kernel), the
+   prime n = 1009, rfft / irfft at n = 400 on [8, 3001, 400] (eight 30-s
+   clips framed as Whisper frames them), irfft at odd n = 1001, the
+   unfused route at n = 10007 (m = 32768, the four-step kernels) and
+   fft2 / ifft2 on [4, 1000, 1000], against torch.fft in complex128 /
+   float64, with each kernel's launch count for each run.
+21. Any-n times at 2^22 points per call, n in {100, 400, 1000, 1009, 2000,
+   10007}: #17 and #18 alone, the whole transform, the plain version,
+   torch.fft.fft and a device copy of the same bytes; the main shapes of
+   phase 20 beside torch.fft (and the unfused route's m-point transform
+   alone); host time per call at [8, 1000]. #17 and #18
+   are then held against their plain versions at [4096, 1000] and timed
+   there for the kernels line.
 
 The line before the last is a JSON object naming each kernel of the paths
 with its launch count, error, times and the least time the card could take
@@ -117,9 +137,10 @@ import time
 import torch
 
 import watfft_tpu_torch as wtt
-from watfft_tpu_torch import create_fft_f32, create_rfft_f32, planner
+from watfft_tpu_torch import create_fft_f32, create_rfft_f32, fftlib, planner
 from watfft_tpu_torch import stft as wstft
 from watfft_tpu_torch.ops import _build
+from watfft_tpu_torch.ops import bluestein as bl
 from watfft_tpu_torch.ops import fft2 as f2
 from watfft_tpu_torch.ops import large as lg
 from watfft_tpu_torch.ops import rfft as rf
@@ -154,6 +175,16 @@ FFT2_TIME_SHAPES = [(1 << k, 1 << k) for k in range(4, 13)] + [(128, 8192), (819
 FFT2_CROSS_SHAPES = [(64, 64), (64, 128), (128, 128), (16, 1024), (1024, 16)]
 FFT2_CROSS_BATCHES = (1, 16, 64, 256, 1024)
 FFT2_SRC = "watfft_tpu_torch/ops/csrc/fft2.cu"
+# the any-n path: #17 and #18 at n = 2..64 and at these n
+BL_SIZES = list(range(2, 65)) + [97, 127, 360, 400, 509, 1000, 1001, 1009, 1023, 1025, 1500,
+                                 2047, 2048]
+BL_MAIN_B, BL_MAIN_N = 4096, 1000          # the JAX package's Bluestein point, m = 2048
+BL_PRIME_N, BL_ODD_N = 1009, 1001
+BL_REAL_SHAPE, BL_REAL_HOP = (8, 3001, 400), 160   # Whisper: 30-s clips, 16 kHz, n_fft 400
+BL_UNFUSED_B, BL_UNFUSED_N = 256, 10007    # m = 32768: the four-step kernels
+BL_2D_SHAPE = (4, 1000, 1000)
+BL_TIME_SIZES = (100, 400, 1000, 1009, 2000, 10007)
+BL_SRC = "watfft_tpu_torch/ops/csrc/bluestein.cu"
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s, FP32 flop/s
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
 
@@ -368,11 +399,13 @@ def zero_counts() -> None:
         lg.launches[key] = 0
     for key in f2.launches:
         f2.launches[key] = 0
+    for key in bl.launches:
+        bl.launches[key] = 0
 
 
 def counts() -> dict:
     return {"stockham_c2c": st.launches, **rf.launches,
-            **{"large_" + k: v for k, v in lg.launches.items()}, **f2.launches}
+            **{"large_" + k: v for k, v in lg.launches.items()}, **f2.launches, **bl.launches}
 
 
 def expect(**launched) -> dict:
@@ -1285,6 +1318,290 @@ def fft2_kernel_rows(main: dict, times: dict, dev, gen) -> list:
     return rows
 
 
+# -- the any-n path ---------------------------------------------------------------
+
+def _bl_passes(x: torch.Tensor, layout: str, inverse: bool = False):
+    """#17 and #18 as the fused route runs them on the complex [batch, n] x
+    given in `layout` ("complex", batch-major planes "bm", time-major
+    planes "nb"): fwd(plain=False) writes the batch-major intermediate f,
+    inv(plain=False) writes the output `out` (in the layout) from f.
+    Returns (fwd, inv, f, out), out as a pair of float tensors."""
+    batch, n = x.shape
+    bt = bl.device_bluestein_tables(n, inverse, x.device)
+    if layout == "complex":
+        xc = x.contiguous()
+        fx = torch.view_as_real(xc).view(-1)
+        xo, xs = (fx, fx[1:]), (2, 2 * n)
+        y = torch.empty(2 * batch * n, device=x.device)
+        yo = (y, y[1:])
+    elif layout == "bm":
+        xo, xs = (x.real.contiguous(), x.imag.contiguous()), (1, n)
+        yo = (torch.empty_like(xo[0]), torch.empty_like(xo[1]))
+    else:
+        xo, xs = (x.real.T.contiguous(), x.imag.T.contiguous()), (batch, 1)
+        yo = (torch.empty_like(xo[0]), torch.empty_like(xo[1]))
+    f = torch.empty(2, batch * bt.m, device=x.device)
+    fo, fs = (f[0], f[1]), (1, bt.m)
+    return (lambda plain=False: bl._fwd(xo, xs, fo, fs, batch, bt, plain),
+            lambda plain=False: bl._inv(fo, fs, yo, xs, batch, bt, plain), f, yo)
+
+
+def held_pair(kernel, plain) -> float:
+    """max |kernel - plain| / max |plain| over a pair of planes."""
+    return (max((a - p).abs().max().item() for a, p in zip(kernel, plain))
+            / max(p.abs().max().item() for p in plain))
+
+
+def _bl_alone(x: torch.Tensor, layout: str, inverse: bool) -> dict:
+    """Each kernel alone and its plain version on the same inputs: #17 on
+    x, then #18 on the plain version's intermediate. Returns {"fwd": (kernel,
+    plain), "inv": (kernel, plain)}, each output a pair of planes."""
+    fwd, inv, f, out = _bl_passes(x, layout, inverse)
+    fwd()
+    kf = f.clone()
+    fwd(plain=True)
+    inv()
+    ko = [t.clone() for t in out]
+    inv(plain=True)
+    return {"fwd": (kf, f), "inv": (ko, out)}
+
+
+def phase_bluestein_kernel_vs_plain(dev, gen) -> None:
+    worst, n_checked = 0.0, 0
+    for n in BL_SIZES:
+        m = bl.bluestein_m(n)
+        line = {"phase": "bluestein_kernel_vs_plain", "n": n, "m": m}
+        for batch in (3, POINTS // m):
+            x = rand_complex((batch, n), gen, dev)
+            re, im = x.real.contiguous(), x.imag.contiguous()
+            tre, tim = re.T.contiguous(), im.T.contiguous()
+            for inverse in (False, True):
+                p = bl.plain_bluestein_fft(x, inverse)
+                y = bl.bluestein_fft(x, inverse)
+                diffs = {"complex": rel_diff(y, p),
+                         "bm": rel_diff(torch.complex(*bl.bluestein_fft_bm(re, im, inverse)), p),
+                         "nb": rel_diff(torch.complex(*bl.bluestein_fft_nb(tre, tim, inverse)).T,
+                                        p)}
+                for layout in ("complex", "bm", "nb"):
+                    diffs.update({f"{key}_{layout}": held_pair(*pair)
+                                  for key, pair in _bl_alone(x, layout, inverse).items()})
+                worst = max(worst, *diffs.values())
+                n_checked += len(diffs)
+                check(max(diffs.values()) <= KERNEL_LIMIT,
+                      f"bluestein n={n} batch={batch} inverse={inverse}: kernel vs plain {diffs}")
+                if batch == 3:
+                    e = max_rel(y, c128(x, inverse))
+                    check(e <= MAX_REL["float32"],
+                          f"bluestein n={n} inverse={inverse}: {e:.3e} vs torch.fft c128")
+                    line[f"max_rel_vs_torch_fft_c128_{'inv' if inverse else 'fwd'}"] = e
+            line[f"batch_{batch}_max_rel_diff"] = max(diffs.values())
+        print(json.dumps(line), flush=True)
+    print(json.dumps({"phase": "bluestein_kernels_vs_plain", "sizes": len(BL_SIZES),
+                      "checks": n_checked, "max_rel_diff": worst}), flush=True)
+
+
+def _bl_run(label: str, calls, want_counts: dict, checks: dict, limits: dict) -> dict:
+    """Runs `calls` with the counts set to 0, checks the counts against
+    want_counts, then each of checks' values (a callable giving the error)
+    against its limit."""
+    torch.cuda.synchronize()
+    zero_counts()
+    outs = calls()
+    torch.cuda.synchronize()
+    launches = counts()
+    check(launches == expect(**want_counts), f"{label}: launches {launches}, "
+                                              f"expected {want_counts}")
+    res = {"phase": "any_n_main_path", "run": label, "launches": launches}
+    for key, err in checks.items():
+        res[key] = e = err(outs)
+        check(e <= limits[key], f"{label}: {key} {e:.3e} over {limits[key]}")
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def phase_bluestein_main_path(dev, gen) -> dict:
+    """The any-n path at full size through watfft_tpu_torch.fftlib."""
+    rel_lim, rt_lim = MAX_REL["float32"], ROUNDTRIP["float32"]
+    out = {}
+    # [4096, 1000] complex64: fft, ifft, the roundtrip, a backward
+    b, n = BL_MAIN_B, BL_MAIN_N
+    x = rand_complex((b, n), gen, dev)
+    g = rand_complex((b, n), gen, dev)
+    xg = x.clone().requires_grad_()
+
+    def main_calls():
+        y = fftlib.fft(x)
+        xi = fftlib.ifft(x)
+        back = fftlib.ifft(y)
+        fftlib.fft(xg).backward(g)
+        return y, xi, back
+
+    out["main"] = _bl_run(
+        f"fft/ifft [{b}, {n}]", main_calls, {"bluestein_fwd": 5, "bluestein_inv": 5},
+        {"fwd_max_rel_vs_torch_fft_c128": lambda o: max_rel(o[0], c128(x)),
+         "inv_max_rel_vs_torch_fft_c128": lambda o: max_rel(o[1], c128(x, True)),
+         "roundtrip_err": lambda o: (o[2] - x).abs().max().item(),
+         "grad_max_rel_vs_torch_fft_c128": lambda o: max_rel(xg.grad, c128(g, True) * n),
+         "kernels_vs_plain_rel": lambda o: rel_diff(o[0], bl.plain_bluestein_fft(x))},
+        {"fwd_max_rel_vs_torch_fft_c128": rel_lim, "inv_max_rel_vs_torch_fft_c128": rel_lim,
+         "roundtrip_err": rt_lim, "grad_max_rel_vs_torch_fft_c128": rel_lim,
+         "kernels_vs_plain_rel": KERNEL_LIMIT})
+    check(planner.bluestein_kernel(n, b) == "bluestein-fused", "the planner's route at n=1000")
+    # the same rows padded to 1024: the Stockham kernel, no Bluestein kernel
+    _bl_run(f"fft [{b}, {n}] n=1024", lambda: fftlib.fft(x, n=1024), {"stockham_c2c": 1},
+            {"max_rel_vs_torch_fft_c128": lambda o: max_rel(o, c128(
+                torch.cat([x, x.new_zeros(b, 1024 - n)], dim=-1)))},
+            {"max_rel_vs_torch_fft_c128": rel_lim})
+    # the prime n = 1009
+    xp = rand_complex((b, BL_PRIME_N), gen, dev)
+    out["prime"] = _bl_run(
+        f"fft/ifft [{b}, {BL_PRIME_N}]", lambda: (fftlib.fft(xp), fftlib.ifft(xp)),
+        {"bluestein_fwd": 2, "bluestein_inv": 2},
+        {"fwd_max_rel_vs_torch_fft_c128": lambda o: max_rel(o[0], c128(xp)),
+         "inv_max_rel_vs_torch_fft_c128": lambda o: max_rel(o[1], c128(xp, True))},
+        {"fwd_max_rel_vs_torch_fft_c128": rel_lim, "inv_max_rel_vs_torch_fft_c128": rel_lim})
+    # rfft / irfft at n = 400 on Whisper's framing of eight 30-s clips
+    clips, frames, nr = BL_REAL_SHAPE
+    hop = BL_REAL_HOP
+    sig = rand_real((clips, (frames - 1) * hop + nr), gen, dev)
+    window = torch.hann_window(nr, periodic=True, device=dev)
+    fr = sig.unfold(-1, nr, hop) * window
+    out["real"] = _bl_run(
+        f"rfft/irfft {list(BL_REAL_SHAPE)}",
+        lambda: (lambda s: (s, fftlib.irfft(s, n=nr)))(fftlib.rfft(fr)),
+        {"bluestein_fwd": 2, "bluestein_inv": 2},
+        {"fwd_max_rel_vs_torch_fft_f64": lambda o: max_rel(o[0], torch.fft.rfft(fr.double())),
+         "roundtrip_err": lambda o: (o[1] - fr).abs().max().item()},
+        {"fwd_max_rel_vs_torch_fft_f64": rel_lim, "roundtrip_err": rt_lim})
+    # irfft at odd n = 1001: the last bin's imaginary part is used
+    no = BL_ODD_N
+    spec = torch.complex(rand_real((b, no // 2 + 1), gen, dev),
+                         rand_real((b, no // 2 + 1), gen, dev))
+    spec[:, 0] = spec[:, 0].real.clone()  # cuFFT's c2r defines no result for Im X[0]
+    out["odd"] = _bl_run(
+        f"irfft [{b}, {no // 2 + 1}] n={no}", lambda: fftlib.irfft(spec, n=no),
+        {"bluestein_fwd": 1, "bluestein_inv": 1},
+        {"max_rel_vs_torch_fft_f64": lambda o: max_rel(o, torch.fft.irfft(spec.cdouble(), n=no))},
+        {"max_rel_vs_torch_fft_f64": rel_lim})
+    # the unfused route: m = 32768 on the four-step kernels (pipe2)
+    bu, nu = BL_UNFUSED_B, BL_UNFUSED_N
+    xu = rand_complex((bu, nu), gen, dev)
+    check(planner.bluestein_kernel(nu, bu) == "bluestein-large-pipe2",
+          f"the planner's route at n={nu}")
+    out["unfused"] = _bl_run(
+        f"fft/ifft [{bu}, {nu}]", lambda: (lambda y: (y, fftlib.ifft(y)))(fftlib.fft(xu)),
+        {"large_stage1": 4, "large_stage2": 4},
+        {"fwd_max_rel_vs_torch_fft_c128": lambda o: max_rel(o[0], c128(xu)),
+         "roundtrip_err": lambda o: (o[1] - xu).abs().max().item()},
+        {"fwd_max_rel_vs_torch_fft_c128": rel_lim, "roundtrip_err": rt_lim})
+    # fft2 / ifft2 axis by axis: two Bluestein transforms per call
+    x2 = rand_complex(BL_2D_SHAPE, gen, dev)
+    out["2d"] = _bl_run(
+        f"fft2/ifft2 {list(BL_2D_SHAPE)}",
+        lambda: (lambda y: (y, fftlib.ifft2(y)))(fftlib.fft2(x2)),
+        {"bluestein_fwd": 4, "bluestein_inv": 4},
+        {"fwd_max_rel_vs_torch_fft_c128": lambda o: max_rel(o[0], c128_2d(x2)),
+         "roundtrip_err": lambda o: (o[1] - x2).abs().max().item()},
+        {"fwd_max_rel_vs_torch_fft_c128": rel_lim, "roundtrip_err": rt_lim})
+    return out
+
+
+def phase_bluestein_times(dev, gen, name: str, limit: str) -> dict:
+    """Each n at 2^22 points per call: #17 and #18 alone (complex64
+    layout), the whole transform, the plain version, torch.fft.fft and a
+    device copy of the same bytes; then the main shapes and the host time
+    per call at a small batch."""
+    times = {}
+    for n in BL_TIME_SIZES:
+        batch = POINTS // n
+        x = rand_complex((batch, n), gen, dev)
+        out = torch.empty_like(x)
+        route = planner.bluestein_kernel(n, batch)
+        fns = {"fft": lambda: bl.bluestein_fft(x), "ifft": lambda: bl.bluestein_fft(x, True),
+               "lib_fft": lambda: torch.fft.fft(x), "copy": lambda: out.copy_(x)}
+        if route == "bluestein-fused":
+            fwd, inv, _, _ = _bl_passes(x, "complex")
+            fns.update({"fwd": fwd, "inv": inv})
+        row = {"route": route, "m": bl.bluestein_m(n)}
+        for key, fn in fns.items():
+            dev_ms, call_ms = time_ms(fn)
+            row[key + "_ms"] = dev_ms
+            row[key + "_call_ms"] = call_ms
+        row["plain_ms"] = time_ms(lambda: bl.plain_bluestein_fft(x), reps=3, warmup=1)[0]
+        times[n] = row
+        print(json.dumps({"phase": "bluestein_times", "n": n, "batch": batch, **row,
+                          "card": name, "power_limit": limit}), flush=True)
+    clips, frames, nr = BL_REAL_SHAPE
+    fr = rand_real(BL_REAL_SHAPE, gen, dev)
+    spec = fftlib.rfft(fr)
+    xm = rand_complex((BL_MAIN_B, BL_MAIN_N), gen, dev)
+    xu = rand_complex((BL_UNFUSED_B, BL_UNFUSED_N), gen, dev)
+    xm_u = rand_complex((BL_UNFUSED_B, bl.bluestein_m(BL_UNFUSED_N)), gen, dev)
+    x2 = rand_complex(BL_2D_SHAPE, gen, dev)
+    fns = {"fft_main": lambda: fftlib.fft(xm), "lib_fft_main": lambda: torch.fft.fft(xm),
+           "rfft_real": lambda: fftlib.rfft(fr), "lib_rfft_real": lambda: torch.fft.rfft(fr),
+           "irfft_real": lambda: fftlib.irfft(spec, n=nr),
+           "lib_irfft_real": lambda: torch.fft.irfft(spec, n=nr),
+           "fft_unfused": lambda: fftlib.fft(xu), "lib_fft_unfused": lambda: torch.fft.fft(xu),
+           "fft_m_unfused": lambda: wtt.fft(xm_u),  # one of its two m-point transforms
+           "fft2_2d": lambda: fftlib.fft2(x2), "lib_fft2_2d": lambda: torch.fft.fft2(x2)}
+    row = {}
+    for key, fn in fns.items():
+        dev_ms, call_ms = time_ms(fn)
+        row[key + "_ms"] = dev_ms
+        row[key + "_call_ms"] = call_ms
+    print(json.dumps({"phase": "bluestein_main_times", "main": [BL_MAIN_B, BL_MAIN_N],
+                      "real": list(BL_REAL_SHAPE), "unfused": [BL_UNFUSED_B, BL_UNFUSED_N],
+                      "2d": list(BL_2D_SHAPE), **row, "card": name, "power_limit": limit}),
+          flush=True)
+    times["main"] = row
+    x8 = rand_complex((8, BL_MAIN_N), gen, dev)
+    host = {}
+    for key, fn in {"fftlib_fft": lambda: fftlib.fft(x8),
+                    "bluestein_fft": lambda: bl.bluestein_fft(x8),
+                    "lib_fft": lambda: torch.fft.fft(x8)}.items():
+        dev_ms, call_ms = time_ms(fn, reps=200)
+        host[key + "_ms"], host[key + "_call_ms"] = dev_ms, call_ms
+    print(json.dumps({"phase": "bluestein_host", "n": BL_MAIN_N, "batch": 8, **host,
+                      "card": name, "power_limit": limit}), flush=True)
+    return times
+
+
+def bluestein_kernel_rows(main: dict, dev, gen, name: str, limit: str) -> list:
+    """#17 and #18 at the main path's [4096, 1000] (complex64), each held
+    against its plain version there in both directions and timed alone.
+    Bytes: 8 (n + m) per transform each (n points read and m written, or
+    the reverse); flops 5 m log2 m + 6 (n + m) per transform. The library
+    call, torch.fft.fft on the same tensor, computes the pair."""
+    b, n = BL_MAIN_B, BL_MAIN_N
+    m = bl.bluestein_m(n)
+    x = rand_complex((b, n), gen, dev)
+    errs = {"bluestein_fwd": 0.0, "bluestein_inv": 0.0}
+    rels = {}
+    for inverse in (False, True):
+        for which, (k, p) in _bl_alone(x, "complex", inverse).items():
+            key = "bluestein_" + which
+            errs[key] = max(errs[key], max((a - q).abs().max().item() for a, q in zip(k, p)))
+            rels[f"{key} inverse={inverse}"] = rel = held_pair(k, p)
+            check(rel <= KERNEL_LIMIT, f"{key} at [{b}, {n}] inverse={inverse}: {rel:.3e} vs plain")
+    print(json.dumps({"phase": "bluestein_kernels_at_main_shape", "rel_diff_vs_plain": rels}),
+          flush=True)
+    fwd, inv, _, _ = _bl_passes(x, "complex")
+    lib = time_ms(lambda: torch.fft.fft(x))[0]
+    bnd = bound(8 * (n + m) * b, (5 * m * (m.bit_length() - 1) + 6 * (n + m)) * b)
+    rows = []
+    for key, fn, repl in (("bluestein_fwd", fwd, "watfft_tpu/ops/bluestein.py:91"),
+                          ("bluestein_inv", inv, "watfft_tpu/ops/bluestein.py:113")):
+        rows.append({"name": key, "route": "cuda", "source": BL_SRC, "replaces": repl,
+                     "also_replaces": [], "launches": main["main"]["launches"][key],
+                     "max_abs_err": errs[key], "ms": time_ms(fn)[0],
+                     "plain_ms": time_ms(lambda: fn(plain=True), reps=3, warmup=1)[0],
+                     "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib,
+                     "library_call": f"torch.fft.fft on [{b}, {n}] complex64 (the pair #17 + #18)",
+                     "card": name, "power_limit": limit})
+    return rows
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     """The least time in ms the card could take: bytes over its memory rate
     or flops over its FP32 rate, whichever is larger, and which one."""
@@ -1382,13 +1699,17 @@ def main() -> int:
         fft2_main = phase_fft2_main_path(dev, gen)
         fft2_times = phase_fft2_times(dev, gen, name, limit)
         fft2_rows = fft2_kernel_rows(fft2_main, fft2_times, dev, gen)
+        phase_bluestein_kernel_vs_plain(dev, gen)
+        bl_main = phase_bluestein_main_path(dev, gen)
+        phase_bluestein_times(dev, gen, name, limit)
+        bl_rows = bluestein_kernel_rows(bl_main, dev, gen, name, limit)
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
-    print(json.dumps(kernels_line({"launches": launches, "max_abs_err": max_abs_err},
-                                  real_launches, real_errs, times, real_times, large_rows,
-                                  fft2_rows, name, limit)),
-          flush=True)
+    line = kernels_line({"launches": launches, "max_abs_err": max_abs_err}, real_launches,
+                        real_errs, times, real_times, large_rows, fft2_rows, name, limit)
+    line["kernels"].extend(bl_rows)
+    print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -403,3 +403,82 @@ def test_fft2_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(RuntimeError, match="radix outside"):
         f2._complex_route(torch.zeros(64, 8, device=dev, dtype=torch.complex64), False,
                           "fft2-cube", (big, small))
+
+
+# -- the any-n path ---------------------------------------------------------------------
+
+BLUESTEIN_SIZES = [2, 3, 5, 7, 12, 17, 97, 360, 1000, 1009, 2047, 2048]
+
+
+@pytest.mark.parametrize("n", BLUESTEIN_SIZES)
+def test_bluestein_kernels_match_plain_all_layouts(n, dev):
+    """#17 and #18 alone (time-major [n, b] -> [m, b] -> [n, b]) and the
+    fused transform in three layouts, on ragged batches, both directions."""
+    from watfft_tpu_torch.ops import bluestein as bl
+    for batch in (1, 3, 257):
+        x = _x((batch, n), seed=n + batch, dev=dev)
+        re, im = x.real.contiguous(), x.imag.contiguous()
+        tre, tim = re.T.contiguous(), im.T.contiguous()
+        for inverse in (False, True):
+            f = bl.bluestein_fwd(tre, tim, inverse)
+            pf = bl.plain_bluestein_fwd(tre, tim, inverse)
+            assert _rel(torch.complex(*f), torch.complex(*pf)) <= KERNEL_LIMIT
+            g = torch.complex(*bl.bluestein_inv(*pf, n, inverse))
+            assert _rel(g, torch.complex(*bl.plain_bluestein_inv(*pf, n, inverse))) <= KERNEL_LIMIT
+            want = bl.plain_bluestein_fft(x, inverse)
+            before = dict(bl.launches)
+            assert _rel(bl.bluestein_fft(x, inverse), want) <= KERNEL_LIMIT
+            assert _rel(torch.complex(*bl.bluestein_fft_bm(re, im, inverse)), want) <= KERNEL_LIMIT
+            assert _rel(torch.complex(*bl.bluestein_fft_nb(tre, tim, inverse)).T, want) \
+                <= KERNEL_LIMIT
+            assert bl.launches == {k: v + 3 for k, v in before.items()}
+            ref = (torch.fft.ifft if inverse else torch.fft.fft)(x.to(torch.complex128))
+            got = bl.bluestein_fft(x, inverse).to(torch.complex128)
+            assert _rel(got, ref) <= MAX_REL["float32"]
+
+
+def test_fftlib_any_n_on_the_card(dev):
+    """The namespace's any-n routes: fused Bluestein (launch counts), the
+    unfused route past n = 2048 on the four-step kernels, rfft / irfft of
+    both parities, a padded call on the Stockham kernel, a backward."""
+    from watfft_tpu_torch import fftlib
+    from watfft_tpu_torch.ops import bluestein as bl
+    x = _x((4, 1000), seed=11, dev=dev)
+    want = torch.fft.fft(x.to(torch.complex128))
+    before, c2c = dict(bl.launches), st.launches
+    y = fftlib.fft(x)
+    assert bl.launches == {k: v + 1 for k, v in before.items()} and st.launches == c2c
+    assert _rel(y.to(torch.complex128), want) <= MAX_REL["float32"]
+    assert (fftlib.ifft(y) - x).abs().max().item() < 1e-4
+    fftlib.fft(x, n=1024)
+    assert st.launches == c2c + 1 and bl.launches == {k: v + 2 for k, v in before.items()}
+    xu = _x((2, 4099), seed=12, dev=dev)
+    stage1 = lg.launches["stage1"] + lg.launches["cube"]
+    yu = fftlib.fft(xu)
+    assert lg.launches["stage1"] + lg.launches["cube"] == stage1 + 2
+    want = torch.fft.fft(xu.to(torch.complex128))
+    assert _rel(yu.to(torch.complex128), want) <= MAX_REL["float32"]
+    for n in (400, 401):
+        r = _r((3, n), n, dev)
+        assert _rel(fftlib.rfft(r).to(torch.complex128), torch.fft.rfft(r.double())) \
+            <= MAX_REL["float32"]
+        assert (fftlib.irfft(fftlib.rfft(r), n=n) - r).abs().max().item() < 1e-4
+    xg = x.clone().requires_grad_()
+    g = _x((4, 1000), seed=13, dev=dev)
+    fftlib.fft(xg).backward(g)
+    assert _rel(xg.grad.to(torch.complex128),
+                torch.fft.ifft(g.to(torch.complex128)) * 1000) <= MAX_REL["float32"]
+
+
+def test_bluestein_kernels_refuse_what_they_do_not_take(dev):
+    from watfft_tpu_torch.ops import bluestein as bl
+    for n in (12, 4099):  # the fused and the unfused route
+        with pytest.raises(TypeError, match="float32"):
+            bl.bluestein_fft_nb(*(torch.zeros(n, 2, device=dev, dtype=torch.float64),) * 2)
+    bt = bl.device_bluestein_tables(12, False, dev)
+    x = torch.zeros(2 * bt.m, device=dev)
+    with pytest.raises(RuntimeError, match="out of range"):  # n > m: kErrArgs
+        bl._launch(True, (x, x), (1, bt.m), (x, x), (1, bt.m), bt.m + 1, 1, bt)
+    cpu_tables = bl.device_bluestein_tables(12, False, "cpu")
+    with pytest.raises(ValueError, match="tables on cpu"):
+        bl.bluestein_fft_nb(*(torch.zeros(12, 2, device=dev),) * 2, tables=cpu_tables)

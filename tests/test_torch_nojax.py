@@ -22,13 +22,15 @@ import watfft_tpu_torch.convert, watfft_tpu_torch.planner, watfft_tpu_torch.ops.
 import watfft_tpu_torch.ops.rfft, watfft_tpu_torch.stft
 import watfft_tpu_torch.ops.large, watfft_tpu_torch.ops.fourstep, watfft_tpu_torch.plan
 import watfft_tpu_torch.ops.fft2
+import watfft_tpu_torch.fftlib, watfft_tpu_torch.ops.bluestein
 import chip_smoke
 loaded = sorted(m for m, v in sys.modules.items() if v is not None
                 and m.split(".")[0] in ("jax", "jaxlib", "watfft_tpu"))
 print(json.dumps({{"loaded": loaded, "launches": watfft_tpu_torch.ops.stockham.launches,
                   "real_launches": sum(watfft_tpu_torch.ops.rfft.launches.values()),
                   "large_launches": sum(watfft_tpu_torch.ops.large.launches.values()),
-                  "fft2_launches": sum(watfft_tpu_torch.ops.fft2.launches.values())}}))
+                  "fft2_launches": sum(watfft_tpu_torch.ops.fft2.launches.values()),
+                  "bluestein_launches": sum(watfft_tpu_torch.ops.bluestein.launches.values())}}))
 """
 
 
@@ -39,4 +41,4 @@ def test_port_and_chip_smoke_import_without_jax():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     # importing chip_smoke ran nothing
     assert out == {"loaded": [], "launches": 0, "real_launches": 0, "large_launches": 0,
-                   "fft2_launches": 0}
+                   "fft2_launches": 0, "bluestein_launches": 0}

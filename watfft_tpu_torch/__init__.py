@@ -6,8 +6,11 @@ real FFT (rfft / irfft) over n = 4..2^25, forward and inverse, behind the
 JAX package's plan-once context API, the large-N functions of
 `watfft_tpu/ops/large.py` (`fft_large`, `fft_large_nb`, `rfft_large_nb`,
 `irfft_large_nb`, `large_split`), the 2D FFT over the trailing [h, w] axes
-(`fft2`, `ifft2`, `rfft2`, `irfft2`, `fft2_nb`), and the STFT pipeline on
-the real FFT (`watfft_tpu_torch.stft`). Contexts run on the CUDA device by default,
+(`fft2`, `ifft2`, `rfft2`, `irfft2`, `fft2_nb`), the complex FFT of any
+length n by the Bluestein chirp-z transform (`bluestein_fft_nb`), the
+numpy.fft-style namespace on all of these (`watfft_tpu_torch.fftlib`: any
+n, `axis`/`axes`/`s`/`n`/`norm`), and the STFT pipeline on the real FFT
+(`watfft_tpu_torch.stft`). Entry points run on the CUDA device by default,
 where every call launches kernels written for Hopper (`ops/csrc/*.cu`,
 built with nvcc at first use); with `device="cpu"` they run the kernels'
 plain torch versions. Needs torch and numpy, never JAX.
@@ -16,10 +19,12 @@ plain torch versions. Needs torch and numpy, never JAX.
 from . import stft
 from .api import (FFTContext, RFFTContext, create_fft_f32, create_rfft_f32, fft, fft2,
                   ifft, ifft2, irfft, irfft2, rfft, rfft2)
+from . import fftlib
+from .ops.bluestein import bluestein_fft_nb
 from .ops.fft2 import fft2_nb
 from .ops.large import fft_large, fft_large_nb, irfft_large_nb, large_split, rfft_large_nb
 
 __all__ = ["FFTContext", "RFFTContext", "create_fft_f32", "create_rfft_f32",
            "fft", "ifft", "rfft", "irfft", "fft2", "ifft2", "rfft2", "irfft2", "fft2_nb",
            "fft_large", "fft_large_nb", "rfft_large_nb", "irfft_large_nb", "large_split",
-           "stft"]
+           "bluestein_fft_nb", "fftlib", "stft"]

@@ -4,9 +4,10 @@ Counterpart of `watfft_tpu/planner.py`. The port has the Stockham engine
 of `ops/stockham.py` (complex, f32, power-of-two n up to 4096: one
 transform per thread block), the real FFT of `ops/rfft.py` on it (n up to
 8192, its core being n/2 points), the four-step large-N kernels of
-`ops/large.py` (n = 8192 .. 2^24, both factors run by the engine) and the
-matmul surface of `ops/fourstep.py` past them. Sizes and dtypes it does not
-cover raise: the planner never hands a call to `torch.fft`, which would
+`ops/large.py` (n = 8192 .. 2^24, both factors run by the engine), the
+matmul surface of `ops/fourstep.py` past them, and the Bluestein transform
+of `ops/bluestein.py` for any other n, on these. Sizes and dtypes it does
+not cover raise: the planner never hands a call to `torch.fft`, which would
 hide the kernels. Its TPU decision tables (crossovers, overrides, the
 per-size fused/hybrid sets `config.RFFT_FUSED_*`, the VMEM-derived
 `CUBE_MAX_N` and `LARGE_NB_MAX_N`) were measured on a TPU and do not carry
@@ -19,6 +20,7 @@ from .plan import is_power_of_two
 
 __all__ = ["STOCKHAM_MAX_N", "RFFT_MAX_N", "LARGE_MIN_N", "CUBE_MAX_N", "CUBE_MIN_BATCH",
            "LARGE_MAX_N", "RFFT_LARGE_MAX_N", "c2c_kernel", "large_mode", "r2c_kernel",
+           "bluestein_kernel",
            "FFT2_CUBE_MIN_BATCH", "FFT2_NATIVE_MAX_AXIS", "FFT2_NATIVE_MIN_BATCH", "fft2_kernel"]
 
 # One transform per thread block: n/16 threads of at most 256.
@@ -95,6 +97,29 @@ def r2c_kernel(n: int, dtype: str, direction: str = "forward") -> str:
     raise NotImplementedError(
         f"n={n}: the port's real FFT covers n <= {RFFT_LARGE_MAX_N}; the real "
         f"matmul surface past it is not ported")
+
+
+def bluestein_kernel(n: int, batch: int | None = None) -> str:
+    """The route of the Bluestein transform of n >= 1 points (ops/bluestein.py),
+    fused or not by its convolution length m = bluestein_m(n) alone:
+    "bluestein-fused" (#17 and #18, csrc/bluestein.cu) for
+    m <= STOCKHAM_MAX_N, i.e. n <= 2048; otherwise "bluestein-" + the
+    m-point route of `c2c_kernel` at this batch ("bluestein-large-cube",
+    "bluestein-large-pipe2", "bluestein-fourstep"), with the chirp
+    multiplies as torch ops. The threshold is one thread block of the stage
+    engine: each fused kernel holds whole m-point transforms in shared
+    memory, m/16 threads a transform and at most 256 a block, as the c2c
+    kernel does. The JAX package's threshold is its Stockham kernel's
+    range on the TPU (`_fused_available`), VMEM-derived, which does not
+    carry over."""
+    if n < 1:
+        raise ValueError(f"the FFT takes n >= 1 points, got n={n!r}")
+    from .ops.bluestein import bluestein_m
+
+    m = bluestein_m(n)
+    if m <= STOCKHAM_MAX_N:
+        return "bluestein-fused"
+    return "bluestein-" + c2c_kernel(m, "float32", batch)
 
 
 # The least batch at which the 2D cube beats the 2-pass route, per h*w, in
