@@ -1400,10 +1400,30 @@ def phase_bluestein_kernel_vs_plain(dev, gen) -> None:
                       "checks": n_checked, "max_rel_diff": worst}), flush=True)
 
 
+def _bl_vs_plain(pairs) -> float:
+    """The largest rel_diff of #17 + #18 (bluestein_fft) against their plain
+    version over (input, inverse, output) triples: output, where given, is
+    what the main path's kernels made of input, else they run again on it."""
+    worst = 0.0
+    for x, inverse, y in pairs:
+        y = bl.bluestein_fft(x, inverse) if y is None else y
+        worst = max(worst, rel_diff(y, bl.plain_bluestein_fft(x, inverse)))
+    return worst
+
+
+def _bl_2d_vs_plain(x: torch.Tensor, inverse: bool) -> float:
+    """#17 + #18 against their plain version on fftlib's operands of an
+    axis-by-axis fft2 (ifft2) of x: the rows of x, then the columns of the
+    row pass's output, moved to the last axis."""
+    rows = bl.bluestein_fft(x, inverse)
+    return _bl_vs_plain([(x, inverse, rows), (rows.movedim(-2, -1), inverse, None)])
+
+
 def _bl_run(label: str, calls, want_counts: dict, checks: dict, limits: dict) -> dict:
     """Runs `calls` with the counts set to 0, checks the counts against
     want_counts, then each of checks' values (a callable giving the error)
-    against its limit."""
+    against its limit. The checks run after the counts are read: their
+    launches do not count."""
     torch.cuda.synchronize()
     zero_counts()
     outs = calls()
@@ -1458,8 +1478,10 @@ def phase_bluestein_main_path(dev, gen) -> dict:
         f"fft/ifft [{b}, {BL_PRIME_N}]", lambda: (fftlib.fft(xp), fftlib.ifft(xp)),
         {"bluestein_fwd": 2, "bluestein_inv": 2},
         {"fwd_max_rel_vs_torch_fft_c128": lambda o: max_rel(o[0], c128(xp)),
-         "inv_max_rel_vs_torch_fft_c128": lambda o: max_rel(o[1], c128(xp, True))},
-        {"fwd_max_rel_vs_torch_fft_c128": rel_lim, "inv_max_rel_vs_torch_fft_c128": rel_lim})
+         "inv_max_rel_vs_torch_fft_c128": lambda o: max_rel(o[1], c128(xp, True)),
+         "kernels_vs_plain_rel": lambda o: _bl_vs_plain([(xp, False, o[0]), (xp, True, o[1])])},
+        {"fwd_max_rel_vs_torch_fft_c128": rel_lim, "inv_max_rel_vs_torch_fft_c128": rel_lim,
+         "kernels_vs_plain_rel": KERNEL_LIMIT})
     # rfft / irfft at n = 400 on Whisper's framing of eight 30-s clips
     clips, frames, nr = BL_REAL_SHAPE
     hop = BL_REAL_HOP
@@ -1471,8 +1493,14 @@ def phase_bluestein_main_path(dev, gen) -> dict:
         lambda: (lambda s: (s, fftlib.irfft(s, n=nr)))(fftlib.rfft(fr)),
         {"bluestein_fwd": 2, "bluestein_inv": 2},
         {"fwd_max_rel_vs_torch_fft_f64": lambda o: max_rel(o[0], torch.fft.rfft(fr.double())),
-         "roundtrip_err": lambda o: (o[1] - fr).abs().max().item()},
-        {"fwd_max_rel_vs_torch_fft_f64": rel_lim, "roundtrip_err": rt_lim})
+         "roundtrip_err": lambda o: (o[1] - fr).abs().max().item(),
+         # the complex operands the kernels were fed: the frames, and the
+         # Hermitian extension of the spectrum
+         "kernels_vs_plain_rel": lambda o: _bl_vs_plain([
+             (fr.to(torch.complex64), False, None),
+             (fftlib._hermitian_full(o[0], nr), True, None)])},
+        {"fwd_max_rel_vs_torch_fft_f64": rel_lim, "roundtrip_err": rt_lim,
+         "kernels_vs_plain_rel": KERNEL_LIMIT})
     # irfft at odd n = 1001: the last bin's imaginary part is used
     no = BL_ODD_N
     spec = torch.complex(rand_real((b, no // 2 + 1), gen, dev),
@@ -1481,8 +1509,10 @@ def phase_bluestein_main_path(dev, gen) -> dict:
     out["odd"] = _bl_run(
         f"irfft [{b}, {no // 2 + 1}] n={no}", lambda: fftlib.irfft(spec, n=no),
         {"bluestein_fwd": 1, "bluestein_inv": 1},
-        {"max_rel_vs_torch_fft_f64": lambda o: max_rel(o, torch.fft.irfft(spec.cdouble(), n=no))},
-        {"max_rel_vs_torch_fft_f64": rel_lim})
+        {"max_rel_vs_torch_fft_f64": lambda o: max_rel(o, torch.fft.irfft(spec.cdouble(), n=no)),
+         "kernels_vs_plain_rel": lambda o: _bl_vs_plain(
+             [(fftlib._hermitian_full(spec, no), True, None)])},
+        {"max_rel_vs_torch_fft_f64": rel_lim, "kernels_vs_plain_rel": KERNEL_LIMIT})
     # the unfused route: m = 32768 on the four-step kernels (pipe2)
     bu, nu = BL_UNFUSED_B, BL_UNFUSED_N
     xu = rand_complex((bu, nu), gen, dev)
@@ -1501,8 +1531,11 @@ def phase_bluestein_main_path(dev, gen) -> dict:
         lambda: (lambda y: (y, fftlib.ifft2(y)))(fftlib.fft2(x2)),
         {"bluestein_fwd": 4, "bluestein_inv": 4},
         {"fwd_max_rel_vs_torch_fft_c128": lambda o: max_rel(o[0], c128_2d(x2)),
-         "roundtrip_err": lambda o: (o[1] - x2).abs().max().item()},
-        {"fwd_max_rel_vs_torch_fft_c128": rel_lim, "roundtrip_err": rt_lim})
+         "roundtrip_err": lambda o: (o[1] - x2).abs().max().item(),
+         "kernels_vs_plain_rel": lambda o: max(_bl_2d_vs_plain(x2, False),
+                                               _bl_2d_vs_plain(o[0], True))},
+        {"fwd_max_rel_vs_torch_fft_c128": rel_lim, "roundtrip_err": rt_lim,
+         "kernels_vs_plain_rel": KERNEL_LIMIT})
     return out
 
 

@@ -479,6 +479,3 @@ def test_bluestein_kernels_refuse_what_they_do_not_take(dev):
     x = torch.zeros(2 * bt.m, device=dev)
     with pytest.raises(RuntimeError, match="out of range"):  # n > m: kErrArgs
         bl._launch(True, (x, x), (1, bt.m), (x, x), (1, bt.m), bt.m + 1, 1, bt)
-    cpu_tables = bl.device_bluestein_tables(12, False, "cpu")
-    with pytest.raises(ValueError, match="tables on cpu"):
-        bl.bluestein_fft_nb(*(torch.zeros(12, 2, device=dev),) * 2, tables=cpu_tables)

@@ -124,20 +124,22 @@ def rfft(a, n=None, axis=-1, norm=None, device="cuda"):
     return _scaled(out, s).movedim(-1, axis)
 
 
-def _irfft_bluestein(moved: torch.Tensor, n: int) -> torch.Tensor:
-    """irfft of any length n: the Bluestein inverse of the full Hermitian
-    spectrum, numpy's semantics exactly — the imaginary part of bin 0 is
-    ignored, and for even n so is the Nyquist bin's, while for odd n the
-    last bin's imaginary part is used (there is no Nyquist bin)."""
-    spec = moved.clone()
+def _hermitian_bins(spec: torch.Tensor, n: int) -> torch.Tensor:
+    """A copy of the n//2+1 bins of an n-point irfft with numpy's rules
+    applied (watfft_tpu/fftlib.py:205-216): the imaginary part of bin 0 is dropped,
+    and for even n that of the Nyquist bin; odd n keeps its last bin's."""
+    spec = spec.clone()
     spec[..., 0].imag.zero_()
     if n % 2 == 0:
         spec[..., -1].imag.zero_()
-        mid = spec[..., 1:-1]
-    else:
-        mid = spec[..., 1:]
-    full = torch.cat([spec, mid.flip(-1).conj()], dim=-1)
-    return bluestein.bluestein_fft(full, True).real.contiguous()
+    return spec
+
+
+def _hermitian_full(spec: torch.Tensor, n: int) -> torch.Tensor:
+    """The full n-point Hermitian spectrum of the n//2+1 bins: the bins
+    (numpy's rules applied), then bins (n-1)//2 .. 1 conjugated."""
+    spec = _hermitian_bins(spec, n)
+    return torch.cat([spec, spec[..., 1:(n + 1) // 2].flip(-1).conj()], dim=-1)
 
 
 def irfft(a, n=None, axis=-1, norm=None, device="cuda"):
@@ -150,15 +152,12 @@ def irfft(a, n=None, axis=-1, norm=None, device="cuda"):
     s = _norm_scale(norm, n, "inv")
     moved = a.movedim(axis, -1)
     if n >= 2 and _is_pow2(n):
-        # numpy semantics: the imaginary parts of the DC and Nyquist bins are
-        # ignored; the port's kernels read those rows (the JAX package's
-        # composed map), so they are zeroed here (fftlib.py:205-216)
-        spec = moved.clone()
-        spec[..., 0].imag.zero_()
-        spec[..., -1].imag.zero_()
-        out = api.irfft(spec, device=spec.device)
+        # the port's kernels read the imaginary parts numpy ignores (the JAX
+        # package's composed map), so they are zeroed first
+        out = api.irfft(_hermitian_bins(moved, n), device=moved.device)
     else:
-        out = _irfft_bluestein(moved, n)
+        # any other length: the Bluestein inverse of the full spectrum
+        out = bluestein.bluestein_fft(_hermitian_full(moved, n), True).real.contiguous()
     return _scaled(out, s).movedim(-1, axis)
 
 

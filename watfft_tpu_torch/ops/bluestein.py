@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from .. import api, planner
+from ..planner import bluestein_m
 from . import large, stockham
 from .stockham import Tables, check_device, run_stages
 
@@ -66,14 +67,6 @@ __all__ = ["bluestein_m", "chirp_tables", "BluesteinTables", "make_bluestein_tab
 # Kernel launches made by the CUDA wrappers since the counts were last set
 # to 0: #17 and #18. The unfused route counts in `large.launches`.
 launches = {"bluestein_fwd": 0, "bluestein_inv": 0}
-
-
-def bluestein_m(n: int) -> int:
-    """Power-of-two circular-convolution length m >= 2n - 1."""
-    m = 1
-    while m < 2 * n - 1:
-        m <<= 1
-    return m
 
 
 @functools.cache
@@ -165,20 +158,9 @@ def _cached(n: int, inverse: bool, device: torch.device) -> BluesteinTables:
 
 def device_bluestein_tables(n: int, inverse: bool, device) -> BluesteinTables:
     """The port's own tables for (n, direction), built once per device."""
-    return _cached(int(n), bool(inverse), check_device(device))
-
-
-def _resolve(tables, n: int, inverse: bool, device) -> BluesteinTables:
     if n < 1:
         raise ValueError(f"the FFT takes n >= 1 points, got n={n}")
-    if tables is None:
-        return device_bluestein_tables(n, inverse, device)
-    check_device(device)
-    if tables.n != n or tables.inverse != inverse:
-        raise ValueError(f"tables are for n={tables.n} "
-                         f"{'inverse' if tables.inverse else 'forward'}, got n={n} "
-                         f"{'inverse' if inverse else 'forward'}")
-    return tables
+    return _cached(int(n), bool(inverse), check_device(device))
 
 
 # -- each kernel: plain version and launch ---------------------------------------
@@ -230,8 +212,6 @@ def _launch(fwd: bool, x, xs, y, ys, n: int, batch: int, bt: BluesteinTables) ->
     from ._build import library
 
     stockham._kernel_dtype(x[0], torch.float32)
-    if bt.cre.device != x[0].device:
-        raise ValueError(f"tables on {bt.cre.device}, data on {x[0].device}")
     lib = library()
     key = "bluestein_fwd" if fwd else "bluestein_inv"
     t = bt.fwd if fwd else bt.inv
@@ -279,11 +259,20 @@ def _check_planes(a, b) -> None:
 
 
 def _kernel_planes(xre, xim, rows: int, n: int, inverse: bool, tables, fwd: bool, plain: bool):
-    """One kernel on the JAX kernels' time-major planes [rows, b]."""
+    """One kernel on the JAX kernels' time-major planes [rows, b], on the
+    port's tables or (the plain versions) the caller's."""
     _check_planes(xre, xim)
     if xre.dim() != 2 or xre.shape[0] != rows:
         raise ValueError(f"expected [{rows}, b] planes, got {tuple(xre.shape)}")
-    bt = _resolve(tables, n, bool(inverse), xre.device)
+    inverse = bool(inverse)
+    if tables is None:
+        bt = device_bluestein_tables(n, inverse, xre.device)
+    elif (tables.n, tables.inverse) != (n, inverse):
+        raise ValueError(f"tables are for n={tables.n} "
+                         f"{'inverse' if tables.inverse else 'forward'}, got n={n} "
+                         f"{'inverse' if inverse else 'forward'}")
+    else:
+        bt = tables
     if bt.fwd is None:
         raise ValueError(f"n={n}: m={bt.m} is past the fused kernels' one block "
                          f"(planner.bluestein_kernel)")
@@ -296,31 +285,33 @@ def _kernel_planes(xre, xim, rows: int, n: int, inverse: bool, tables, fwd: bool
     return y
 
 
-def bluestein_fwd(xre, xim, inverse: bool = False, tables: BluesteinTables | None = None):
+def bluestein_fwd(xre, xim, inverse: bool = False):
     """#17 alone on time-major planes [n, b] -> [m, b] (the shapes of the
     JAX package's `_bl_fwd_call`). `inverse` picks the direction's tables
     (the conjugate chirp); the m-point stages are forward either way."""
     n = xre.shape[0]
-    return _kernel_planes(xre, xim, n, n, inverse, tables, True, plain=False)
+    return _kernel_planes(xre, xim, n, n, inverse, None, True, plain=False)
 
 
 def plain_bluestein_fwd(xre, xim, inverse: bool = False, tables: BluesteinTables | None = None):
-    """The plain version of `bluestein_fwd`, on any device."""
+    """The plain version of `bluestein_fwd`, on any device; `tables` (for
+    example the JAX package's, through `convert.bluestein_tables_from_jax`)
+    replace the port's own."""
     n = xre.shape[0]
     return _kernel_planes(xre, xim, n, n, inverse, tables, True, plain=True)
 
 
-def bluestein_inv(fre, fim, n: int, inverse: bool = False,
-                  tables: BluesteinTables | None = None):
+def bluestein_inv(fre, fim, n: int, inverse: bool = False):
     """#18 alone on time-major planes [m, b] -> [n, b] (`_bl_inv_call`'s
     shapes): the m-point inverse, the first n rows times the final chirp
     (with 1/n for the Bluestein inverse)."""
-    return _kernel_planes(fre, fim, bluestein_m(n), n, inverse, tables, False, plain=False)
+    return _kernel_planes(fre, fim, bluestein_m(n), n, inverse, None, False, plain=False)
 
 
 def plain_bluestein_inv(fre, fim, n: int, inverse: bool = False,
                         tables: BluesteinTables | None = None):
-    """The plain version of `bluestein_inv`, on any device."""
+    """The plain version of `bluestein_inv`, on any device; `tables` as for
+    `plain_bluestein_fwd`."""
     return _kernel_planes(fre, fim, bluestein_m(n), n, inverse, tables, False, plain=True)
 
 
@@ -360,7 +351,7 @@ def _run(x, xs, y, batch: int, bt: BluesteinTables, plain: bool) -> None:
         for src, dst in zip(x, y):
             _as(dst, (batch,), (xs[1],)).copy_(_as(src, (batch,), (xs[1],)))
         return
-    if planner.bluestein_kernel(n, batch) != "bluestein-fused":
+    if bt.fwd is None:  # the unfused route (planner.bluestein_kernel)
         _unfused(x, xs, y, batch, bt, plain)
         return
     # the intermediate is batch-major, so #17's store and #18's load coalesce
@@ -374,7 +365,7 @@ def _run(x, xs, y, batch: int, bt: BluesteinTables, plain: bool) -> None:
 # layout "nb": planes [n, ...]; "bm": planes [..., n]; "complex": complex
 # [..., n] (interleaved storage: re and im 4 bytes apart, stride 2).
 
-def _forms(a, b, inverse: bool, layout: str, tables, plain: bool = False):
+def _forms(a, b, inverse: bool, layout: str, plain: bool = False):
     if _use_kernel(a, plain):  # the unfused route would run any dtype; the kernels take f32
         stockham._kernel_dtype(a, torch.complex64 if layout == "complex" else torch.float32)
     if layout == "complex":
@@ -389,7 +380,7 @@ def _forms(a, b, inverse: bool, layout: str, tables, plain: bool = False):
         x = a
         xo = (stockham._dense(a), stockham._dense(b))
         out = yo = (torch.empty_like(xo[0]), torch.empty_like(xo[1]))
-    bt = _resolve(tables, n, bool(inverse), x.device)
+    bt = device_bluestein_tables(n, inverse, x.device)
     batch = x.numel() // n
     if batch:
         strides = {"nb": (batch, 1), "bm": (1, n), "complex": (2, 2 * n)}[layout]
@@ -399,9 +390,9 @@ def _forms(a, b, inverse: bool, layout: str, tables, plain: bool = False):
 
 class _BluesteinFFT(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, a, b, inverse, layout, tables):
+    def forward(ctx, a, b, inverse, layout):
         ctx.inverse, ctx.layout = inverse, layout
-        out = _forms(a, b, inverse, layout, tables)
+        out = _forms(a, b, inverse, layout)
         return out if layout == "complex" else tuple(out)
 
     @staticmethod
@@ -412,41 +403,41 @@ class _BluesteinFFT(torch.autograd.Function):
         n = g[0].shape[0] if layout == "nb" else g[0].shape[-1]
         s = 1.0 / n if ctx.inverse else float(n)
         if layout == "complex":
-            return (_BluesteinFFT.apply(g[0], None, not ctx.inverse, layout, None) * s,
-                    None, None, None, None)
-        ore, oim = _BluesteinFFT.apply(g[0], g[1], not ctx.inverse, layout, None)
-        return ore * s, oim * s, None, None, None
+            return (_BluesteinFFT.apply(g[0], None, not ctx.inverse, layout) * s,
+                    None, None, None)
+        ore, oim = _BluesteinFFT.apply(g[0], g[1], not ctx.inverse, layout)
+        return ore * s, oim * s, None, None
 
 
-def _transform(a, b, inverse, layout, tables):
+def _transform(a, b, inverse, layout):
     if stockham._wants_grad(*(t for t in (a, b) if t is not None)):
-        return _BluesteinFFT.apply(a, b, bool(inverse), layout, tables)
-    out = _forms(a, b, bool(inverse), layout, tables)
+        return _BluesteinFFT.apply(a, b, bool(inverse), layout)
+    out = _forms(a, b, bool(inverse), layout)
     return out if layout == "complex" else tuple(out)
 
 
-def bluestein_fft_nb(xre, xim, inverse: bool = False, tables: BluesteinTables | None = None):
+def bluestein_fft_nb(xre, xim, inverse: bool = False):
     """Complex FFT of any length n on time-major f32 planes [n, ...] (the
     JAX package's signature). The inverse is normalized (1/n). Any batch,
     no padding; differentiable."""
-    return _transform(xre, xim, inverse, "nb", tables)
+    return _transform(xre, xim, inverse, "nb")
 
 
-def bluestein_fft_bm(xre, xim, inverse: bool = False, tables: BluesteinTables | None = None):
+def bluestein_fft_bm(xre, xim, inverse: bool = False):
     """Complex FFT of any length n on batch-major planes [..., n]."""
-    return _transform(xre, xim, inverse, "bm", tables)
+    return _transform(xre, xim, inverse, "bm")
 
 
-def bluestein_fft(x, inverse: bool = False, tables: BluesteinTables | None = None):
+def bluestein_fft(x, inverse: bool = False):
     """Complex FFT of any length n over the last axis of a complex tensor
     [..., n]; on CUDA the kernels read and write the interleaved complex64
     storage."""
-    return _transform(x, None, inverse, "complex", tables)
+    return _transform(x, None, inverse, "complex")
 
 
-def plain_bluestein_fft(x, inverse: bool = False, tables: BluesteinTables | None = None):
+def plain_bluestein_fft(x, inverse: bool = False):
     """The plain version of `bluestein_fft` on any device: each kernel's
     plain version on the same strided views (on the unfused route, the
     four-step kernels' plain version). On CUDA it is the reference the
     kernels are held against."""
-    return _forms(x, None, bool(inverse), "complex", tables, plain=True)
+    return _forms(x, None, bool(inverse), "complex", plain=True)

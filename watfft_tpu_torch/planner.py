@@ -20,7 +20,7 @@ from .plan import is_power_of_two
 
 __all__ = ["STOCKHAM_MAX_N", "RFFT_MAX_N", "LARGE_MIN_N", "CUBE_MAX_N", "CUBE_MIN_BATCH",
            "LARGE_MAX_N", "RFFT_LARGE_MAX_N", "c2c_kernel", "large_mode", "r2c_kernel",
-           "bluestein_kernel",
+           "bluestein_m", "bluestein_kernel",
            "FFT2_CUBE_MIN_BATCH", "FFT2_NATIVE_MAX_AXIS", "FFT2_NATIVE_MIN_BATCH", "fft2_kernel"]
 
 # One transform per thread block: n/16 threads of at most 256.
@@ -99,6 +99,14 @@ def r2c_kernel(n: int, dtype: str, direction: str = "forward") -> str:
         f"matmul surface past it is not ported")
 
 
+def bluestein_m(n: int) -> int:
+    """Power-of-two circular-convolution length m >= 2n - 1."""
+    m = 1
+    while m < 2 * n - 1:
+        m <<= 1
+    return m
+
+
 def bluestein_kernel(n: int, batch: int | None = None) -> str:
     """The route of the Bluestein transform of n >= 1 points (ops/bluestein.py),
     fused or not by its convolution length m = bluestein_m(n) alone:
@@ -111,11 +119,10 @@ def bluestein_kernel(n: int, batch: int | None = None) -> str:
     memory, m/16 threads a transform and at most 256 a block, as the c2c
     kernel does. The JAX package's threshold is its Stockham kernel's
     range on the TPU (`_fused_available`), VMEM-derived, which does not
-    carry over."""
+    carry over. `batch` only names the m-point route; the choice between
+    the two routes is m's alone."""
     if n < 1:
         raise ValueError(f"the FFT takes n >= 1 points, got n={n!r}")
-    from .ops.bluestein import bluestein_m
-
     m = bluestein_m(n)
     if m <= STOCKHAM_MAX_N:
         return "bluestein-fused"
