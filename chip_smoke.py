@@ -117,10 +117,34 @@ Phases (any failure exits nonzero and prints no result):
    alone); host time per call at [8, 1000]. #17 and #18
    are then held against their plain versions at [4096, 1000] and timed
    there for the kernels line.
+22. FP64 kernels (the f64 tier) against their plain versions in float64:
+   the c2c kernel at every n = 2..4096 and the fused r2c / c2r kernels and
+   the hybrid at every n = 4..8192, forward and inverse, three layouts
+   (complex128, batch-major and time-major planes), at batch 3 and 2^21
+   points (32 MiB of complex128; limit 1e-12 of the largest output); at
+   batch 3 also against torch.fft in complex128 / float64 (MAX_REL 1e-9),
+   and per-bin (n * 1e-10) and roundtrip (1.5e-10) checks at n = 64, 1024,
+   4096.
+23. f64 main path at full size, each run with its launch counts, against
+   torch.fft in complex128 / float64: BASELINE config 1
+   (`create_fft(1024)` on one complex128 transform); `create_fft(1024)` on
+   [4096, 1024] complex128 (forward, inverse, roundtrip, both plane forms,
+   a backward); `create_rfft(1024)` on [4096, 1024] float64 (both
+   directions, the plane forms, a backward each way; the inverse on a
+   Hermitian-valid spectrum); `create_fft(2**16)` and `create_rfft(2**16)`
+   on the float64 matmul surface and `create_rfft_f32(2**26)` on the real
+   matmul surface, where no FFT kernel launches.
+24. f64 times at 2^21 points per n: the FP64 kernels, their plain versions,
+   torch.fft in complex128 / float64 (the library call the port never
+   makes) and a device copy of the same bytes; host time per call at
+   batch 1, n = 1024 (BASELINE config 1) against torch.fft.fft; then the
+   three FP64 kernels held against their plain versions and timed at the
+   main shapes, [4096, 1024], for the kernels line.
 
 The line before the last is a JSON object naming each kernel of the paths
 with its launch count, error, times and the least time the card could take
-(its bytes at 3.35 TB/s or its flops at 67 TFLOP/s, whichever is larger);
+(its bytes at 3.35 TB/s or its flops at 67 TFLOP/s, 34 TFLOP/s for the
+FP64 kernels, whichever is larger);
 the last line is {"ok": true, "device": {...}}. Phase 3 also holds the
 c2c kernel against its plain version in the batch-major planes layout
 (`stockham_fft_bm`, the port of `_kernel_bm`).
@@ -137,7 +161,8 @@ import time
 import torch
 
 import watfft_tpu_torch as wtt
-from watfft_tpu_torch import create_fft_f32, create_rfft_f32, fftlib, planner
+from watfft_tpu_torch import (create_fft, create_fft_f32, create_rfft, create_rfft_f32, fftlib,
+                              planner)
 from watfft_tpu_torch import stft as wstft
 from watfft_tpu_torch.ops import _build
 from watfft_tpu_torch.ops import bluestein as bl
@@ -185,8 +210,15 @@ BL_UNFUSED_B, BL_UNFUSED_N = 256, 10007    # m = 32768: the four-step kernels
 BL_2D_SHAPE = (4, 1000, 1000)
 BL_TIME_SIZES = (100, 400, 1000, 1009, 2000, 10007)
 BL_SRC = "watfft_tpu_torch/ops/csrc/bluestein.cu"
+# the f64 tier: 2^21 points (32 MiB of complex128) per buffer at every n
+F64_KERNEL_LIMIT = 1e-12
+F64_POINTS = 1 << 21
+F64_FOURSTEP_N, F32_REAL_FOURSTEP_N = 1 << 16, 1 << 26
+F64_SRC = {"c2c": "watfft_tpu_torch/ops/csrc/stockham.cu",
+           "real": "watfft_tpu_torch/ops/csrc/rfft.cu"}
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s, FP32 flop/s
-PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
+# outside the tensor cores, and FP64 flop/s (non-tensor)
+PEAK_BYTES, PEAK_FLOPS, PEAK_FLOPS_F64 = 3.35e12, 67e12, 34e12
 
 
 class Failed(Exception):
@@ -393,6 +425,7 @@ def phase_host(dev, gen, name: str, limit: str) -> None:
 
 def zero_counts() -> None:
     st.launches = 0
+    st.launches_f64 = 0
     for key in rf.launches:
         rf.launches[key] = 0
     for key in lg.launches:
@@ -404,7 +437,7 @@ def zero_counts() -> None:
 
 
 def counts() -> dict:
-    return {"stockham_c2c": st.launches, **rf.launches,
+    return {"stockham_c2c": st.launches, "stockham_c2c_f64": st.launches_f64, **rf.launches,
             **{"large_" + k: v for k, v in lg.launches.items()}, **f2.launches, **bl.launches}
 
 
@@ -1419,7 +1452,8 @@ def _bl_2d_vs_plain(x: torch.Tensor, inverse: bool) -> float:
     return _bl_vs_plain([(x, inverse, rows), (rows.movedim(-2, -1), inverse, None)])
 
 
-def _bl_run(label: str, calls, want_counts: dict, checks: dict, limits: dict) -> dict:
+def _bl_run(label: str, calls, want_counts: dict, checks: dict, limits: dict,
+            phase: str = "any_n_main_path") -> dict:
     """Runs `calls` with the counts set to 0, checks the counts against
     want_counts, then each of checks' values (a callable giving the error)
     against its limit. The checks run after the counts are read: their
@@ -1431,7 +1465,7 @@ def _bl_run(label: str, calls, want_counts: dict, checks: dict, limits: dict) ->
     launches = counts()
     check(launches == expect(**want_counts), f"{label}: launches {launches}, "
                                               f"expected {want_counts}")
-    res = {"phase": "any_n_main_path", "run": label, "launches": launches}
+    res = {"phase": phase, "run": label, "launches": launches}
     for key, err in checks.items():
         res[key] = e = err(outs)
         check(e <= limits[key], f"{label}: {key} {e:.3e} over {limits[key]}")
@@ -1635,10 +1669,326 @@ def bluestein_kernel_rows(main: dict, dev, gen, name: str, limit: str) -> list:
     return rows
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+# -- the f64 tier ---------------------------------------------------------------------
+
+def rand_c128(shape, gen, dev) -> torch.Tensor:
+    re = torch.rand(shape, generator=gen, device=dev, dtype=torch.float64) * 2 - 1
+    im = torch.rand(shape, generator=gen, device=dev, dtype=torch.float64) * 2 - 1
+    return torch.complex(re, im)
+
+
+def rand_f64(shape, gen, dev) -> torch.Tensor:
+    return torch.rand(shape, generator=gen, device=dev, dtype=torch.float64) * 2 - 1
+
+
+def phase_f64_kernel_vs_plain(dev, gen) -> None:
+    rel_lim = MAX_REL["float64"]
+    for n in SIZES:
+        worst, vs_lib = 0.0, 0.0
+        for batch in (3, F64_POINTS // n):
+            x = rand_c128((batch, n), gen, dev)
+            re, im = x.real.contiguous(), x.imag.contiguous()
+            re_t, im_t = re.T.contiguous(), im.T.contiguous()
+            for inverse in (False, True):
+                p = st.plain_fft(x, inverse)
+                y = st.stockham_fft(x, inverse)
+                diffs = {"complex": rel_diff(y, p),
+                         "bm": rel_diff(torch.complex(*st.stockham_fft_bm(re, im, inverse)), p),
+                         "nb": rel_diff(torch.complex(*st.stockham_fft_nb(re_t, im_t,
+                                                                          inverse)).T, p)}
+                worst = max(worst, *diffs.values())
+                check(max(diffs.values()) <= F64_KERNEL_LIMIT,
+                      f"f64 n={n} batch={batch} inverse={inverse}: kernel vs plain {diffs}")
+                if batch == 3:
+                    vs_lib = max(vs_lib, e := max_rel(y, c128(x, inverse)))
+                    check(e <= rel_lim, f"f64 n={n} inverse={inverse}: {e:.3e} vs torch.fft")
+        line = {"phase": "f64_kernel_vs_plain", "n": n, "max_rel_diff": worst,
+                "max_rel_vs_torch_fft_c128": vs_lib}
+        if n in (64, 1024, 4096):
+            t = torch.arange(n, device=dev, dtype=torch.float64)
+            basis = torch.exp(2j * torch.pi * torch.outer(t, t) / n)
+            eye = n * torch.eye(n, device=dev, dtype=torch.complex128)
+            per_bin = (st.stockham_fft(basis) - eye).abs().max().item()
+            x = rand_c128((3, n), gen, dev)
+            rt = (st.stockham_fft(st.stockham_fft(x), True) - x).abs().max().item()
+            check(per_bin < PER_BIN["float64"](n), f"f64 n={n}: per-bin error {per_bin:.3e}")
+            check(rt < ROUNDTRIP["float64"], f"f64 n={n}: roundtrip error {rt:.3e}")
+            line.update(per_bin_err=per_bin, roundtrip_err=rt)
+        print(json.dumps(line), flush=True)
+    for n in REAL_SIZES:
+        m = n // 2
+        worst = 0.0
+        for batch in (3, F64_POINTS // n):
+            x = rand_f64((batch, n), gen, dev)
+            spec = rand_c128((batch, m + 1), gen, dev)
+            want, want_inv = rf.plain_rfft(x), rf.plain_irfft(spec)
+            xt = x.T.contiguous()
+            sre, sim = spec.real.contiguous(), spec.imag.contiguous()
+            for fused in (True, False):
+                fwd_nb = rf.rfft_nb_fused if fused else rf.rfft_nb
+                inv_nb = rf.irfft_nb_fused if fused else rf.irfft_nb
+                diffs = {
+                    "fwd_complex": rel_diff(rf.rfft(x, fused), want),
+                    "fwd_bm": rel_diff(torch.complex(*rf.rfft_bm(x, fused)), want),
+                    "fwd_nb": rel_diff(torch.complex(*fwd_nb(xt)).T, want),
+                    "inv_complex": rel_diff(rf.irfft(spec, fused), want_inv),
+                    "inv_bm": rel_diff(rf.irfft_bm(sre, sim, fused), want_inv),
+                    "inv_nb": rel_diff(inv_nb(sre.T.contiguous(), sim.T.contiguous()).T,
+                                       want_inv),
+                }
+                worst = max(worst, *diffs.values())
+                check(max(diffs.values()) <= F64_KERNEL_LIMIT,
+                      f"f64 real n={n} batch={batch} fused={fused}: kernel vs plain {diffs}")
+            if batch == 3:
+                e = max_rel(rf.rfft(x), torch.fft.rfft(x))
+                check(e <= MAX_REL["float64"], f"f64 real n={n}: forward {e:.3e} vs torch.fft")
+                hs = hermitian_valid(spec)
+                e_inv = max_rel(rf.irfft(hs), torch.fft.irfft(hs, n))
+                check(e_inv <= MAX_REL["float64"],
+                      f"f64 real n={n}: inverse {e_inv:.3e} vs torch.fft")
+        line = {"phase": "f64_real_kernel_vs_plain", "n": n, "max_rel_diff": worst,
+                "max_rel_vs_torch_fft_f64": max(e, e_inv)}
+        if n in (64, 1024, 4096):
+            t = torch.arange(n, device=dev, dtype=torch.float64)
+            k = torch.arange(m + 1, device=dev, dtype=torch.float64)
+            basis = torch.cos(2 * torch.pi * torch.outer(k, t) / n)
+            want = torch.diag(torch.full((m + 1,), n / 2, device=dev, dtype=torch.float64))
+            want[0, 0] = want[m, m] = n
+            per_bin = (rf.rfft(basis) - want).abs().max().item()
+            x = rand_f64((3, n), gen, dev)
+            rt = (rf.irfft(rf.rfft(x)) - x).abs().max().item()
+            check(per_bin < PER_BIN["float64"](n), f"f64 real n={n}: per-bin {per_bin:.3e}")
+            check(rt < ROUNDTRIP["float64"], f"f64 real n={n}: roundtrip {rt:.3e}")
+            line.update(per_bin_err=per_bin, roundtrip_err=rt)
+        print(json.dumps(line), flush=True)
+
+
+def phase_f64_main_path(dev, gen) -> dict:
+    """BASELINE config 1, the [4096, 1024] f64 main paths and the f64 (and
+    f32 real) matmul surface, through the public entry points."""
+    rel_lim, rt_lim = MAX_REL["float64"], ROUNDTRIP["float64"]
+    out = {}
+
+    def run(*args):
+        return _bl_run(*args, phase="f64_main_path")
+    # BASELINE config 1: one f64 complex forward transform of n = 1024
+    ctx = create_fft(MAIN_N, device="cuda")
+    x1 = rand_c128((MAIN_N,), gen, dev)
+    out["config1"] = run(
+        f"create_fft({MAIN_N}).forward on one complex128 [{MAIN_N}]", lambda: ctx.forward(x1),
+        {"stockham_c2c_f64": 1},
+        {"max_rel_vs_torch_fft_c128": lambda y: max_rel(y, torch.fft.fft(x1)),
+         "kernel_vs_plain_rel": lambda y: rel_diff(y, st.plain_fft(x1))},
+        {"max_rel_vs_torch_fft_c128": rel_lim, "kernel_vs_plain_rel": F64_KERNEL_LIMIT})
+    # [4096, 1024] complex128: every entry point and a backward
+    x = rand_c128((MAIN_B, MAIN_N), gen, dev)
+    g = rand_c128((MAIN_B, MAIN_N), gen, dev)
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    re_t, im_t = re.T.contiguous(), im.T.contiguous()
+    xg = x.clone().requires_grad_()
+
+    def c2c_calls():
+        y = ctx.forward(x)
+        xi = ctx.inverse(x)
+        back = ctx.inverse(y)
+        pre, pim = ctx.forward_planes(re, im)
+        nre, nim = ctx.forward_planes_nb(re_t, im_t)
+        ctx.forward(xg).backward(g)
+        return y, xi, back, torch.complex(pre, pim), torch.complex(nre, nim).T
+    out["c2c"] = run(
+        f"create_fft({MAIN_N}) on [{MAIN_B}, {MAIN_N}] complex128", c2c_calls,
+        {"stockham_c2c_f64": 7},
+        {"fwd_max_rel_vs_torch_fft_c128": lambda o: max_rel(o[0], torch.fft.fft(x)),
+         "inv_max_rel_vs_torch_fft_c128": lambda o: max_rel(o[1], torch.fft.ifft(x)),
+         "roundtrip_err": lambda o: (o[2] - x).abs().max().item(),
+         "planes_vs_complex": lambda o: max(rel_diff(o[3], o[0]), rel_diff(o[4], o[0])),
+         "grad_max_rel_vs_torch_fft_c128": lambda o: max_rel(xg.grad,
+                                                             torch.fft.ifft(g) * MAIN_N),
+         "kernel_vs_plain_rel": lambda o: rel_diff(o[0], st.plain_fft(x))},
+        {"fwd_max_rel_vs_torch_fft_c128": rel_lim, "inv_max_rel_vs_torch_fft_c128": rel_lim,
+         "roundtrip_err": rt_lim, "planes_vs_complex": F64_KERNEL_LIMIT,
+         "grad_max_rel_vs_torch_fft_c128": rel_lim, "kernel_vs_plain_rel": F64_KERNEL_LIMIT})
+    # [4096, 1024] float64 through create_rfft(1024), both directions
+    n, m = MAIN_N, MAIN_N // 2
+    rctx = create_rfft(n, device="cuda")
+    xr = rand_f64((MAIN_B, n), gen, dev)
+    spec = hermitian_valid(torch.fft.rfft(rand_f64((MAIN_B, n), gen, dev)))
+    gs = rand_c128((MAIN_B, m + 1), gen, dev)
+    ybar = rand_f64((MAIN_B, n), gen, dev)
+    xrg, sg = xr.clone().requires_grad_(), spec.clone().requires_grad_()
+    xr_t = xr.T.contiguous()
+
+    def real_calls():
+        y = rctx.forward(xr)
+        xi = rctx.inverse(spec)
+        back = rctx.inverse(y)
+        pre, pim = rctx.forward_planes(xr)
+        bx = rctx.inverse_planes(spec.real, spec.imag)
+        nre, nim = rctx.forward_planes_nb(xr_t)
+        nback = rctx.inverse_planes_nb(nre, nim)
+        rctx.forward(xrg).backward(gs)
+        rctx.inverse(sg).backward(ybar)
+        return (y, xi, back, torch.complex(pre, pim), bx, torch.complex(nre, nim).T,
+                nback.T)
+
+    def grad_fwd_err(_):
+        x64g = xr.clone().requires_grad_()
+        torch.fft.rfft(x64g).backward(gs)
+        return max_rel(xrg.grad, x64g.grad)
+
+    def grad_inv_err(_):
+        r = torch.fft.rfft(ybar)
+        gre = r.real.clone()
+        gre[:, [0, m]] *= 0.5
+        gim = r.imag.clone()
+        gim[:, 0], gim[:, m] = -0.5 * r.real[:, m], -0.5 * r.real[:, 0]
+        return max_rel(sg.grad, torch.complex(gre, gim) / m)
+    # 5 r2c: forward, forward_planes, forward_planes_nb, the forward before
+    # its backward, the inverse's backward; 6 c2r: inverse, the roundtrip,
+    # inverse_planes, inverse_planes_nb, the inverse before its backward,
+    # the forward's backward
+    out["real"] = run(
+        f"create_rfft({n}) on [{MAIN_B}, {n}] float64", real_calls,
+        {"rfft_r2c_fused_f64": 5, "irfft_c2r_fused_f64": 6},
+        {"fwd_max_rel_vs_torch_fft_f64": lambda o: max_rel(o[0], torch.fft.rfft(xr)),
+         "inv_max_rel_vs_torch_fft_f64": lambda o: max_rel(o[1], torch.fft.irfft(spec, n)),
+         "roundtrip_err": lambda o: max((o[2] - xr).abs().max().item(),
+                                        (o[6] - xr).abs().max().item()),
+         "planes_vs_complex": lambda o: max(rel_diff(o[3], o[0]), rel_diff(o[4], o[1]),
+                                            rel_diff(o[5], o[0])),
+         "grad_fwd_max_rel_vs_torch_f64": grad_fwd_err,
+         "grad_inv_max_rel_vs_adjoint_f64": grad_inv_err,
+         "r2c_vs_plain_rel": lambda o: rel_diff(o[0], rf.plain_rfft(xr)),
+         "c2r_vs_plain_rel": lambda o: rel_diff(o[1], rf.plain_irfft(spec))},
+        {"fwd_max_rel_vs_torch_fft_f64": rel_lim, "inv_max_rel_vs_torch_fft_f64": rel_lim,
+         "roundtrip_err": rt_lim, "planes_vs_complex": F64_KERNEL_LIMIT,
+         "grad_fwd_max_rel_vs_torch_f64": rel_lim, "grad_inv_max_rel_vs_adjoint_f64": rel_lim,
+         "r2c_vs_plain_rel": F64_KERNEL_LIMIT, "c2r_vs_plain_rel": F64_KERNEL_LIMIT})
+    # past the kernels: the float64 matmul surface, no FFT kernel launched
+    nf = F64_FOURSTEP_N
+    check(planner.c2c_kernel(nf, "float64") == planner.r2c_kernel(nf, "float64") == "fourstep",
+          "the planner's f64 route past the kernels")
+    fctx, frctx = create_fft(nf, device="cuda"), create_rfft(nf, device="cuda")
+    xf = rand_c128((4, nf), gen, dev)
+    xfr = rand_f64((4, nf), gen, dev)
+    out["fourstep"] = run(
+        f"create_fft / create_rfft({nf}) on [4, {nf}]",
+        lambda: (lambda y, s: (y, fctx.inverse(y), s, frctx.inverse(s)))(fctx.forward(xf),
+                                                                         frctx.forward(xfr)),
+        {}, {"fwd_max_rel_vs_torch_fft_c128": lambda o: max_rel(o[0], torch.fft.fft(xf)),
+             "rfft_max_rel_vs_torch_fft_f64": lambda o: max_rel(o[2], torch.fft.rfft(xfr)),
+             "roundtrip_err": lambda o: max((o[1] - xf).abs().max().item(),
+                                            (o[3] - xfr).abs().max().item())},
+        {"fwd_max_rel_vs_torch_fft_c128": rel_lim, "rfft_max_rel_vs_torch_fft_f64": rel_lim,
+         "roundtrip_err": rt_lim})
+    # the f32 real FFT past 2^25: the real matmul surface
+    nb = F32_REAL_FOURSTEP_N
+    check(planner.r2c_kernel(nb, "float32") == "fourstep", "the planner's f32 real route past 2^25")
+    bctx = create_rfft_f32(nb, device="cuda")
+    xb = rand_real((1, nb), gen, dev)
+    out["f32_real_fourstep"] = run(
+        f"create_rfft_f32({nb}) on one signal", lambda: bctx.forward(xb), {},
+        {"max_rel_vs_torch_fft_f64": lambda o: max_rel(o, torch.fft.rfft(xb.double()))},
+        {"max_rel_vs_torch_fft_f64": MAX_REL["float32"]})
+    return out
+
+
+def phase_f64_times(dev, gen, name: str, limit: str) -> dict:
+    """2^21 points per call at every n: the FP64 kernels (complex128
+    layout), their plain versions, torch.fft in complex128 / float64 and a
+    device copy of the same bytes; then the host's time per call at
+    BASELINE config 1 (batch 1, n = 1024)."""
+    times = {}
+    for n in SIZES:
+        batch = F64_POINTS // n
+        x = rand_c128((batch, n), gen, dev)
+        out = torch.empty_like(x)
+        fns = {"kernel_fwd": lambda: st.stockham_fft(x), "kernel_inv": lambda: st.stockham_fft(x, True),
+               "plain_fwd": lambda: st.plain_fft(x), "lib_fft": lambda: torch.fft.fft(x),
+               "copy": lambda: out.copy_(x)}
+        row = {}
+        for key, fn in fns.items():
+            dev_ms, call_ms = time_ms(fn)
+            row[key + "_ms"], row[key + "_call_ms"] = dev_ms, call_ms
+        times[("c2c", n)] = row
+        print(json.dumps({"phase": "f64_times", "n": n, "batch": batch, **row, "card": name,
+                          "power_limit": limit}), flush=True)
+    for n in REAL_SIZES:
+        m, batch = n // 2, F64_POINTS // n
+        x = rand_f64((batch, n), gen, dev)
+        spec = rand_c128((batch, m + 1), gen, dev)
+        out = torch.empty_like(x)
+        fns = {"r2c": lambda: rf.rfft(x), "c2r": lambda: rf.irfft(spec),
+               "plain_r2c": lambda: rf.plain_rfft(x), "plain_c2r": lambda: rf.plain_irfft(spec),
+               "lib_rfft": lambda: torch.fft.rfft(x), "lib_irfft": lambda: torch.fft.irfft(spec, n),
+               "copy": lambda: out.copy_(x)}
+        row = {}
+        for key, fn in fns.items():
+            dev_ms, call_ms = time_ms(fn)
+            row[key + "_ms"], row[key + "_call_ms"] = dev_ms, call_ms
+        times[("real", n)] = row
+        print(json.dumps({"phase": "f64_real_times", "n": n, "batch": batch, **row,
+                          "card": name, "power_limit": limit}), flush=True)
+    ctx = create_fft(MAIN_N, device="cuda")
+    x1 = rand_c128((MAIN_N,), gen, dev)
+    host = {}
+    for key, fn in {"ctx_forward": lambda: ctx.forward(x1),
+                    "wrapper": lambda: st.stockham_fft(x1),
+                    "lib_fft": lambda: torch.fft.fft(x1)}.items():
+        dev_ms, call_ms = time_ms(fn, reps=200)
+        host[key + "_ms"], host[key + "_call_ms"] = dev_ms, call_ms
+    print(json.dumps({"phase": "f64_host", "n": MAIN_N, "batch": 1, **host, "card": name,
+                      "power_limit": limit}), flush=True)
+    return times
+
+
+def f64_kernel_rows(main: dict, dev, gen, name: str, limit: str) -> list:
+    """The three FP64 kernels at the main shapes, [4096, 1024] complex128 and
+    float64: each held against its plain version there and timed alone,
+    with torch.fft on the same tensor. Bytes: each input read once and each
+    output written once (16 B a complex128 point, 8 B a float64 one); flops
+    5 n log2 n per c2c transform and 5 m log2 m + 10 per bin for the real
+    ones, over the FP64 rate."""
+    b, n, m = MAIN_B, MAIN_N, MAIN_N // 2
+    x = rand_c128((b, n), gen, dev)
+    xr = rand_f64((b, n), gen, dev)
+    spec = rand_c128((b, m + 1), gen, dev)
+    log_n, log_m = n.bit_length() - 1, m.bit_length() - 1
+    real_bytes = 8 * n * b + 16 * (m + 1) * b
+    rows, rels = [], {}
+    for key, fn, plain, lib, nbytes, flops, src, also, launched in (
+            ("stockham_c2c_f64", lambda: st.stockham_fft(x), lambda: st.plain_fft(x),
+             lambda: torch.fft.fft(x), 32 * n * b, 5 * n * log_n * b, F64_SRC["c2c"], [],
+             main["c2c"]["launches"]["stockham_c2c_f64"]
+             + main["config1"]["launches"]["stockham_c2c_f64"]),
+            ("rfft_r2c_fused_f64", lambda: rf.rfft(xr), lambda: rf.plain_rfft(xr),
+             lambda: torch.fft.rfft(xr), real_bytes, (5 * m * log_m + 10 * (m + 1)) * b,
+             F64_SRC["real"], ["watfft_tpu/ops/doublefloat.py:376"],
+             main["real"]["launches"]["rfft_r2c_fused_f64"]),
+            ("irfft_c2r_fused_f64", lambda: rf.irfft(spec), lambda: rf.plain_irfft(spec),
+             lambda: torch.fft.irfft(spec, n), real_bytes, (5 * m * log_m + 10 * m) * b,
+             F64_SRC["real"], ["watfft_tpu/ops/doublefloat.py:415"],
+             main["real"]["launches"]["irfft_c2r_fused_f64"])):
+        k, p = fn(), plain()
+        rels[key] = rel = rel_diff(k, p)
+        check(rel <= F64_KERNEL_LIMIT, f"{key} at [{b}, {n}]: {rel:.3e} vs plain")
+        bnd = bound(nbytes, flops, PEAK_FLOPS_F64)
+        rows.append({"name": key, "route": "cuda", "source": src,
+                     "replaces": "watfft_tpu/ops/doublefloat.py:280", "also_replaces": also,
+                     "launches": launched, "max_abs_err": (k - p).abs().max().item(),
+                     "ms": time_ms(fn)[0], "plain_ms": time_ms(plain, reps=3, warmup=1)[0],
+                     "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": time_ms(lib)[0],
+                     "card": name, "power_limit": limit})
+    print(json.dumps({"phase": "f64_kernels_at_main_shape", "rel_diff_vs_plain": rels}),
+          flush=True)
+    return rows
+
+
+def bound(nbytes: float, flops: float, peak: float = PEAK_FLOPS) -> tuple[float, str]:
     """The least time in ms the card could take: bytes over its memory rate
-    or flops over its FP32 rate, whichever is larger, and which one."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
+    or flops over its peak rate for their type (FP32 unless given),
+    whichever is larger, and which one."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1736,12 +2086,17 @@ def main() -> int:
         bl_main = phase_bluestein_main_path(dev, gen)
         phase_bluestein_times(dev, gen, name, limit)
         bl_rows = bluestein_kernel_rows(bl_main, dev, gen, name, limit)
+        phase_f64_kernel_vs_plain(dev, gen)
+        f64_main = phase_f64_main_path(dev, gen)
+        phase_f64_times(dev, gen, name, limit)
+        f64_rows = f64_kernel_rows(f64_main, dev, gen, name, limit)
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     line = kernels_line({"launches": launches, "max_abs_err": max_abs_err}, real_launches,
                         real_errs, times, real_times, large_rows, fft2_rows, name, limit)
     line["kernels"].extend(bl_rows)
+    line["kernels"].extend(f64_rows)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,25 @@
-"""Check that the c2c and real CUDA kernels of two checkouts agree bit for bit.
+"""Check that the f32 CUDA kernels of two checkouts agree bit for bit.
 
 Builds the port's CUDA library from this checkout and from another one (for
 example the parent commit, unpacked with `git archive` into a directory
-that .gitignore lists) and runs both libraries on the same inputs through
-their C entry points:
+that .gitignore lists) and runs both libraries on the same inputs, through
+this checkout's wrappers, which launch the entry points of whichever
+library `_build.library` returns:
 
 * `watfft_stockham_c2c` at every n = 2..4096, forward and inverse, in the
   interleaved complex64 and time-major planes layouts;
 * `watfft_rfft_r2c` and `watfft_irfft_c2r` at every n = 4..8192, in the
-  batch-major layout,
+  batch-major layout;
+* `watfft_strided_c2c` (the four-step passes: pipe2 with its load and store
+  multiplies, the 2d mode's post-multiplying and outer passes, the 2D
+  column and row passes) at n = 2^13..2^16 and `watfft_large_cube` at
+  2^13 and 2^14;
+* `watfft_fft2_cube` at h x w = 2x2..128x128 and on the extremes 2x8192,
+  8192x2;
+* `watfft_bluestein_fwd` / `watfft_bluestein_inv` at n = 3..2000,
 
-at batch 3 and at 2^20/n transforms, with this checkout's tables for both.
+at batch 3 and at 2^20 points per call (f32 c2c and real), or at the
+listed shapes, forward and inverse, with this checkout's tables for both.
 The outputs are compared with torch.equal. Needs one CUDA device:
 
     python3 scripts/compare_kernel_builds.py OTHER_CHECKOUT
@@ -20,6 +29,7 @@ Prints one JSON line and exits 1 if any output differs.
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import sys
@@ -31,10 +41,16 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from watfft_tpu_torch.ops import _build  # noqa: E402
+from watfft_tpu_torch.ops import bluestein as bl  # noqa: E402
+from watfft_tpu_torch.ops import fft2 as f2  # noqa: E402
+from watfft_tpu_torch.ops import large as lg  # noqa: E402
 from watfft_tpu_torch.ops import rfft as rf  # noqa: E402
 from watfft_tpu_torch.ops import stockham as st  # noqa: E402
 
 POINTS = 1 << 20
+LARGE_SIZES = [1 << k for k in range(13, 17)]
+FFT2_SHAPES = [(1 << a, 1 << a) for a in range(1, 8)] + [(2, 1 << 13), (1 << 13, 2), (16, 256)]
+BLUESTEIN_SIZES = (3, 17, 100, 400, 1000, 1009, 2000)
 
 
 def other_library(checkout: Path):
@@ -45,52 +61,21 @@ def other_library(checkout: Path):
     return mod.library()
 
 
-def c2c(lib, x, inverse, time_major):
-    batch, n = x.shape
-    t = st.device_tables(n, inverse, x.device)
-    stream = torch.cuda.current_stream().cuda_stream
+@contextlib.contextmanager
+def using(lib):
+    """The wrappers launch `lib`'s entry points inside the block."""
+    own = _build.library
+    _build.library = lambda: lib
+    try:
+        yield
+    finally:
+        _build.library = own
+
+
+def c2c(x, inverse, time_major):
     if time_major:
-        re, im = x.real.T.contiguous(), x.imag.T.contiguous()
-        ore, oim = torch.empty_like(re), torch.empty_like(im)
-        args = (re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(), batch, 1, batch, 1)
-        out = (ore, oim)
-    else:
-        y = torch.empty_like(x)
-        xp, yp = x.data_ptr(), y.data_ptr()
-        args = (xp, xp + 4, yp, yp + 4, 2, 2 * n, 2, 2 * n)
-        out = (y,)
-    err = lib.watfft_stockham_c2c(*args, n, batch, t.twre.data_ptr(), t.twim.data_ptr(),
-                                  t.c_radices, t.c_offsets, len(t.stages), int(inverse), stream)
-    assert err == 0, err
-    return out
-
-
-def r2c(lib, x):
-    batch, n = x.shape
-    rt = rf.device_rtables(n, False, x.device)
-    c = rt.core
-    yre = x.new_empty(batch, n // 2 + 1)
-    yim = torch.empty_like(yre)
-    err = lib.watfft_rfft_r2c(x.data_ptr(), 1, n, yre.data_ptr(), yim.data_ptr(), 1, n // 2 + 1,
-                              n, batch, c.twre.data_ptr(), c.twim.data_ptr(), c.c_radices,
-                              c.c_offsets, len(c.stages), rt.wre.data_ptr(), rt.wim.data_ptr(),
-                              torch.cuda.current_stream().cuda_stream)
-    assert err == 0, err
-    return yre, yim
-
-
-def c2r(lib, sre, sim):
-    batch, m1 = sre.shape
-    n = 2 * (m1 - 1)
-    rt = rf.device_rtables(n, True, sre.device)
-    c = rt.core
-    y = sre.new_empty(batch, n)
-    err = lib.watfft_irfft_c2r(sre.data_ptr(), sim.data_ptr(), 1, m1, y.data_ptr(), 1, n, n,
-                               batch, c.twre.data_ptr(), c.twim.data_ptr(), c.c_radices,
-                               c.c_offsets, len(c.stages), rt.wre.data_ptr(), rt.wim.data_ptr(),
-                               torch.cuda.current_stream().cuda_stream)
-    assert err == 0, err
-    return (y,)
+        return st.stockham_fft_nb(x.real.T.contiguous(), x.imag.T.contiguous(), inverse)
+    return (st.stockham_fft(x, inverse),)
 
 
 def main() -> int:
@@ -108,25 +93,53 @@ def main() -> int:
     def rand(shape):
         return torch.rand(shape, generator=gen, device=dev) * 2 - 1
 
-    cases, differ = {"c2c": 0, "r2c": 0, "c2r": 0}, []
+    def crand(shape):
+        return torch.complex(rand(shape), rand(shape))
 
-    def same(kind, what, outs):
-        cases[kind] += 1
+    cases, differ = {}, []
+
+    def same(kind, what, fn):
+        outs = []
+        for lib in libs:
+            with using(lib):
+                out = fn()
+            outs.append(out if isinstance(out, (tuple, list)) else (out,))
+        cases[kind] = cases.get(kind, 0) + 1
         if not all(torch.equal(a, b) for a, b in zip(*outs)):
             differ.append(f"{kind} {what}")
 
     for n in (1 << k for k in range(1, 13)):
         for batch in (3, POINTS // n):
-            x = torch.complex(rand((batch, n)), rand((batch, n)))
+            x = crand((batch, n))
             for inverse in (False, True):
                 for tm in (False, True):
-                    same("c2c", (n, batch, inverse, tm), [c2c(lib, x, inverse, tm) for lib in libs])
+                    same("stockham_c2c", (n, batch, inverse, tm),
+                         lambda: c2c(x, inverse, tm))
     for n in (1 << k for k in range(2, 14)):
         for batch in (3, POINTS // n):
             x = rand((batch, n))
             sre, sim = rand((batch, n // 2 + 1)), rand((batch, n // 2 + 1))
-            same("r2c", (n, batch), [r2c(lib, x) for lib in libs])
-            same("c2r", (n, batch), [c2r(lib, sre, sim) for lib in libs])
+            same("rfft_r2c", (n, batch), lambda: rf.rfft_bm(x))
+            same("irfft_c2r", (n, batch), lambda: (rf.irfft_bm(sre, sim),))
+    for n in LARGE_SIZES:
+        x = crand((3, n))
+        for inverse in (False, True):
+            for mode in ("pipe2", "2d", "cube") if n <= 1 << 14 else ("pipe2", "2d"):
+                kind = "large_cube" if mode == "cube" else "strided_c2c"
+                same(kind, (n, mode, inverse), lambda: lg.fft_large_complex(x, inverse, mode=mode))
+    for h, w in FFT2_SHAPES:
+        x = crand((3, h, w))
+        for inverse in (False, True):
+            for route in ("fft2-cube", "fft2-2pass"):
+                if route == "fft2-2pass" and max(h, w) > 4096:
+                    continue
+                kind = "fft2_cube" if route == "fft2-cube" else "strided_c2c"
+                same(kind, (h, w, route, inverse),
+                     lambda: f2._complex_route(x, inverse, route))
+    for n in BLUESTEIN_SIZES:
+        x = crand((3, n))
+        for inverse in (False, True):
+            same("bluestein_fwd_inv", (n, inverse), lambda: bl.bluestein_fft(x, inverse))
     torch.cuda.synchronize()
     print(json.dumps({"bit_identical": not differ, "cases": cases, "differ": differ[:20],
                       "device": torch.cuda.get_device_name(0)}), flush=True)

@@ -106,17 +106,27 @@ def test_non_power_of_two_raises(n):
 
 
 def test_large_n_raises_not_implemented():
-    """Large N is ported (tests/test_torch_large.py); what stays out of the
-    port past it still raises: the real FFT past 2^25."""
+    """Large N is ported (tests/test_torch_large.py), and the real FFT past
+    2^25 now runs the real matmul surface (tests/test_torch_f64.py checks
+    its numbers); what the port lacks still raises: a bf16 tier."""
     assert planner.c2c_kernel(8192, "float32") == "large-cube"
     assert wtt.fft(torch.zeros(8192, dtype=torch.complex64), device="cpu").shape == (8192,)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        wtt.create_rfft_f32(1 << 26, device="cpu")
+    assert planner.r2c_kernel(1 << 26, "float32") == "fourstep"
+    assert wtt.create_rfft_f32(1 << 26, device="cpu").bins == (1 << 25) + 1
+    with pytest.raises(NotImplementedError, match="A11"):
+        wtt.RFFTContext(16, dtype="bfloat16", device="cpu")
 
 
 def test_float64_raises_not_implemented():
-    with pytest.raises(NotImplementedError, match="A10"):
-        wtt.FFTContext(64, dtype="float64")
+    """float64 is ported (ROADMAP A10): a float64 context runs complex128,
+    and a dtype the port lacks still raises."""
+    ctx = wtt.FFTContext(64, dtype="float64", device="cpu")
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 64)) + 0j)
+    y = ctx.forward(x)
+    assert y.dtype == torch.complex128
+    assert (y - torch.fft.fft(x)).abs().max().item() < 1e-12
+    with pytest.raises(NotImplementedError, match="A11"):
+        wtt.FFTContext(64, dtype="bfloat16", device="cpu")
 
 
 def test_other_device_raises():

@@ -1,7 +1,8 @@
 """The Hopper kernels on the card (the Stockham c2c kernel, the fused r2c
 and c2r real kernels, the hybrid real path that drives the c2c kernel
-through strides, the four-step kernels of the large-N path and the 2D
-path's cube and passes), against their plain torch versions.
+through strides, the FP64 instances of these three, the four-step kernels
+of the large-N path and the 2D path's cube and passes), against their plain
+torch versions.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no JAX, so it runs on a GPU host that has none; tests/conftest.py imports
@@ -29,6 +30,8 @@ pytestmark = pytest.mark.cuda
 # f32; the kernel contracts multiply-adds into FMAs, the plain version
 # rounds op by op
 KERNEL_LIMIT = 1e-6
+# the same for the FP64 instances against the plain version in float64
+F64_KERNEL_LIMIT = 1e-12
 
 
 @pytest.fixture
@@ -108,9 +111,12 @@ def test_lazy_conj_and_neg_views(dev):
 
 
 def test_kernel_refuses_what_it_does_not_take(dev):
-    x = torch.zeros(1024, 4, device=dev, dtype=torch.float64)
-    with pytest.raises(TypeError, match="float32"):
+    x = torch.zeros(1024, 4, device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32/float64"):
         st.stockham_fft_nb(x, x)
+    x = torch.zeros(1024, 4, device=dev, dtype=torch.float64)  # f32 tables on f64 planes
+    with pytest.raises(TypeError, match="precision"):
+        st.stockham_fft_nb(x, x, tables=st.device_tables(1024, False, dev))
     big = st.make_tables([(64, 1), (16, 64)], [-1, 0], np.ones(63 * 16), np.zeros(63 * 16), dev)
     y = torch.zeros(1024, 4, device=dev)
     with pytest.raises(RuntimeError, match="radix outside"):
@@ -194,12 +200,115 @@ def test_stft_on_the_card(dev):
 
 
 def test_real_kernels_refuse_what_they_do_not_take(dev):
-    with pytest.raises(TypeError, match="float32"):
-        rf.rfft(torch.zeros(2, 64, device=dev, dtype=torch.float64))
+    with pytest.raises(TypeError, match="float32/float64"):
+        rf.rfft(torch.zeros(2, 64, device=dev, dtype=torch.float16))
+    with pytest.raises(TypeError, match="precision"):
+        rf.rfft(torch.zeros(2, 64, device=dev, dtype=torch.float64),
+                tables=rf.device_rtables(64, False, dev))
     big = rf.make_rtables([(64, 1), (16, 64)], [-1, 0], np.ones(63 * 16), np.zeros(63 * 16),
                           np.ones(1025), np.zeros(1025), False, dev)
     with pytest.raises(RuntimeError, match="radix outside"):
         rf.rfft_nb_fused(torch.zeros(2048, 4, device=dev), tables=big)
+
+
+# -- the FP64 instances (the f64 tier) ---------------------------------------------
+
+def _x64(shape, seed, dev):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.uniform(-1, 1, shape) + 1j * rng.uniform(-1, 1, shape)).to(dev)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", [1 << k for k in range(1, 13)])
+def test_f64_kernel_matches_plain_all_layouts(n, inverse, dev):
+    for batch in (1, 3, 257):
+        x = _x64((batch, n), seed=n + batch, dev=dev)
+        want = st.plain_fft(x, inverse)
+        before = st.launches_f64
+        assert _rel(st.stockham_fft(x, inverse), want) <= F64_KERNEL_LIMIT
+        re, im = x.real.contiguous(), x.imag.contiguous()
+        assert re.dtype == torch.float64
+        assert _rel(torch.complex(*st.stockham_fft_bm(re, im, inverse)), want) <= F64_KERNEL_LIMIT
+        tre, tim = st.stockham_fft_nb(re.T.contiguous(), im.T.contiguous(), inverse)
+        assert _rel(torch.complex(tre, tim).T, want) <= F64_KERNEL_LIMIT
+        assert st.launches_f64 == before + 3
+        ref64 = torch.fft.ifft(x) if inverse else torch.fft.fft(x)
+        assert _rel(want, ref64) <= MAX_REL["float64"]
+
+
+def test_f64_radix4_plan_runs_on_the_kernel(dev):
+    """The JAX df plan off the TPU (radix 4 and a remainder of 2) through
+    the FP64 kernel, up to n = 1024 (n/4 threads a transform)."""
+    for k in range(1, 11):
+        n = 1 << k
+        radices = [4] * (k // 2)
+        if k % 2:
+            radices.insert(1, 2)
+        stages, l = [], 1
+        for r in radices:
+            stages.append((r, l))
+            l *= r
+        re, im, off = st.make_twiddle_pack(n, False, np.float64, stages)
+        t = st.make_tables(stages, off, re, im, dev, torch.float64)
+        x = _x64((5, n), seed=k, dev=dev)
+        assert _rel(st.stockham_fft(x, tables=t), torch.fft.fft(x)) <= MAX_REL["float64"]
+
+
+@pytest.mark.parametrize("n", [1 << k for k in range(2, 14)])
+def test_f64_real_kernels_match_plain_all_layouts(n, dev):
+    m = n // 2
+    rng = np.random.default_rng(n)
+    for batch in (1, 3, 257):
+        x = torch.from_numpy(rng.uniform(-1, 1, (batch, n))).to(dev)
+        spec = _x64((batch, m + 1), seed=n + 1, dev=dev)
+        want, want_inv = rf.plain_rfft(x), rf.plain_irfft(spec)
+        sre, sim = spec.real.contiguous(), spec.imag.contiguous()
+        before = rf.launches["rfft_r2c_fused_f64"]
+        for fused in (True, False):
+            fwd_nb = rf.rfft_nb_fused if fused else rf.rfft_nb
+            inv_nb = rf.irfft_nb_fused if fused else rf.irfft_nb
+            assert _rel(rf.rfft(x, fused), want) <= F64_KERNEL_LIMIT
+            assert _rel(torch.complex(*rf.rfft_bm(x, fused)), want) <= F64_KERNEL_LIMIT
+            assert _rel(torch.complex(*fwd_nb(x.T.contiguous())).T, want) <= F64_KERNEL_LIMIT
+            assert _rel(rf.irfft(spec, fused), want_inv) <= F64_KERNEL_LIMIT
+            assert _rel(rf.irfft_bm(sre, sim, fused), want_inv) <= F64_KERNEL_LIMIT
+            assert _rel(inv_nb(sre.T.contiguous(), sim.T.contiguous()).T,
+                        want_inv) <= F64_KERNEL_LIMIT
+        assert rf.launches["rfft_r2c_fused_f64"] == before + 3
+        assert _rel(want, torch.fft.rfft(x)) <= MAX_REL["float64"]
+
+
+def test_f64_contexts_launch_the_fp64_kernels(dev):
+    ctx, rctx = wtt.create_fft(1024, device=dev), wtt.create_rfft(1024, device=dev)
+    x = _x64((8, 1024), seed=9, dev=dev)
+    c2c, c2c32, real = st.launches_f64, st.launches, dict(rf.launches)
+    y = ctx.forward(x)
+    assert y.dtype == torch.complex128
+    assert _rel(y, torch.fft.fft(x)) <= MAX_REL["float64"]
+    assert (ctx.inverse(y) - x).abs().max().item() < 1.5e-10
+    s = rctx.forward(x.real)
+    assert _rel(s, torch.fft.rfft(x.real)) <= MAX_REL["float64"]
+    assert (rctx.inverse(s) - x.real).abs().max().item() < 1.5e-10
+    assert st.launches_f64 == c2c + 2 and st.launches == c2c32
+    assert rf.launches["rfft_r2c_fused_f64"] == real["rfft_r2c_fused_f64"] + 1
+    assert rf.launches["irfft_c2r_fused_f64"] == real["irfft_c2r_fused_f64"] + 1
+    # past the kernels: the float64 matmul surface, no FFT kernel
+    big = wtt.create_fft(8192, device=dev)
+    xb = _x64((2, 8192), seed=10, dev=dev)
+    before = (st.launches_f64, dict(rf.launches))
+    assert _rel(big.forward(xb), torch.fft.fft(xb)) <= MAX_REL["float64"]
+    assert (st.launches_f64, rf.launches) == before
+
+
+def test_f64_gradcheck_on_the_card(dev):
+    ctx, rctx = wtt.create_fft(16, device=dev), wtt.create_rfft(16, device=dev)
+    x = _x64((2, 16), seed=11, dev=dev).requires_grad_()
+    xr = x.real.detach().clone().requires_grad_()
+    spec = torch.fft.rfft(xr.detach() * 2).requires_grad_()
+    assert torch.autograd.gradcheck(ctx.forward, (x,))
+    assert torch.autograd.gradcheck(ctx.inverse, (x,))
+    assert torch.autograd.gradcheck(rctx.forward, (xr,))
+    assert torch.autograd.gradcheck(rctx.inverse, (spec,))
 
 
 # -- the large-N four-step path -----------------------------------------------------

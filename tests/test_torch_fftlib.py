@@ -264,6 +264,16 @@ def test_no_library_fft_is_called(monkeypatch):
     np.testing.assert_allclose(_np(fftlib.fftshift(r, **CPU)), np.fft.fftshift(r))
 
 
+@pytest.mark.parametrize("shape", [(3, 16, 17), (2, 64, 33), (1, 8, 5)])
+def test_irfft2_follows_numpy_on_non_hermitian_end_columns(shape):
+    """At a power-of-two output width irfft2 runs the 2D route, whose
+    kernels read all of columns 0 and w/2; numpy keeps only their Hermitian
+    part along h. Random spectra: those columns are not Hermitian."""
+    rng = np.random.default_rng(sum(shape))
+    z = rng.uniform(-1, 1, shape) + 1j * rng.uniform(-1, 1, shape)
+    np.testing.assert_allclose(_np(fftlib.irfft2(z, **CPU)), np.fft.irfft2(z), atol=1e-5)
+
+
 def test_routes_power_of_two_to_the_api_and_the_rest_to_bluestein(monkeypatch):
     """fft(x, n=1024) runs the Stockham path and no Bluestein; n = 1000 the
     reverse. Seen through the plain versions each route calls on the CPU."""

@@ -358,10 +358,9 @@ def test_planner_routes_the_real_path_to_the_fused_kernel():
             assert planner.r2c_kernel(n, "float32", direction) == "rfft-fused"
     assert planner.r2c_kernel(16384, "float32") == "rfft-large"
     assert wtt.create_rfft_f32(16384, device="cpu").bins == 8193
-    with pytest.raises(NotImplementedError, match="not ported"):
-        planner.r2c_kernel(1 << 26, "float32")
-    with pytest.raises(NotImplementedError, match="A10"):
-        wtt.RFFTContext(64, dtype="float64", device="cpu")
+    assert planner.r2c_kernel(1 << 26, "float32") == "fourstep"  # the real matmul surface
+    assert wtt.RFFTContext(64, dtype="float64", device="cpu").forward(
+        torch.zeros(2, 64, dtype=torch.float64)).dtype == torch.complex128
     for n in (0, 2, 3, 12):
         with pytest.raises(ValueError, match="power of two"):
             wtt.create_rfft_f32(n, device="cpu")

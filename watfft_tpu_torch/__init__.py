@@ -2,8 +2,10 @@
 
 The batched f32 complex FFT over power-of-two n >= 2 (the Stockham kernel
 to n = 4096, the four-step kernels to 2^24, matmuls past that) and the f32
-real FFT (rfft / irfft) over n = 4..2^25, forward and inverse, behind the
-JAX package's plan-once context API, the large-N functions of
+real FFT (rfft / irfft) over n >= 4, forward and inverse, their f64 tier
+(`create_fft`, `create_rfft`, `dtype="float64"`: the FP64 kernels to
+n = 4096 and 8192, matmuls past that), behind the JAX package's plan-once
+context API, the large-N functions of
 `watfft_tpu/ops/large.py` (`fft_large`, `fft_large_nb`, `rfft_large_nb`,
 `irfft_large_nb`, `large_split`), the 2D FFT over the trailing [h, w] axes
 (`fft2`, `ifft2`, `rfft2`, `irfft2`, `fft2_nb`), the complex FFT of any
@@ -17,14 +19,15 @@ plain torch versions. Needs torch and numpy, never JAX.
 """
 
 from . import stft
-from .api import (FFTContext, RFFTContext, create_fft_f32, create_rfft_f32, fft, fft2,
-                  ifft, ifft2, irfft, irfft2, rfft, rfft2)
+from .api import (FFTContext, RFFTContext, create_fft, create_fft_f32, create_rfft,
+                  create_rfft_f32, fft, fft2, ifft, ifft2, irfft, irfft2, rfft, rfft2)
 from . import fftlib
 from .ops.bluestein import bluestein_fft_nb
 from .ops.fft2 import fft2_nb
 from .ops.large import fft_large, fft_large_nb, irfft_large_nb, large_split, rfft_large_nb
 
-__all__ = ["FFTContext", "RFFTContext", "create_fft_f32", "create_rfft_f32",
+__all__ = ["FFTContext", "RFFTContext", "create_fft", "create_fft_f32", "create_rfft",
+           "create_rfft_f32",
            "fft", "ifft", "rfft", "irfft", "fft2", "ifft2", "rfft2", "irfft2", "fft2_nb",
            "fft_large", "fft_large_nb", "rfft_large_nb", "irfft_large_nb", "large_split",
            "bluestein_fft_nb", "fftlib", "stft"]

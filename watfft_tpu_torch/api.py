@@ -1,4 +1,5 @@
-"""Public context API: plan-once, transform-many (f32 complex and real FFT).
+"""Public context API: plan-once, transform-many (f32 and f64 complex and
+real FFT).
 
 Counterpart of `watfft_tpu/api.py` for the port's slices:
 
@@ -16,7 +17,15 @@ Counterpart of `watfft_tpu/api.py` for the port's slices:
   `inverse_planes` on batch-major planes; `forward_planes_nb` /
   `inverse_planes_nb` on time-major [n, ...] <-> [n//2+1, ...]. `rfft` /
   `irfft` are the one-shot forms. n <= 8192 runs the fused kernels, n =
-  16384 .. 2^25 the m = n/2-point core on the four-step kernels.
+  16384 .. 2^25 the m = n/2-point core on the four-step kernels, and the
+  real matmul surface past that; `forward_planes_fourstep` /
+  `inverse_planes_fourstep` run the real matmul surface at any n.
+* `create_fft(size)` and `create_rfft(size)` are the same contexts in
+  float64 (complex128 and float64 tensors), and `fft` / `ifft` / `rfft` /
+  `irfft` take `dtype="float64"`. They run the FP64 instances of the
+  Stockham kernel (n <= 4096) and of the fused real kernels (n <= 8192),
+  the port of the JAX f64 tier (`doublefloat.py`), and the matmul surface
+  in float64 past those sizes, on every entry point.
 * `fft2` / `ifft2` (complex [..., h, w]) and `rfft2` / `irfft2` (real
   [..., h, w] <-> complex [..., h, w//2+1]) run the 2D path of
   `ops/fft2.py` over the trailing axes: the 2D cube kernel for images of
@@ -34,6 +43,9 @@ Differences from the JAX package, by design:
   (watfft_tpu/api.py:132-142). Any batch size runs without the TPU's
   padding to 128.
 * Gradients flow through `torch.autograd`.
+* float64 runs on the context's device, the card by default: the JAX f64
+  context runs on the host CPU under a TPU backend for want of f64 units
+  (watfft_tpu/api.py:88-94), which the H100 has.
 """
 
 from __future__ import annotations
@@ -48,8 +60,11 @@ from .ops import rfft as rf
 from .ops import stockham
 from .plan import build_tree, is_power_of_two
 
-__all__ = ["FFTContext", "RFFTContext", "create_fft_f32", "create_rfft_f32",
-           "fft", "ifft", "rfft", "irfft", "fft2", "ifft2", "rfft2", "irfft2"]
+__all__ = ["FFTContext", "RFFTContext", "create_fft", "create_fft_f32", "create_rfft",
+           "create_rfft_f32", "fft", "ifft", "rfft", "irfft", "fft2", "ifft2", "rfft2",
+           "irfft2"]
+
+_REAL = {"float32": torch.float32, "float64": torch.float64}
 
 
 def _check_size(n: int, minimum: int = 2) -> None:
@@ -61,12 +76,15 @@ def _check_size(n: int, minimum: int = 2) -> None:
 
 class _Context:
     """Size and dtype of a context, and the input check; the subclass
-    checks the plan and sets `device`."""
+    checks the plan (the planner refuses a dtype the port lacks) and sets
+    `device`."""
 
     def __init__(self, n: int, dtype: str, minimum: int):
         _check_size(n, minimum)
         self.size = int(n)
         self.dtype = dtype
+        self._real = _REAL.get(dtype)  # None for a dtype the planner then refuses
+        self._cdtype = None if self._real is None else self._real.to_complex()
 
     def _prep(self, x, dtype: torch.dtype, axis: int, length: int) -> torch.Tensor:
         x = torch.as_tensor(x)
@@ -95,9 +113,10 @@ class FFTContext(_Context):
                                   time_major=axis == 0)
 
     def _fourstep_tables(self, inverse: bool):
-        """The matmul surface's tables, built at first use."""
+        """The matmul surface's tables, in the context's dtype, built at
+        first use."""
         if inverse not in self._fourstep:
-            tree = build_tree(self.size, inverse=inverse, dtype=np.float32)
+            tree = build_tree(self.size, inverse=inverse, dtype=stockham.np_dtype(self._real))
             self._fourstep[inverse] = (fourstep.fft_tables(tree, self.device),
                                        fourstep.shape_info(tree))
         return self._fourstep[inverse]
@@ -106,7 +125,7 @@ class FFTContext(_Context):
         return fourstep.apply_tables(re, im, *self._fourstep_tables(inverse))
 
     def _complex(self, x, inverse: bool):
-        x = self._prep(x, torch.complex64, -1, self.size)
+        x = self._prep(x, self._cdtype, -1, self.size)
         kind = self._kind(x, -1)
         if kind == "stockham":
             return stockham.stockham_fft(x, inverse)
@@ -115,8 +134,8 @@ class FFTContext(_Context):
         return large.fft_large_complex(x, inverse, mode=kind[len("large-"):])
 
     def _bm(self, re, im, inverse: bool):
-        re = self._prep(re, torch.float32, -1, self.size)
-        im = self._prep(im, torch.float32, -1, self.size)
+        re = self._prep(re, self._real, -1, self.size)
+        im = self._prep(im, self._real, -1, self.size)
         kind = self._kind(re, -1)
         if kind == "stockham":
             return stockham.stockham_fft_bm(re, im, inverse)
@@ -125,8 +144,8 @@ class FFTContext(_Context):
         return large.fft_large_bm(re, im, inverse, mode=kind[len("large-"):])
 
     def _nb(self, re, im, inverse: bool):
-        re = self._prep(re, torch.float32, 0, self.size)
-        im = self._prep(im, torch.float32, 0, self.size)
+        re = self._prep(re, self._real, 0, self.size)
+        im = self._prep(im, self._real, 0, self.size)
         kind = self._kind(re, 0)
         if kind == "stockham":
             return stockham.stockham_fft_nb(re, im, inverse)
@@ -158,72 +177,118 @@ class FFTContext(_Context):
 
     # -- the matmul surface, at any n (watfft_tpu/api.py:237-241) ---------------
     def forward_planes_fourstep(self, xre, xim):
-        return self._fourstep_bm(self._prep(xre, torch.float32, -1, self.size),
-                                 self._prep(xim, torch.float32, -1, self.size), False)
+        return self._fourstep_bm(self._prep(xre, self._real, -1, self.size),
+                                 self._prep(xim, self._real, -1, self.size), False)
 
     def inverse_planes_fourstep(self, xre, xim):
-        return self._fourstep_bm(self._prep(xre, torch.float32, -1, self.size),
-                                 self._prep(xim, torch.float32, -1, self.size), True)
+        return self._fourstep_bm(self._prep(xre, self._real, -1, self.size),
+                                 self._prep(xim, self._real, -1, self.size), True)
 
 
 class RFFTContext(_Context):
     """Real FFT context: forward real [..., n] -> [..., n//2+1] complex,
     inverse back, normalized (reference analog: createRFFTf32,
     index.js:156 of wat-fft). The planner's route runs every entry point:
-    the fused kernels up to n = 8192 ("rfft-fused"), the m-point core on
-    the four-step kernels with the Hermitian post/pre in torch past it
-    ("rfft-large"). One exception: on the fused route the sublane-folded
-    time-major view [n, 8, W] runs the hybrid (the c2c kernel through
-    strides, the Hermitian post/pre in torch), as the JAX API runs it there
-    (watfft_tpu/api.py:426-428, :441-443)."""
+    the fused kernels up to n = 8192 ("rfft-fused"), in float32 the m-point
+    core on the four-step kernels with the Hermitian post/pre in torch past
+    it ("rfft-large"), and the real matmul surface beyond ("fourstep"; in
+    float64 past 8192). One exception: on the fused route the
+    sublane-folded time-major view [n, 8, W] runs the hybrid (the c2c
+    kernel through strides, the Hermitian post/pre in torch), as the JAX
+    API runs it there (watfft_tpu/api.py:426-428, :441-443)."""
 
     def __init__(self, n: int, dtype: str = "float32", device="cuda"):
         super().__init__(n, dtype, 4)
-        kind = planner.r2c_kernel(self.size, dtype, "forward")
-        self._large = kind == "rfft-large"
-        self._fused = kind == "rfft-fused"
+        self._route = planner.r2c_kernel(self.size, dtype, "forward")
+        self._fused = self._route == "rfft-fused"
         self._fused_inv = planner.r2c_kernel(self.size, dtype, "inverse") == "rfft-fused"
         self.device = stockham.check_device(device)
         self.bins = self.size // 2 + 1
+        self._fourstep = {}
+
+    def _fourstep_tables(self, inverse: bool):
+        """The real matmul surface's m-point tree tables and post twiddles,
+        in the context's dtype, built at first use."""
+        if inverse not in self._fourstep:
+            npd = stockham.np_dtype(self._real)
+            tree = build_tree(self.size // 2, inverse=inverse, dtype=npd)
+            w = (torch.as_tensor(a, device=self.device)
+                 for a in fourstep.rfft_post_twiddles(self.size, inverse, npd))
+            self._fourstep[inverse] = (fourstep.fft_tables(tree, self.device),
+                                       fourstep.shape_info(tree), *w)
+        return self._fourstep[inverse]
+
+    def _fs_forward(self, x):
+        return fourstep.rfft_planes(x, *self._fourstep_tables(False))
+
+    def _fs_inverse(self, xre, xim):
+        return fourstep.irfft_planes(xre, xim, *self._fourstep_tables(True))
 
     # -- complex spectra [..., n//2+1] ------------------------------------------
     def forward(self, x):
-        x = self._prep(x, torch.float32, -1, self.size)
-        return large.rfft_large(x) if self._large else rf.rfft(x, self._fused)
+        x = self._prep(x, self._real, -1, self.size)
+        if self._route == "fourstep":
+            return torch.complex(*self._fs_forward(x))
+        if self._route == "rfft-large":
+            return large.rfft_large(x)
+        return rf.rfft(x, self._fused)
 
     def inverse(self, x):
-        x = self._prep(x, torch.complex64, -1, self.bins)
-        return large.irfft_large(x) if self._large else rf.irfft(x, self._fused_inv)
+        x = self._prep(x, self._cdtype, -1, self.bins)
+        if self._route == "fourstep":
+            return self._fs_inverse(x.real, x.imag)
+        if self._route == "rfft-large":
+            return large.irfft_large(x)
+        return rf.irfft(x, self._fused_inv)
 
     # -- batch-major planes [..., n//2+1] ---------------------------------------
     def forward_planes(self, x):
-        x = self._prep(x, torch.float32, -1, self.size)
-        return large.rfft_large_bm(x) if self._large else rf.rfft_bm(x, self._fused)
+        x = self._prep(x, self._real, -1, self.size)
+        if self._route == "fourstep":
+            return self._fs_forward(x)
+        if self._route == "rfft-large":
+            return large.rfft_large_bm(x)
+        return rf.rfft_bm(x, self._fused)
 
     def inverse_planes(self, xre, xim):
-        xre = self._prep(xre, torch.float32, -1, self.bins)
-        xim = self._prep(xim, torch.float32, -1, self.bins)
-        if self._large:
+        xre = self._prep(xre, self._real, -1, self.bins)
+        xim = self._prep(xim, self._real, -1, self.bins)
+        if self._route == "fourstep":
+            return self._fs_inverse(xre, xim)
+        if self._route == "rfft-large":
             return large.irfft_large_bm(xre, xim)
         return rf.irfft_bm(xre, xim, self._fused_inv)
 
     # -- time-major planes [n, ...] <-> [n//2+1, ...] ----------------------------
     def forward_planes_nb(self, x):
-        x = self._prep(x, torch.float32, 0, self.size)
-        if self._large:
+        x = self._prep(x, self._real, 0, self.size)
+        if self._route == "fourstep":  # the matmul surface runs along the last axis
+            ore, oim = self._fs_forward(x.movedim(0, -1))
+            return ore.movedim(-1, 0), oim.movedim(-1, 0)
+        if self._route == "rfft-large":
             return large.rfft_large_nb(x)
         if _folded(x) or not self._fused:
             return rf.rfft_nb(x)
         return rf.rfft_nb_fused(x)
 
     def inverse_planes_nb(self, xre, xim):
-        xre = self._prep(xre, torch.float32, 0, self.bins)
-        xim = self._prep(xim, torch.float32, 0, self.bins)
-        if self._large:
+        xre = self._prep(xre, self._real, 0, self.bins)
+        xim = self._prep(xim, self._real, 0, self.bins)
+        if self._route == "fourstep":
+            return self._fs_inverse(xre.movedim(0, -1), xim.movedim(0, -1)).movedim(-1, 0)
+        if self._route == "rfft-large":
             return large.irfft_large_nb(xre, xim)
         if _folded(xre) or not self._fused_inv:
             return rf.irfft_nb(xre, xim)
         return rf.irfft_nb_fused(xre, xim)
+
+    # -- the real matmul surface, at any n (watfft_tpu/api.py:483-489) ----------
+    def forward_planes_fourstep(self, x):
+        return self._fs_forward(self._prep(x, self._real, -1, self.size))
+
+    def inverse_planes_fourstep(self, xre, xim):
+        return self._fs_inverse(self._prep(xre, self._real, -1, self.bins),
+                                self._prep(xim, self._real, -1, self.bins))
 
 
 def _folded(x) -> bool:
@@ -231,9 +296,20 @@ def _folded(x) -> bool:
     return x.dim() == 3 and x.shape[1] == 8
 
 
+def create_fft(size: int, device="cuda") -> FFTContext:
+    """f64 complex FFT context (reference: createFFT, index.js:69)."""
+    return FFTContext(size, "float64", device)
+
+
 def create_fft_f32(size: int, device="cuda") -> FFTContext:
     """f32 complex FFT context (reference: createFFTf32, index.js:95)."""
     return FFTContext(size, "float32", device)
+
+
+def create_rfft(size: int, device="cuda") -> RFFTContext:
+    """f64 real FFT context, inverse included (reference: createRFFT,
+    index.js:129)."""
+    return RFFTContext(size, "float64", device)
 
 
 def create_rfft_f32(size: int, device="cuda") -> RFFTContext:
@@ -246,37 +322,38 @@ def create_rfft_f32(size: int, device="cuda") -> RFFTContext:
 _ctx_cache: dict = {}
 
 
-def _ctx(cls, n: int, device):
-    key = (cls, n, str(device))
+def _ctx(cls, n: int, device, dtype: str = "float32"):
+    key = (cls, n, dtype, str(device))
     if key not in _ctx_cache:
-        _ctx_cache[key] = cls(n, "float32", device)
+        _ctx_cache[key] = cls(n, dtype, device)
     return _ctx_cache[key]
 
 
-def fft(x, device="cuda"):
-    """Forward f32 FFT over the last axis of x, on `device`."""
+def fft(x, dtype: str = "float32", device="cuda"):
+    """Forward FFT over the last axis of x in `dtype` ("float32" or
+    "float64"), on `device`."""
     x = torch.as_tensor(x)
-    return _ctx(FFTContext, x.shape[-1], device).forward(x)
+    return _ctx(FFTContext, x.shape[-1], device, dtype).forward(x)
 
 
-def ifft(x, device="cuda"):
-    """Normalized inverse f32 FFT over the last axis of x, on `device`."""
+def ifft(x, dtype: str = "float32", device="cuda"):
+    """Normalized inverse FFT over the last axis of x, on `device`."""
     x = torch.as_tensor(x)
-    return _ctx(FFTContext, x.shape[-1], device).inverse(x)
+    return _ctx(FFTContext, x.shape[-1], device, dtype).inverse(x)
 
 
-def rfft(x, device="cuda"):
-    """Real f32 FFT over the last axis of x: [..., n] -> complex
-    [..., n//2+1], on `device`."""
+def rfft(x, dtype: str = "float32", device="cuda"):
+    """Real FFT over the last axis of x: [..., n] -> complex [..., n//2+1],
+    in `dtype`, on `device`."""
     x = torch.as_tensor(x)
-    return _ctx(RFFTContext, x.shape[-1], device).forward(x)
+    return _ctx(RFFTContext, x.shape[-1], device, dtype).forward(x)
 
 
-def irfft(x, device="cuda"):
+def irfft(x, dtype: str = "float32", device="cuda"):
     """Normalized inverse of `rfft`: complex [..., m+1] -> real [..., 2m],
     on `device`."""
     x = torch.as_tensor(x)
-    return _ctx(RFFTContext, 2 * (x.shape[-1] - 1), device).inverse(x)
+    return _ctx(RFFTContext, 2 * (x.shape[-1] - 1), device, dtype).inverse(x)
 
 
 # -- 2D (watfft_tpu/api.py:586-631) --------------------------------------------

@@ -12,7 +12,11 @@ the twiddle grid of `watfft_tpu.ops.large._TwCache.get` and the n2- and
 n1-point stage plans and packs. `bluestein_tables_from_jax` takes the
 any-n transform's chirp and kernel spectrum as
 `watfft_tpu.ops.bluestein._ChirpCache.get` returns them, with the m-point
-plan and both of its twiddle packs. The plain versions run any such plan;
+plan and both of its twiddle packs. `df_tables_from_jax` and
+`df_rtables_from_jax` carry the f64 tier's tables across: the plan and the
+four hi/lo f32 planes of `watfft_tpu.ops.doublefloat._df_stage_plan`,
+`_df_twiddle_pack` and `_df_post_twiddles`, merged into f64 (hi + lo), the
+values the port's FP64 kernels take. The plain versions run any such plan;
 the CUDA kernels refuse radices above 16 (the JAX plans of n = 1024..8192
 have radix-32/64 stages), as they refuse them from any source. Nothing
 here imports JAX.
@@ -22,11 +26,14 @@ from __future__ import annotations
 
 from .ops.bluestein import BluesteinTables, make_bluestein_tables
 from .ops.large import LargeTables, make_large_tables
+import numpy as np
+import torch
+
 from .ops.rfft import RTables, make_rtables
 from .ops.stockham import Tables, make_tables
 
 __all__ = ["tables_from_jax", "rfft_tables_from_jax", "large_tables_from_jax",
-           "bluestein_tables_from_jax"]
+           "bluestein_tables_from_jax", "df_tables_from_jax", "df_rtables_from_jax"]
 
 
 def tables_from_jax(stages, offsets, twre, twim, device="cpu") -> Tables:
@@ -67,3 +74,42 @@ def bluestein_tables_from_jax(n: int, chirp, stages, fwd_pack, inv_pack, inverse
     if fwd.n != m:
         raise ValueError(f"the plan is for m={fwd.n}, the chirp tables for m={m}")
     return make_bluestein_tables(n, cre, cim, bre, bim, fwd, inv, inverse, device)
+
+
+def _merge(hi, lo) -> np.ndarray:
+    """An f64 value from its hi/lo f32 pair (doublefloat.merge_f64)."""
+    return np.asarray(hi, np.float64) + np.asarray(lo, np.float64)
+
+
+def _check_direction(offsets, im: np.ndarray, inverse: bool) -> None:
+    """The pack's first twiddle, w_{Rl}^{-+1} at row 1 of the first stage
+    that has twiddles, has a negative imaginary part forward and a positive
+    one inverse; a pack of the other direction raises."""
+    first = next((o for o in offsets if o >= 0), None)
+    if first is not None and (im.reshape(-1)[first + 1] > 0) != inverse:
+        raise ValueError(f"the twiddle pack is not {'inverse' if inverse else 'forward'}")
+
+
+def df_tables_from_jax(stages, packed, offsets, inverse: bool, device="cpu") -> Tables:
+    """stages: `_df_stage_plan(n)`, [(R, l), ...]; packed, offsets: what
+    `_df_twiddle_pack(n, inverse)` returns, the four [total, 1] f32 planes
+    (re_hi, re_lo, im_hi, im_lo) and the per-stage offsets. Returns f64
+    Tables of the merged pack; a pack of the other direction raises."""
+    rh, rl, ih, il = packed
+    im = _merge(ih, il)
+    _check_direction(offsets, im, inverse)
+    return make_tables(stages, offsets, _merge(rh, rl), im, device, torch.float64)
+
+
+def df_rtables_from_jax(stages, packed, offsets, post, inverse: bool,
+                        device="cpu") -> RTables:
+    """The f64 real-FFT tables of n = 2m points: stages / packed / offsets
+    as for `df_tables_from_jax`, of the m-point core in the direction;
+    post: `_df_post_twiddles(n, inverse)`, the four hi/lo planes of
+    w_n^{-+k} (m+1 values forward, m inverse)."""
+    rh, rl, ih, il = packed
+    wrh, wrl, wih, wil = post
+    im = _merge(ih, il)
+    _check_direction(offsets, im, inverse)
+    return make_rtables(stages, offsets, _merge(rh, rl), im, _merge(wrh, wrl),
+                        _merge(wih, wil), inverse, device, torch.float64)

@@ -242,13 +242,27 @@ def rfft2(a, s=None, axes=(-2, -1), norm=None, device="cuda"):
     return _scaled(fft(out, n=s[0], axis=axes[0], device=a.device), sc)
 
 
+def _hermitian_columns(spec: torch.Tensor) -> torch.Tensor:
+    """A copy of the half spectrum [..., h, w/2+1] with columns 0 and w/2
+    projected onto their Hermitian part along h, (X[k] + conj X[-k]) / 2:
+    all numpy's irfft2 keeps of them (the imaginary parts its last-axis
+    irfft drops), as `_hermitian_bins` is for 1D. The port's 2D kernels
+    read the rest, as the JAX package's do."""
+    spec = spec.clone()
+    for c in (0, spec.shape[-1] - 1):
+        col = spec[..., c]
+        mirror = col.flip(-1).roll(1, -1).conj()  # X[(h - k) mod h]
+        spec[..., c] = 0.5 * (col + mirror)
+    return spec
+
+
 def irfft2(a, s=None, axes=(-2, -1), norm=None, device="cuda"):
     a = _tensor(a, device, torch.complex64)
     if s is None:
         s = (a.shape[axes[0]], 2 * (a.shape[axes[1]] - 1))
     sc = _norm_scale(norm, s[0] * s[1], "inv")
     if _is_trailing_pair(axes, a.dim()) and _fused_2d(s, a.shape[-2], 2 * (a.shape[-1] - 1)):
-        return _scaled(api.irfft2(a, device=a.device), sc)
+        return _scaled(api.irfft2(_hermitian_columns(a), device=a.device), sc)
     out = ifft(a, n=s[0], axis=axes[0], device=a.device)
     return _scaled(irfft(out, n=s[1], axis=axes[1], device=a.device), sc)
 

@@ -89,17 +89,19 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.watfft_stockham_c2c.argtypes = [p, p, p, p, i64, i64, i64, i64, i32, i64,
-                                        p, p, ip, ip, i32, i32, p]
-    lib.watfft_stockham_c2c.restype = i32
-    # (x, x_sn, x_sb, yre, yim, y_sn, y_sb, n, batch, twre, twim, radices,
-    #  offsets, nstages, wre, wim, stream) and the c2r mirror of it
-    lib.watfft_rfft_r2c.argtypes = [p, i64, i64, p, p, i64, i64, i32, i64,
-                                    p, p, ip, ip, i32, p, p, p]
-    lib.watfft_rfft_r2c.restype = i32
-    lib.watfft_irfft_c2r.argtypes = [p, p, i64, i64, p, i64, i64, i32, i64,
-                                     p, p, ip, ip, i32, p, p, p]
-    lib.watfft_irfft_c2r.restype = i32
+    # each of these three in float32 and, under the _f64 name, float64
+    for suffix in ("", "_f64"):
+        c2c = getattr(lib, "watfft_stockham_c2c" + suffix)
+        c2c.argtypes = [p, p, p, p, i64, i64, i64, i64, i32, i64, p, p, ip, ip, i32, i32, p]
+        c2c.restype = i32
+        # (x, x_sn, x_sb, yre, yim, y_sn, y_sb, n, batch, twre, twim, radices,
+        #  offsets, nstages, wre, wim, stream) and the c2r mirror of it
+        r2c = getattr(lib, "watfft_rfft_r2c" + suffix)
+        r2c.argtypes = [p, i64, i64, p, p, i64, i64, i32, i64, p, p, ip, ip, i32, p, p, p]
+        r2c.restype = i32
+        c2r = getattr(lib, "watfft_irfft_c2r" + suffix)
+        c2r.argtypes = [p, p, i64, i64, p, i64, i64, i32, i64, p, p, ip, ip, i32, p, p, p]
+        c2r.restype = i32
     # (xre, xim, yre, yim, x_sn, x_sa, x_sb, y_sn, y_sa, y_sb, pmre, pmim,
     #  m_sn, m_sa, m_sb, mul, n, inner, batch, twre, twim, radices, offsets,
     #  nstages, inverse, stream)

@@ -143,11 +143,8 @@ struct Cube2Args {
 template <int P1, int P2, bool INV>
 int launch_cube2(const Cube2Args& a, int nt, int64_t blocks, size_t smem, cudaStream_t st) {
   auto kernel = fft2_cube_kernel<P1, P2, INV>;
-  if (smem > 48 * 1024) {  // over the default: opt in (at most 139 KB, at 2^14 points)
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  // over the default: opt in (at most 139 KB, at 2^14 points)
+  if (const int err = opt_in_smem(kernel, smem)) return err;
   kernel<<<(unsigned)blocks, nt, smem, st>>>(a.xre, a.xim, a.yre, a.yim, a.x_sh, a.x_sw, a.x_sb,
                                              a.y_sh, a.y_sw, a.y_sb, a.batch, a.log2g, a.S,
                                              a.t1re, a.t1im, a.p1, a.t2re, a.t2im, a.p2);

@@ -1,5 +1,6 @@
-// Fused real FFT kernels for Hopper (sm_90a), float32: r2c (forward) and
-// c2r (normalized inverse) of n = 2m real points, in one pass each.
+// Fused real FFT kernels for Hopper (sm_90a), float32 and float64: r2c
+// (forward) and c2r (normalized inverse) of n = 2m real points, in one pass
+// each.
 //
 // rfft_r2c_kernel replaces watfft_tpu/ops/pallas_rfft.py::_rfft_fused_kernel
 // (deinterleave + m-point stages + Hermitian mirror + post-twiddle) and
@@ -19,6 +20,13 @@
 // The post twiddles w_n^{-+k} come from the host table of
 // watfft_tpu_torch/ops/rfft.py (rfft_post_twiddles); the m-point stages are
 // the engine of stockham.cuh with the m-point plan and twiddle pack.
+//
+// The FP64 instances (watfft_rfft_r2c_f64, watfft_irfft_c2r_f64) replace
+// watfft_tpu/ops/doublefloat.py::df_rfft_nb and ::df_irfft_nb, the f64
+// real tier: the df kernel on the m = n/2-point core with the Hermitian
+// post or pre in jnp beside it, on hi/lo f32 pairs. Here the same one-pass
+// kernels run on double; their m = 4096 block (n = 8192) holds 69.6 KB and
+// opts in past the 48 KB default, as the FP64 c2c kernel does.
 //
 // What bounds them: 8 bytes of device memory per real point (4 read, and
 // about 4 written as (m+1) complex bins per n reals), against about
@@ -50,7 +58,7 @@
 //    take one launch.
 //
 // C interface (loaded with ctypes): watfft_rfft_r2c and watfft_irfft_c2r
-// launch on the given stream, allocate nothing, and return
+// (and their _f64 twins on double) launch on the given stream, allocate nothing, and return
 // cudaGetLastError() after the launch, or a negative code (the kErr codes
 // of stockham.cuh, printed by watfft_error_string) for arguments they
 // refuse before launching.
@@ -60,18 +68,24 @@
 namespace {
 
 // X = E + w O for the forward pair (A, B) = (Z[k], Z[m-k]).
-__device__ __forceinline__ float2 post_fwd(float2 a, float2 b, float2 w) {
-  const float ere = 0.5f * (a.x + b.x), eim = 0.5f * (a.y - b.y);
-  const float ore = 0.5f * (a.y + b.y), oim = -0.5f * (a.x - b.x);
-  return make_float2(ere + w.x * ore - w.y * oim, eim + w.x * oim + w.y * ore);
+template <typename C>
+__device__ __forceinline__ C post_fwd(C a, C b, C w) {
+  using Real = decltype(a.x);
+  const Real h = 0.5;
+  const Real ere = h * (a.x + b.x), eim = h * (a.y - b.y);
+  const Real ore = h * (a.y + b.y), oim = -h * (a.x - b.x);
+  return make_c(ere + w.x * ore - w.y * oim, eim + w.x * oim + w.y * ore);
 }
 
 // Z = E + w O for the inverse pair A = X[k], B = conj(xb), xb = X[m-k].
-__device__ __forceinline__ float2 pre_inv(float2 a, float2 xb, float2 w) {
-  const float bre = xb.x, bim = -xb.y;
-  const float ere = 0.5f * (a.x + bre), eim = 0.5f * (a.y + bim);
-  const float ore = -0.5f * (a.y - bim), oim = 0.5f * (a.x - bre);
-  return make_float2(ere + w.x * ore - w.y * oim, eim + w.x * oim + w.y * ore);
+template <typename C>
+__device__ __forceinline__ C pre_inv(C a, C xb, C w) {
+  using Real = decltype(a.x);
+  const Real h = 0.5;
+  const Real bre = xb.x, bim = -xb.y;
+  const Real ere = h * (a.x + bre), eim = h * (a.y + bim);
+  const Real ore = -h * (a.y - bim), oim = h * (a.x - bre);
+  return make_c(ere + w.x * ore - w.y * oim, eim + w.x * oim + w.y * ore);
 }
 
 // Calls f(t, k, g) for the mirror pairs (k, m-k), k = 0..m/2, of transform
@@ -94,15 +108,17 @@ __device__ __forceinline__ void for_pairs(int m, int T, int count, int64_t first
   }
 }
 
-template <int P>
-__global__ void __launch_bounds__(kBlockThreads, min_blocks(P))
-rfft_r2c_kernel(const float* __restrict__ x, int64_t x_sn, int64_t x_sb,
-                float* __restrict__ yre, float* __restrict__ yim,
+template <typename Real, int P>
+__global__ void __launch_bounds__(kBlockThreads, min_blocks_of<Real>(P))
+rfft_r2c_kernel(const Real* __restrict__ x, int64_t x_sn, int64_t x_sb,
+                Real* __restrict__ yre, Real* __restrict__ yim,
                 int64_t y_sn, int64_t y_sb, int64_t batch, int T, int S,
-                const float* __restrict__ twre, const float* __restrict__ twim,
-                const float* __restrict__ wre, const float* __restrict__ wim,
+                const Real* __restrict__ twre, const Real* __restrict__ twim,
+                const Real* __restrict__ wre, const Real* __restrict__ wim,
                 Plan plan) {
-  extern __shared__ float2 smem[];
+  using C = cplx<Real>;
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  C* smem = reinterpret_cast<C*>(smem_bytes);
   const int m = 1 << plan.log2n;
   const int tpt = m / P;
   const int64_t first = (int64_t)blockIdx.x * T;
@@ -110,7 +126,7 @@ rfft_r2c_kernel(const float* __restrict__ x, int64_t x_sn, int64_t x_sb,
 
   // z[j] = x[2j] + i x[2j+1]: complex point j sits 2j real strides in
   for_tile(plan.log2n, T, count, first, 2 * x_sn, x_sb, [&](int t, int j, int64_t g) {
-    smem[t * S + pad(j)] = make_float2(x[g], x[g + x_sn]);
+    smem[t * S + pad(j)] = make_c(x[g], x[g + x_sn]);
   });
   __syncthreads();
 
@@ -119,37 +135,39 @@ rfft_r2c_kernel(const float* __restrict__ x, int64_t x_sn, int64_t x_sb,
 
   // Hermitian post, one mirror pair per thread (the stages ended with a sync)
   for_pairs(m, T, count, first, y_sn, y_sb, [&](int t, int k, int64_t g) {
-    const float2* c = smem + t * S;
+    const C* c = smem + t * S;
     if (k == 0) {
-      const float2 z0 = c[0];
+      const C z0 = c[0];
       yre[g] = z0.x + z0.y;
-      yim[g] = 0.0f;
+      yim[g] = Real(0);
       yre[g + m * y_sn] = z0.x - z0.y;
-      yim[g + m * y_sn] = 0.0f;
+      yim[g + m * y_sn] = Real(0);
       return;
     }
-    const float2 a = c[pad(k)], b = c[pad(m - k)];
-    const float2 xk = post_fwd(a, b, make_float2(__ldg(wre + k), __ldg(wim + k)));
+    const C a = c[pad(k)], b = c[pad(m - k)];
+    const C xk = post_fwd(a, b, make_c(__ldg(wre + k), __ldg(wim + k)));
     yre[g + k * y_sn] = xk.x;
     yim[g + k * y_sn] = xk.y;
     if (2 * k != m) {
       const int j = m - k;
-      const float2 xj = post_fwd(b, a, make_float2(__ldg(wre + j), __ldg(wim + j)));
+      const C xj = post_fwd(b, a, make_c(__ldg(wre + j), __ldg(wim + j)));
       yre[g + j * y_sn] = xj.x;
       yim[g + j * y_sn] = xj.y;
     }
   });
 }
 
-template <int P>
-__global__ void __launch_bounds__(kBlockThreads, min_blocks(P))
-irfft_c2r_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
-                 int64_t x_sn, int64_t x_sb, float* __restrict__ y,
+template <typename Real, int P>
+__global__ void __launch_bounds__(kBlockThreads, min_blocks_of<Real>(P))
+irfft_c2r_kernel(const Real* __restrict__ xre, const Real* __restrict__ xim,
+                 int64_t x_sn, int64_t x_sb, Real* __restrict__ y,
                  int64_t y_sn, int64_t y_sb, int64_t batch, int T, int S,
-                 const float* __restrict__ twre, const float* __restrict__ twim,
-                 const float* __restrict__ wre, const float* __restrict__ wim,
+                 const Real* __restrict__ twre, const Real* __restrict__ twim,
+                 const Real* __restrict__ wre, const Real* __restrict__ wim,
                  Plan plan) {
-  extern __shared__ float2 smem[];
+  using C = cplx<Real>;
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  C* smem = reinterpret_cast<C*>(smem_bytes);
   const int m = 1 << plan.log2n;
   const int tpt = m / P;
   const int64_t first = (int64_t)blockIdx.x * T;
@@ -158,13 +176,13 @@ irfft_c2r_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
   // Hermitian pre-process in the load, one mirror pair per thread: Z[0]
   // from X[0] and X[m], Z[k] and Z[m-k] from X[k] and X[m-k]
   for_pairs(m, T, count, first, x_sn, x_sb, [&](int t, int k, int64_t g) {
-    float2* c = smem + t * S;
+    C* c = smem + t * S;
     const int j = k == 0 ? m : m - k;
-    const float2 a = make_float2(xre[g + k * x_sn], xim[g + k * x_sn]);
-    const float2 b = make_float2(xre[g + j * x_sn], xim[g + j * x_sn]);
-    c[pad(k)] = pre_inv(a, b, make_float2(__ldg(wre + k), __ldg(wim + k)));
+    const C a = make_c(xre[g + k * x_sn], xim[g + k * x_sn]);
+    const C b = make_c(xre[g + j * x_sn], xim[g + j * x_sn]);
+    c[pad(k)] = pre_inv(a, b, make_c(__ldg(wre + k), __ldg(wim + k)));
     if (k != 0 && 2 * k != m) {
-      c[pad(j)] = pre_inv(b, a, make_float2(__ldg(wre + j), __ldg(wim + j)));
+      c[pad(j)] = pre_inv(b, a, make_c(__ldg(wre + j), __ldg(wim + j)));
     }
   });
   __syncthreads();
@@ -174,22 +192,67 @@ irfft_c2r_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
 
   // o[2j] = Re z[j], o[2j+1] = Im z[j] (the stages ended with a sync)
   for_tile(plan.log2n, T, count, first, 2 * y_sn, y_sb, [&](int t, int j, int64_t g) {
-    const float2 z = smem[t * S + pad(j)];
+    const C z = smem[t * S + pad(j)];
     y[g] = z.x;
     y[g + y_sn] = z.y;
   });
 }
 
-// Shared-memory bytes and grid of a launch over `batch` transforms.
-struct Grid {
+// The grid of a launch over `batch` transforms, its shared memory, and the
+// kernel's opt-in when that is past the default; 0 or an error code.
+template <typename Real, typename K>
+int launch_grid(K kernel, const Plan& plan, int64_t batch, int T, int& S, size_t& smem,
+                unsigned& blocks) {
+  S = smem_stride(1 << plan.log2n);
+  smem = (size_t)T * S * sizeof(cplx<Real>);
+  blocks = (unsigned)((batch + T - 1) / T);
+  return opt_in_smem(kernel, smem);
+}
+
+template <typename Real>
+int r2c(const Real* x, int64_t x_sn, int64_t x_sb, Real* yre, Real* yim, int64_t y_sn,
+        int64_t y_sb, int n, int64_t batch, const Real* twre, const Real* twim,
+        const int* radices, const int* twoffsets, int nstages, const Real* wre,
+        const Real* wim, void* stream) {
+  Plan plan;
+  int maxr, T;
+  if (n < 4 || (n & (n - 1))) return kErrArgs;
+  if (const int err = make_plan(n / 2, batch, radices, twoffsets, nstages, plan, maxr, T)) {
+    return err;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto kernel = maxr == 2 ? rfft_r2c_kernel<Real, 2> : maxr == 4 ? rfft_r2c_kernel<Real, 4>
+              : maxr == 8 ? rfft_r2c_kernel<Real, 8> : rfft_r2c_kernel<Real, 16>;
   int S;
   size_t smem;
   unsigned blocks;
-};
+  if (const int err = launch_grid<Real>(kernel, plan, batch, T, S, smem, blocks)) return err;
+  kernel<<<blocks, kBlockThreads, smem, st>>>(x, x_sn, x_sb, yre, yim, y_sn, y_sb, batch, T,
+                                              S, twre, twim, wre, wim, plan);
+  return (int)cudaGetLastError();
+}
 
-inline Grid grid_for(const Plan& plan, int64_t batch, int T) {
-  const int S = smem_stride(1 << plan.log2n);
-  return {S, (size_t)T * S * sizeof(float2), (unsigned)((batch + T - 1) / T)};
+template <typename Real>
+int c2r(const Real* xre, const Real* xim, int64_t x_sn, int64_t x_sb, Real* y, int64_t y_sn,
+        int64_t y_sb, int n, int64_t batch, const Real* twre, const Real* twim,
+        const int* radices, const int* twoffsets, int nstages, const Real* wre,
+        const Real* wim, void* stream) {
+  Plan plan;
+  int maxr, T;
+  if (n < 4 || (n & (n - 1))) return kErrArgs;
+  if (const int err = make_plan(n / 2, batch, radices, twoffsets, nstages, plan, maxr, T)) {
+    return err;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto kernel = maxr == 2 ? irfft_c2r_kernel<Real, 2> : maxr == 4 ? irfft_c2r_kernel<Real, 4>
+              : maxr == 8 ? irfft_c2r_kernel<Real, 8> : irfft_c2r_kernel<Real, 16>;
+  int S;
+  size_t smem;
+  unsigned blocks;
+  if (const int err = launch_grid<Real>(kernel, plan, batch, T, S, smem, blocks)) return err;
+  kernel<<<blocks, kBlockThreads, smem, st>>>(xre, xim, x_sn, x_sb, y, y_sn, y_sb, batch, T,
+                                              S, twre, twim, wre, wim, plan);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -206,25 +269,18 @@ int watfft_rfft_r2c(const float* x, int64_t x_sn, int64_t x_sb,
                     int n, int64_t batch, const float* twre, const float* twim,
                     const int* radices, const int* twoffsets, int nstages,
                     const float* wre, const float* wim, void* stream) {
-  Plan plan;
-  int maxr, T;
-  if (n < 4 || (n & (n - 1))) return kErrArgs;
-  if (const int err = make_plan(n / 2, batch, radices, twoffsets, nstages, plan, maxr, T)) {
-    return err;
-  }
-  const Grid g = grid_for(plan, batch, T);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define WATFFT_LAUNCH(P)                                                         \
-  rfft_r2c_kernel<P><<<g.blocks, kBlockThreads, g.smem, st>>>(                  \
-      x, x_sn, x_sb, yre, yim, y_sn, y_sb, batch, T, g.S, twre, twim, wre, wim, plan)
-  switch (maxr) {
-    case 2:  WATFFT_LAUNCH(2); break;
-    case 4:  WATFFT_LAUNCH(4); break;
-    case 8:  WATFFT_LAUNCH(8); break;
-    default: WATFFT_LAUNCH(16); break;
-  }
-#undef WATFFT_LAUNCH
-  return (int)cudaGetLastError();
+  return r2c(x, x_sn, x_sb, yre, yim, y_sn, y_sb, n, batch, twre, twim, radices, twoffsets,
+             nstages, wre, wim, stream);
+}
+
+// The same on float64 signals, spectrum planes and tables.
+int watfft_rfft_r2c_f64(const double* x, int64_t x_sn, int64_t x_sb,
+                        double* yre, double* yim, int64_t y_sn, int64_t y_sb,
+                        int n, int64_t batch, const double* twre, const double* twim,
+                        const int* radices, const int* twoffsets, int nstages,
+                        const double* wre, const double* wim, void* stream) {
+  return r2c(x, x_sn, x_sb, yre, yim, y_sn, y_sb, n, batch, twre, twim, radices, twoffsets,
+             nstages, wre, wim, stream);
 }
 
 // y = irfft_n(X) for each of `batch` spectra of m+1 bins (bin k of spectrum
@@ -237,25 +293,18 @@ int watfft_irfft_c2r(const float* xre, const float* xim, int64_t x_sn, int64_t x
                      int n, int64_t batch, const float* twre, const float* twim,
                      const int* radices, const int* twoffsets, int nstages,
                      const float* wre, const float* wim, void* stream) {
-  Plan plan;
-  int maxr, T;
-  if (n < 4 || (n & (n - 1))) return kErrArgs;
-  if (const int err = make_plan(n / 2, batch, radices, twoffsets, nstages, plan, maxr, T)) {
-    return err;
-  }
-  const Grid g = grid_for(plan, batch, T);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define WATFFT_LAUNCH(P)                                                         \
-  irfft_c2r_kernel<P><<<g.blocks, kBlockThreads, g.smem, st>>>(                 \
-      xre, xim, x_sn, x_sb, y, y_sn, y_sb, batch, T, g.S, twre, twim, wre, wim, plan)
-  switch (maxr) {
-    case 2:  WATFFT_LAUNCH(2); break;
-    case 4:  WATFFT_LAUNCH(4); break;
-    case 8:  WATFFT_LAUNCH(8); break;
-    default: WATFFT_LAUNCH(16); break;
-  }
-#undef WATFFT_LAUNCH
-  return (int)cudaGetLastError();
+  return c2r(xre, xim, x_sn, x_sb, y, y_sn, y_sb, n, batch, twre, twim, radices, twoffsets,
+             nstages, wre, wim, stream);
+}
+
+// The same on float64 spectrum planes, signals and tables.
+int watfft_irfft_c2r_f64(const double* xre, const double* xim, int64_t x_sn, int64_t x_sb,
+                         double* y, int64_t y_sn, int64_t y_sb,
+                         int n, int64_t batch, const double* twre, const double* twim,
+                         const int* radices, const int* twoffsets, int nstages,
+                         const double* wre, const double* wim, void* stream) {
+  return c2r(xre, xim, x_sn, x_sb, y, y_sn, y_sb, n, batch, twre, twim, radices, twoffsets,
+             nstages, wre, wim, stream);
 }
 
 }  // extern "C"

@@ -1,7 +1,13 @@
-// Batched mixed-radix Stockham c2c FFT for Hopper (sm_90a), float32.
+// Batched mixed-radix Stockham c2c FFT for Hopper (sm_90a), float32 and
+// float64.
 //
 // Replaces watfft_tpu/ops/pallas_stockham.py::_kernel (the [n, b] plane
-// kernel) and ::_kernel_dma3d (the same transform on the [n, 8, W] view).
+// kernel) and ::_kernel_dma3d (the same transform on the [n, 8, W] view);
+// its FP64 instance replaces watfft_tpu/ops/doublefloat.py::_df_kernel,
+// the f64 tier, which the TPU computes on hi/lo f32 pairs with error-free
+// arithmetic for want of f64 units. Hopper has FP64 units, so the f64 tier
+// is the same engine on double2, with the same plan, twiddle layout and
+// 1/n fold; none of the hi/lo machinery is ported.
 // Both compute the n-point DFT of each of B sequences, forward (w = e^-i)
 // or inverse (w = e^+i, 1/n folded into the last stage), with the stage
 // plan and the packed twiddle columns that watfft_tpu_torch/ops/stockham.py
@@ -41,31 +47,42 @@
 //  * Twiddles come from the packed table through the read-only cache; the
 //    largest pack (n=4096) is 2 x 7680 floats and stays in L2.
 //  * Constants of the radix-2 network are the f32 roundings of the f64
-//    values the JAX kernel uses, and the w = -+i shortcut and the 1/n fold
-//    follow pallas_stockham.py:_small_dft and :_stage.
+//    values the JAX kernel uses (the f64 values themselves in the FP64
+//    instance), and the w = -+i shortcut and the 1/n fold follow
+//    pallas_stockham.py:_small_dft and :_stage.
+//  * FP64. A point takes 16 bytes, so a P = 16 block holds 69.6 KB and
+//    the launch opts in past the 48 KB default (cudaFuncSetAttribute), as
+//    the four-step cube does. Capping the FP64 plan at radix 8 would halve
+//    the block but not reach n = 4096: one transform of 4096 points at 8
+//    per thread needs 512 threads, over the engine's 256. The instance
+//    keeps radix 16 and its own register bound (min_blocks_f64). 32 bytes
+//    of traffic per point against the same flops puts it further under the
+//    card's FP64 ridge (34 TFLOP/s over 3.35 TB/s, ~10 flop/B).
 //
 // The stage engine, the tile walk and the plan check live in stockham.cuh,
 // which the real-FFT kernels (rfft.cu) and the four-step kernels (large.cu)
 // share; the hybrid real path also drives this kernel itself, through
 // strides (watfft_tpu_torch/ops/rfft.py).
 //
-// C interface (loaded with ctypes): watfft_stockham_c2c launches on the
-// given stream, allocates nothing, and returns cudaGetLastError() after the
-// launch, or a negative code for arguments it refuses before launching.
+// C interface (loaded with ctypes): watfft_stockham_c2c (float) and
+// watfft_stockham_c2c_f64 (double) launch on the given stream, allocate
+// nothing, and return cudaGetLastError() after the launch, or a negative
+// code for arguments they refuse before launching.
 
 #include "stockham.cuh"
 
 namespace {
 
-template <int P, bool INV>
-__global__ void __launch_bounds__(kBlockThreads, min_blocks(P))
-stockham_c2c_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
-                    float* __restrict__ yre, float* __restrict__ yim,
+template <typename Real, int P, bool INV>
+__global__ void __launch_bounds__(kBlockThreads, min_blocks_of<Real>(P))
+stockham_c2c_kernel(const Real* __restrict__ xre, const Real* __restrict__ xim,
+                    Real* __restrict__ yre, Real* __restrict__ yim,
                     int64_t x_sn, int64_t x_sb, int64_t y_sn, int64_t y_sb,
                     int64_t batch, int T, int S,
-                    const float* __restrict__ twre, const float* __restrict__ twim,
+                    const Real* __restrict__ twre, const Real* __restrict__ twim,
                     Plan plan) {
-  extern __shared__ float2 smem[];
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  cplx<Real>* smem = reinterpret_cast<cplx<Real>*>(smem_bytes);
   const int n = 1 << plan.log2n;
   const int tpt = n / P;
   const int64_t first = (int64_t)blockIdx.x * T;
@@ -74,7 +91,7 @@ stockham_c2c_kernel(const float* __restrict__ xre, const float* __restrict__ xim
   // device memory -> shared memory; transforms past the batch stay unset
   // and their results are never stored
   for_tile(plan.log2n, T, count, first, x_sn, x_sb, [&](int t, int k, int64_t g) {
-    smem[t * S + pad(k)] = make_float2(xre[g], xim[g]);
+    smem[t * S + pad(k)] = make_c(xre[g], xim[g]);
   });
   __syncthreads();
 
@@ -83,23 +100,52 @@ stockham_c2c_kernel(const float* __restrict__ xre, const float* __restrict__ xim
 
   // shared memory -> device memory (the last stage ended with a sync)
   for_tile(plan.log2n, T, count, first, y_sn, y_sb, [&](int t, int k, int64_t g) {
-    const float2 z = smem[t * S + pad(k)];
+    const cplx<Real> z = smem[t * S + pad(k)];
     yre[g] = z.x;
     yim[g] = z.y;
   });
 }
 
-template <int P, bool INV>
-void launch(const float* xre, const float* xim, float* yre, float* yim,
-            int64_t x_sn, int64_t x_sb, int64_t y_sn, int64_t y_sb,
-            int64_t batch, const float* twre, const float* twim,
-            const Plan& plan, int T, cudaStream_t stream) {
+template <typename Real, int P, bool INV>
+int launch(const Real* xre, const Real* xim, Real* yre, Real* yim,
+           int64_t x_sn, int64_t x_sb, int64_t y_sn, int64_t y_sb,
+           int64_t batch, const Real* twre, const Real* twim,
+           const Plan& plan, int T, cudaStream_t stream) {
   const int S = smem_stride(1 << plan.log2n);
-  const size_t smem = (size_t)T * S * sizeof(float2);
+  const size_t smem = (size_t)T * S * sizeof(cplx<Real>);
   const int64_t blocks = (batch + T - 1) / T;
-  auto kernel = stockham_c2c_kernel<P, INV>;
+  auto kernel = stockham_c2c_kernel<Real, P, INV>;
+  if (const int err = opt_in_smem(kernel, smem)) return err;
   kernel<<<(unsigned)blocks, kBlockThreads, smem, stream>>>(
       xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, batch, T, S, twre, twim, plan);
+  return (int)cudaGetLastError();
+}
+
+template <typename Real>
+int c2c(const Real* xre, const Real* xim, Real* yre, Real* yim,
+        int64_t x_sn, int64_t x_sb, int64_t y_sn, int64_t y_sb,
+        int n, int64_t batch, const Real* twre, const Real* twim,
+        const int* radices, const int* twoffsets, int nstages, int inverse, void* stream) {
+  Plan plan;
+  int maxr, T;
+  if (const int err = make_plan(n, batch, radices, twoffsets, nstages, plan, maxr, T)) {
+    return err;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define WATFFT_LAUNCH(P, INV)                                                            \
+  return launch<Real, P, INV>(xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, batch, twre, \
+                              twim, plan, T, st)
+  switch (maxr * 2 + (inverse ? 1 : 0)) {
+    case 4:  WATFFT_LAUNCH(2, false);
+    case 5:  WATFFT_LAUNCH(2, true);
+    case 8:  WATFFT_LAUNCH(4, false);
+    case 9:  WATFFT_LAUNCH(4, true);
+    case 16: WATFFT_LAUNCH(8, false);
+    case 17: WATFFT_LAUNCH(8, true);
+    case 32: WATFFT_LAUNCH(16, false);
+    default: WATFFT_LAUNCH(16, true);
+  }
+#undef WATFFT_LAUNCH
 }
 
 }  // namespace
@@ -114,26 +160,18 @@ int watfft_stockham_c2c(const float* xre, const float* xim, float* yre, float* y
                         int n, int64_t batch, const float* twre, const float* twim,
                         const int* radices, const int* twoffsets, int nstages,
                         int inverse, void* stream) {
-  Plan plan;
-  int maxr, T;
-  if (const int err = make_plan(n, batch, radices, twoffsets, nstages, plan, maxr, T)) {
-    return err;
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define WATFFT_LAUNCH(P, INV) \
-  launch<P, INV>(xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, batch, twre, twim, plan, T, st)
-  switch (maxr * 2 + (inverse ? 1 : 0)) {
-    case 4:  WATFFT_LAUNCH(2, false); break;
-    case 5:  WATFFT_LAUNCH(2, true); break;
-    case 8:  WATFFT_LAUNCH(4, false); break;
-    case 9:  WATFFT_LAUNCH(4, true); break;
-    case 16: WATFFT_LAUNCH(8, false); break;
-    case 17: WATFFT_LAUNCH(8, true); break;
-    case 32: WATFFT_LAUNCH(16, false); break;
-    default: WATFFT_LAUNCH(16, true); break;
-  }
-#undef WATFFT_LAUNCH
-  return (int)cudaGetLastError();
+  return c2c(xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch, twre, twim, radices,
+             twoffsets, nstages, inverse, stream);
+}
+
+// The same on float64 planes with a float64 twiddle pack.
+int watfft_stockham_c2c_f64(const double* xre, const double* xim, double* yre, double* yim,
+                            int64_t x_sn, int64_t x_sb, int64_t y_sn, int64_t y_sb,
+                            int n, int64_t batch, const double* twre, const double* twim,
+                            const int* radices, const int* twoffsets, int nstages,
+                            int inverse, void* stream) {
+  return c2c(xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch, twre, twim, radices,
+             twoffsets, nstages, inverse, stream);
 }
 
 const char* watfft_error_string(int code) {

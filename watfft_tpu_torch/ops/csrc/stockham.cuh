@@ -4,9 +4,15 @@
 // and shared memory, and the host-side plan check and block shape.
 //
 // A block holds T whole transforms of N = 2^log2n points in shared memory,
-// S float2 apart (row k of a transform at pad(k)); each transform takes
-// N/P threads (P = the plan's largest radix), each doing P/R radix-R
+// S complex slots apart (row k of a transform at pad(k)); each transform
+// takes N/P threads (P = the plan's largest radix), each doing P/R radix-R
 // butterflies per stage. See stockham.cu for the design and what bounds it.
+//
+// The arithmetic is generic over its scalar `Real`: float (complex float2,
+// every f32 kernel) or double (complex double2, the FP64 instances of the
+// c2c and real kernels). The double instances differ only in the radix-2
+// network's constants (the f64 values, not their f32 roundings) and in
+// their register bound (min_blocks_f64).
 //
 // Three policies widen the engine for the four-step kernels (large.cu)
 // without changing what the c2c and real kernels compile to: the rows of a
@@ -38,7 +44,7 @@ struct Plan {
   int twoff[kMaxStages];   // offset into the twiddle pack, -1: twiddle-free
 };
 
-// Row k of a transform in shared memory: one float2 of padding every 16.
+// Row k of a transform in shared memory: one slot of padding every 16.
 __device__ __forceinline__ int pad(int k) { return k + (k >> 4); }
 
 // Where row k of the transform at c sits, as an index into c: its own
@@ -68,14 +74,29 @@ struct Batch2 {
   }
 };
 
-__device__ __forceinline__ float2 cmul(float2 a, float2 w) {
-  return make_float2(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
+// The complex type of a scalar (float2 or double2) and its constructor.
+template <typename Real> struct Cplx;
+template <> struct Cplx<float> { using type = float2; };
+template <> struct Cplx<double> { using type = double2; };
+template <typename Real> using cplx = typename Cplx<Real>::type;
+
+__device__ __forceinline__ float2 make_c(float x, float y) { return make_float2(x, y); }
+__device__ __forceinline__ double2 make_c(double x, double y) { return make_double2(x, y); }
+
+template <typename C>
+__device__ __forceinline__ C cmul(C a, C w) {
+  return make_c(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
 }
 
-// w16^j = exp(-2 pi i j / 16) for j < 8, rounded to f32 (the constants of
-// pallas_stockham.py:_small_dft: math.cos/sin of the f64 angle, taken as
-// weak-typed f32). Index j = q * 16 / R for the R-point network's w_R^q.
-__device__ __forceinline__ float2 w16(int j, bool inverse) {
+// w16^j = exp(-2 pi i j / 16) for j < 8. Index j = q * 16 / R for the
+// R-point network's w_R^q; j = 0 and 4 take the network's shortcuts.
+template <typename Real>
+__device__ __forceinline__ cplx<Real> w16(int j, bool inverse);
+
+// f32: the constants of pallas_stockham.py:_small_dft (math.cos/sin of the
+// f64 angle, taken as weak-typed f32).
+template <>
+__device__ __forceinline__ float2 w16<float>(int j, bool inverse) {
   constexpr float kRe[8] = {1.0f, 0.9238795042037964f, 0.7071067690849304f,
                             0.3826834261417389f, 0.0f, -0.3826834261417389f,
                             -0.7071067690849304f, -0.9238795042037964f};
@@ -85,30 +106,45 @@ __device__ __forceinline__ float2 w16(int j, bool inverse) {
   return make_float2(kRe[j], inverse ? -kIm[j] : kIm[j]);
 }
 
+// f64: math.cos/sin of the same f64 angle, unrounded (the values the JAX
+// df network splits into hi/lo pairs, doublefloat.py:249-250, and the
+// plain version's Python floats).
+template <>
+__device__ __forceinline__ double2 w16<double>(int j, bool inverse) {
+  constexpr double kRe[8] = {1.0, 0.9238795325112867, 0.7071067811865476,
+                             0.38268343236508984, 0.0, -0.3826834323650897,
+                             -0.7071067811865475, -0.9238795325112867};
+  constexpr double kIm[8] = {-0.0, -0.3826834323650898, -0.7071067811865475,
+                             -0.9238795325112867, -1.0, -0.9238795325112867,
+                             -0.7071067811865476, -0.3826834323650899};
+  return make_double2(kRe[j], inverse ? -kIm[j] : kIm[j]);
+}
+
 // R-point DFT of in[0], in[S], ..., in[(R-1)S] into out[0..R), by the
 // recursive radix-2 network of pallas_stockham.py:_small_dft (even terms,
 // odd terms, combine). Fully unrolled: every index is a constant.
-template <int R, int S, bool INV>
-__device__ __forceinline__ void small_dft(const float2* in, float2* out) {
+template <int R, int S, bool INV, typename Real>
+__device__ __forceinline__ void small_dft(const cplx<Real>* in, cplx<Real>* out) {
+  using C = cplx<Real>;
   if constexpr (R == 1) {
     out[0] = in[0];
   } else {
     constexpr int H = R / 2;
-    float2 e[H], o[H];
-    small_dft<H, 2 * S, INV>(in, e);
-    small_dft<H, 2 * S, INV>(in + S, o);
+    C e[H], o[H];
+    small_dft<H, 2 * S, INV, Real>(in, e);
+    small_dft<H, 2 * S, INV, Real>(in + S, o);
 #pragma unroll
     for (int q = 0; q < H; ++q) {
-      float2 t;
+      C t;
       if (q == 0) {
         t = o[0];
       } else if (4 * q == R) {  // w = -+i: (re, im) -> (+-im, -+re)
-        t = INV ? make_float2(-o[q].y, o[q].x) : make_float2(o[q].y, -o[q].x);
+        t = INV ? make_c(-o[q].y, o[q].x) : make_c(o[q].y, -o[q].x);
       } else {
-        t = cmul(o[q], w16(q * (16 / R), INV));
+        t = cmul(o[q], w16<Real>(q * (16 / R), INV));
       }
-      out[q] = make_float2(e[q].x + t.x, e[q].y + t.y);
-      out[q + H] = make_float2(e[q].x - t.x, e[q].y - t.y);
+      out[q] = make_c(e[q].x + t.x, e[q].y + t.y);
+      out[q + H] = make_c(e[q].x - t.x, e[q].y - t.y);
     }
   }
 }
@@ -117,15 +153,16 @@ __device__ __forceinline__ void small_dft(const float2* in, float2* out) {
 // thread does butterflies i = th + m*tpt, m < P/R, of the q = n/R in the
 // stage: inputs at rows p*q + i, outputs to rows j*R*l + s*l + k (i = j*l + k),
 // row r at c[rows(r)].
-template <int R, int P, bool INV, typename Rows>
-__device__ __forceinline__ void stage(float2* c, Rows rows, int th, int tpt, int n,
+template <int R, int P, bool INV, typename Rows, typename Real>
+__device__ __forceinline__ void stage(cplx<Real>* c, Rows rows, int th, int tpt, int n,
                                       int log2l, int twoff, bool fold,
-                                      const float* __restrict__ twre,
-                                      const float* __restrict__ twim) {
+                                      const Real* __restrict__ twre,
+                                      const Real* __restrict__ twim) {
+  using C = cplx<Real>;
   constexpr int M = P / R;
   const int q = n / R;
-  const float inv_n = 1.0f / n;
-  float2 v[P];
+  const Real inv_n = Real(1) / n;
+  C v[P];
 #pragma unroll
   for (int m = 0; m < M; ++m) {
     const int i = th + m * tpt;
@@ -135,7 +172,7 @@ __device__ __forceinline__ void stage(float2* c, Rows rows, int th, int tpt, int
 #pragma unroll
       for (int p = 1; p < R; ++p) {
         const int w = twoff + (p - 1) * q + i;
-        v[m * R + p] = cmul(v[m * R + p], make_float2(__ldg(twre + w), __ldg(twim + w)));
+        v[m * R + p] = cmul(v[m * R + p], make_c(__ldg(twre + w), __ldg(twim + w)));
       }
     }
     if (fold) {  // inverse final stage: the p >= 1 twiddles already hold 1/n
@@ -154,40 +191,42 @@ __device__ __forceinline__ void stage(float2* c, Rows rows, int th, int tpt, int
   for (int m = 0; m < M; ++m) {
     const int i = th + m * tpt;
     const int base = ((i >> log2l) * R << log2l) + (i & lmask);
-    float2 out[R];
-    small_dft<R, 1, INV>(v + m * R, out);
+    C out[R];
+    small_dft<R, 1, INV, Real>(v + m * R, out);
 #pragma unroll
     for (int s = 0; s < R; ++s) c[rows(base + (s << log2l))] = out[s];
   }
   __syncthreads();
 }
 
-template <int R, int P, bool INV, typename Rows>
-__device__ __forceinline__ void stage_if(int radix, float2* c, Rows rows, int th, int tpt,
+template <int R, int P, bool INV, typename Rows, typename Real>
+__device__ __forceinline__ void stage_if(int radix, cplx<Real>* c, Rows rows, int th, int tpt,
                                          int n, int log2l, int twoff, bool fold,
-                                         const float* __restrict__ twre,
-                                         const float* __restrict__ twim) {
+                                         const Real* __restrict__ twre,
+                                         const Real* __restrict__ twim) {
   if constexpr (R <= P) {
-    if (radix == R) stage<R, P, INV>(c, rows, th, tpt, n, log2l, twoff, fold, twre, twim);
+    if (radix == R) {
+      stage<R, P, INV, Rows, Real>(c, rows, th, tpt, n, log2l, twoff, fold, twre, twim);
+    }
   }
 }
 
 // Every stage of the plan on the transform at c, thread th of its tpt; the
 // inverse folds 1/n into the last stage. Ends with a block sync, so every
-// thread of the block must call it.
-template <int P, bool INV, typename Rows = Contig>
-__device__ __forceinline__ void run_stages(float2* c, int th, int tpt, const Plan& plan,
-                                           const float* __restrict__ twre,
-                                           const float* __restrict__ twim,
+// thread of the block must call it. Real is the twiddle pack's scalar.
+template <int P, bool INV, typename Rows = Contig, typename Real = float>
+__device__ __forceinline__ void run_stages(cplx<Real>* c, int th, int tpt, const Plan& plan,
+                                           const Real* __restrict__ twre,
+                                           const Real* __restrict__ twim,
                                            Rows rows = Rows{}) {
   const int n = 1 << plan.log2n;
   for (int s = 0; s < plan.nstages; ++s) {
     const int r = plan.radix[s], ll = plan.log2l[s], off = plan.twoff[s];
     const bool fold = INV && s == plan.nstages - 1;
-    stage_if<2, P, INV>(r, c, rows, th, tpt, n, ll, off, fold, twre, twim);
-    stage_if<4, P, INV>(r, c, rows, th, tpt, n, ll, off, fold, twre, twim);
-    stage_if<8, P, INV>(r, c, rows, th, tpt, n, ll, off, fold, twre, twim);
-    stage_if<16, P, INV>(r, c, rows, th, tpt, n, ll, off, fold, twre, twim);
+    stage_if<2, P, INV, Rows, Real>(r, c, rows, th, tpt, n, ll, off, fold, twre, twim);
+    stage_if<4, P, INV, Rows, Real>(r, c, rows, th, tpt, n, ll, off, fold, twre, twim);
+    stage_if<8, P, INV, Rows, Real>(r, c, rows, th, tpt, n, ll, off, fold, twre, twim);
+    stage_if<16, P, INV, Rows, Real>(r, c, rows, th, tpt, n, ll, off, fold, twre, twim);
   }
 }
 
@@ -228,6 +267,25 @@ __device__ __forceinline__ void for_tile(int log2n, int T, int count, int64_t fi
 // and n = 8 and n = 4 ran 22% and 14% slower.
 constexpr int min_blocks(int P) { return P == 16 ? 3 : P == 8 ? 4 : 8; }
 
+// The FP64 instances' bound. A P = 16 thread holds double2 v[16], 64
+// registers before the network's; under the f32 bound (80 registers) it
+// would spill most of them. Their blocks hold 256 * P points of 16 bytes
+// (69.6 KB at P = 16), so shared memory admits 3 blocks per SM at P = 16
+// anyway; the bounds below leave 128 registers at P = 16, 80 at P = 8 and
+// 64 below (chip_smoke.py prints ptxas's registers and spills).
+constexpr int min_blocks_f64(int P) { return P == 16 ? 2 : P == 8 ? 3 : 4; }
+
+template <typename Real>
+constexpr int min_blocks_of(int P) { return sizeof(Real) == 8 ? min_blocks_f64(P) : min_blocks(P); }
+
+// Dynamic shared memory past the 48 KB a launch gets by default needs the
+// kernel's opt-in (cudaFuncSetAttribute) first; 0 or the CUDA error.
+template <typename K>
+inline int opt_in_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
 // Host side: checks a plan given as its radices and twiddle-pack offsets
 // for an n-point transform and fills `plan`, the largest radix `maxr` and
 // the transforms per block `T`. Returns 0 or a kErr code.
@@ -258,7 +316,7 @@ inline int make_plan(int n, int64_t batch, const int* radices, const int* twoffs
   return 0;
 }
 
-// Float2 slots per transform in shared memory: odd, so transforms start on
+// Complex slots per transform in shared memory: odd, so transforms start on
 // distinct banks.
 inline int smem_stride(int n) { return (n + (n >> 4)) | 1; }
 

@@ -397,7 +397,7 @@ def _one_pass(xre, xim, inverse, table, plain, axis):
     if n > planner.STOCKHAM_MAX_N:
         raise ValueError(f"one pass takes an axis of at most {planner.STOCKHAM_MAX_N} points, "
                          f"got {n}")
-    table = stockham._resolve(table, n, bool(inverse), xre.device)
+    table = stockham._resolve(table, n, bool(inverse), xre.device, xre.dtype)
     x = (stockham._dense(xre).reshape(-1), stockham._dense(xim).reshape(-1))
     out = (torch.empty_like(xre), torch.empty_like(xim))
     s = _strides("nb", h, w, b)
@@ -440,7 +440,7 @@ def _row_fft(xre, xim, inverse, table, plain):
         raise ValueError(f"expected [rows, w] planes, got {tuple(xre.shape)} "
                          f"and {tuple(xim.shape)}")
     rows, w = xre.shape
-    table = stockham._resolve(table, w, bool(inverse), xre.device)
+    table = stockham._resolve(table, w, bool(inverse), xre.device, xre.dtype)
     x = (stockham._dense(xre).reshape(-1), stockham._dense(xim).reshape(-1))
     out = (torch.empty_like(xre), torch.empty_like(xim))
     if rows:  # `rows` images of one row each

@@ -1,16 +1,23 @@
 """Batched FFT as recursive four-step DFT matmuls (the matmul surface).
 
-Counterpart of `watfft_tpu/ops/fourstep.py`, on split planes [..., n]:
+Counterpart of `watfft_tpu/ops/fourstep.py`, on split planes [..., n], and
+of the real matmul surface of `watfft_tpu/ops/rfft.py` (`rfft_planes`,
+`irfft_planes`, `rfft_post_twiddles`: pack-as-complex around the m = n/2
+-point transform). That JAX module is the real FFT's XLA path; the port's
+`ops/rfft.py` is the counterpart of `pallas_rfft.py`, its kernels, so the
+matmul forms live here beside the complex ones. Both run in the tables'
+dtype, float32 or float64 (the JAX planner's f64 route, and the port's
+past the FP64 kernels' range):
 
   n <= DIRECT_MAX:  X = x @ W_n                        (one complex matmul)
   n = n1 * n2:      reshape [n] -> [n2, n1], FFT_{n2} along the inner axis
                     (recursive), elementwise twiddle T[j1, k2] = w_N^{j1 k2},
                     outer matmul with W_{n1}, flatten [n1, n2] -> [n].
 
-The tables come from `plan.build_tree` (f64 on the host, cast to f32); the
-inverse folds 1/n into the outermost matrix. None of this is a kernel of
-the JAX package: XLA ran it there, `torch.matmul` runs it here. It runs in
-full float32: a caller's TF32 setting (`torch.set_float32_matmul_precision`,
+The tables come from `plan.build_tree` (f64 on the host, cast to the table
+dtype); the inverse folds 1/n into the outermost matrix. None of this is a
+kernel of the JAX package: XLA ran it there, `torch.matmul` runs it here.
+float32 runs in full precision: a caller's TF32 setting (`torch.set_float32_matmul_precision`,
 `torch.backends.cuda.matmul.allow_tf32`) is switched off for the call and
 restored after it, so it is not thread-safe against another thread that
 changes the setting meanwhile. The JAX package's opt-in bf16 tier
@@ -26,7 +33,8 @@ import torch
 
 from ..plan import PlanNode, build_tree
 
-__all__ = ["fft_tables", "shape_info", "apply_tables", "fft_planes", "full_f32"]
+__all__ = ["fft_tables", "shape_info", "apply_tables", "fft_planes", "full_f32",
+           "rfft_post_twiddles", "rfft_planes", "irfft_planes"]
 
 
 @contextlib.contextmanager
@@ -111,3 +119,55 @@ def fft_planes(xre, xim, inverse: bool = False):
     dtype = {torch.float32: np.float32, torch.float64: np.float64}[xre.dtype]
     tree = build_tree(n, inverse=inverse, dtype=dtype)
     return apply_tables(xre, xim, fft_tables(tree, xre.device), shape_info(tree))
+
+
+# -- the real matmul surface (watfft_tpu/ops/rfft.py:31-81) ----------------------
+
+def rfft_post_twiddles(n: int, inverse: bool, dtype=np.float32):
+    """w_n^{-+k}: forward k = 0..m (m+1 values), inverse k = 0..m-1, with
+    m = n/2. f64 host math, the code of watfft_tpu/ops/rfft.py:31-37."""
+    m = n // 2
+    sign = +1.0 if inverse else -1.0
+    k = np.arange(m + (0 if inverse else 1))
+    ang = sign * 2.0 * np.pi * k / n
+    return np.cos(ang).astype(dtype), np.sin(ang).astype(dtype)
+
+
+def rfft_planes(x, tables, info, wre, wim):
+    """Real x [..., n] -> spectrum planes (Xre, Xim) [..., n//2+1]: the
+    m-point transform of z[j] = x[2j] + i x[2j+1] on the tables of
+    `fft_tables` / `shape_info` (the forward m-point tree), then the
+    Hermitian post X = E + w O with E = (A + conj B)/2, O = -i (A - conj B)/2,
+    A = Z[k], B = Z[(m-k) mod m], k = 0..m. wre/wim: the forward post
+    twiddles (m+1 values)."""
+    zre, zim = apply_tables(x[..., 0::2], x[..., 1::2], tables, info)
+    first_re, first_im = zre[..., :1], zim[..., :1]
+    are = torch.cat([zre, first_re], dim=-1)
+    aim = torch.cat([zim, first_im], dim=-1)
+    bre = torch.cat([first_re, torch.flip(zre[..., 1:], (-1,)), first_re], dim=-1)
+    bim = torch.cat([first_im, torch.flip(zim[..., 1:], (-1,)), first_im], dim=-1)
+    ere = 0.5 * (are + bre)
+    eim = 0.5 * (aim - bim)
+    ore = 0.5 * (aim + bim)
+    oim = -0.5 * (are - bre)
+    return ere + wre * ore - wim * oim, eim + wre * oim + wim * ore
+
+
+def irfft_planes(xre, xim, inv_tables, inv_info, wre, wim):
+    """Spectrum planes [..., m+1] -> real [..., 2m], normalized: the
+    pre-process Z = E + w O with E = (A + B)/2, O = i (A - B)/2, A = X[k],
+    B = conj X[m-k], k = 0..m-1, the m-point inverse on the tables of the
+    inverse tree (1/m folded in), then x[2j] = Re z[j], x[2j+1] = Im z[j].
+    wre/wim: the inverse post twiddles (m values)."""
+    m = xre.shape[-1] - 1
+    are, aim = xre[..., :m], xim[..., :m]
+    bre = torch.cat([xre[..., m:], torch.flip(xre[..., 1:m], (-1,))], dim=-1)
+    bim = -torch.cat([xim[..., m:], torch.flip(xim[..., 1:m], (-1,))], dim=-1)
+    ere = 0.5 * (are + bre)
+    eim = 0.5 * (aim + bim)
+    ore = -0.5 * (aim - bim)
+    oim = 0.5 * (are - bre)
+    zre = ere + wre * ore - wim * oim
+    zim = eim + wre * oim + wim * ore
+    zre, zim = apply_tables(zre, zim, inv_tables, inv_info)
+    return torch.stack([zre, zim], dim=-1).reshape(*zre.shape[:-1], 2 * m)

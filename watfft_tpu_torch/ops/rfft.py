@@ -1,7 +1,11 @@
-"""Real FFT (rfft / irfft) of n = 2m f32 points: tables, plain version,
-hybrid and fused kernel paths, autograd.
+"""Real FFT (rfft / irfft) of n = 2m points, float32 or float64: tables,
+plain version, hybrid and fused kernel paths, autograd.
 
-Counterpart of `watfft_tpu/ops/rfft.py` and `watfft_tpu/ops/pallas_rfft.py`.
+Counterpart of `watfft_tpu/ops/pallas_rfft.py` (the matmul surface of
+`watfft_tpu/ops/rfft.py` lives in `ops/fourstep.py`), and in float64 of
+`watfft_tpu/ops/doublefloat.py`'s `df_rfft_nb` / `df_irfft_nb`: the f64 real
+tier, which the JAX package runs on hi/lo f32 pairs and which here runs the
+same kernels' FP64 instances with f64 tables.
 The transform is the JAX package's pack-as-complex real FFT, with its row
 conventions:
 
@@ -56,8 +60,9 @@ import numpy as np
 import torch
 
 from . import stockham
+from .fourstep import rfft_post_twiddles
 from .large import fft_large_views
-from .stockham import Tables, check_device, fft_views
+from .stockham import Tables, check_device, check_dtype, fft_views
 
 __all__ = ["rfft_post_twiddles", "RTables", "make_rtables", "device_rtables",
            "hermitian_post_nb", "hermitian_pre_nb", "plain_rfft", "plain_irfft",
@@ -65,20 +70,12 @@ __all__ = ["rfft_post_twiddles", "RTables", "make_rtables", "device_rtables",
            "rfft_bm", "irfft_bm", "rfft", "irfft", "launches"]
 
 # Kernel launches made by the CUDA wrappers since the counts were last set
-# to 0: the fused kernels, and the hybrid's forward and inverse uses of the
-# c2c kernel (those also count in `stockham.launches`).
+# to 0: the fused kernels (f32, and their FP64 instances under `_f64`), and
+# the hybrid's forward and inverse uses of the c2c kernel in either dtype
+# (those also count in `stockham.launches` or `stockham.launches_f64`).
 launches = {"rfft_r2c_fused": 0, "irfft_c2r_fused": 0,
-            "real_core_fwd": 0, "real_core_inv": 0}
-
-
-def rfft_post_twiddles(n: int, inverse: bool, dtype=np.float32):
-    """w_n^{-+k}: forward k = 0..m (m+1 values), inverse k = 0..m-1. f64
-    host math, the code of watfft_tpu/ops/rfft.py:30-36."""
-    m = n // 2
-    sign = +1.0 if inverse else -1.0
-    k = np.arange(m + (0 if inverse else 1))
-    ang = sign * 2.0 * np.pi * k / n
-    return np.cos(ang).astype(dtype), np.sin(ang).astype(dtype)
+            "real_core_fwd": 0, "real_core_inv": 0,
+            "rfft_r2c_fused_f64": 0, "irfft_c2r_fused_f64": 0}
 
 
 # -- tables --------------------------------------------------------------------
@@ -87,7 +84,8 @@ def rfft_post_twiddles(n: int, inverse: bool, dtype=np.float32):
 class RTables:
     """One real-FFT length and direction on one device: the m-point
     Stockham tables of that direction (`core`) and the post twiddles
-    (`wre`, `wim`, 1-D f32: m+1 values forward, m inverse)."""
+    (`wre`, `wim`, 1-D, of the core's dtype: m+1 values forward, m
+    inverse)."""
     core: Tables
     wre: torch.Tensor
     wim: torch.Tensor
@@ -96,34 +94,45 @@ class RTables:
 
     def __post_init__(self):
         self.n = 2 * self.core.n
+        if self.wre.dtype != self.core.dtype or self.wim.dtype != self.core.dtype:
+            raise TypeError(f"post twiddles {self.wre.dtype}, {self.wim.dtype} beside "
+                            f"{self.core.dtype} core tables")
         want = self.n // 2 + (0 if self.inverse else 1)
         if self.wre.numel() != want or self.wim.numel() != want:
             raise ValueError(f"post twiddles for n={self.n} "
                              f"{'inverse' if self.inverse else 'forward'} take "
                              f"{want} values, got {self.wre.numel()} and {self.wim.numel()}")
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.core.dtype
 
-def make_rtables(stages, offsets, twre, twim, wre, wim, inverse: bool, device) -> RTables:
-    """RTables on `device` from a host m-point plan, its twiddle pack and
-    the post-twiddle columns (numpy)."""
-    core = stockham.make_tables(stages, offsets, twre, twim, device)
+
+def make_rtables(stages, offsets, twre, twim, wre, wim, inverse: bool, device,
+                 dtype=torch.float32) -> RTables:
+    """RTables of `dtype` on `device` from a host m-point plan, its twiddle
+    pack and the post-twiddle columns (numpy)."""
+    core = stockham.make_tables(stages, offsets, twre, twim, device, dtype)
 
     def put(a):
-        return torch.as_tensor(np.asarray(a, np.float32).reshape(-1), device=core.twre.device)
+        return torch.as_tensor(np.asarray(a, np.float64).reshape(-1), device=core.twre.device,
+                               dtype=dtype)
     return RTables(core, put(wre), put(wim), bool(inverse))
 
 
 @functools.cache
-def _cached_rtables(n: int, inverse: bool, device: torch.device) -> RTables:
+def _cached_rtables(n: int, inverse: bool, device: torch.device, dtype: torch.dtype) -> RTables:
     m = n // 2
-    re, im, offsets = stockham.make_twiddle_pack(m, inverse)
+    npd = stockham.np_dtype(dtype)
+    re, im, offsets = stockham.make_twiddle_pack(m, inverse, npd)
     return make_rtables(stockham.stage_plan(m), offsets, re, im,
-                        *rfft_post_twiddles(n, inverse), inverse, device)
+                        *rfft_post_twiddles(n, inverse, npd), inverse, device, dtype)
 
 
-def device_rtables(n: int, inverse: bool, device) -> RTables:
-    """The port's own real-FFT tables for (n, direction), once per device."""
-    return _cached_rtables(int(n), bool(inverse), check_device(device))
+def device_rtables(n: int, inverse: bool, device, dtype=torch.float32) -> RTables:
+    """The port's own real-FFT tables for (n, direction) in `dtype`
+    (float32 or float64), once per device."""
+    return _cached_rtables(int(n), bool(inverse), check_device(device), dtype)
 
 
 @functools.cache
@@ -131,33 +140,44 @@ def _cached_post(n: int, inverse: bool, device: torch.device):
     return tuple(torch.as_tensor(a, device=device) for a in rfft_post_twiddles(n, inverse))
 
 
-def _resolve(tables, n: int, inverse: bool, device) -> RTables:
+def _resolve(tables, n: int, inverse: bool, device, dtype: torch.dtype) -> RTables:
+    """The tables for n points of data of `dtype` (the real signal or the
+    spectrum): given ones checked, or the port's own of that precision."""
     if n < 4 or n & (n - 1):
         raise ValueError(f"the real FFT takes a power-of-two n >= 4, got n={n}")
     if tables is None:
-        return device_rtables(n, inverse, device)  # checks the device
+        return device_rtables(n, inverse, device, stockham.real_dtype(dtype))  # checks the device
     check_device(device)
     if tables.n != n or tables.inverse != inverse:
         raise ValueError(f"tables are for n={tables.n} "
                          f"{'inverse' if tables.inverse else 'forward'}, got n={n} "
                          f"{'inverse' if inverse else 'forward'}")
+    check_dtype(tables.dtype, dtype)
     return tables
 
 
 # -- Hermitian post / pre (torch; the JAX package runs them in XLA) ------------
 
+def _post(n: int, inverse: bool, like):
+    """The post twiddles in like's dtype, on its device."""
+    npd = stockham.np_dtype(like.dtype)
+    return (torch.as_tensor(a, device=like.device) for a in rfft_post_twiddles(n, inverse, npd))
+
+
 def _column(w, like):
-    """Table values as a column that broadcasts over like's trailing axes."""
-    return w.to(like.dtype).reshape((-1,) + (1,) * (like.dim() - 1))
+    """Table values as a column that broadcasts over like's trailing axes
+    (both of one dtype)."""
+    check_dtype(w.dtype, like.dtype)
+    return w.reshape((-1,) + (1,) * (like.dim() - 1))
 
 
 def hermitian_post_nb(zre, zim, n: int, wre=None, wim=None):
     """Time-major core planes [m, ...] -> spectrum planes [m+1, ...]; the
     algebra of pallas_rfft.py:390-417. wre/wim: the forward post twiddles
-    (m+1 values) on zre's device; built here if not given."""
+    (m+1 values) on zre's device; built here, in zre's dtype, if not given."""
     m = n // 2
     if wre is None:
-        wre, wim = (torch.as_tensor(a, device=zre.device) for a in rfft_post_twiddles(n, False))
+        wre, wim = _post(n, False, zre)
     are, aim = zre[1:], zim[1:]
     bre = torch.flip(zre[1:], (0,))
     bim = torch.flip(zim[1:], (0,))
@@ -183,7 +203,7 @@ def hermitian_pre_nb(xre, xim, n: int, wre=None, wim=None):
     wre/wim: the inverse post twiddles (m values)."""
     m = n // 2
     if wre is None:
-        wre, wim = (torch.as_tensor(a, device=xre.device) for a in rfft_post_twiddles(n, True))
+        wre, wim = _post(n, True, xre)
     are, aim = xre[:m], xim[:m]
     bre = torch.cat([xre[m:m + 1], torch.flip(xre[1:m], (0,))])
     bim = -torch.cat([xim[m:m + 1], torch.flip(xim[1:m], (0,))])
@@ -272,30 +292,32 @@ def _launch_r2c(x, x_sn, x_sb, yre, yim, y_sn, y_sb, n, batch, rt: RTables) -> N
     j*x_sn + b*x_sb floats) into spectrum planes at the addresses yre, yim
     (bin k of b at k*y_sn + b*y_sb floats)."""
     lib, targs = _kernel_args(rt, x, "rfft_r2c_fused")
+    f64 = rt.dtype == torch.float64
+    entry = lib.watfft_rfft_r2c_f64 if f64 else lib.watfft_rfft_r2c
     with torch.cuda.device(x.device):
-        err = lib.watfft_rfft_r2c(x.data_ptr(), x_sn, x_sb, yre, yim, y_sn, y_sb, n, batch,
-                                  *targs, torch.cuda.current_stream().cuda_stream)
-    _check(lib, err, "rfft_r2c_fused", n, batch)
+        err = entry(x.data_ptr(), x_sn, x_sb, yre, yim, y_sn, y_sb, n, batch,
+                    *targs, torch.cuda.current_stream().cuda_stream)
+    _check(lib, err, "rfft_r2c_fused" + ("_f64" if f64 else ""), n, batch)
 
 
 def _launch_c2r(x, xre, xim, x_sn, x_sb, y, y_sn, y_sb, n, batch, rt: RTables) -> None:
     """The c2r kernel on spectrum planes at the addresses xre, xim (of the
     tensor x) into the real sequences of y."""
     lib, targs = _kernel_args(rt, x, "irfft_c2r_fused")
+    f64 = rt.dtype == torch.float64
+    entry = lib.watfft_irfft_c2r_f64 if f64 else lib.watfft_irfft_c2r
     with torch.cuda.device(x.device):
-        err = lib.watfft_irfft_c2r(xre, xim, x_sn, x_sb, y.data_ptr(), y_sn, y_sb, n, batch,
-                                   *targs, torch.cuda.current_stream().cuda_stream)
-    _check(lib, err, "irfft_c2r_fused", n, batch)
+        err = entry(xre, xim, x_sn, x_sb, y.data_ptr(), y_sn, y_sb, n, batch,
+                    *targs, torch.cuda.current_stream().cuda_stream)
+    _check(lib, err, "irfft_c2r_fused" + ("_f64" if f64 else ""), n, batch)
 
 
 def _kernel_args(rt: RTables, t, name):
     """The library and the table arguments of a fused launch on t's device
-    (twre, twim, radices, offsets, stage count, wre, wim)."""
+    (twre, twim, radices, offsets, stage count, wre, wim); the caller has
+    checked t's dtype against the tables'."""
     from ._build import library
 
-    if t.dtype not in (torch.float32, torch.complex64):
-        raise TypeError(f"the CUDA kernel {name} takes torch.float32 (or complex64 "
-                        f"spectra), got {t.dtype}")
     if rt.wre.device != t.device:
         raise ValueError(f"tables on {rt.wre.device}, data on {t.device}")
     c = rt.core
@@ -313,12 +335,12 @@ def _check(lib, err: int, name: str, n: int, batch: int) -> None:
 # -- forms: tensors <-> [n, B] planes ------------------------------------------
 # layout "nb": time-major planes [n, ...] <-> [m+1, ...]; "bm": batch-major
 # planes [..., n] <-> [..., m+1]; "complex": real [..., n] <-> complex
-# [..., m+1] (interleaved storage: re and im 4 bytes apart, stride 2). The
+# [..., m+1] (interleaved storage: im one real after re, stride 2). The
 # fused kernels take the layouts as raw addresses and strides, which costs
 # the host no view objects; the plain version and the hybrid take views.
 
 def _strides(layout: str, rows: int, batch: int) -> tuple[int, int]:
-    """(row stride, batch stride) in floats of [rows, batch] in a layout."""
+    """(row stride, batch stride) in reals of [rows, batch] in a layout."""
     if layout == "nb":
         return batch, 1
     return (1, rows) if layout == "bm" else (2, 2 * rows)
@@ -329,7 +351,7 @@ def _spectrum(layout: str, batch: int, m1: int, re, im=None):
     the complex tensor re (im None)."""
     if layout == "complex":
         p = re.data_ptr()
-        return p, p + 4, *_strides(layout, m1, batch)
+        return p, p + re.element_size() // 2, *_strides(layout, m1, batch)
     return re.data_ptr(), im.data_ptr(), *_strides(layout, m1, batch)
 
 
@@ -347,21 +369,21 @@ def _signal_view(t, n: int, batch: int, layout: str):
     return t.view(n, batch) if layout == "nb" else t.view(batch, n).T
 
 
-def _tables(route: str, tables, n: int, inverse: bool, device):
-    """RTables of the fused and hybrid routes; the large route's post
-    twiddles (its core tables are ops/large.py's)."""
+def _tables(route: str, tables, n: int, inverse: bool, device, dtype):
+    """RTables of the fused and hybrid routes for data of `dtype`; the large
+    route's post twiddles (f32; its core tables are ops/large.py's)."""
     if route == "large":
         if tables is not None:
             raise ValueError("the large real route takes no RTables")
         return _cached_post(n, inverse, check_device(device))
-    return _resolve(tables, n, inverse, device)
+    return _resolve(tables, n, inverse, device, dtype)
 
 
 def _r2c(x, route: str, layout: str, tables):
     if x.is_complex():
         raise TypeError(f"the real FFT takes a real signal, got {x.dtype}")
     n = x.shape[0] if layout == "nb" else x.shape[-1]
-    rt = _tables(route, tables, n, False, x.device)
+    rt = _tables(route, tables, n, False, x.device, x.dtype)
     x = stockham._dense(x)
     m1 = n // 2 + 1
     batch = x.numel() // n
@@ -397,7 +419,7 @@ def _c2r(re, im, route: str, layout: str, tables):
                          f"{re.device} vs {im.shape} {im.dtype} {im.device}")
     m1 = re.shape[0] if layout == "nb" else re.shape[-1]
     n = 2 * (m1 - 1)
-    rt = _tables(route, tables, n, True, re.device)
+    rt = _tables(route, tables, n, True, re.device, re.dtype)
     re = stockham._dense(re)
     im = None if im is None else stockham._dense(im)
     batch = re.numel() // m1
@@ -525,7 +547,7 @@ def irfft_bm(xre, xim, fused: bool = True, tables: RTables | None = None):
 
 def rfft(x, fused: bool = True, tables: RTables | None = None):
     """Real FFT over the last axis: real [..., n] -> complex [..., n//2+1].
-    On CUDA the kernel writes the interleaved complex64 storage itself."""
+    On CUDA the kernel writes the interleaved complex storage itself."""
     return _forward(x, _route(fused), "complex", tables)
 
 
@@ -541,7 +563,7 @@ def plain_rfft(x, tables: RTables | None = None):
     use it for CPU tensors; on CUDA it is the reference the kernels are
     held against."""
     n = x.shape[-1]
-    rt = _resolve(tables, n, False, x.device)
+    rt = _resolve(tables, n, False, x.device, x.dtype)
     xv = stockham._dense(x).reshape(-1, n).T
     re, im = _plain_r2c(xv, rt)
     return torch.complex(re, im).T.reshape(x.shape[:-1] + (n // 2 + 1,))
@@ -551,6 +573,6 @@ def plain_irfft(x, tables: RTables | None = None):
     """The plain version of `irfft`: complex [..., m+1] -> real [..., 2m]."""
     m1 = x.shape[-1]
     n = 2 * (m1 - 1)
-    rt = _resolve(tables, n, True, x.device)
+    rt = _resolve(tables, n, True, x.device, x.dtype)
     xv = stockham._dense(x).reshape(-1, m1).T
     return _plain_c2r(xv.real, xv.imag, rt).T.reshape(x.shape[:-1] + (n,))

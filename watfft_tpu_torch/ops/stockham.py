@@ -17,6 +17,14 @@ Two implementations of one function:
   The wrappers launch it for every CUDA tensor; a kernel that fails to
   build or launch raises, there is no fallback.
 
+Both run in float32 and in float64. The float64 tier ports
+`watfft_tpu/ops/doublefloat.py` (`_df_kernel`, `df_fft_nb`): the JAX
+package computes it on hi/lo f32 pairs because the TPU has no f64 units;
+here the tables are f64 (`make_twiddle_pack(..., dtype=np.float64)`) and
+the kernel's FP64 instance runs the same plan on double2. Tables and
+planes must share their dtype: f32 tables on f64 planes would give f32
+accuracy under an f64 promise, so a mismatch raises.
+
 The wrappers (`stockham_fft_nb` time-major planes, `stockham_fft_bm`
 batch-major planes, `stockham_fft` complex tensors) are differentiable: the
 gradient of the DFT is the conjugate transform, VJP(fft) = n * ifft and
@@ -43,10 +51,15 @@ import torch
 __all__ = ["stage_plan", "make_twiddle_pack", "run_stages", "plain_fft",
            "Tables", "make_tables", "device_tables", "fft_views", "stockham_fft_nb",
            "stockham_fft_bm", "stockham_fft", "stockham_fft_nb_postmul", "plain_postmul",
-           "launches"]
+           "launches", "launches_f64"]
 
-# Kernel launches made by the CUDA wrapper since the count was last reset.
+# Kernel launches made by the CUDA wrapper since the counts were last reset:
+# the float32 kernel and its FP64 instance.
 launches = 0
+launches_f64 = 0
+
+_REAL = {torch.float32: torch.float32, torch.float64: torch.float64,
+         torch.complex64: torch.float32, torch.complex128: torch.float64}
 
 # Largest radix of the default plan; the kernel takes 2, 4, 8 and 16.
 MAX_RADIX = 16
@@ -78,16 +91,19 @@ def stage_plan(n: int) -> list[tuple[int, int]]:
     return stages
 
 
-def make_twiddle_pack(n: int, inverse: bool) -> tuple[np.ndarray, np.ndarray, list[int]]:
+def make_twiddle_pack(n: int, inverse: bool, dtype=np.float32, stages=None
+                      ) -> tuple[np.ndarray, np.ndarray, list[int]]:
     """Pack per-stage twiddle columns w_{R*l}^{p*(row mod l)}, p=1..R-1, into
-    [total, 1] f32 planes (f64 host math, phases reduced mod R*l). offsets[i]
-    = row offset of stage i's block ((R-1)*(n/R) rows); -1 for the
-    twiddle-free l==1 stage. The final stage carries the folded 1/n for the
-    inverse. Same numpy code as pallas_stockham.py:114-142."""
+    [total, 1] planes of `dtype` (f64 host math, phases reduced mod R*l).
+    offsets[i] = row offset of stage i's block ((R-1)*(n/R) rows); -1 for
+    the twiddle-free l==1 stage. The final stage carries the folded 1/n for
+    the inverse. Same numpy code as pallas_stockham.py:114-142 (and, in
+    float64, as doublefloat.py:_df_twiddle_pack before its hi/lo split).
+    `stages`: the (R, l) plan, `stage_plan(n)` by default."""
     sign = +1.0 if inverse else -1.0
     res, ims, offsets = [], [], []
     off = 0
-    stages = stage_plan(n)
+    stages = stage_plan(n) if stages is None else stages
     for idx, (r, l) in enumerate(stages):
         if l == 1:
             offsets.append(-1)
@@ -97,12 +113,12 @@ def make_twiddle_pack(n: int, inverse: bool) -> tuple[np.ndarray, np.ndarray, li
         scale = (1.0 / n) if (inverse and idx == len(stages) - 1) else 1.0
         for p in range(1, r):
             ang = sign * 2.0 * np.pi * ((p * k) % (r * l)) / (r * l)
-            res.append((scale * np.cos(ang)).astype(np.float32))
-            ims.append((scale * np.sin(ang)).astype(np.float32))
+            res.append((scale * np.cos(ang)).astype(dtype))
+            ims.append((scale * np.sin(ang)).astype(dtype))
         offsets.append(off)
         off += (r - 1) * rows
     if not res:  # single twiddle-free stage; keep a dummy row
-        res, ims = [np.ones(1, np.float32)], [np.zeros(1, np.float32)]
+        res, ims = [np.ones(1, dtype)], [np.zeros(1, dtype)]
     re = np.concatenate(res).reshape(-1, 1)
     im = np.concatenate(ims).reshape(-1, 1)
     return re, im, offsets
@@ -179,12 +195,31 @@ def _interleave(parts, g, l, rest):
     return torch.stack([p.reshape(g, l, *rest) for p in parts], dim=1).reshape(n, *rest)
 
 
+def real_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The precision of data of `dtype`: float32 for float32 and complex64,
+    float64 for float64 and complex128; any other dtype raises."""
+    if dtype not in _REAL:
+        raise TypeError(f"the FFT takes float32/float64 planes or complex64/complex128 "
+                        f"tensors, got {dtype}")
+    return _REAL[dtype]
+
+
+def check_dtype(tables_dtype: torch.dtype, data_dtype: torch.dtype) -> None:
+    """Raise unless tables of `tables_dtype` serve data of `data_dtype`
+    (real planes, or the complex dtype of the same precision)."""
+    if real_dtype(data_dtype) != tables_dtype:
+        raise TypeError(f"tables are {tables_dtype}, data {data_dtype}: the tables and "
+                        f"the data must share their precision (f32 tables would give f64 "
+                        f"data f32 accuracy)")
+
+
 def run_stages(cre, cim, n, inverse, offsets, stages, twre, twim):
     """Run the full Stockham stage chain on [n, ...] planes (the transform
     runs along axis 0; any strides). twre/twim: the packed twiddle columns
-    (any shape with `total` elements); arithmetic follows the planes' dtype."""
-    twre = twre.reshape(-1).to(cre.dtype)
-    twim = twim.reshape(-1).to(cre.dtype)
+    (any shape with `total` elements) of the planes' dtype."""
+    check_dtype(twre.dtype, cre.dtype)
+    twre = twre.reshape(-1)
+    twim = twim.reshape(-1)
     for idx, (r, l) in enumerate(stages):
         is_final = idx == len(stages) - 1
         tw = None
@@ -203,8 +238,10 @@ def run_stages(cre, cim, n, inverse, offsets, stages, twre, twim):
 class Tables:
     """One transform length and direction on one device: the stage plan as
     (R, l) pairs, each stage's offset into the twiddle pack (-1 for the
-    twiddle-free l=1 stage) and the pack itself as 1-D f32 tensors. The
-    plan's ctypes arrays for the kernel are built once, here."""
+    twiddle-free l=1 stage) and the pack itself as 1-D tensors of one dtype
+    (float32, or float64 for the f64 tier), which is the dtype of the data
+    they serve. The plan's ctypes arrays for the kernel are built once,
+    here."""
     stages: tuple[tuple[int, int], ...]
     offsets: tuple[int, ...]
     twre: torch.Tensor
@@ -213,9 +250,17 @@ class Tables:
 
     def __post_init__(self):
         self.n = math.prod(r for r, _ in self.stages)
+        if self.twre.dtype not in (torch.float32, torch.float64) or (
+                self.twim.dtype != self.twre.dtype):
+            raise TypeError(f"twiddle packs are float32 or float64 pairs, got "
+                            f"{self.twre.dtype} and {self.twim.dtype}")
         nst = len(self.stages)
         self.c_radices = (ctypes.c_int * nst)(*(r for r, _ in self.stages))
         self.c_offsets = (ctypes.c_int * nst)(*self.offsets)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.twre.dtype
 
 
 def check_device(device) -> torch.device:
@@ -234,8 +279,9 @@ def check_device(device) -> torch.device:
     return device
 
 
-def make_tables(stages, offsets, twre, twim, device) -> Tables:
-    """Tables on `device` from a host plan and twiddle pack (numpy)."""
+def make_tables(stages, offsets, twre, twim, device, dtype=torch.float32) -> Tables:
+    """Tables of `dtype` on `device` from a host plan and twiddle pack
+    (numpy)."""
     device = check_device(device)
     stages = tuple((int(r), int(l)) for r, l in stages)
     offsets = tuple(int(o) for o in offsets)
@@ -243,19 +289,26 @@ def make_tables(stages, offsets, twre, twim, device) -> Tables:
         raise ValueError(f"{len(stages)} stages but {len(offsets)} offsets")
 
     def put(a):
-        return torch.as_tensor(np.asarray(a, np.float32).reshape(-1), device=device)
+        return torch.as_tensor(np.asarray(a, np.float64).reshape(-1), device=device,
+                               dtype=dtype)
     return Tables(stages, offsets, put(twre), put(twim))
 
 
+def np_dtype(dtype: torch.dtype):
+    """The numpy dtype of a real torch dtype."""
+    return {torch.float32: np.float32, torch.float64: np.float64}[dtype]
+
+
 @functools.cache
-def _cached_tables(n: int, inverse: bool, device: torch.device) -> Tables:
-    re, im, offsets = make_twiddle_pack(n, inverse)
-    return make_tables(stage_plan(n), offsets, re, im, device)
+def _cached_tables(n: int, inverse: bool, device: torch.device, dtype: torch.dtype) -> Tables:
+    re, im, offsets = make_twiddle_pack(n, inverse, np_dtype(dtype))
+    return make_tables(stage_plan(n), offsets, re, im, device, dtype)
 
 
-def device_tables(n: int, inverse: bool, device) -> Tables:
-    """The port's own tables for (n, direction), built once per device."""
-    return _cached_tables(int(n), bool(inverse), check_device(device))
+def device_tables(n: int, inverse: bool, device, dtype=torch.float32) -> Tables:
+    """The port's own tables for (n, direction) in `dtype` (float32 or
+    float64), built once per device."""
+    return _cached_tables(int(n), bool(inverse), check_device(device), dtype)
 
 
 # -- dispatch ------------------------------------------------------------------
@@ -276,38 +329,43 @@ def _plain_into(xre, xim, yre, yim, inverse: bool, tables: Tables) -> None:
 def _launch(device, xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch,
             inverse, tables) -> None:
     """Kernel on the [n, batch] planes whose element (k, b) sits
-    k*x_sn + b*x_sb floats past the addresses xre, xim (input) and
-    k*y_sn + b*y_sb floats past yre, yim (output)."""
-    global launches
+    k*x_sn + b*x_sb elements past the addresses xre, xim (input) and
+    k*y_sn + b*y_sb elements past yre, yim (output); the instance of the
+    tables' dtype (the caller has checked the data against it)."""
+    global launches, launches_f64
     from ._build import library
 
     if tables.twre.device != device:
         raise ValueError(f"tables on {tables.twre.device}, data on {device}")
     lib = library()
+    f64 = tables.dtype == torch.float64
+    entry = lib.watfft_stockham_c2c_f64 if f64 else lib.watfft_stockham_c2c
     with torch.cuda.device(device):
-        err = lib.watfft_stockham_c2c(
-            xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch,
-            tables.twre.data_ptr(), tables.twim.data_ptr(), tables.c_radices,
-            tables.c_offsets, len(tables.stages), int(inverse),
-            torch.cuda.current_stream().cuda_stream)
+        err = entry(xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch,
+                    tables.twre.data_ptr(), tables.twim.data_ptr(), tables.c_radices,
+                    tables.c_offsets, len(tables.stages), int(inverse),
+                    torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(
-            f"Stockham kernel launch failed (n={n}, batch={batch}): "
+            f"Stockham kernel launch failed (n={n}, batch={batch}, {tables.dtype}): "
             f"{lib.watfft_error_string(err).decode()}")
-    launches += 1
+    if f64:
+        launches_f64 += 1
+    else:
+        launches += 1
 
 
 def fft_views(xre, xim, yre, yim, inverse: bool, tables: Tables) -> None:
-    """y = DFT along axis 0 of the [n, B] float views x, written into the
-    [n, B] views y. The re and im views of a side share their strides (they
-    may interleave, as x[0::2] and x[1::2] do); y must not overlap x. CUDA
-    views: one kernel launch on their addresses and strides; CPU views: the
-    plain version."""
+    """y = DFT along axis 0 of the [n, B] real views x, written into the
+    [n, B] views y, all of the tables' dtype. The re and im views of a side
+    share their strides (they may interleave, as x[0::2] and x[1::2] do); y
+    must not overlap x. CUDA views: one kernel launch on their addresses and
+    strides; CPU views: the plain version."""
     if xre.stride() != xim.stride() or yre.stride() != yim.stride():
         raise ValueError("the re and im views of a side must share their strides")
+    check_dtype(tables.dtype, xre.dtype)
     n, batch = xre.shape
     if xre.device.type == "cuda":
-        _kernel_dtype(xre, torch.float32)
         _launch(xre.device, xre.data_ptr(), xim.data_ptr(), yre.data_ptr(),
                 yim.data_ptr(), *xre.stride(), *yre.stride(), n, batch, inverse, tables)
     else:
@@ -326,12 +384,15 @@ def _dense(t: torch.Tensor) -> torch.Tensor:
     return t.resolve_conj().resolve_neg().contiguous()
 
 
-def _resolve(tables, n: int, inverse: bool, device) -> Tables:
+def _resolve(tables, n: int, inverse: bool, device, dtype: torch.dtype) -> Tables:
+    """The tables for n points of data of `dtype` (real or complex):
+    given ones checked, or the port's own of that precision."""
     if tables is None:
-        return device_tables(n, inverse, device)  # checks the device
+        return device_tables(n, inverse, device, real_dtype(dtype))  # checks the device
     check_device(device)
     if tables.n != n:
         raise ValueError(f"tables are for n={tables.n}, got n={n}")
+    check_dtype(tables.dtype, dtype)
     return tables
 
 
@@ -340,14 +401,15 @@ def _planes(re, im, inverse, time_major, tables):
         raise ValueError(f"re and im planes differ: {re.shape} {re.dtype} "
                          f"{re.device} vs {im.shape} {im.dtype} {im.device}")
     n = re.shape[0] if time_major else re.shape[-1]
-    tables = _resolve(tables, n, inverse, re.device)
+    tables = _resolve(tables, n, inverse, re.device, re.dtype)
+    if re.is_complex():
+        raise TypeError(f"the plane entry points take real planes, got {re.dtype}")
     re, im = _dense(re), _dense(im)
     ore, oim = torch.empty_like(re), torch.empty_like(im)
     batch = re.numel() // n
     if batch == 0:
         return ore, oim
     if re.device.type == "cuda":
-        _kernel_dtype(re, torch.float32)
         sn, sb = (batch, 1) if time_major else (1, n)
         _launch(re.device, re.data_ptr(), im.data_ptr(), ore.data_ptr(),
                 oim.data_ptr(), sn, sb, sn, sb, n, batch, inverse, tables)
@@ -363,7 +425,7 @@ def plain_fft(x, inverse: bool = False, tables: Tables | None = None):
     any device. The wrappers use it for CPU tensors; on CUDA it is the
     reference the kernel is held against."""
     n = x.shape[-1]
-    tables = _resolve(tables, n, inverse, x.device)
+    tables = _resolve(tables, n, inverse, x.device, x.dtype)
     xr = torch.view_as_real(_dense(x)).reshape(x.numel() // n, n, 2)
     ore, oim = run_stages(xr[..., 0].T, xr[..., 1].T, n, inverse, tables.offsets,
                           tables.stages, tables.twre, tables.twim)
@@ -372,18 +434,19 @@ def plain_fft(x, inverse: bool = False, tables: Tables | None = None):
 
 def _complex(x, inverse, tables):
     n = x.shape[-1]
-    tables = _resolve(tables, n, inverse, x.device)
+    tables = _resolve(tables, n, inverse, x.device, x.dtype)
+    if not x.is_complex():
+        raise TypeError(f"the complex entry point takes a complex tensor, got {x.dtype}")
     if x.device.type != "cuda":
         return plain_fft(x, inverse, tables)
-    _kernel_dtype(x, torch.complex64)
     x = _dense(x)
     out = torch.empty_like(x)
     batch = x.numel() // n
     if batch:
-        # interleaved complex64: re at the base, im 4 bytes on, stride 2
-        xp, yp = x.data_ptr(), out.data_ptr()
-        _launch(x.device, xp, xp + 4, yp, yp + 4, 2, 2 * n, 2, 2 * n, n, batch, inverse,
-                tables)
+        # interleaved complex: re at the base, im one real on, stride 2
+        xp, yp, step = x.data_ptr(), out.data_ptr(), x.element_size() // 2
+        _launch(x.device, xp, xp + step, yp, yp + step, 2, 2 * n, 2, 2 * n, n, batch,
+                inverse, tables)
     return out
 
 
@@ -438,8 +501,8 @@ def stockham_fft_bm(re, im, inverse: bool = False, tables: Tables | None = None)
 
 def stockham_fft(x, inverse: bool = False, tables: Tables | None = None):
     """Batched FFT over the last axis of a complex tensor [..., n]. On CUDA
-    the kernel reads and writes the interleaved complex64 storage itself:
-    no split or assemble pass."""
+    the kernel reads and writes the interleaved complex64 (or complex128)
+    storage itself: no split or assemble pass."""
     if _wants_grad(x):
         return _ComplexFFT.apply(x, bool(inverse), tables)
     return _complex(x, bool(inverse), tables)
@@ -455,7 +518,7 @@ def _postmul(xre, xim, pmre, pmim, inverse, tables, plain):
                          f"{tuple(xre.shape)}, {tuple(xim.shape)}, {tuple(pmre.shape)}, "
                          f"{tuple(pmim.shape)}")
     n, b = xre.shape
-    tables = _resolve(tables, n, bool(inverse), xre.device)
+    tables = _resolve(tables, n, bool(inverse), xre.device, xre.dtype)
     x = (_dense(xre), _dense(xim))
     pm = (_dense(pmre), _dense(pmim))
     out = (torch.empty_like(x[0]), torch.empty_like(x[1]))

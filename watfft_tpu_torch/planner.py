@@ -1,14 +1,21 @@
 """Kernel dispatch for the port.
 
 Counterpart of `watfft_tpu/planner.py`. The port has the Stockham engine
-of `ops/stockham.py` (complex, f32, power-of-two n up to 4096: one
-transform per thread block), the real FFT of `ops/rfft.py` on it (n up to
-8192, its core being n/2 points), the four-step large-N kernels of
-`ops/large.py` (n = 8192 .. 2^24, both factors run by the engine), the
-matmul surface of `ops/fourstep.py` past them, and the Bluestein transform
-of `ops/bluestein.py` for any other n, on these. Sizes and dtypes it does
-not cover raise: the planner never hands a call to `torch.fft`, which would
-hide the kernels. Its TPU decision tables (crossovers, overrides, the
+of `ops/stockham.py` (complex, power-of-two n up to 4096: one transform
+per thread block), the real FFT of `ops/rfft.py` on it (n up to 8192, its
+core being n/2 points), the four-step large-N kernels of `ops/large.py`
+(n = 8192 .. 2^24, both factors run by the engine), the matmul surface of
+`ops/fourstep.py` past them, and the Bluestein transform of
+`ops/bluestein.py` for any other n, on these. Sizes and dtypes it does not
+cover raise: the planner never hands a call to `torch.fft`, which would
+hide the kernels.
+
+The f64 rule: float64 runs the FP64 instances of the Stockham kernel
+(n <= STOCKHAM_MAX_N) and of the fused real kernels (n <= RFFT_MAX_N), the
+port of the JAX f64 tier (`doublefloat.py`'s `_df_kernel`), and the matmul
+surface in float64 past them, where the JAX planner sends every f64 call
+(`watfft_tpu/planner.py:30-34`). The large-N, Bluestein and 2D kernels are
+float32 only, as the JAX package's are. Its TPU decision tables (crossovers, overrides, the
 per-size fused/hybrid sets `config.RFFT_FUSED_*`, the VMEM-derived
 `CUBE_MAX_N` and `LARGE_NB_MAX_N`) were measured on a TPU and do not carry
 over; the limits here come from the H100's thread blocks and shared memory.
@@ -45,10 +52,10 @@ RFFT_LARGE_MAX_N = 2 * LARGE_MAX_N
 def _check(n: int, dtype: str, minimum: int) -> None:
     if not is_power_of_two(n) or n < minimum:
         raise ValueError(f"size must be a power of two >= {minimum}, got {n!r}")
-    if dtype != "float32":
+    if dtype not in ("float32", "float64"):
         raise NotImplementedError(
-            f"dtype {dtype}: the port runs float32 only; the f64 tier is "
-            f"ROADMAP item A10")
+            f"dtype {dtype}: the port runs float32 and float64; the bf16 tiers are "
+            f"ROADMAP item A11")
 
 
 def large_mode(n: int, batch: int | None = None, time_major: bool = False) -> str:
@@ -67,36 +74,38 @@ def large_mode(n: int, batch: int | None = None, time_major: bool = False) -> st
 
 
 def c2c_kernel(n: int, dtype: str, batch: int | None = None, time_major: bool = False) -> str:
-    """For float32 and power-of-two n: 'stockham' for 2 <= n <=
-    STOCKHAM_MAX_N; 'large-cube' or 'large-pipe2' (`large_mode`, by batch
-    and layout) up to LARGE_MAX_N; 'fourstep' (the matmul surface, as the
-    JAX planner routes past its kernels) beyond."""
+    """For power-of-two n: 'stockham' for 2 <= n <= STOCKHAM_MAX_N (the f32
+    kernel or its FP64 instance); in float32 'large-cube' or 'large-pipe2'
+    (`large_mode`, by batch and layout) up to LARGE_MAX_N; 'fourstep' (the
+    matmul surface, as the JAX planner routes past its kernels) beyond, and
+    for float64 past STOCKHAM_MAX_N."""
     _check(n, dtype, 2)
     if n <= STOCKHAM_MAX_N:
         return "stockham"
+    if dtype == "float64":
+        return "fourstep"
     if n <= LARGE_MAX_N:
         return "large-" + large_mode(n, batch, time_major)
     return "fourstep"
 
 
 def r2c_kernel(n: int, dtype: str, direction: str = "forward") -> str:
-    """'rfft-fused' (the one-pass r2c / c2r kernel of ops/csrc/rfft.cu) for
-    float32 and power-of-two 4 <= n <= RFFT_MAX_N, in both directions: one
-    read and one write of device memory beat the hybrid's extra write and
-    read of the core planes Z (chip_smoke.py times both on the card).
-    'rfft-large' (the m = n/2-point core on the four-step kernels, the
-    Hermitian post/pre in torch) for RFFT_MAX_N < n <= RFFT_LARGE_MAX_N.
-    Past that the real four-step surface is not ported: it raises."""
+    """'rfft-fused' (the one-pass r2c / c2r kernel of ops/csrc/rfft.cu, f32
+    or its FP64 instance) for power-of-two 4 <= n <= RFFT_MAX_N, in both
+    directions: one read and one write of device memory beat the hybrid's
+    extra write and read of the core planes Z (chip_smoke.py times both on
+    the card). In float32 'rfft-large' (the m = n/2-point core on the
+    four-step kernels, the Hermitian post/pre in torch) for RFFT_MAX_N < n
+    <= RFFT_LARGE_MAX_N. 'fourstep' (the real matmul surface,
+    `fourstep.rfft_planes`) past that, and for float64 past RFFT_MAX_N."""
     if direction not in ("forward", "inverse"):
         raise ValueError(f"direction must be 'forward' or 'inverse', got {direction!r}")
     _check(n, dtype, 4)
     if n <= RFFT_MAX_N:
         return "rfft-fused"
-    if n <= RFFT_LARGE_MAX_N:
+    if dtype == "float32" and n <= RFFT_LARGE_MAX_N:
         return "rfft-large"
-    raise NotImplementedError(
-        f"n={n}: the port's real FFT covers n <= {RFFT_LARGE_MAX_N}; the real "
-        f"matmul surface past it is not ported")
+    return "fourstep"
 
 
 def bluestein_m(n: int) -> int:

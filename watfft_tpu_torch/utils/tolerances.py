@@ -2,8 +2,8 @@
 
 The port is held to the same limits as the JAX package (reference:
 tests/accuracy.test.js:21-30, tests/per_bin_f32.test.js:37,
-tests/ifft.test.js:9-10 of wat-fft). Only the f32 tier is ported so far;
-the f64 entries stay so the two tables read alike.
+tests/ifft.test.js:9-10 of wat-fft), in both tiers the port runs: float32
+and float64 (the FP64 kernels and the float64 matmul surface).
 """
 
 from __future__ import annotations
