@@ -9,8 +9,9 @@ Phases (any failure exits nonzero and prints no result):
 1. Device: the card's name and power limit (nvidia-smi), torch, CUDA and
    nvcc versions. Without a CUDA device it stops here with exit code 1.
 2. Build: nvcc compiles every kernel source of `watfft_tpu_torch/ops/csrc`
-   (the c2c Stockham kernel and the fused real kernels), one process per
-   source, all at once.
+   (the Stockham c2c kernel and its FP64 and bf16 instances, the real,
+   large-N, 2D and Bluestein kernels and the small-n DFT matmul), one
+   process per source, all at once.
 3. c2c kernel against its plain torch version on the card, every
    power-of-two n = 2..4096, forward and inverse, at batch 3 and at 2^22/n
    (limit 1e-6 of the largest output); at batch 3 also against the f64
@@ -140,11 +141,44 @@ Phases (any failure exits nonzero and prints no result):
    batch 1, n = 1024 (BASELINE config 1) against torch.fft.fft; then the
    three FP64 kernels held against their plain versions and timed at the
    main shapes, [4096, 1024], for the kernels line.
+25. The small-n DFT matmul (#20) against its plain version (one matmul in
+   full f32) at n = 1..128 (the powers of two, 12 and 100), forward and
+   inverse, three layouts (complex64, batch-major and time-major planes),
+   batch 3 and 2^22/n (limit 1e-6 of the largest output); at batch 3 also
+   against torch.fft in complex128 (MAX_REL), per bin (n * 5e-6) at every
+   n; then #20's own path, `dft_matmul_nb` (the JAX signature) on
+   time-major [128, 32768] and [16, 262144] forward and inverse and
+   `dft_matmul` on the complex64 layout, with its launch counts.
+26. #20's times at 2^22 points per n = 2..128 in three layouts, beside the
+   f32 c2c kernel (#1) on the same input, the plain version and
+   torch.fft.fft, and its bound: bytes over 3.35 TB/s or 8 n^2 flops a
+   transform over the FP32 rate outside the tensor cores (67 TFLOP/s); the
+   kernels line's #20 rows at n = 128 and 16.
+27. #1's bf16 tiers: the interop instance (bf16 planes, f32 stages) on
+   time-major, batch-major and folded [n, 8, W] planes and the compute
+   instance (`config.BF16_COMPUTE`, bf16 stages) on time-major planes,
+   against their plain versions in bf16 at every n = 2..4096, batch 3 and
+   2^22/n (limit 2^-7 of the largest output, one bf16 ulp); at batch 3
+   against torch.fft in complex128 of the bf16 input (< 3e-2 interop,
+   < 5e-2 compute) and the roundtrips (< 5e-2, < 1e-1). The main shape,
+   bf16 [1024, 4096] time-major, in each tier: forward, inverse,
+   roundtrip and a backward (the interop tier also batch-major and
+   folded), each run with its launch counts (bf16 planes launch only their
+   tier's instance). Times at 2^22 points per n: both tiers, the f32
+   kernel on the same values, the plain versions, torch.fft.fft on
+   complex32 (fp16, the nearest library call) and complex64, a device copy;
+   the bound is 8 bytes a point.
+28. The matmul surface's precision ladder: `forward_planes_fourstep` at
+   n = 2^16 and 256 (the fftlib case) under `config.MXU_PRECISION`
+   "highest" (within MAX_REL of torch.fft in complex128) and "default"
+   (one TF32 pass, within 1e-2 of the largest output), with the device
+   time; no kernel launches, and the caller's TF32 setting is back after
+   every call.
 
 The line before the last is a JSON object naming each kernel of the paths
 with its launch count, error, times and the least time the card could take
 (its bytes at 3.35 TB/s or its flops at 67 TFLOP/s, 34 TFLOP/s for the
-FP64 kernels, whichever is larger);
+FP64 kernels, whichever is larger; the bf16 rows have no library call);
 the last line is {"ok": true, "device": {...}}. Phase 3 also holds the
 c2c kernel against its plain version in the batch-major planes layout
 (`stockham_fft_bm`, the port of `_kernel_bm`).
@@ -152,6 +186,7 @@ c2c kernel against its plain version in the batch-major planes layout
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -161,13 +196,14 @@ import time
 import torch
 
 import watfft_tpu_torch as wtt
-from watfft_tpu_torch import (create_fft, create_fft_f32, create_rfft, create_rfft_f32, fftlib,
-                              planner)
+from watfft_tpu_torch import (config, create_fft, create_fft_f32, create_rfft, create_rfft_f32,
+                              fftlib, planner)
 from watfft_tpu_torch import stft as wstft
 from watfft_tpu_torch.ops import _build
 from watfft_tpu_torch.ops import bluestein as bl
 from watfft_tpu_torch.ops import fft2 as f2
 from watfft_tpu_torch.ops import large as lg
+from watfft_tpu_torch.ops import mxu_dft as md
 from watfft_tpu_torch.ops import rfft as rf
 from watfft_tpu_torch.ops import stockham as st
 from watfft_tpu_torch.reference import dft as ref
@@ -216,6 +252,27 @@ F64_POINTS = 1 << 21
 F64_FOURSTEP_N, F32_REAL_FOURSTEP_N = 1 << 16, 1 << 26
 F64_SRC = {"c2c": "watfft_tpu_torch/ops/csrc/stockham.cu",
            "real": "watfft_tpu_torch/ops/csrc/rfft.cu"}
+# #20 at n = 1..128 (the powers of two, 12 and 100), timed at 2..128; the
+# kernels line's #20 rows at these n
+DFT_SIZES = [1 << k for k in range(8)] + [12, 100]
+DFT_TIME_SIZES = [1 << k for k in range(1, 8)]
+DFT_ROWS = (128, 16)
+DFT_SRC = "watfft_tpu_torch/ops/csrc/mxu_dft.cu"
+# the bf16 tiers: kernel vs plain version in bf16 (max |diff| / max |plain|,
+# one bf16 ulp at the largest output); against torch.fft in complex128 and
+# roundtrips, the bounds of tests/test_bf16.py
+BF16_KERNEL_LIMIT = 2.0 ** -7
+BF16_ORACLE = {"interop": 3e-2, "compute": 5e-2}
+BF16_ROUNDTRIP = {"interop": 5e-2, "compute": 1e-1}
+# the matmul surface's precision ladder: forward_planes_fourstep at (n, batch),
+# and whether cuBLAS must show the switch there: at 2^16 "default" (TF32) has
+# to be at least LADDER_TF32_GAIN times further off than "highest", so a
+# ladder that never turns TF32 on fails. [4, 256] is the fftlib case of
+# tests/test_fftlib.py, whose tiny products cuBLAS ran without TF32 on an
+# H100 (PERF.md), and [4096, 256] asks whether a wider batch of them takes it.
+LADDER_CASES = ((1 << 16, 4, True), (256, 4, False), (256, 4096, False))
+LADDER_DEFAULT_LIMIT = 1e-2
+LADDER_TF32_GAIN = 10.0
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s, FP32 flop/s
 # outside the tensor cores, and FP64 flop/s (non-tensor)
 PEAK_BYTES, PEAK_FLOPS, PEAK_FLOPS_F64 = 3.35e12, 67e12, 34e12
@@ -426,6 +483,9 @@ def phase_host(dev, gen, name: str, limit: str) -> None:
 def zero_counts() -> None:
     st.launches = 0
     st.launches_f64 = 0
+    st.launches_bf16 = 0
+    st.launches_bf16c = 0
+    md.launches = 0
     for key in rf.launches:
         rf.launches[key] = 0
     for key in lg.launches:
@@ -437,7 +497,9 @@ def zero_counts() -> None:
 
 
 def counts() -> dict:
-    return {"stockham_c2c": st.launches, "stockham_c2c_f64": st.launches_f64, **rf.launches,
+    return {"stockham_c2c": st.launches, "stockham_c2c_f64": st.launches_f64,
+            "stockham_c2c_bf16": st.launches_bf16, "stockham_c2c_bf16c": st.launches_bf16c,
+            "mxu_dft": md.launches, **rf.launches,
             **{"large_" + k: v for k, v in lg.launches.items()}, **f2.launches, **bl.launches}
 
 
@@ -1984,6 +2046,403 @@ def f64_kernel_rows(main: dict, dev, gen, name: str, limit: str) -> list:
     return rows
 
 
+# -- #20, the small-n DFT matmul ------------------------------------------------------
+
+def phase_dft_kernel_vs_plain(dev, gen) -> None:
+    """#20 against its plain version (one matmul in full f32) at n = 1..128
+    in three layouts, batch 3 and 2^22/n; at batch 3 also against torch.fft
+    in complex128, and per bin at every n."""
+    worst = 0.0
+    for n in DFT_SIZES:
+        line = {"phase": "dft_kernel_vs_plain", "n": n}
+        for batch in (3, POINTS // n):
+            x = rand_complex((batch, n), gen, dev)
+            re, im = x.real.contiguous(), x.imag.contiguous()
+            tre, tim = re.T.contiguous(), im.T.contiguous()
+            for inverse in (False, True):
+                p = md.plain_dft_matmul(x, None, inverse, layout="complex")
+                y = md.dft_matmul(x, inverse)
+                diffs = {"complex": rel_diff(y, p),
+                         "bm": rel_diff(torch.complex(*md.dft_matmul_bm(re, im, inverse)), p),
+                         "nb": rel_diff(torch.complex(*md.dft_matmul_nb(tre, tim, inverse)).T,
+                                        p)}
+                worst = max(worst, *diffs.values())
+                check(max(diffs.values()) <= KERNEL_LIMIT,
+                      f"dft n={n} batch={batch} inverse={inverse}: kernel vs plain {diffs}")
+                if batch == 3:
+                    e = max_rel(y, c128(x, inverse))
+                    check(e <= MAX_REL["float32"], f"dft n={n} inverse={inverse}: {e:.3e} "
+                                                   f"vs torch.fft c128")
+                    line[f"max_rel_vs_torch_fft_c128_{'inv' if inverse else 'fwd'}"] = e
+                line[f"batch_{batch}_max_rel_diff"] = max(
+                    line.get(f"batch_{batch}_max_rel_diff", 0.0), *diffs.values())
+        t = torch.arange(n, device=dev, dtype=torch.float64)
+        basis = torch.exp(2j * torch.pi * torch.outer(t, t) / n).to(torch.complex64)
+        eye = n * torch.eye(n, device=dev, dtype=torch.complex64)
+        line["per_bin_err"] = per_bin = (md.dft_matmul(basis) - eye).abs().max().item()
+        check(per_bin < PER_BIN["float32"](n), f"dft n={n}: per-bin error {per_bin:.3e}")
+        print(json.dumps(line), flush=True)
+    print(json.dumps({"phase": "dft_kernels_vs_plain", "sizes": len(DFT_SIZES),
+                      "max_rel_diff": worst}), flush=True)
+
+
+def phase_dft_main_path(dev, gen) -> dict:
+    """#20's own path (the JAX planner routes no call to it): dft_matmul_nb,
+    the JAX signature, forward and inverse on time-major [n, 2^22/n] planes
+    and dft_matmul on the complex64 layout, at n = 128 and 16, each run
+    with its launch count."""
+    out = {}
+    for n in DFT_ROWS:
+        b = POINTS // n
+        x = rand_complex((b, n), gen, dev)
+        re_t, im_t = x.real.T.contiguous(), x.imag.T.contiguous()
+
+        def calls():
+            fwd = torch.complex(*wtt.dft_matmul_nb(re_t, im_t)).T
+            inv = torch.complex(*wtt.dft_matmul_nb(re_t, im_t, inverse=True)).T
+            return fwd, inv, md.dft_matmul(x)
+        out[n] = _bl_run(
+            f"dft_matmul_nb on [{n}, {b}] forward and inverse, dft_matmul on [{b}, {n}]",
+            calls, {"mxu_dft": 3},
+            {"fwd_max_rel_vs_torch_fft_c128": lambda o: max_rel(o[0], c128(x)),
+             "inv_max_rel_vs_torch_fft_c128": lambda o: max_rel(o[1], c128(x, True)),
+             "layouts_agree": lambda o: rel_diff(o[2], o[0]),
+             "kernel_vs_plain_rel": lambda o: rel_diff(
+                 o[2], md.plain_dft_matmul(x, None, layout="complex"))},
+            {"fwd_max_rel_vs_torch_fft_c128": MAX_REL["float32"],
+             "inv_max_rel_vs_torch_fft_c128": MAX_REL["float32"],
+             "layouts_agree": KERNEL_LIMIT, "kernel_vs_plain_rel": KERNEL_LIMIT},
+            phase="dft_main_path")
+    return out
+
+
+def dft_bound(n: int, b: int) -> tuple[float, str]:
+    """#20's least time as a matmul: 16 bytes a point in and out against
+    8n^2 flops a transform over the FP32 rate outside the tensor cores.
+    It bounds the dense product the kernel does, not the n-point DFT,
+    whose least is the bytes alone (`dft_bytes_bound_ms`)."""
+    return bound(16 * n * b, 8 * n * n * b)
+
+
+def dft_bytes_bound_ms(n: int, b: int) -> float:
+    """The n-point DFT's own least time: 16 bytes a point over HBM."""
+    return bound(16 * n * b, 0.0)[0]
+
+
+def phase_dft_times(dev, gen, name: str, limit: str) -> dict:
+    """2^22 points a call at every power-of-two n = 2..128: #20 in three
+    layouts, the f32 c2c kernel (#1) on the same input, the plain version,
+    torch.fft.fft (cuFFT) and the bound."""
+    times = {}
+    for n in DFT_TIME_SIZES:
+        b = POINTS // n
+        x = rand_complex((b, n), gen, dev)
+        re, im = x.real.contiguous(), x.imag.contiguous()
+        re_t, im_t = re.T.contiguous(), im.T.contiguous()
+        fns = {"dft_complex": lambda: md.dft_matmul(x),
+               "dft_complex_inv": lambda: md.dft_matmul(x, True),
+               "dft_nb": lambda: md.dft_matmul_nb(re_t, im_t),
+               "dft_bm": lambda: md.dft_matmul_bm(re, im),
+               "c2c_complex": lambda: st.stockham_fft(x),
+               "c2c_nb": lambda: st.stockham_fft_nb(re_t, im_t),
+               "plain": lambda: md.plain_dft_matmul(x, None, layout="complex"),
+               "lib_fft": lambda: torch.fft.fft(x)}
+        row = {}
+        for key, fn in fns.items():
+            row[key + "_ms"] = time_ms(fn)[0]
+        bnd = dft_bound(n, b)
+        row.update(bound_ms=bnd[0], bound_by=bnd[1], bytes_bound_ms=dft_bytes_bound_ms(n, b))
+        times[n] = row
+        print(json.dumps({"phase": "dft_times", "n": n, "batch": b, **row,
+                          "bound_peaks": "HBM 3.35 TB/s; FP32 67 TFLOP/s (no tensor cores)",
+                          "card": name, "power_limit": limit}), flush=True)
+    return times
+
+
+def dft_kernel_rows(main: dict, dev, gen, name: str, limit: str) -> list:
+    """#20 at n = 128 and 16 on 2^22 points (complex64 layout): held against
+    its plain version there and timed, with torch.fft.fft on the same
+    tensor."""
+    rows = []
+    for n in DFT_ROWS:
+        b = POINTS // n
+        x = rand_complex((b, n), gen, dev)
+        k, p = md.dft_matmul(x), md.plain_dft_matmul(x, None, layout="complex")
+        rel = rel_diff(k, p)
+        check(rel <= KERNEL_LIMIT, f"mxu_dft at [{b}, {n}]: {rel:.3e} vs plain")
+        bnd = dft_bound(n, b)
+        rows.append({"name": "mxu_dft", "shape": f"[{b}, {n}] complex64", "route": "cuda",
+                     "source": DFT_SRC, "replaces": "watfft_tpu/ops/mxu_dft.py:59",
+                     "also_replaces": [], "launches": main[n]["launches"]["mxu_dft"],
+                     "max_abs_err": (k - p).abs().max().item(),
+                     "ms": time_ms(lambda: md.dft_matmul(x))[0],
+                     "plain_ms": time_ms(lambda: md.plain_dft_matmul(x, None,
+                                                                     layout="complex"))[0],
+                     "bound_ms": bnd[0], "bound_by": bnd[1],
+                     "bound_peak": "FP32 67 TFLOP/s outside the tensor cores; HBM 3.35 TB/s",
+                     "bound_of": "the matmul form (8n^2 flops a transform), not the "
+                                 "n-point DFT, whose least is bytes_bound_ms",
+                     "bytes_bound_ms": dft_bytes_bound_ms(n, b),
+                     "library_ms": time_ms(lambda: torch.fft.fft(x))[0],
+                     "library_call": "torch.fft.fft on the same complex64 tensor",
+                     "card": name, "power_limit": limit})
+    return rows
+
+
+# -- #1's bf16 tiers --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def bf16_compute(on: bool):
+    """config.BF16_COMPUTE set inside the block, restored after it."""
+    prev, config.BF16_COMPUTE = config.BF16_COMPUTE, on
+    try:
+        yield
+    finally:
+        config.BF16_COMPUTE = prev
+
+
+def rand_bf16(shape, gen, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    return tuple((torch.rand(shape, generator=gen, device=dev) * 2 - 1).to(torch.bfloat16)
+                 for _ in range(2))
+
+
+def bf16_rel(got, want) -> float:
+    """max |got - want| / max |want| over a pair of bf16 planes, in f32."""
+    return (max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+            / max(w.float().abs().max().item() for w in want))
+
+
+def c128_planes(re: torch.Tensor, im: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """torch.fft in complex128 of time-major [n, b] planes, along axis 0."""
+    x = torch.complex(re.double(), im.double())
+    return torch.fft.ifft(x, dim=0) if inverse else torch.fft.fft(x, dim=0)
+
+
+def as_c128(planes) -> torch.Tensor:
+    return torch.complex(planes[0].double(), planes[1].double())
+
+
+def _bf16_vs_oracle(y, re, im, tier: str, inverse: bool, n: int) -> dict:
+    """The bf16 output y of (re, im) against torch.fft in complex128 of the
+    bf16 input, and the roundtrip back through the other direction."""
+    e = rel_diff(as_c128(y), c128_planes(re, im, inverse))
+    check(e < BF16_ORACLE[tier], f"bf16 {tier} n={n} inverse={inverse}: {e:.3e} vs c128")
+    back = st.stockham_fft_nb(*y, not inverse)
+    rt = max((back[0].float() - re.float()).abs().max().item(),
+             (back[1].float() - im.float()).abs().max().item())
+    check(rt < BF16_ROUNDTRIP[tier], f"bf16 {tier} n={n}: roundtrip {rt:.3e}")
+    key = f"{tier}_{'inv' if inverse else 'fwd'}"
+    return {f"{key}_rel_vs_torch_fft_c128": e, f"{key}_roundtrip_err": rt}
+
+
+def phase_bf16_kernel_vs_plain(dev, gen) -> None:
+    """Both bf16 tiers against their plain versions on the card, compared in
+    bf16, at every power-of-two n = 2..4096, batch 3 and 2^22/n, in the
+    layouts each serves: the compute tier on time-major [n, b] planes, the
+    interop tier on [n, b], batch-major and (at batch 2^22/n) the folded
+    [n, 8, W] view. At batch 3 also against torch.fft in complex128 of the
+    bf16 input, and the roundtrip."""
+    worst = {}
+    for n in SIZES:
+        line = {"phase": "bf16_kernel_vs_plain", "n": n}
+        for batch in (3, POINTS // n):
+            re, im = rand_bf16((n, batch), gen, dev)
+            bre, bim = re.T.contiguous(), im.T.contiguous()
+            folded = ((re.view(n, 8, batch // 8), im.view(n, 8, batch // 8))
+                      if batch % 8 == 0 else None)
+            for inverse in (False, True):
+                diffs = {}
+                for tier, on in (("interop", False), ("compute", True)):
+                    with bf16_compute(on):
+                        y = st.stockham_fft_nb(re, im, inverse)
+                        check(y[0].dtype == torch.bfloat16, f"bf16 {tier}: {y[0].dtype} out")
+                        diffs[tier + "_nb"] = bf16_rel(y, st.plain_fft_nb(re, im, inverse))
+                        if batch == 3:
+                            line.update(_bf16_vs_oracle(y, re, im, tier, inverse, n))
+                diffs["interop_bm"] = bf16_rel(st.stockham_fft_bm(bre, bim, inverse),
+                                               st.plain_fft_bm(bre, bim, inverse))
+                if folded is not None:
+                    diffs["interop_folded"] = bf16_rel(st.stockham_fft_nb(*folded, inverse),
+                                                       st.plain_fft_nb(*folded, inverse))
+                for key, d in diffs.items():
+                    worst[key] = max(worst.get(key, 0.0), d)
+                    line[f"{key}_max_rel_diff"] = max(line.get(f"{key}_max_rel_diff", 0.0), d)
+                check(max(diffs.values()) <= BF16_KERNEL_LIMIT,
+                      f"bf16 n={n} batch={batch} inverse={inverse}: kernel vs plain {diffs}")
+        print(json.dumps(line), flush=True)
+    print(json.dumps({"phase": "bf16_kernels_vs_plain", "max_rel_diff": worst,
+                      "limit": BF16_KERNEL_LIMIT}), flush=True)
+
+
+def phase_bf16_main_path(dev, gen) -> dict:
+    """The bf16 planes of BASELINE config 4's shape, time-major [1024, 4096]
+    (4096 transforms of n = 1024), through stockham_fft_nb in each tier:
+    forward, inverse, roundtrip and a backward; in the interop tier also
+    batch-major planes and the folded [n, 8, W] view. Each run with its
+    launch counts: bf16 planes launch only their tier's instance."""
+    n, b = MAIN_N, MAIN_B
+    re, im = rand_bf16((n, b), gen, dev)
+    g = rand_bf16((n, b), gen, dev)
+    bre, bim = re.T.contiguous(), im.T.contiguous()
+    fold = (re.view(n, 8, b // 8), im.view(n, 8, b // 8))
+    ref, ref_inv = c128_planes(re, im), c128_planes(re, im, True)
+    grad_ref = c128_planes(*g, True) * n  # the adjoint of the forward: n * IFFT
+    out = {}
+    for tier, on in (("interop", False), ("compute", True)):
+        xg = (re.clone().requires_grad_(), im.clone().requires_grad_())
+
+        def calls():
+            y = st.stockham_fft_nb(re, im)
+            outs = {"y": y, "xi": st.stockham_fft_nb(re, im, True),
+                    "back": st.stockham_fft_nb(*y, True)}
+            torch.autograd.backward(st.stockham_fft_nb(*xg), g)
+            if not on:
+                outs["bm"] = st.stockham_fft_bm(bre, bim)
+                outs["fold"] = st.stockham_fft_nb(*fold)
+            return outs
+        key = "stockham_c2c_bf16c" if on else "stockham_c2c_bf16"
+        checks = {
+            "fwd_rel_vs_torch_fft_c128": lambda o: rel_diff(as_c128(o["y"]), ref),
+            "inv_rel_vs_torch_fft_c128": lambda o: rel_diff(as_c128(o["xi"]), ref_inv),
+            "roundtrip_err": lambda o: (as_c128(o["back"]) - torch.complex(
+                re.double(), im.double())).abs().max().item(),
+            "grad_rel_vs_torch_fft_c128": lambda o: rel_diff(
+                torch.complex(xg[0].grad.double(), xg[1].grad.double()), grad_ref),
+            "kernel_vs_plain_rel": lambda o: bf16_rel(o["y"], st.plain_fft_nb(re, im))}
+        limits = {"fwd_rel_vs_torch_fft_c128": BF16_ORACLE[tier],
+                  "inv_rel_vs_torch_fft_c128": BF16_ORACLE[tier],
+                  "roundtrip_err": BF16_ROUNDTRIP[tier],
+                  "grad_rel_vs_torch_fft_c128": BF16_ORACLE[tier],
+                  "kernel_vs_plain_rel": BF16_KERNEL_LIMIT}
+        if not on:
+            checks["layouts_vs_nb"] = lambda o: max(
+                bf16_rel((o["bm"][0].T, o["bm"][1].T), o["y"]),
+                bf16_rel((o["fold"][0].reshape(n, b), o["fold"][1].reshape(n, b)), o["y"]))
+            limits["layouts_vs_nb"] = BF16_KERNEL_LIMIT
+        with bf16_compute(on):
+            # 5 calls (the backward one) in the compute tier; 7 in the interop
+            out[tier] = _bl_run(f"stockham_fft_nb on bf16 [{n}, {b}], {tier} tier", calls,
+                                {key: 5 if on else 7}, checks, limits, phase="bf16_main_path")
+    return out
+
+
+def phase_bf16_times(dev, gen, name: str, limit: str) -> dict:
+    """2^22 points a call at every n: both bf16 tiers (time-major planes),
+    the f32 kernel on the same values in f32, the plain versions,
+    torch.fft.fft on complex32 (the nearest library call: fp16, no torch
+    call computes a bf16 FFT) and on complex64, and a device copy of the
+    bf16 planes."""
+    times = {}
+    for n in SIZES:
+        b = POINTS // n
+        re, im = rand_bf16((n, b), gen, dev)
+        re32, im32 = re.float(), im.float()
+        x64 = torch.complex(re32, im32).T.contiguous()
+        x32 = x64.to(torch.complex32)
+        t16 = st.device_tables(n, False, dev, torch.bfloat16)  # the compute tier, given
+        out_re, out_im = torch.empty_like(re), torch.empty_like(im)
+        fns = {"interop": lambda: st.stockham_fft_nb(re, im),
+               "compute": lambda: st.stockham_fft_nb(re, im, tables=t16),
+               "f32_nb": lambda: st.stockham_fft_nb(re32, im32),
+               "f32_complex": lambda: st.stockham_fft(x64),
+               "lib_fft_complex32": lambda: torch.fft.fft(x32),
+               "lib_fft_complex64": lambda: torch.fft.fft(x64),
+               "copy": lambda: (out_re.copy_(re), out_im.copy_(im))}
+        row = {key + "_ms": time_ms(fn)[0] for key, fn in fns.items()}
+        row["plain_interop_ms"] = time_ms(lambda: st.plain_fft_nb(re, im), reps=3, warmup=1)[0]
+        row["plain_compute_ms"] = time_ms(lambda: st.plain_fft_nb(re, im, tables=t16), reps=3,
+                                          warmup=1)[0]
+        bnd = bound(8 * n * b, 5 * n * (n.bit_length() - 1) * b)
+        row.update(bound_ms=bnd[0], bound_by=bnd[1])
+        times[n] = row
+        print(json.dumps({"phase": "bf16_times", "n": n, "batch": b, **row, "card": name,
+                          "power_limit": limit}), flush=True)
+    return times
+
+
+def bf16_kernel_rows(main: dict, times: dict, dev, gen, name: str, limit: str) -> list:
+    """The two bf16 instances at the main shape, time-major bf16 [1024, 4096]:
+    each held against its plain version there (its max |diff|), with the
+    times of phase_bf16_times at that shape. Bytes: 4 read and 4 written a
+    point."""
+    n, b = MAIN_N, MAIN_B
+    t = times[n]
+    re, im = rand_bf16((n, b), gen, dev)
+    t16 = st.device_tables(n, False, dev, torch.bfloat16)
+    bnd = bound(8 * n * b, 5 * n * (n.bit_length() - 1) * b)
+    rows = []
+    for key, tier, tables, also in (
+            ("stockham_c2c_bf16", "interop", None, ["watfft_tpu/ops/pallas_stockham.py:355",
+                                                     "watfft_tpu/ops/pallas_stockham.py:435"]),
+            ("stockham_c2c_bf16c", "compute", t16, [])):
+        k = st.stockham_fft_nb(re, im, tables=tables)
+        p = st.plain_fft_nb(re, im, tables=tables)
+        rel = bf16_rel(k, p)
+        check(rel <= BF16_KERNEL_LIMIT, f"{key} at [{n}, {b}]: {rel:.3e} vs plain")
+        rows.append({"name": key, "route": "cuda",
+                     "source": "watfft_tpu_torch/ops/csrc/stockham.cu",
+                     "replaces": "watfft_tpu/ops/pallas_stockham.py:260",
+                     "also_replaces": also,
+                     "launches": main[tier]["launches"][key],
+                     "max_abs_err": max((a.float() - c.float()).abs().max().item()
+                                        for a, c in zip(k, p)),
+                     "ms": t[f"{tier}_ms"], "plain_ms": t[f"plain_{tier}_ms"],
+                     "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+                     "library_note": "no torch call computes a bf16 FFT; torch.fft.fft on "
+                                     f"complex32 (fp16) took {t['lib_fft_complex32_ms']} ms",
+                     "card": name, "power_limit": limit})
+    return rows
+
+
+# -- the matmul surface's precision ladder -------------------------------------------------
+
+def phase_ladder(dev, gen, name: str, limit: str) -> dict:
+    """forward_planes_fourstep (the matmul surface, no kernel) at n = 2^16
+    and the fftlib ladder case (n = 256), under config.MXU_PRECISION
+    "highest" and "default": the error against torch.fft in complex128 and
+    the device time; the caller's TF32 setting is back after each call.
+    Where the case must show the switch, "default" has to be
+    LADDER_TF32_GAIN times further off than "highest"."""
+    out = {}
+    setting = (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32)
+    prev = config.MXU_PRECISION
+    try:
+        for n, b, shows in LADDER_CASES:
+            ctx = create_fft_f32(n, device="cuda")
+            x = rand_complex((b, n), gen, dev)
+            re, im = x.real.contiguous(), x.imag.contiguous()
+            want = c128(x)
+            row = {}
+            for ladder in ("highest", "default"):
+                config.MXU_PRECISION = ladder
+                torch.cuda.synchronize()
+                zero_counts()
+                y = torch.complex(*ctx.forward_planes_fourstep(re, im))
+                torch.cuda.synchronize()
+                check(counts() == expect(), f"ladder n={n}: launches {counts()}")
+                check((torch.get_float32_matmul_precision(),
+                       torch.backends.cuda.matmul.allow_tf32) == setting,
+                      f"ladder {ladder}: the caller's matmul setting was not restored")
+                row[f"{ladder}_max_rel_vs_torch_fft_c128"] = max_rel(y, want)
+                row[f"{ladder}_rel_to_max"] = rel_diff(y, want)
+                row[f"{ladder}_ms"] = time_ms(lambda: ctx.forward_planes_fourstep(re, im))[0]
+            out[(n, b)] = row
+            print(json.dumps({"phase": "ladder", "n": n, "batch": b, **row, "card": name,
+                              "power_limit": limit}), flush=True)
+            check(row["highest_max_rel_vs_torch_fft_c128"] <= MAX_REL["float32"],
+                  f"ladder n={n}: highest {row['highest_max_rel_vs_torch_fft_c128']:.3e}")
+            check(row["default_rel_to_max"] <= LADDER_DEFAULT_LIMIT,
+                  f"ladder n={n}: default {row['default_rel_to_max']:.3e}")
+            if shows:
+                check(row["default_rel_to_max"]
+                      >= LADDER_TF32_GAIN * row["highest_rel_to_max"],
+                      f"ladder n={n}: default {row['default_rel_to_max']:.3e} against "
+                      f"highest {row['highest_rel_to_max']:.3e}: TF32 was not turned on")
+    finally:
+        config.MXU_PRECISION = prev
+    return out
+
+
 def bound(nbytes: float, flops: float, peak: float = PEAK_FLOPS) -> tuple[float, str]:
     """The least time in ms the card could take: bytes over its memory rate
     or flops over its peak rate for their type (FP32 unless given),
@@ -2090,6 +2549,15 @@ def main() -> int:
         f64_main = phase_f64_main_path(dev, gen)
         phase_f64_times(dev, gen, name, limit)
         f64_rows = f64_kernel_rows(f64_main, dev, gen, name, limit)
+        phase_dft_kernel_vs_plain(dev, gen)
+        dft_main = phase_dft_main_path(dev, gen)
+        phase_dft_times(dev, gen, name, limit)
+        dft_rows = dft_kernel_rows(dft_main, dev, gen, name, limit)
+        phase_bf16_kernel_vs_plain(dev, gen)
+        bf16_main = phase_bf16_main_path(dev, gen)
+        bf16_times = phase_bf16_times(dev, gen, name, limit)
+        bf16_rows = bf16_kernel_rows(bf16_main, bf16_times, dev, gen, name, limit)
+        phase_ladder(dev, gen, name, limit)
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2097,6 +2565,8 @@ def main() -> int:
                         real_errs, times, real_times, large_rows, fft2_rows, name, limit)
     line["kernels"].extend(bl_rows)
     line["kernels"].extend(f64_rows)
+    line["kernels"].extend(dft_rows)
+    line["kernels"].extend(bf16_rows)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""Check that the f32 CUDA kernels of two checkouts agree bit for bit.
+"""Check that the CUDA kernels of two checkouts agree bit for bit.
 
 Builds the port's CUDA library from this checkout and from another one (for
 example the parent commit, unpacked with `git archive` into a directory
@@ -16,11 +16,19 @@ library `_build.library` returns:
   2^13 and 2^14;
 * `watfft_fft2_cube` at h x w = 2x2..128x128 and on the extremes 2x8192,
   8192x2;
-* `watfft_bluestein_fwd` / `watfft_bluestein_inv` at n = 3..2000,
+* `watfft_bluestein_fwd` / `watfft_bluestein_inv` at n = 3..2000;
+* the FP64 instances `watfft_stockham_c2c_f64` (n = 2..4096, complex128
+  and time-major planes), `watfft_rfft_r2c_f64` and `watfft_irfft_c2r_f64`
+  (n = 4..8192, batch-major);
+* where both builds have them: the bf16 instances `watfft_stockham_c2c_bf16`
+  (interop: time-major and batch-major planes) and
+  `watfft_stockham_c2c_bf16c` (compute: time-major planes) at n = 2..4096,
+  and `watfft_dft_matmul` at n = 1..128 (complex64 layout); an entry point
+  the other build lacks is counted under "skipped",
 
-at batch 3 and at 2^20 points per call (f32 c2c and real), or at the
-listed shapes, forward and inverse, with this checkout's tables for both.
-The outputs are compared with torch.equal. Needs one CUDA device:
+at batch 3 and at 2^20 points per call (2^19 in FP64), or at the listed
+shapes, forward and inverse, with this checkout's tables for both. The
+outputs are compared with torch.equal. Needs one CUDA device:
 
     python3 scripts/compare_kernel_builds.py OTHER_CHECKOUT
 
@@ -44,6 +52,7 @@ from watfft_tpu_torch.ops import _build  # noqa: E402
 from watfft_tpu_torch.ops import bluestein as bl  # noqa: E402
 from watfft_tpu_torch.ops import fft2 as f2  # noqa: E402
 from watfft_tpu_torch.ops import large as lg  # noqa: E402
+from watfft_tpu_torch.ops import mxu_dft as md  # noqa: E402
 from watfft_tpu_torch.ops import rfft as rf  # noqa: E402
 from watfft_tpu_torch.ops import stockham as st  # noqa: E402
 
@@ -51,6 +60,7 @@ POINTS = 1 << 20
 LARGE_SIZES = [1 << k for k in range(13, 17)]
 FFT2_SHAPES = [(1 << a, 1 << a) for a in range(1, 8)] + [(2, 1 << 13), (1 << 13, 2), (16, 256)]
 BLUESTEIN_SIZES = (3, 17, 100, 400, 1000, 1009, 2000)
+DFT_SIZES = [1 << k for k in range(8)] + [12, 100]
 
 
 def other_library(checkout: Path):
@@ -96,9 +106,19 @@ def main() -> int:
     def crand(shape):
         return torch.complex(rand(shape), rand(shape))
 
-    cases, differ = {}, []
+    cases, differ, skipped = {}, [], {}
 
-    def same(kind, what, fn):
+    def has(lib, entry) -> bool:
+        try:
+            getattr(lib, entry)
+            return True
+        except AttributeError:
+            return False
+
+    def same(kind, what, fn, entry=None):
+        if entry is not None and not all(has(lib, entry) for lib in libs):
+            skipped[kind] = skipped.get(kind, 0) + 1
+            return
         outs = []
         for lib in libs:
             with using(lib):
@@ -140,9 +160,41 @@ def main() -> int:
         x = crand((3, n))
         for inverse in (False, True):
             same("bluestein_fwd_inv", (n, inverse), lambda: bl.bluestein_fft(x, inverse))
+    for n in (1 << k for k in range(1, 13)):
+        for batch in (3, POINTS // 2 // n):
+            x = crand((batch, n)).to(torch.complex128)
+            for inverse in (False, True):
+                for tm in (False, True):
+                    same("stockham_c2c_f64", (n, batch, inverse, tm),
+                         lambda: c2c(x, inverse, tm))
+    for n in (1 << k for k in range(2, 14)):
+        for batch in (3, POINTS // 2 // n):
+            x = rand((batch, n)).double()
+            sre, sim = (rand((batch, n // 2 + 1)).double() for _ in range(2))
+            same("rfft_r2c_f64", (n, batch), lambda: rf.rfft_bm(x))
+            same("irfft_c2r_f64", (n, batch), lambda: (rf.irfft_bm(sre, sim),))
+    for n in (1 << k for k in range(1, 13)):
+        for batch in (3, POINTS // n):
+            re, im = rand((n, batch)).bfloat16(), rand((n, batch)).bfloat16()
+            t32 = st.device_tables(n, False, dev)
+            t16 = st.device_tables(n, False, dev, torch.bfloat16)
+            same("stockham_c2c_bf16", (n, batch), lambda: st.stockham_fft_nb(re, im, tables=t32),
+                 "watfft_stockham_c2c_bf16")
+            same("stockham_c2c_bf16", (n, batch, "bm"),
+                 lambda: st.stockham_fft_bm(re.T.contiguous(), im.T.contiguous(), tables=t32),
+                 "watfft_stockham_c2c_bf16")
+            same("stockham_c2c_bf16c", (n, batch),
+                 lambda: st.stockham_fft_nb(re, im, tables=t16), "watfft_stockham_c2c_bf16c")
+    for n in DFT_SIZES:
+        for batch in (3, POINTS // n):
+            x = crand((batch, n))
+            for inverse in (False, True):
+                same("dft_matmul", (n, batch, inverse), lambda: md.dft_matmul(x, inverse),
+                     "watfft_dft_matmul")
     torch.cuda.synchronize()
-    print(json.dumps({"bit_identical": not differ, "cases": cases, "differ": differ[:20],
-                      "device": torch.cuda.get_device_name(0)}), flush=True)
+    print(json.dumps({"bit_identical": not differ, "cases": cases, "skipped": skipped,
+                      "differ": differ[:20], "device": torch.cuda.get_device_name(0)}),
+          flush=True)
     return 1 if differ else 0
 
 

@@ -108,24 +108,25 @@ def test_non_power_of_two_raises(n):
 def test_large_n_raises_not_implemented():
     """Large N is ported (tests/test_torch_large.py), and the real FFT past
     2^25 now runs the real matmul surface (tests/test_torch_f64.py checks
-    its numbers); what the port lacks still raises: a bf16 tier."""
+    its numbers); a bf16 context still raises, naming the bf16 tiers'
+    surface, the plane entry points on bfloat16 planes."""
     assert planner.c2c_kernel(8192, "float32") == "large-cube"
     assert wtt.fft(torch.zeros(8192, dtype=torch.complex64), device="cpu").shape == (8192,)
     assert planner.r2c_kernel(1 << 26, "float32") == "fourstep"
     assert wtt.create_rfft_f32(1 << 26, device="cpu").bins == (1 << 25) + 1
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="stockham_fft_nb"):
         wtt.RFFTContext(16, dtype="bfloat16", device="cpu")
 
 
 def test_float64_raises_not_implemented():
     """float64 is ported (ROADMAP A10): a float64 context runs complex128,
-    and a dtype the port lacks still raises."""
+    and a bf16 context still raises, naming the bf16 planes' entry points."""
     ctx = wtt.FFTContext(64, dtype="float64", device="cpu")
     x = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 64)) + 0j)
     y = ctx.forward(x)
     assert y.dtype == torch.complex128
     assert (y - torch.fft.fft(x)).abs().max().item() < 1e-12
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="stockham_fft_nb"):
         wtt.FFTContext(64, dtype="bfloat16", device="cpu")
 
 

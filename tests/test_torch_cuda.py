@@ -1,8 +1,9 @@
 """The Hopper kernels on the card (the Stockham c2c kernel, the fused r2c
 and c2r real kernels, the hybrid real path that drives the c2c kernel
 through strides, the FP64 instances of these three, the four-step kernels
-of the large-N path and the 2D path's cube and passes), against their plain
-torch versions.
+of the large-N path, the 2D path's cube and passes, the Bluestein pair, the
+small-n DFT matmul (#20) and the c2c kernel's two bf16 instances), against
+their plain torch versions.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no JAX, so it runs on a GPU host that has none; tests/conftest.py imports
@@ -588,3 +589,116 @@ def test_bluestein_kernels_refuse_what_they_do_not_take(dev):
     x = torch.zeros(2 * bt.m, device=dev)
     with pytest.raises(RuntimeError, match="out of range"):  # n > m: kErrArgs
         bl._launch(True, (x, x), (1, bt.m), (x, x), (1, bt.m), bt.m + 1, 1, bt)
+
+
+# -- #20, the small-n DFT matmul ---------------------------------------------------------
+
+DFT_SIZES = [1, 2, 3, 4, 8, 12, 16, 32, 64, 100, 128]
+
+
+@pytest.mark.parametrize("n", DFT_SIZES)
+def test_dft_matmul_matches_plain_all_layouts(n, dev):
+    from watfft_tpu_torch.ops import mxu_dft as md
+    for batch in (1, 3, 257):  # ragged: not a multiple of a block's transforms
+        x = _x((batch, n), seed=n + batch, dev=dev)
+        re, im = x.real.contiguous(), x.imag.contiguous()
+        for inverse in (False, True):
+            before = md.launches
+            want = md.plain_dft_matmul(x, None, inverse, layout="complex")
+            assert md.launches == before
+            assert _rel(md.dft_matmul(x, inverse), want) <= KERNEL_LIMIT
+            assert _rel(torch.complex(*md.dft_matmul_bm(re, im, inverse)), want) <= KERNEL_LIMIT
+            tre, tim = md.dft_matmul_nb(re.T.contiguous(), im.T.contiguous(), inverse)
+            assert _rel(torch.complex(tre, tim).T, want) <= KERNEL_LIMIT
+            assert md.launches == before + 3
+            ref = (torch.fft.ifft if inverse else torch.fft.fft)(x.to(torch.complex128))
+            assert _rel(md.dft_matmul(x, inverse).to(torch.complex128), ref) <= MAX_REL["float32"]
+
+
+def test_dft_matmul_refuses_what_it_does_not_take(dev):
+    from watfft_tpu_torch.ops import _build
+    from watfft_tpu_torch.ops import mxu_dft as md
+    x = torch.zeros(129, 4, device=dev)
+    with pytest.raises(ValueError, match="DIRECT_MAX"):
+        md.dft_matmul_nb(x, x)
+    with pytest.raises(TypeError, match="float32"):
+        md.dft_matmul_nb(x[:8].double(), x[:8].double())
+    with pytest.raises(RuntimeError, match="no gradient"):
+        md.dft_matmul_nb(x[:8].requires_grad_(), x[:8])
+    wt = md.device_matrix(128, False, dev)
+    lib = _build.library()
+    for n in (0, 129):  # the kernel's own refusal, before any launch
+        err = lib.watfft_dft_matmul(x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
+                                    4, 1, 4, 1, n, 4, wt.data_ptr(),
+                                    torch.cuda.current_stream().cuda_stream)
+        assert "1..128" in lib.watfft_error_string(err).decode()
+
+
+# -- #1's bf16 tiers -------------------------------------------------------------------------
+
+# kernel against plain version, both in bf16: at most one bf16 ulp (2^-7
+# relative) at the largest output; the interop tier's f32 stages contract
+# into FMAs where the plain version rounds op by op, which may flip a
+# rounding of the bf16 store
+BF16_KERNEL_LIMIT = 2.0 ** -7
+
+
+def _bf16(shape, seed, dev):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32)).to(dev)
+                 .to(torch.bfloat16) for _ in range(2))
+
+
+def _rel_bf16(got, want):
+    got = [g.float().cpu() for g in got]
+    want = [w.float().cpu() for w in want]
+    return max((g - w).abs().max().item() for g, w in zip(got, want)) / max(
+        w.abs().max().item() for w in want)
+
+
+@pytest.mark.parametrize("n", [1 << k for k in range(1, 13)])
+def test_bf16_tiers_match_plain(n, dev, monkeypatch):
+    from watfft_tpu_torch import config
+    for batch in (1, 3, 257):
+        re, im = _bf16((n, batch), seed=n + batch, dev=dev)
+        cpu = (re.cpu(), im.cpu())
+        for inverse in (False, True):
+            for compute in (False, True):
+                monkeypatch.setattr(config, "BF16_COMPUTE", compute)
+                counts = (st.launches, st.launches_bf16, st.launches_bf16c)
+                got = st.stockham_fft_nb(re, im, inverse)
+                assert got[0].dtype == torch.bfloat16
+                want = st.stockham_fft_nb(*cpu, inverse)  # the plain version, on the CPU
+                assert _rel_bf16(got, want) <= BF16_KERNEL_LIMIT
+                assert (st.launches, st.launches_bf16, st.launches_bf16c) == (
+                    counts[0], counts[1] + (not compute), counts[2] + compute)
+            # batch-major planes take the interop tier whatever the switch says
+            bre, bim = st.stockham_fft_bm(re.T.contiguous(), im.T.contiguous(), inverse)
+            want = st.stockham_fft_bm(cpu[0].T.contiguous(), cpu[1].T.contiguous(), inverse)
+            assert _rel_bf16((bre, bim), want) <= BF16_KERNEL_LIMIT
+
+
+def test_bf16_folded_view_and_backward(dev, monkeypatch):
+    from watfft_tpu_torch import config
+    monkeypatch.setattr(config, "BF16_COMPUTE", True)
+    n, b = 64, 1024
+    re, im = _bf16((n, b), seed=5, dev=dev)
+    before = (st.launches_bf16, st.launches_bf16c)
+    f3 = st.stockham_fft_nb(re.view(n, 8, b // 8), im.view(n, 8, b // 8))  # interop
+    f2 = st.stockham_fft_nb(re, im)                                          # compute
+    assert (st.launches_bf16, st.launches_bf16c) == (before[0] + 1, before[1] + 1)
+    assert f3[0].shape == (n, 8, b // 8) and f3[0].dtype == torch.bfloat16
+    x = torch.complex(re.double(), im.double())
+    ref = torch.fft.fft(x, dim=0)
+    for out, lim in ((f3, 3e-2), (f2, 5e-2)):
+        got = torch.complex(out[0].reshape(n, b).double(), out[1].reshape(n, b).double())
+        assert _rel(got, ref) < lim
+    rg, ig = re.clone().requires_grad_(), im.clone().requires_grad_()
+    yre, yim = st.stockham_fft_nb(rg, ig)
+    (yre.float().sum() + 2 * yim.float().sum()).backward()
+    assert rg.grad.dtype == torch.bfloat16
+    rf, imf = (t.float().cpu().requires_grad_() for t in (re, im))  # f32, the plain version
+    yre, yim = st.stockham_fft_nb(rf, imf)
+    (yre.sum() + 2 * yim.sum()).backward()
+    want = torch.complex(rf.grad.double(), imf.grad.double())
+    assert _rel(torch.complex(rg.grad.double().cpu(), ig.grad.double().cpu()), want) < 5e-2

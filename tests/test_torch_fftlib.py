@@ -1,14 +1,14 @@
 """The port's numpy.fft-style namespace (watfft_tpu_torch/fftlib.py) against
 numpy and the JAX package's namespace (watfft_tpu/fftlib.py).
 
-Every case of tests/test_fftlib.py but the MXU precision ladder (ROADMAP
-A11): the port is held to numpy at the same tolerance and, where the JAX
+Every case of tests/test_fftlib.py: the port is held to numpy at the same
+tolerance and, where the JAX
 namespace returns a result, to it too (off the TPU the JAX namespace sends
 other lengths to jnp.fft, so it is the semantics that are compared there:
 norm, axes, n, shapes). The port runs with device="cpu", its kernels'
-plain versions. Then what the port adds or must keep: size-1 axes as numpy
-has them, the ValueError cases, no call of a torch.fft transform, and the
-CUDA default.
+plain versions. Then what the port adds or must keep: size-1 axes and real
+transforms of 2 points as numpy has them, the ValueError cases, no call of
+a torch.fft transform, and the CUDA default.
 """
 
 import numpy as np
@@ -200,18 +200,70 @@ def test_size_one_axes_follow_numpy():
 
 
 def test_value_errors_match_the_jax_namespace():
+    """The JAX namespace's ValueError cases raise here too, but for the real
+    transforms of 2 points, which the JAX contexts refuse and numpy (and
+    the port) computes (test_real_transforms_of_two_points_follow_numpy)."""
     x = np.ones((4, 8), np.complex64)
     cases = [("fft", (x,), {"norm": "unitary"}),
              ("fftn", (x,), {"s": (4, 8), "axes": (0,)}),
              ("ifftn", (x,), {"s": (4,), "axes": (0, 1)}),
-             ("rfft", (x.real[:, :2],), {}),             # a real size the contexts refuse
-             ("irfft", (x[:, :2],), {}),
              ("rfft2", (x.real,), {"norm": "backwards"})]
     for name, args, kw in cases:
         with pytest.raises(ValueError):
             getattr(jfft, name)(*args, **kw)
         with pytest.raises(ValueError):
             getattr(fftlib, name)(*args, **kw, **CPU)
+    for name, args in (("rfft", (x.real[:, :2],)), ("irfft", (x[:, :2],))):
+        with pytest.raises(ValueError):
+            getattr(jfft, name)(*args)
+        np.testing.assert_allclose(_np(getattr(fftlib, name)(*args, **CPU)),
+                                   getattr(np.fft, name)(*args), atol=1e-6)
+
+
+@pytest.mark.parametrize("norm", [None, "backward", "ortho", "forward"])
+def test_real_transforms_of_two_points_follow_numpy(norm):
+    """rfft / ihfft at n = 2, irfft / hfft to n = 2 and the 2D real forms
+    with a last axis of 2: numpy's bins, within 1e-6 (the JAX namespace
+    raises; ROADMAP C)."""
+    rng = np.random.default_rng(21)
+    r = rng.uniform(-1, 1, (3, 2))
+    z = rng.uniform(-1, 1, (3, 2)) + 1j * rng.uniform(-1, 1, (3, 2))
+    r5 = rng.uniform(-1, 1, (3, 5))
+    for name, arg, kw in (("rfft", r, {}), ("ihfft", r, {}), ("irfft", z, {}),
+                          ("hfft", z, {}), ("rfft", r[:, :1], {"n": 2}),
+                          ("rfft", r5, {"n": 2}), ("irfft", z[:, :1], {"n": 2})):
+        np.testing.assert_allclose(_np(getattr(fftlib, name)(arg, norm=norm, **kw, **CPU)),
+                                   getattr(np.fft, name)(arg, norm=norm, **kw), atol=1e-6)
+    r3 = rng.uniform(-1, 1, (2, 4, 2))
+    np.testing.assert_allclose(_np(fftlib.rfft2(r3, norm=norm, **CPU)),
+                               np.fft.rfft2(r3, norm=norm), atol=1e-6)
+    s3 = np.fft.rfft2(r3)
+    np.testing.assert_allclose(_np(fftlib.irfft2(s3, norm=norm, **CPU)),
+                               np.fft.irfft2(s3, norm=norm), atol=1e-6)
+
+
+def test_mxu_precision_ladder(monkeypatch):
+    """tests/test_fftlib.py's ladder case on the port: config.MXU_PRECISION
+    = "default" (one TF32 pass on the card; the CPU's matmuls stay f32)
+    keeps the matmul surface within 1e-2, beside the JAX package on the
+    same input."""
+    from watfft_tpu import config as jconfig
+    from watfft_tpu.api import FFTContext as JFFTContext
+    from watfft_tpu_torch import config
+    from watfft_tpu_torch.api import FFTContext
+    monkeypatch.setattr(jconfig, "MXU_PRECISION", "default")
+    monkeypatch.setattr(config, "MXU_PRECISION", "default")
+    rng = np.random.default_rng(9)
+    xre = rng.uniform(-1, 1, (4, 256)).astype(np.float32)
+    xim = rng.uniform(-1, 1, (4, 256)).astype(np.float32)
+    ref = np.fft.fft(xre.astype(np.float64) + 1j * xim.astype(np.float64))
+    re, im = FFTContext(256, "float32", **CPU).forward_planes_fourstep(torch.from_numpy(xre),
+                                                                       torch.from_numpy(xim))
+    got = _np(re) + 1j * _np(im)
+    jre, jim = JFFTContext(256, "float32").forward_planes_fourstep(xre, xim)
+    jgot = np.asarray(jre) + 1j * np.asarray(jim)
+    assert _rel(got, ref) < 1e-2 and _rel(jgot, ref) < 1e-2
+    assert _rel(got, jgot) < 1e-2
 
 
 def test_helpers_match_numpy():

@@ -112,6 +112,36 @@ def test_full_f32_scopes_the_matmul_setting():
         torch.set_float32_matmul_precision(prev)
 
 
+def test_precision_ladder_scopes_and_restores_the_callers_setting(monkeypatch):
+    """config.MXU_PRECISION: "default" runs the matmul surface with TF32 on,
+    "highest" with it off, and the caller's own setting, either one, comes
+    back after the call."""
+    from watfft_tpu_torch import config
+
+    def setting():
+        return torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32
+    seen = []
+    real = fourstep._apply
+    monkeypatch.setattr(fourstep, "_apply", lambda *a: seen.append(setting()) or real(*a))
+    x = _x((2, 256), seed=4)
+    planes = (torch.from_numpy(x.real.copy()), torch.from_numpy(x.imag.copy()))
+    prev = setting()
+    try:
+        for caller in ("highest", "high"):
+            torch.set_float32_matmul_precision(caller)
+            before = setting()
+            for ladder, inside in (("default", ("high", True)), ("highest", ("highest", False))):
+                monkeypatch.setattr(config, "MXU_PRECISION", ladder)
+                seen.clear()
+                got = fourstep.fft_planes(*planes)
+                assert seen and set(seen) == {inside}
+                assert setting() == before
+                assert rel_errors(torch.complex(*got).numpy(), ref.dft(x))[0] < 1e-2
+    finally:
+        torch.set_float32_matmul_precision(prev[0])
+        torch.backends.cuda.matmul.allow_tf32 = prev[1]
+
+
 def test_fourstep_gradient_flows():
     """The matmul surface is differentiable by autograd: the gradient of
     sum(Re(X * conj(g))) is n * ifft(g)."""

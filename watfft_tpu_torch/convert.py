@@ -18,8 +18,14 @@ four hi/lo f32 planes of `watfft_tpu.ops.doublefloat._df_stage_plan`,
 `_df_twiddle_pack` and `_df_post_twiddles`, merged into f64 (hi + lo), the
 values the port's FP64 kernels take. The plain versions run any such plan;
 the CUDA kernels refuse radices above 16 (the JAX plans of n = 1024..8192
-have radix-32/64 stages), as they refuse them from any source. Nothing
-here imports JAX.
+have radix-32/64 stages), as they refuse them from any source.
+`bf16_tables_from_jax` carries the bf16 compute tier's tables across: the
+plan and f32 pack of `pallas_stockham`, rounded to bf16 as
+`pallas_stockham.py:409-411` casts them. `dft_matrix_from_jax` puts the
+small-n DFT matrix of `watfft_tpu.ops.mxu_dft` (`_WCache.get`,
+`dft_matrix_real`) on a device in the layout the port's kernel reads, to
+be compared with the port's own (`mxu_dft.device_matrix`).
+Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -33,13 +39,30 @@ from .ops.rfft import RTables, make_rtables
 from .ops.stockham import Tables, make_tables
 
 __all__ = ["tables_from_jax", "rfft_tables_from_jax", "large_tables_from_jax",
-           "bluestein_tables_from_jax", "df_tables_from_jax", "df_rtables_from_jax"]
+           "bluestein_tables_from_jax", "df_tables_from_jax", "df_rtables_from_jax",
+           "bf16_tables_from_jax", "dft_matrix_from_jax"]
 
 
 def tables_from_jax(stages, offsets, twre, twim, device="cpu") -> Tables:
     """stages: [(R, l), ...]; offsets: per-stage pack offsets (-1 for the
     twiddle-free stage); twre/twim: the [total, 1] f32 pack planes."""
     return make_tables(stages, offsets, twre, twim, device)
+
+
+def bf16_tables_from_jax(stages, offsets, twre, twim, device="cpu") -> Tables:
+    """The bf16 compute tier's tables: the plan and the [total, 1] f32 pack
+    as for `tables_from_jax`, the pack rounded to bf16 (to nearest)."""
+    return make_tables(stages, offsets, twre, twim, device, torch.bfloat16)
+
+
+def dft_matrix_from_jax(w, device="cpu") -> torch.Tensor:
+    """w: the [2n, 2n] f32 real DFT matrix W of the JAX package. Returns
+    W^T as a contiguous f32 tensor on `device`, the layout of
+    `mxu_dft.device_matrix`."""
+    w = np.asarray(w)
+    if w.ndim != 2 or w.shape[0] != w.shape[1] or w.shape[0] % 2 or w.dtype != np.float32:
+        raise ValueError(f"the DFT matrix is [2n, 2n] float32, got {w.shape} {w.dtype}")
+    return torch.from_numpy(np.ascontiguousarray(w.T)).to(device)
 
 
 def rfft_tables_from_jax(stages, offsets, twre, twim, wre, wim, inverse: bool,

@@ -25,13 +25,18 @@ Differences from the JAX namespace, by design:
 
 * A size-1 axis is the identity, as in numpy; the JAX namespace sends it
   to its power-of-two kernels, which raise (ROADMAP C).
+* Real transforms of 2 points (rfft / ihfft at n = 2, irfft / hfft to
+  n = 2, rfft2 / irfft2 with a last axis of 2) follow numpy: a
+  power-of-two n under the real contexts' least n (4) takes the complex
+  transform of the real signal, the Stockham kernel at n = 2. The JAX
+  namespace raises there (ROADMAP C).
 * No host-numpy plumbing and no routing to a library FFT off the TPU
   (`planner.native_backend_fft` there): complex tensors live on the
   device, and any length runs the port's own kernels.
 
-Where the JAX namespace raises (an invalid `norm`, `s` and `axes` of
-different lengths, a real size its contexts refuse such as rfft at n = 2),
-this one raises the same exception class.
+Where the JAX namespace raises for another reason (an invalid `norm`, `s`
+and `axes` of different lengths), this one raises the same exception
+class.
 """
 
 from __future__ import annotations
@@ -90,6 +95,12 @@ def _is_pow2(n: int) -> bool:
     return n >= 1 and (n & (n - 1)) == 0
 
 
+def _real_kernel(n: int) -> bool:
+    """n runs the port's real FFT (a power of two its contexts take, >= 4);
+    other lengths run the complex transform of the real signal."""
+    return n >= 4 and _is_pow2(n)
+
+
 def _c2c(moved: torch.Tensor, inverse: bool) -> torch.Tensor:
     """The complex transform over the last axis: the port's API for
     power-of-two n >= 2, Bluestein for any other n (n = 1: the identity)."""
@@ -115,12 +126,12 @@ def rfft(a, n=None, axis=-1, norm=None, device="cuda"):
     a, n = _fix_len(_tensor(a, device, torch.float32), n, axis)
     s = _norm_scale(norm, n, "fwd")
     moved = a.movedim(axis, -1)
-    if n >= 2 and _is_pow2(n):
-        out = api.rfft(moved, device=moved.device)  # n = 2 raises, as the JAX API does
+    if _real_kernel(n):
+        out = api.rfft(moved, device=moved.device)
     else:
         # any other length: the complex transform of the real signal, its
         # non-negative half (numpy's rfft bins)
-        out = bluestein.bluestein_fft(moved.to(torch.complex64))[..., :n // 2 + 1]
+        out = _c2c(moved.to(torch.complex64), False)[..., :n // 2 + 1]
     return _scaled(out, s).movedim(-1, axis)
 
 
@@ -151,13 +162,13 @@ def irfft(a, n=None, axis=-1, norm=None, device="cuda"):
     a, _ = _fix_len(a, n // 2 + 1, axis)
     s = _norm_scale(norm, n, "inv")
     moved = a.movedim(axis, -1)
-    if n >= 2 and _is_pow2(n):
+    if _real_kernel(n):
         # the port's kernels read the imaginary parts numpy ignores (the JAX
         # package's composed map), so they are zeroed first
         out = api.irfft(_hermitian_bins(moved, n), device=moved.device)
     else:
-        # any other length: the Bluestein inverse of the full spectrum
-        out = bluestein.bluestein_fft(_hermitian_full(moved, n), True).real.contiguous()
+        # any other length: the complex inverse of the full spectrum
+        out = _c2c(_hermitian_full(moved, n), True).real.contiguous()
     return _scaled(out, s).movedim(-1, axis)
 
 

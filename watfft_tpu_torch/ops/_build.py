@@ -102,6 +102,14 @@ def library() -> ctypes.CDLL:
         c2r = getattr(lib, "watfft_irfft_c2r" + suffix)
         c2r.argtypes = [p, p, i64, i64, p, i64, i64, i32, i64, p, p, ip, ip, i32, p, p, p]
         c2r.restype = i32
+    # the c2c kernel's bf16 instances: interop (f32 tables) and compute (bf16)
+    for suffix in ("_bf16", "_bf16c"):
+        c2c = getattr(lib, "watfft_stockham_c2c" + suffix)
+        c2c.argtypes = [p, p, p, p, i64, i64, i64, i64, i32, i64, p, p, ip, ip, i32, i32, p]
+        c2c.restype = i32
+    # (xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch, W^T, stream)
+    lib.watfft_dft_matmul.argtypes = [p, p, p, p, i64, i64, i64, i64, i32, i64, p, p]
+    lib.watfft_dft_matmul.restype = i32
     # (xre, xim, yre, yim, x_sn, x_sa, x_sb, y_sn, y_sa, y_sb, pmre, pmim,
     #  m_sn, m_sa, m_sb, mul, n, inner, batch, twre, twim, radices, offsets,
     #  nstages, inverse, stream)

@@ -1,5 +1,5 @@
-// Batched mixed-radix Stockham c2c FFT for Hopper (sm_90a), float32 and
-// float64.
+// Batched mixed-radix Stockham c2c FFT for Hopper (sm_90a), float32,
+// float64 and the two bf16 tiers.
 //
 // Replaces watfft_tpu/ops/pallas_stockham.py::_kernel (the [n, b] plane
 // kernel) and ::_kernel_dma3d (the same transform on the [n, 8, W] view);
@@ -7,7 +7,13 @@
 // the f64 tier, which the TPU computes on hi/lo f32 pairs with error-free
 // arithmetic for want of f64 units. Hopper has FP64 units, so the f64 tier
 // is the same engine on double2, with the same plan, twiddle layout and
-// 1/n fold; none of the hi/lo machinery is ported.
+// 1/n fold; none of the hi/lo machinery is ported. Its two bf16 instances
+// are #1's bf16 tiers (pallas_stockham.py:_kernel on bf16 planes): the
+// interop tier keeps bf16 planes in device memory around the f32 stages
+// (loads widen, stores round to nearest; the tables and shared memory stay
+// f32), and the compute tier runs the engine itself on __nv_bfloat16 with
+// a bf16 twiddle pack, 4 bytes a point in shared memory. Either moves 8
+// bytes a point, half the f32 kernel's.
 // Both compute the n-point DFT of each of B sequences, forward (w = e^-i)
 // or inverse (w = e^+i, 1/n folded into the last stage), with the stage
 // plan and the packed twiddle columns that watfft_tpu_torch/ops/stockham.py
@@ -64,19 +70,23 @@
 // share; the hybrid real path also drives this kernel itself, through
 // strides (watfft_tpu_torch/ops/rfft.py).
 //
-// C interface (loaded with ctypes): watfft_stockham_c2c (float) and
-// watfft_stockham_c2c_f64 (double) launch on the given stream, allocate
-// nothing, and return cudaGetLastError() after the launch, or a negative
-// code for arguments they refuse before launching.
+// C interface (loaded with ctypes): watfft_stockham_c2c (float),
+// watfft_stockham_c2c_f64 (double), watfft_stockham_c2c_bf16 (bf16 planes,
+// f32 stages) and watfft_stockham_c2c_bf16c (bf16 throughout) launch on
+// the given stream, allocate nothing, and return cudaGetLastError() after
+// the launch, or a negative code for arguments they refuse before
+// launching.
 
 #include "stockham.cuh"
 
 namespace {
 
-template <typename Real, int P, bool INV>
+// Real: the scalar of the stages, the tables and shared memory; Store: that
+// of the planes in device memory (Real, or bf16 around f32 stages).
+template <typename Real, typename Store, int P, bool INV>
 __global__ void __launch_bounds__(kBlockThreads, min_blocks_of<Real>(P))
-stockham_c2c_kernel(const Real* __restrict__ xre, const Real* __restrict__ xim,
-                    Real* __restrict__ yre, Real* __restrict__ yim,
+stockham_c2c_kernel(const Store* __restrict__ xre, const Store* __restrict__ xim,
+                    Store* __restrict__ yre, Store* __restrict__ yim,
                     int64_t x_sn, int64_t x_sb, int64_t y_sn, int64_t y_sb,
                     int64_t batch, int T, int S,
                     const Real* __restrict__ twre, const Real* __restrict__ twim,
@@ -91,7 +101,7 @@ stockham_c2c_kernel(const Real* __restrict__ xre, const Real* __restrict__ xim,
   // device memory -> shared memory; transforms past the batch stay unset
   // and their results are never stored
   for_tile(plan.log2n, T, count, first, x_sn, x_sb, [&](int t, int k, int64_t g) {
-    smem[t * S + pad(k)] = make_c(xre[g], xim[g]);
+    smem[t * S + pad(k)] = make_c(widen<Real>(xre[g]), widen<Real>(xim[g]));
   });
   __syncthreads();
 
@@ -101,28 +111,28 @@ stockham_c2c_kernel(const Real* __restrict__ xre, const Real* __restrict__ xim,
   // shared memory -> device memory (the last stage ended with a sync)
   for_tile(plan.log2n, T, count, first, y_sn, y_sb, [&](int t, int k, int64_t g) {
     const cplx<Real> z = smem[t * S + pad(k)];
-    yre[g] = z.x;
-    yim[g] = z.y;
+    yre[g] = narrow<Store>(z.x);
+    yim[g] = narrow<Store>(z.y);
   });
 }
 
-template <typename Real, int P, bool INV>
-int launch(const Real* xre, const Real* xim, Real* yre, Real* yim,
+template <typename Real, typename Store, int P, bool INV>
+int launch(const Store* xre, const Store* xim, Store* yre, Store* yim,
            int64_t x_sn, int64_t x_sb, int64_t y_sn, int64_t y_sb,
            int64_t batch, const Real* twre, const Real* twim,
            const Plan& plan, int T, cudaStream_t stream) {
   const int S = smem_stride(1 << plan.log2n);
   const size_t smem = (size_t)T * S * sizeof(cplx<Real>);
   const int64_t blocks = (batch + T - 1) / T;
-  auto kernel = stockham_c2c_kernel<Real, P, INV>;
+  auto kernel = stockham_c2c_kernel<Real, Store, P, INV>;
   if (const int err = opt_in_smem(kernel, smem)) return err;
   kernel<<<(unsigned)blocks, kBlockThreads, smem, stream>>>(
       xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, batch, T, S, twre, twim, plan);
   return (int)cudaGetLastError();
 }
 
-template <typename Real>
-int c2c(const Real* xre, const Real* xim, Real* yre, Real* yim,
+template <typename Real, typename Store>
+int c2c(const Store* xre, const Store* xim, Store* yre, Store* yim,
         int64_t x_sn, int64_t x_sb, int64_t y_sn, int64_t y_sb,
         int n, int64_t batch, const Real* twre, const Real* twim,
         const int* radices, const int* twoffsets, int nstages, int inverse, void* stream) {
@@ -133,8 +143,8 @@ int c2c(const Real* xre, const Real* xim, Real* yre, Real* yim,
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define WATFFT_LAUNCH(P, INV)                                                            \
-  return launch<Real, P, INV>(xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, batch, twre, \
-                              twim, plan, T, st)
+  return launch<Real, Store, P, INV>(xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, batch, \
+                                     twre, twim, plan, T, st)
   switch (maxr * 2 + (inverse ? 1 : 0)) {
     case 4:  WATFFT_LAUNCH(2, false);
     case 5:  WATFFT_LAUNCH(2, true);
@@ -160,8 +170,8 @@ int watfft_stockham_c2c(const float* xre, const float* xim, float* yre, float* y
                         int n, int64_t batch, const float* twre, const float* twim,
                         const int* radices, const int* twoffsets, int nstages,
                         int inverse, void* stream) {
-  return c2c(xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch, twre, twim, radices,
-             twoffsets, nstages, inverse, stream);
+  return c2c<float, float>(xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch, twre,
+                           twim, radices, twoffsets, nstages, inverse, stream);
 }
 
 // The same on float64 planes with a float64 twiddle pack.
@@ -170,8 +180,31 @@ int watfft_stockham_c2c_f64(const double* xre, const double* xim, double* yre, d
                             int n, int64_t batch, const double* twre, const double* twim,
                             const int* radices, const int* twoffsets, int nstages,
                             int inverse, void* stream) {
-  return c2c(xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch, twre, twim, radices,
-             twoffsets, nstages, inverse, stream);
+  return c2c<double, double>(xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch, twre,
+                             twim, radices, twoffsets, nstages, inverse, stream);
+}
+
+// The bf16 interop tier: bfloat16 planes, float32 stages and twiddle pack.
+int watfft_stockham_c2c_bf16(const __nv_bfloat16* xre, const __nv_bfloat16* xim,
+                             __nv_bfloat16* yre, __nv_bfloat16* yim,
+                             int64_t x_sn, int64_t x_sb, int64_t y_sn, int64_t y_sb,
+                             int n, int64_t batch, const float* twre, const float* twim,
+                             const int* radices, const int* twoffsets, int nstages,
+                             int inverse, void* stream) {
+  return c2c<float, __nv_bfloat16>(xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch,
+                                   twre, twim, radices, twoffsets, nstages, inverse, stream);
+}
+
+// The bf16 compute tier: bfloat16 planes, stages and twiddle pack.
+int watfft_stockham_c2c_bf16c(const __nv_bfloat16* xre, const __nv_bfloat16* xim,
+                              __nv_bfloat16* yre, __nv_bfloat16* yim,
+                              int64_t x_sn, int64_t x_sb, int64_t y_sn, int64_t y_sb,
+                              int n, int64_t batch, const __nv_bfloat16* twre,
+                              const __nv_bfloat16* twim, const int* radices,
+                              const int* twoffsets, int nstages, int inverse, void* stream) {
+  return c2c<__nv_bfloat16, __nv_bfloat16>(xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n,
+                                           batch, twre, twim, radices, twoffsets, nstages,
+                                           inverse, stream);
 }
 
 const char* watfft_error_string(int code) {
@@ -181,6 +214,7 @@ const char* watfft_error_string(int code) {
     case kErrTooLong: return "transform too long for one thread block";
     case kErrSplit: return "four-step factors outside the cube kernel's range (16 <= n1, n2; "
                            "8192 <= n1*n2, and its shared memory within the card's limit)";
+    case kErrDirect: return "n outside the DFT-matmul kernel's range 1..128";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

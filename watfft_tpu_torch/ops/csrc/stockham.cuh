@@ -9,10 +9,14 @@
 // butterflies per stage. See stockham.cu for the design and what bounds it.
 //
 // The arithmetic is generic over its scalar `Real`: float (complex float2,
-// every f32 kernel) or double (complex double2, the FP64 instances of the
-// c2c and real kernels). The double instances differ only in the radix-2
-// network's constants (the f64 values, not their f32 roundings) and in
-// their register bound (min_blocks_f64).
+// every f32 kernel), double (complex double2, the FP64 instances of the
+// c2c and real kernels) or __nv_bfloat16 (complex __nv_bfloat162, the c2c
+// kernel's bf16 compute tier). The double instances differ only in the
+// radix-2 network's constants (the f64 values, not their f32 roundings)
+// and in their register bound (min_blocks_f64). The bf16 instance rounds
+// after every operation, through the round-to-nearest intrinsics, which
+// the compiler does not contract into FMAs: the plain version's bf16 ops
+// round so.
 //
 // Three policies widen the engine for the four-step kernels (large.cu)
 // without changing what the c2c and real kernels compile to: the rows of a
@@ -23,6 +27,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -35,6 +40,7 @@ constexpr int kErrArgs = -1;      // n, batch or stage count out of range
 constexpr int kErrPlan = -2;      // radix not in {2,4,8,16}, or product != n
 constexpr int kErrTooLong = -3;   // a transform needs more than one block
 constexpr int kErrSplit = -4;     // four-step factors out of the cube's range
+constexpr int kErrDirect = -5;    // n outside the DFT-matmul kernel's 1..128
 
 struct Plan {
   int log2n;
@@ -74,18 +80,71 @@ struct Batch2 {
   }
 };
 
-// The complex type of a scalar (float2 or double2) and its constructor.
+// The complex type of a scalar (float2, double2 or __nv_bfloat162) and its
+// constructor.
 template <typename Real> struct Cplx;
 template <> struct Cplx<float> { using type = float2; };
 template <> struct Cplx<double> { using type = double2; };
+template <> struct Cplx<__nv_bfloat16> { using type = __nv_bfloat162; };
 template <typename Real> using cplx = typename Cplx<Real>::type;
 
 __device__ __forceinline__ float2 make_c(float x, float y) { return make_float2(x, y); }
 __device__ __forceinline__ double2 make_c(double x, double y) { return make_double2(x, y); }
+__device__ __forceinline__ __nv_bfloat162 make_c(__nv_bfloat16 x, __nv_bfloat16 y) {
+  return __halves2bfloat162(x, y);
+}
 
+// Complex product, sum, difference and scaling. float and double use the
+// operators (the compiler may contract a product and a sum into an FMA);
+// bf16 rounds each product, sum and difference on its own, as the plain
+// version's bf16 ops do.
 template <typename C>
 __device__ __forceinline__ C cmul(C a, C w) {
   return make_c(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
+}
+template <typename C>
+__device__ __forceinline__ C cadd(C a, C b) { return make_c(a.x + b.x, a.y + b.y); }
+template <typename C>
+__device__ __forceinline__ C csub(C a, C b) { return make_c(a.x - b.x, a.y - b.y); }
+template <typename C, typename Real>
+__device__ __forceinline__ C cscale(C a, Real s) { return make_c(a.x * s, a.y * s); }
+
+__device__ __forceinline__ __nv_bfloat162 cmul(__nv_bfloat162 a, __nv_bfloat162 w) {
+  return make_c(__hsub_rn(__hmul_rn(a.x, w.x), __hmul_rn(a.y, w.y)),
+                __hadd_rn(__hmul_rn(a.x, w.y), __hmul_rn(a.y, w.x)));
+}
+__device__ __forceinline__ __nv_bfloat162 cadd(__nv_bfloat162 a, __nv_bfloat162 b) {
+  return __hadd2_rn(a, b);
+}
+__device__ __forceinline__ __nv_bfloat162 csub(__nv_bfloat162 a, __nv_bfloat162 b) {
+  return __hsub2_rn(a, b);
+}
+__device__ __forceinline__ __nv_bfloat162 cscale(__nv_bfloat162 a, __nv_bfloat16 s) {
+  return __hmul2_rn(a, __bfloat162bfloat162(s));
+}
+
+// 1/n in the scalar (exact: n is a power of two).
+template <typename Real>
+__device__ __forceinline__ Real recip(int n) { return Real(1) / n; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 recip<__nv_bfloat16>(int n) {
+  return __float2bfloat16_rn(1.0f / n);
+}
+
+// A value of the planes in device memory (`Store`) as the scalar the stages
+// run in (`Real`), and back: the identity, or bf16 planes around f32
+// stages (the bf16 interop tier), rounded to nearest on the way out.
+template <typename Real, typename Store>
+__device__ __forceinline__ Real widen(Store x) { return x; }
+template <>
+__device__ __forceinline__ float widen<float, __nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename Store, typename Real>
+__device__ __forceinline__ Store narrow(Real x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16, float>(float x) {
+  return __float2bfloat16_rn(x);
 }
 
 // w16^j = exp(-2 pi i j / 16) for j < 8. Index j = q * 16 / R for the
@@ -120,6 +179,19 @@ __device__ __forceinline__ double2 w16<double>(int j, bool inverse) {
   return make_double2(kRe[j], inverse ? -kIm[j] : kIm[j]);
 }
 
+// bf16: the f32 constants above rounded to bf16 (as bit patterns), the
+// values the JAX codelet's weak-typed scalars take on bf16 arrays and the
+// plain version's 0-d bf16 constants.
+template <>
+__device__ __forceinline__ __nv_bfloat162 w16<__nv_bfloat16>(int j, bool inverse) {
+  constexpr unsigned short kRe[8] = {0x3f80, 0x3f6d, 0x3f35, 0x3ec4,
+                                     0x0000, 0xbec4, 0xbf35, 0xbf6d};
+  constexpr unsigned short kIm[8] = {0x8000, 0xbec4, 0xbf35, 0xbf6d,
+                                     0xbf80, 0xbf6d, 0xbf35, 0xbec4};
+  return make_c(__ushort_as_bfloat16(kRe[j]),
+                __ushort_as_bfloat16((unsigned short)(inverse ? kIm[j] ^ 0x8000 : kIm[j])));
+}
+
 // R-point DFT of in[0], in[S], ..., in[(R-1)S] into out[0..R), by the
 // recursive radix-2 network of pallas_stockham.py:_small_dft (even terms,
 // odd terms, combine). Fully unrolled: every index is a constant.
@@ -143,8 +215,8 @@ __device__ __forceinline__ void small_dft(const cplx<Real>* in, cplx<Real>* out)
       } else {
         t = cmul(o[q], w16<Real>(q * (16 / R), INV));
       }
-      out[q] = make_c(e[q].x + t.x, e[q].y + t.y);
-      out[q + H] = make_c(e[q].x - t.x, e[q].y - t.y);
+      out[q] = cadd(e[q], t);
+      out[q + H] = csub(e[q], t);
     }
   }
 }
@@ -161,7 +233,7 @@ __device__ __forceinline__ void stage(cplx<Real>* c, Rows rows, int th, int tpt,
   using C = cplx<Real>;
   constexpr int M = P / R;
   const int q = n / R;
-  const Real inv_n = Real(1) / n;
+  const Real inv_n = recip<Real>(n);
   C v[P];
 #pragma unroll
   for (int m = 0; m < M; ++m) {
@@ -178,10 +250,7 @@ __device__ __forceinline__ void stage(cplx<Real>* c, Rows rows, int th, int tpt,
     if (fold) {  // inverse final stage: the p >= 1 twiddles already hold 1/n
 #pragma unroll
       for (int p = 0; p < R; ++p) {
-        if (p == 0 || twoff < 0) {
-          v[m * R + p].x *= inv_n;
-          v[m * R + p].y *= inv_n;
-        }
+        if (p == 0 || twoff < 0) v[m * R + p] = cscale(v[m * R + p], inv_n);
       }
     }
   }
@@ -275,6 +344,8 @@ constexpr int min_blocks(int P) { return P == 16 ? 3 : P == 8 ? 4 : 8; }
 // 64 below (chip_smoke.py prints ptxas's registers and spills).
 constexpr int min_blocks_f64(int P) { return P == 16 ? 2 : P == 8 ? 3 : 4; }
 
+// The bf16 instances take the f32 bound: a bf16 compute thread holds half
+// the f32 registers of data, a bf16 interop thread the f32 one's.
 template <typename Real>
 constexpr int min_blocks_of(int P) { return sizeof(Real) == 8 ? min_blocks_f64(P) : min_blocks(P); }
 

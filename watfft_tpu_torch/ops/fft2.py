@@ -169,8 +169,9 @@ def _rows(x, xs, y, ys, h, w, batch, inverse, table, plain) -> None:
     if rows is not None and w <= planner.STOCKHAM_MAX_N and _use_kernel(x[0], plain):
         count, x_sr, y_sr = rows
         stockham._kernel_dtype(x[0], torch.float32)
-        stockham._launch(x[0].device, x[0].data_ptr(), x[1].data_ptr(), y[0].data_ptr(),
-                         y[1].data_ptr(), xs[1], x_sr, ys[1], y_sr, w, count, inverse, table)
+        stockham._launch(x[0].device, torch.float32, x[0].data_ptr(), x[1].data_ptr(),
+                         y[0].data_ptr(), y[1].data_ptr(), xs[1], x_sr, ys[1], y_sr, w, count,
+                         inverse, table)
         launches["fft2_rows"] += 1
         return
     _pass(x, y, w, (xs[1], ys[1]), [(h, xs[0], ys[0]), (batch, xs[2], ys[2])], inverse, table,

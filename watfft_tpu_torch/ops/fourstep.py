@@ -17,11 +17,15 @@ past the FP64 kernels' range):
 The tables come from `plan.build_tree` (f64 on the host, cast to the table
 dtype); the inverse folds 1/n into the outermost matrix. None of this is a
 kernel of the JAX package: XLA ran it there, `torch.matmul` runs it here.
-float32 runs in full precision: a caller's TF32 setting (`torch.set_float32_matmul_precision`,
-`torch.backends.cuda.matmul.allow_tf32`) is switched off for the call and
+Its float32 precision follows the JAX package's ladder,
+`config.MXU_PRECISION` (`_precision`): "highest" (the default) runs full
+f32, "default" one TF32 pass on the card's tensor cores (~1e-3), the
+counterpart of the TPU's single bf16 MXU pass. Either way the caller's own
+setting (`torch.set_float32_matmul_precision`,
+`torch.backends.cuda.matmul.allow_tf32`) is replaced for the call and
 restored after it, so it is not thread-safe against another thread that
-changes the setting meanwhile. The JAX package's opt-in bf16 tier
-(`config.MXU_PRECISION`) is not ported (ROADMAP A11).
+changes the setting meanwhile. The kernels' plain versions hold to full
+f32 (`full_f32`) whatever the ladder says.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import contextlib
 import numpy as np
 import torch
 
+from .. import config
 from ..plan import PlanNode, build_tree
 
 __all__ = ["fft_tables", "shape_info", "apply_tables", "fft_planes", "full_f32",
@@ -38,21 +43,35 @@ __all__ = ["fft_tables", "shape_info", "apply_tables", "fft_planes", "full_f32",
 
 
 @contextlib.contextmanager
-def full_f32():
-    """float32 matmuls in full precision inside the block, the caller's
-    setting restored after it (untouched when it is full precision already)."""
-    prev = torch.get_float32_matmul_precision()
-    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
-    if prev == "highest" and not prev_tf32:
+def _matmul_precision(tf32: bool):
+    """float32 matmuls in one TF32 pass (`tf32`) or in full precision inside
+    the block, the caller's setting restored after it (untouched when it is
+    that one already)."""
+    prev = (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32)
+    want = ("high", True) if tf32 else ("highest", False)
+    if prev == want:
         yield
         return
-    torch.set_float32_matmul_precision("highest")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision(want[0])
+    torch.backends.cuda.matmul.allow_tf32 = want[1]
     try:
         yield
     finally:
-        torch.set_float32_matmul_precision(prev)
-        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+        torch.set_float32_matmul_precision(prev[0])
+        torch.backends.cuda.matmul.allow_tf32 = prev[1]
+
+
+def full_f32():
+    """float32 matmuls in full precision inside the block, the caller's
+    setting restored after it (untouched when it is full precision already)."""
+    return _matmul_precision(False)
+
+
+def _precision():
+    """The matmul surface's precision ladder (config.MXU_PRECISION, read at
+    each call; watfft_tpu/ops/fourstep.py:43): "default" one TF32 pass,
+    anything else full f32."""
+    return _matmul_precision(config.MXU_PRECISION == "default")
 
 
 def _cmatmul_last(xre, xim, wre, wim):
@@ -89,8 +108,9 @@ def shape_info(node: PlanNode) -> list[tuple]:
 
 def apply_tables(xre, xim, tables, info):
     """The recursive four-step transform of x [..., n] (split planes) with
-    the tables of `fft_tables` and the levels of `shape_info`."""
-    with full_f32():
+    the tables of `fft_tables` and the levels of `shape_info`, at the
+    precision `_precision` gives."""
+    with _precision():
         return _apply(xre, xim, tables, info, 0)
 
 

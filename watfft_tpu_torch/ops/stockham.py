@@ -17,20 +17,35 @@ Two implementations of one function:
   The wrappers launch it for every CUDA tensor; a kernel that fails to
   build or launch raises, there is no fallback.
 
-Both run in float32 and in float64. The float64 tier ports
-`watfft_tpu/ops/doublefloat.py` (`_df_kernel`, `df_fft_nb`): the JAX
+Both run in float32, in float64 and in the two bf16 tiers. The float64
+tier ports `watfft_tpu/ops/doublefloat.py` (`_df_kernel`, `df_fft_nb`): the JAX
 package computes it on hi/lo f32 pairs because the TPU has no f64 units;
 here the tables are f64 (`make_twiddle_pack(..., dtype=np.float64)`) and
 the kernel's FP64 instance runs the same plan on double2. Tables and
 planes must share their dtype: f32 tables on f64 planes would give f32
 accuracy under an f64 promise, so a mismatch raises.
 
+bfloat16 planes take #1's bf16 tiers (`pallas_stockham.py:260-289`), on
+the rule of the JAX package, since another tier is another result: the
+compute tier (bf16 stages, a bf16 twiddle pack cast from the f32 one) for
+2-D time-major `[n, b]` planes when `config.BF16_COMPUTE` is set
+(`pallas_stockham.py:576`), the interop tier (f32 stages and tables
+between bf16 loads and stores) for every other layout: the folded
+`[n, 8, W]` view, batch-major planes, and `[n, b]` without the switch.
+Given tables choose the tier: f32 tables interop, bf16 tables compute.
+The outputs are bf16. Each tier has its own instance of the kernel, which
+moves 8 bytes a point; the plain versions are `run_stages` in f32 between
+a widening and a rounding (interop) and `run_stages` on bf16 tensors, the
+codelet constants rounded to bf16 as JAX rounds its weak-typed scalars
+(compute).
+
 The wrappers (`stockham_fft_nb` time-major planes, `stockham_fft_bm`
 batch-major planes, `stockham_fft` complex tensors) are differentiable: the
 gradient of the DFT is the conjugate transform, VJP(fft) = n * ifft and
 VJP(ifft) = fft / n, run through the same wrapper
 (pallas_stockham.py:590-600). The backward uses the port's own tables for
-the conjugate direction.
+the conjugate direction, of the forward tables' dtype: bf16 planes get
+their gradient in the tier of their output.
 
 The kernel takes separate re and im pointers with an element stride along
 n and one along the batch, so one launch serves interleaved complex64
@@ -48,15 +63,21 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import config
+
 __all__ = ["stage_plan", "make_twiddle_pack", "run_stages", "plain_fft",
            "Tables", "make_tables", "device_tables", "fft_views", "stockham_fft_nb",
+           "plain_fft_nb", "plain_fft_bm",
            "stockham_fft_bm", "stockham_fft", "stockham_fft_nb_postmul", "plain_postmul",
-           "launches", "launches_f64"]
+           "launches", "launches_f64", "launches_bf16", "launches_bf16c"]
 
 # Kernel launches made by the CUDA wrapper since the counts were last reset:
-# the float32 kernel and its FP64 instance.
+# the float32 kernel, its FP64 instance and its bf16 interop and compute
+# instances.
 launches = 0
 launches_f64 = 0
+launches_bf16 = 0
+launches_bf16c = 0
 
 _REAL = {torch.float32: torch.float32, torch.float64: torch.float64,
          torch.complex64: torch.float32, torch.complex128: torch.float64}
@@ -129,10 +150,13 @@ def make_twiddle_pack(n: int, inverse: bool, dtype=np.float32, stages=None
 def _small_dft(res, ims, inverse: bool):
     """R-point DFT across R part-tensors via a recursive radix-2 network with
     scalar constant twiddles. X_q = sum_p part_p * w_R^{p*q},
-    w_R = exp(-+2i pi / R). Python-float constants follow the tensor dtype."""
+    w_R = exp(-+2i pi / R). Python-float constants follow the tensor dtype;
+    on bf16 tensors they are rounded to bf16 first, as JAX rounds its
+    weak-typed scalars (torch would multiply by the unrounded value)."""
     r = len(res)
     if r == 1:
         return res, ims
+    bf16 = res[0].dtype == torch.bfloat16
     ere, eim = _small_dft(res[0::2], ims[0::2], inverse)
     ore, oim = _small_dft(res[1::2], ims[1::2], inverse)
     half = r // 2
@@ -142,6 +166,8 @@ def _small_dft(res, ims, inverse: bool):
     for q in range(half):
         ang = sign * 2.0 * math.pi * q / r
         wr, wi = math.cos(ang), math.sin(ang)
+        if bf16:
+            wr, wi = (torch.tensor(w, dtype=torch.bfloat16) for w in (wr, wi))
         orq, oiq = ore[q], oim[q]
         if q == 0:  # w = 1
             tre, tim = orq, oiq
@@ -206,7 +232,13 @@ def real_dtype(dtype: torch.dtype) -> torch.dtype:
 
 def check_dtype(tables_dtype: torch.dtype, data_dtype: torch.dtype) -> None:
     """Raise unless tables of `tables_dtype` serve data of `data_dtype`
-    (real planes, or the complex dtype of the same precision)."""
+    (real planes, or the complex dtype of the same precision; bf16 planes
+    take f32 tables, the interop tier, or bf16 ones, the compute tier)."""
+    if data_dtype == torch.bfloat16:
+        if tables_dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"tables are {tables_dtype}: bf16 planes take float32 tables "
+                            f"(the interop tier) or bfloat16 ones (the compute tier)")
+        return
     if real_dtype(data_dtype) != tables_dtype:
         raise TypeError(f"tables are {tables_dtype}, data {data_dtype}: the tables and "
                         f"the data must share their precision (f32 tables would give f64 "
@@ -217,7 +249,9 @@ def run_stages(cre, cim, n, inverse, offsets, stages, twre, twim):
     """Run the full Stockham stage chain on [n, ...] planes (the transform
     runs along axis 0; any strides). twre/twim: the packed twiddle columns
     (any shape with `total` elements) of the planes' dtype."""
-    check_dtype(twre.dtype, cre.dtype)
+    if twre.dtype != cre.dtype:
+        raise TypeError(f"tables are {twre.dtype}, planes {cre.dtype}: the stages run in "
+                        f"one dtype, so the tables and the planes must share their precision")
     twre = twre.reshape(-1)
     twim = twim.reshape(-1)
     for idx, (r, l) in enumerate(stages):
@@ -239,9 +273,9 @@ class Tables:
     """One transform length and direction on one device: the stage plan as
     (R, l) pairs, each stage's offset into the twiddle pack (-1 for the
     twiddle-free l=1 stage) and the pack itself as 1-D tensors of one dtype
-    (float32, or float64 for the f64 tier), which is the dtype of the data
-    they serve. The plan's ctypes arrays for the kernel are built once,
-    here."""
+    (float32, float64 for the f64 tier, bfloat16 for the bf16 compute
+    tier), the dtype the stages run in. The plan's ctypes arrays for the
+    kernel are built once, here."""
     stages: tuple[tuple[int, int], ...]
     offsets: tuple[int, ...]
     twre: torch.Tensor
@@ -250,9 +284,9 @@ class Tables:
 
     def __post_init__(self):
         self.n = math.prod(r for r, _ in self.stages)
-        if self.twre.dtype not in (torch.float32, torch.float64) or (
+        if self.twre.dtype not in (torch.float32, torch.float64, torch.bfloat16) or (
                 self.twim.dtype != self.twre.dtype):
-            raise TypeError(f"twiddle packs are float32 or float64 pairs, got "
+            raise TypeError(f"twiddle packs are float32, float64 or bfloat16 pairs, got "
                             f"{self.twre.dtype} and {self.twim.dtype}")
         nst = len(self.stages)
         self.c_radices = (ctypes.c_int * nst)(*(r for r, _ in self.stages))
@@ -301,13 +335,15 @@ def np_dtype(dtype: torch.dtype):
 
 @functools.cache
 def _cached_tables(n: int, inverse: bool, device: torch.device, dtype: torch.dtype) -> Tables:
-    re, im, offsets = make_twiddle_pack(n, inverse, np_dtype(dtype))
+    # the bf16 pack is the f32 one rounded, as pallas_stockham.py:409-411 casts it
+    pack = np.float32 if dtype == torch.bfloat16 else np_dtype(dtype)
+    re, im, offsets = make_twiddle_pack(n, inverse, pack)
     return make_tables(stage_plan(n), offsets, re, im, device, dtype)
 
 
 def device_tables(n: int, inverse: bool, device, dtype=torch.float32) -> Tables:
-    """The port's own tables for (n, direction) in `dtype` (float32 or
-    float64), built once per device."""
+    """The port's own tables for (n, direction) in `dtype` (float32,
+    float64 or bfloat16), built once per device."""
     return _cached_tables(int(n), bool(inverse), check_device(device), dtype)
 
 
@@ -319,27 +355,38 @@ def device_tables(n: int, inverse: bool, device, dtype=torch.float32) -> Tables:
 # serves callers that hold views already: the hybrid real FFT's core.
 
 def _plain_into(xre, xim, yre, yim, inverse: bool, tables: Tables) -> None:
-    """y = DFT along axis 0 of the [n, B] views x, written into the views y."""
+    """y = DFT along axis 0 of the [n, B] views x, written into the views y
+    (bf16 planes with f32 tables: f32 stages, rounded to nearest on the
+    copy into y)."""
+    if xre.dtype != tables.dtype:
+        xre, xim = xre.float(), xim.float()
     ore, oim = run_stages(xre, xim, xre.shape[0], inverse, tables.offsets,
                           tables.stages, tables.twre, tables.twim)
     yre.copy_(ore)
     yim.copy_(oim)
 
 
-def _launch(device, xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch,
+# The kernel instance for (data dtype, tables dtype) and its counter.
+_ENTRIES = {(torch.float32, torch.float32): ("watfft_stockham_c2c", "launches"),
+            (torch.float64, torch.float64): ("watfft_stockham_c2c_f64", "launches_f64"),
+            (torch.bfloat16, torch.float32): ("watfft_stockham_c2c_bf16", "launches_bf16"),
+            (torch.bfloat16, torch.bfloat16): ("watfft_stockham_c2c_bf16c", "launches_bf16c")}
+
+
+def _launch(device, dtype, xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch,
             inverse, tables) -> None:
-    """Kernel on the [n, batch] planes whose element (k, b) sits
-    k*x_sn + b*x_sb elements past the addresses xre, xim (input) and
-    k*y_sn + b*y_sb elements past yre, yim (output); the instance of the
-    tables' dtype (the caller has checked the data against it)."""
-    global launches, launches_f64
+    """Kernel on the [n, batch] planes of `dtype` (their real dtype) whose
+    element (k, b) sits k*x_sn + b*x_sb elements past the addresses xre,
+    xim (input) and k*y_sn + b*y_sb elements past yre, yim (output); the
+    instance of the data's dtype and the tables' (the caller has checked
+    the pair)."""
     from ._build import library
 
     if tables.twre.device != device:
         raise ValueError(f"tables on {tables.twre.device}, data on {device}")
     lib = library()
-    f64 = tables.dtype == torch.float64
-    entry = lib.watfft_stockham_c2c_f64 if f64 else lib.watfft_stockham_c2c
+    name, counter = _ENTRIES[(dtype, tables.dtype)]
+    entry = getattr(lib, name)
     with torch.cuda.device(device):
         err = entry(xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch,
                     tables.twre.data_ptr(), tables.twim.data_ptr(), tables.c_radices,
@@ -347,12 +394,9 @@ def _launch(device, xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch,
                     torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(
-            f"Stockham kernel launch failed (n={n}, batch={batch}, {tables.dtype}): "
-            f"{lib.watfft_error_string(err).decode()}")
-    if f64:
-        launches_f64 += 1
-    else:
-        launches += 1
+            f"Stockham kernel launch failed (n={n}, batch={batch}, {dtype} data, "
+            f"{tables.dtype} tables): {lib.watfft_error_string(err).decode()}")
+    globals()[counter] += 1
 
 
 def fft_views(xre, xim, yre, yim, inverse: bool, tables: Tables) -> None:
@@ -366,7 +410,7 @@ def fft_views(xre, xim, yre, yim, inverse: bool, tables: Tables) -> None:
     check_dtype(tables.dtype, xre.dtype)
     n, batch = xre.shape
     if xre.device.type == "cuda":
-        _launch(xre.device, xre.data_ptr(), xim.data_ptr(), yre.data_ptr(),
+        _launch(xre.device, xre.dtype, xre.data_ptr(), xim.data_ptr(), yre.data_ptr(),
                 yim.data_ptr(), *xre.stride(), *yre.stride(), n, batch, inverse, tables)
     else:
         _plain_into(xre, xim, yre, yim, inverse, tables)
@@ -384,11 +428,17 @@ def _dense(t: torch.Tensor) -> torch.Tensor:
     return t.resolve_conj().resolve_neg().contiguous()
 
 
-def _resolve(tables, n: int, inverse: bool, device, dtype: torch.dtype) -> Tables:
+def _resolve(tables, n: int, inverse: bool, device, dtype: torch.dtype,
+             bf16_compute: bool = False) -> Tables:
     """The tables for n points of data of `dtype` (real or complex):
-    given ones checked, or the port's own of that precision."""
+    given ones checked, or the port's own of that precision (for bf16
+    planes, f32 ones, or bf16 ones where `bf16_compute`)."""
     if tables is None:
-        return device_tables(n, inverse, device, real_dtype(dtype))  # checks the device
+        if dtype == torch.bfloat16:
+            tdtype = torch.bfloat16 if bf16_compute else torch.float32
+        else:
+            tdtype = real_dtype(dtype)
+        return device_tables(n, inverse, device, tdtype)  # checks the device
     check_device(device)
     if tables.n != n:
         raise ValueError(f"tables are for n={tables.n}, got n={n}")
@@ -396,12 +446,21 @@ def _resolve(tables, n: int, inverse: bool, device, dtype: torch.dtype) -> Table
     return tables
 
 
-def _planes(re, im, inverse, time_major, tables):
+def _planes_tables(re, inverse, time_major, tables) -> Tables:
+    """The tables of a plane call: given ones checked, or the port's own
+    in the tier the planes take (the bf16 compute tier serves 2-D
+    time-major planes alone, as in JAX)."""
+    n = re.shape[0] if time_major else re.shape[-1]
+    compute = config.BF16_COMPUTE and time_major and re.dim() == 2
+    return _resolve(tables, n, inverse, re.device, re.dtype, compute)
+
+
+def _planes(re, im, inverse, time_major, tables, plain=False):
     if re.shape != im.shape or re.dtype != im.dtype or re.device != im.device:
         raise ValueError(f"re and im planes differ: {re.shape} {re.dtype} "
                          f"{re.device} vs {im.shape} {im.dtype} {im.device}")
-    n = re.shape[0] if time_major else re.shape[-1]
-    tables = _resolve(tables, n, inverse, re.device, re.dtype)
+    tables = _planes_tables(re, inverse, time_major, tables)
+    n = tables.n
     if re.is_complex():
         raise TypeError(f"the plane entry points take real planes, got {re.dtype}")
     re, im = _dense(re), _dense(im)
@@ -409,9 +468,9 @@ def _planes(re, im, inverse, time_major, tables):
     batch = re.numel() // n
     if batch == 0:
         return ore, oim
-    if re.device.type == "cuda":
+    if re.device.type == "cuda" and not plain:
         sn, sb = (batch, 1) if time_major else (1, n)
-        _launch(re.device, re.data_ptr(), im.data_ptr(), ore.data_ptr(),
+        _launch(re.device, re.dtype, re.data_ptr(), im.data_ptr(), ore.data_ptr(),
                 oim.data_ptr(), sn, sb, sn, sb, n, batch, inverse, tables)
     elif time_major:
         _plain_into(*(t.view(n, batch) for t in (re, im, ore, oim)), inverse, tables)
@@ -432,6 +491,17 @@ def plain_fft(x, inverse: bool = False, tables: Tables | None = None):
     return torch.complex(ore, oim).T.reshape(x.shape)
 
 
+def plain_fft_nb(re, im, inverse: bool = False, tables: Tables | None = None):
+    """The plain version of `stockham_fft_nb` on any device (the same tier
+    for bf16 planes); on CUDA the reference the kernel is held against."""
+    return _planes(re, im, bool(inverse), True, tables, plain=True)
+
+
+def plain_fft_bm(re, im, inverse: bool = False, tables: Tables | None = None):
+    """The plain version of `stockham_fft_bm` on any device."""
+    return _planes(re, im, bool(inverse), False, tables, plain=True)
+
+
 def _complex(x, inverse, tables):
     n = x.shape[-1]
     tables = _resolve(tables, n, inverse, x.device, x.dtype)
@@ -445,21 +515,25 @@ def _complex(x, inverse, tables):
     if batch:
         # interleaved complex: re at the base, im one real on, stride 2
         xp, yp, step = x.data_ptr(), out.data_ptr(), x.element_size() // 2
-        _launch(x.device, xp, xp + step, yp, yp + step, 2, 2 * n, 2, 2 * n, n, batch,
-                inverse, tables)
+        _launch(x.device, real_dtype(x.dtype), xp, xp + step, yp, yp + step, 2, 2 * n, 2,
+                2 * n, n, batch, inverse, tables)
     return out
 
 
 class _PlanesFFT(torch.autograd.Function):
     @staticmethod
     def forward(ctx, re, im, inverse, time_major, tables):
-        ctx.inverse, ctx.time_major = inverse, time_major
+        tables = _planes_tables(re, inverse, time_major, tables)
+        # the backward runs in the forward's tier: for bf16 planes, the
+        # tables' dtype (f32 interop, bf16 compute)
+        ctx.inverse, ctx.time_major, ctx.tables_dtype = inverse, time_major, tables.dtype
         return _planes(re, im, inverse, time_major, tables)
 
     @staticmethod
     def backward(ctx, gre, gim):
         n = gre.shape[0] if ctx.time_major else gre.shape[-1]
-        ore, oim = _PlanesFFT.apply(gre, gim, not ctx.inverse, ctx.time_major, None)
+        tables = device_tables(n, not ctx.inverse, gre.device, ctx.tables_dtype)
+        ore, oim = _PlanesFFT.apply(gre, gim, not ctx.inverse, ctx.time_major, tables)
         s = 1.0 / n if ctx.inverse else float(n)
         return ore * s, oim * s, None, None, None
 
@@ -486,14 +560,17 @@ def _wants_grad(*ts) -> bool:
 def stockham_fft_nb(re, im, inverse: bool = False, tables: Tables | None = None):
     """Batched FFT on time-major planes [n, ...] (the transform runs along
     axis 0; `[n, b]` and the `[n, 8, W]` view alike). Returns new planes of
-    the same shape. Any batch size; no padding."""
+    the same shape and dtype: float32, float64, or bfloat16 (the bf16
+    tiers; the compute tier on 2-D planes under `config.BF16_COMPUTE`).
+    Any batch size; no padding."""
     if _wants_grad(re, im):
         return _PlanesFFT.apply(re, im, bool(inverse), True, tables)
     return _planes(re, im, bool(inverse), True, tables)
 
 
 def stockham_fft_bm(re, im, inverse: bool = False, tables: Tables | None = None):
-    """Batched FFT on batch-major planes [..., n]."""
+    """Batched FFT on batch-major planes [..., n] (bfloat16 planes: the
+    interop tier)."""
     if _wants_grad(re, im):
         return _PlanesFFT.apply(re, im, bool(inverse), False, tables)
     return _planes(re, im, bool(inverse), False, tables)

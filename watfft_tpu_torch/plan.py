@@ -5,8 +5,8 @@ A numpy-only copy of `watfft_tpu/plan.py` (`dft_matrix`, `twiddle_grid`,
 four-step twiddle grids, computed in float64 on the host with the phase
 index reduced mod n before the trig call, then cast to the table dtype. The
 native inverse folds 1/n into the outermost DFT matrix. `ops/fourstep.py`
-runs the tree as matmuls. `DIRECT_MAX` is a constant here, not an
-environment variable.
+runs the tree as matmuls. `DIRECT_MAX` is `config.DIRECT_MAX`, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -16,11 +16,11 @@ from typing import Optional
 
 import numpy as np
 
+# DIRECT_MAX: the largest factor computed as one DFT matmul (WATFFT_DIRECT_MAX)
+from .config import DIRECT_MAX
+
 __all__ = ["DIRECT_MAX", "is_power_of_two", "dft_matrix", "twiddle_grid", "factorize",
            "PlanNode", "build_tree"]
-
-# Largest factor computed as one DFT matmul.
-DIRECT_MAX = 128
 
 
 def is_power_of_two(n: int) -> bool:

@@ -54,8 +54,8 @@ def _check(n: int, dtype: str, minimum: int) -> None:
         raise ValueError(f"size must be a power of two >= {minimum}, got {n!r}")
     if dtype not in ("float32", "float64"):
         raise NotImplementedError(
-            f"dtype {dtype}: the port runs float32 and float64; the bf16 tiers are "
-            f"ROADMAP item A11")
+            f"dtype {dtype}: the contexts run float32 and float64; the bf16 tiers are "
+            f"stockham_fft_nb / stockham_fft_bm on bfloat16 planes")
 
 
 def large_mode(n: int, batch: int | None = None, time_major: bool = False) -> str:
