@@ -99,10 +99,12 @@ Phases (any failure exits nonzero and prints no result):
    timed alone; then cube against 2-pass over batches and layouts, the
    planner's crossover.
 19. Bluestein kernels against their plain versions: #17 and #18 alone and
-   the fused transform, n = 2..64 and 13 larger n up to 2048, forward and
-   inverse, three layouts (interleaved complex64, batch-major and
-   time-major planes), batch 3 and 2^22/m transforms (limit 1e-6 of the
-   largest output); at batch 3 also against torch.fft.fft in complex128.
+   the fused transform (the one-pass kernel), n = 2..64 and 13 larger n up
+   to 2048, forward and inverse, three layouts (interleaved complex64,
+   batch-major and time-major planes), batch 3 and 2^22/m transforms
+   (limit 1e-6 of the largest output); the one-pass kernel also against
+   #17 then #18 (its largest difference, and whether they are equal); at
+   batch 3 also against torch.fft.fft in complex128.
 20. Any-n main path at full size through `watfft_tpu_torch.fftlib`:
    fft / ifft / roundtrip / a backward on [4096, 1000] complex64 (n = 1000,
    m = 2048), the same rows padded to 1024 (the Stockham kernel), the
@@ -110,14 +112,17 @@ Phases (any failure exits nonzero and prints no result):
    clips framed as Whisper frames them), irfft at odd n = 1001, the
    unfused route at n = 10007 (m = 32768, the four-step kernels) and
    fft2 / ifft2 on [4, 1000, 1000], against torch.fft in complex128 /
-   float64, with each kernel's launch count for each run.
+   float64, with each kernel's launch count for each run (the fused runs
+   launch the one-pass kernel alone); then #17 and #18 through their own
+   entry points (`bluestein_fwd`, `bluestein_inv`) on time-major
+   [1000, 4096] planes, both directions.
 21. Any-n times at 2^22 points per call, n in {100, 400, 1000, 1009, 2000,
-   10007}: #17 and #18 alone, the whole transform, the plain version,
-   torch.fft.fft and a device copy of the same bytes; the main shapes of
-   phase 20 beside torch.fft (and the unfused route's m-point transform
-   alone); host time per call at [8, 1000]. #17 and #18
-   are then held against their plain versions at [4096, 1000] and timed
-   there for the kernels line.
+   10007}: #17 and #18 alone, the one-pass kernel alone, the whole
+   transform, the plain version, torch.fft.fft and a device copy of the
+   same bytes; the main shapes of phase 20 beside torch.fft (and the
+   unfused route's m-point transform alone); host time per call at
+   [8, 1000]. #17, #18 and the one-pass kernel are then held against their
+   plain versions at [4096, 1000] and timed there for the kernels line.
 22. FP64 kernels (the f64 tier) against their plain versions in float64:
    the c2c kernel at every n = 2..4096 and the fused r2c / c2r kernels and
    the hybrid at every n = 4..8192, forward and inverse, three layouts
@@ -1416,11 +1421,13 @@ def fft2_kernel_rows(main: dict, times: dict, dev, gen) -> list:
 # -- the any-n path ---------------------------------------------------------------
 
 def _bl_passes(x: torch.Tensor, layout: str, inverse: bool = False):
-    """#17 and #18 as the fused route runs them on the complex [batch, n] x
+    """The pair #17, #18 and the one-pass kernel on the complex [batch, n] x
     given in `layout` ("complex", batch-major planes "bm", time-major
-    planes "nb"): fwd(plain=False) writes the batch-major intermediate f,
-    inv(plain=False) writes the output `out` (in the layout) from f.
-    Returns (fwd, inv, f, out), out as a pair of float tensors."""
+    planes "nb"): fwd(plain=False) writes a batch-major intermediate f,
+    inv(plain=False) writes the output `out` (in the layout) from f, and
+    onepass(plain=False) writes `out` from x in one launch (the fused
+    route). Returns (fwd, inv, onepass, f, out), out as a pair of float
+    tensors."""
     batch, n = x.shape
     bt = bl.device_bluestein_tables(n, inverse, x.device)
     if layout == "complex":
@@ -1438,7 +1445,8 @@ def _bl_passes(x: torch.Tensor, layout: str, inverse: bool = False):
     f = torch.empty(2, batch * bt.m, device=x.device)
     fo, fs = (f[0], f[1]), (1, bt.m)
     return (lambda plain=False: bl._fwd(xo, xs, fo, fs, batch, bt, plain),
-            lambda plain=False: bl._inv(fo, fs, yo, xs, batch, bt, plain), f, yo)
+            lambda plain=False: bl._inv(fo, fs, yo, xs, batch, bt, plain),
+            lambda plain=False: bl._onepass(xo, xs, yo, xs, batch, bt, plain), f, yo)
 
 
 def held_pair(kernel, plain) -> float:
@@ -1451,7 +1459,7 @@ def _bl_alone(x: torch.Tensor, layout: str, inverse: bool) -> dict:
     """Each kernel alone and its plain version on the same inputs: #17 on
     x, then #18 on the plain version's intermediate. Returns {"fwd": (kernel,
     plain), "inv": (kernel, plain)}, each output a pair of planes."""
-    fwd, inv, f, out = _bl_passes(x, layout, inverse)
+    fwd, inv, _, f, out = _bl_passes(x, layout, inverse)
     fwd()
     kf = f.clone()
     fwd(plain=True)
@@ -1461,8 +1469,19 @@ def _bl_alone(x: torch.Tensor, layout: str, inverse: bool) -> dict:
     return {"fwd": (kf, f), "inv": (ko, out)}
 
 
+def _bl_vs_pair(x: torch.Tensor, layout: str, inverse: bool) -> tuple[float, bool]:
+    """The one-pass kernel against the pair #17 then #18 on x in `layout`:
+    max |onepass - pair| / max |pair|, and whether they are equal."""
+    fwd, inv, onepass, _, out = _bl_passes(x, layout, inverse)
+    fwd()
+    inv()
+    pair = [t.clone() for t in out]
+    onepass()
+    return held_pair(out, pair), all(torch.equal(a, b) for a, b in zip(out, pair))
+
+
 def phase_bluestein_kernel_vs_plain(dev, gen) -> None:
-    worst, n_checked = 0.0, 0
+    worst, n_checked, pair_worst, pair_equal = 0.0, 0, 0.0, True
     for n in BL_SIZES:
         m = bl.bluestein_m(n)
         line = {"phase": "bluestein_kernel_vs_plain", "n": n, "m": m}
@@ -1480,6 +1499,11 @@ def phase_bluestein_kernel_vs_plain(dev, gen) -> None:
                 for layout in ("complex", "bm", "nb"):
                     diffs.update({f"{key}_{layout}": held_pair(*pair)
                                   for key, pair in _bl_alone(x, layout, inverse).items()})
+                    d, eq = _bl_vs_pair(x, layout, inverse)
+                    pair_worst, pair_equal = max(pair_worst, d), pair_equal and eq
+                    line["onepass_vs_pair_max_rel_diff"] = max(
+                        line.get("onepass_vs_pair_max_rel_diff", 0.0), d)
+                    line["onepass_equal_pair"] = line.get("onepass_equal_pair", True) and eq
                 worst = max(worst, *diffs.values())
                 n_checked += len(diffs)
                 check(max(diffs.values()) <= KERNEL_LIMIT,
@@ -1492,13 +1516,16 @@ def phase_bluestein_kernel_vs_plain(dev, gen) -> None:
             line[f"batch_{batch}_max_rel_diff"] = max(diffs.values())
         print(json.dumps(line), flush=True)
     print(json.dumps({"phase": "bluestein_kernels_vs_plain", "sizes": len(BL_SIZES),
-                      "checks": n_checked, "max_rel_diff": worst}), flush=True)
+                      "checks": n_checked, "max_rel_diff": worst,
+                      "onepass_vs_pair_max_rel_diff": pair_worst,
+                      "onepass_equal_pair": pair_equal}), flush=True)
 
 
 def _bl_vs_plain(pairs) -> float:
-    """The largest rel_diff of #17 + #18 (bluestein_fft) against their plain
-    version over (input, inverse, output) triples: output, where given, is
-    what the main path's kernels made of input, else they run again on it."""
+    """The largest rel_diff of the one-pass kernel (bluestein_fft) against
+    its plain version over (input, inverse, output) triples: output, where
+    given, is what the main path's kernel made of input, else it runs again
+    on it."""
     worst = 0.0
     for x, inverse, y in pairs:
         y = bl.bluestein_fft(x, inverse) if y is None else y
@@ -1507,7 +1534,7 @@ def _bl_vs_plain(pairs) -> float:
 
 
 def _bl_2d_vs_plain(x: torch.Tensor, inverse: bool) -> float:
-    """#17 + #18 against their plain version on fftlib's operands of an
+    """The one-pass kernel against its plain version on fftlib's operands of an
     axis-by-axis fft2 (ifft2) of x: the rows of x, then the columns of the
     row pass's output, moved to the last axis."""
     rows = bl.bluestein_fft(x, inverse)
@@ -1553,7 +1580,7 @@ def phase_bluestein_main_path(dev, gen) -> dict:
         return y, xi, back
 
     out["main"] = _bl_run(
-        f"fft/ifft [{b}, {n}]", main_calls, {"bluestein_fwd": 5, "bluestein_inv": 5},
+        f"fft/ifft [{b}, {n}]", main_calls, {"bluestein_onepass": 5},
         {"fwd_max_rel_vs_torch_fft_c128": lambda o: max_rel(o[0], c128(x)),
          "inv_max_rel_vs_torch_fft_c128": lambda o: max_rel(o[1], c128(x, True)),
          "roundtrip_err": lambda o: (o[2] - x).abs().max().item(),
@@ -1563,6 +1590,21 @@ def phase_bluestein_main_path(dev, gen) -> dict:
          "roundtrip_err": rt_lim, "grad_max_rel_vs_torch_fft_c128": rel_lim,
          "kernels_vs_plain_rel": KERNEL_LIMIT})
     check(planner.bluestein_kernel(n, b) == "bluestein-fused", "the planner's route at n=1000")
+    # the pair #17, #18 through their own entry points (the JAX package's
+    # _bl_fwd_call, _bl_inv_call) on time-major planes, both directions
+    xre, xim = x.real.T.contiguous(), x.imag.T.contiguous()
+
+    def pair_calls():
+        return [bl.bluestein_inv(*bl.bluestein_fwd(xre, xim, inv), n, inv)
+                for inv in (False, True)]
+
+    out["pair"] = _bl_run(
+        f"bluestein_fwd, bluestein_inv [{n}, {b}]", pair_calls,
+        {"bluestein_fwd": 2, "bluestein_inv": 2},
+        {"fwd_max_rel_vs_torch_fft_c128": lambda o: max_rel(torch.complex(*o[0]).T, c128(x)),
+         "inv_max_rel_vs_torch_fft_c128": lambda o: max_rel(torch.complex(*o[1]).T,
+                                                            c128(x, True))},
+        {"fwd_max_rel_vs_torch_fft_c128": rel_lim, "inv_max_rel_vs_torch_fft_c128": rel_lim})
     # the same rows padded to 1024: the Stockham kernel, no Bluestein kernel
     _bl_run(f"fft [{b}, {n}] n=1024", lambda: fftlib.fft(x, n=1024), {"stockham_c2c": 1},
             {"max_rel_vs_torch_fft_c128": lambda o: max_rel(o, c128(
@@ -1572,7 +1614,7 @@ def phase_bluestein_main_path(dev, gen) -> dict:
     xp = rand_complex((b, BL_PRIME_N), gen, dev)
     out["prime"] = _bl_run(
         f"fft/ifft [{b}, {BL_PRIME_N}]", lambda: (fftlib.fft(xp), fftlib.ifft(xp)),
-        {"bluestein_fwd": 2, "bluestein_inv": 2},
+        {"bluestein_onepass": 2},
         {"fwd_max_rel_vs_torch_fft_c128": lambda o: max_rel(o[0], c128(xp)),
          "inv_max_rel_vs_torch_fft_c128": lambda o: max_rel(o[1], c128(xp, True)),
          "kernels_vs_plain_rel": lambda o: _bl_vs_plain([(xp, False, o[0]), (xp, True, o[1])])},
@@ -1587,7 +1629,7 @@ def phase_bluestein_main_path(dev, gen) -> dict:
     out["real"] = _bl_run(
         f"rfft/irfft {list(BL_REAL_SHAPE)}",
         lambda: (lambda s: (s, fftlib.irfft(s, n=nr)))(fftlib.rfft(fr)),
-        {"bluestein_fwd": 2, "bluestein_inv": 2},
+        {"bluestein_onepass": 2},
         {"fwd_max_rel_vs_torch_fft_f64": lambda o: max_rel(o[0], torch.fft.rfft(fr.double())),
          "roundtrip_err": lambda o: (o[1] - fr).abs().max().item(),
          # the complex operands the kernels were fed: the frames, and the
@@ -1604,7 +1646,7 @@ def phase_bluestein_main_path(dev, gen) -> dict:
     spec[:, 0] = spec[:, 0].real.clone()  # cuFFT's c2r defines no result for Im X[0]
     out["odd"] = _bl_run(
         f"irfft [{b}, {no // 2 + 1}] n={no}", lambda: fftlib.irfft(spec, n=no),
-        {"bluestein_fwd": 1, "bluestein_inv": 1},
+        {"bluestein_onepass": 1},
         {"max_rel_vs_torch_fft_f64": lambda o: max_rel(o, torch.fft.irfft(spec.cdouble(), n=no)),
          "kernels_vs_plain_rel": lambda o: _bl_vs_plain(
              [(fftlib._hermitian_full(spec, no), True, None)])},
@@ -1625,7 +1667,7 @@ def phase_bluestein_main_path(dev, gen) -> dict:
     out["2d"] = _bl_run(
         f"fft2/ifft2 {list(BL_2D_SHAPE)}",
         lambda: (lambda y: (y, fftlib.ifft2(y)))(fftlib.fft2(x2)),
-        {"bluestein_fwd": 4, "bluestein_inv": 4},
+        {"bluestein_onepass": 4},
         {"fwd_max_rel_vs_torch_fft_c128": lambda o: max_rel(o[0], c128_2d(x2)),
          "roundtrip_err": lambda o: (o[1] - x2).abs().max().item(),
          "kernels_vs_plain_rel": lambda o: max(_bl_2d_vs_plain(x2, False),
@@ -1636,10 +1678,10 @@ def phase_bluestein_main_path(dev, gen) -> dict:
 
 
 def phase_bluestein_times(dev, gen, name: str, limit: str) -> dict:
-    """Each n at 2^22 points per call: #17 and #18 alone (complex64
-    layout), the whole transform, the plain version, torch.fft.fft and a
-    device copy of the same bytes; then the main shapes and the host time
-    per call at a small batch."""
+    """Each n at 2^22 points per call: #17 and #18 alone and the one-pass
+    kernel alone (complex64 layout), the whole transform, the plain
+    version, torch.fft.fft and a device copy of the same bytes; then the
+    main shapes and the host time per call at a small batch."""
     times = {}
     for n in BL_TIME_SIZES:
         batch = POINTS // n
@@ -1649,8 +1691,8 @@ def phase_bluestein_times(dev, gen, name: str, limit: str) -> dict:
         fns = {"fft": lambda: bl.bluestein_fft(x), "ifft": lambda: bl.bluestein_fft(x, True),
                "lib_fft": lambda: torch.fft.fft(x), "copy": lambda: out.copy_(x)}
         if route == "bluestein-fused":
-            fwd, inv, _, _ = _bl_passes(x, "complex")
-            fns.update({"fwd": fwd, "inv": inv})
+            fwd, inv, onepass, _, _ = _bl_passes(x, "complex")
+            fns.update({"fwd": fwd, "inv": inv, "onepass": onepass})
         row = {"route": route, "m": bl.bluestein_m(n)}
         for key, fn in fns.items():
             dev_ms, call_ms = time_ms(fn)
@@ -1697,36 +1739,54 @@ def phase_bluestein_times(dev, gen, name: str, limit: str) -> dict:
 
 
 def bluestein_kernel_rows(main: dict, dev, gen, name: str, limit: str) -> list:
-    """#17 and #18 at the main path's [4096, 1000] (complex64), each held
-    against its plain version there in both directions and timed alone.
-    Bytes: 8 (n + m) per transform each (n points read and m written, or
-    the reverse); flops 5 m log2 m + 6 (n + m) per transform. The library
-    call, torch.fft.fft on the same tensor, computes the pair."""
+    """#17, #18 and the one-pass kernel at the main path's [4096, 1000]
+    (complex64), each held against its plain version there in both
+    directions and timed alone. Bytes: 8 (n + m) per transform for each of
+    the pair (n points read and m written, or the reverse), 16 n for the
+    one-pass kernel (n read, n written); flops 5 m log2 m + 6 (n + m) per
+    transform for each of the pair, 2 * 5 m log2 m + 6 (2n + m) for the
+    one-pass kernel. The library call, torch.fft.fft on the same tensor,
+    computes the whole transform. The pair's launches are those of its own
+    entry points' run (phase 20, "pair"); the one-pass kernel's those of
+    the main run."""
     b, n = BL_MAIN_B, BL_MAIN_N
     m = bl.bluestein_m(n)
+    log_m = m.bit_length() - 1
     x = rand_complex((b, n), gen, dev)
-    errs = {"bluestein_fwd": 0.0, "bluestein_inv": 0.0}
+    errs = {"bluestein_fwd": 0.0, "bluestein_inv": 0.0, "bluestein_onepass": 0.0}
     rels = {}
     for inverse in (False, True):
-        for which, (k, p) in _bl_alone(x, "complex", inverse).items():
+        _, _, onepass, _, out = _bl_passes(x, "complex", inverse)
+        onepass()
+        kernel = [t.clone() for t in out]
+        onepass(plain=True)
+        held = dict(_bl_alone(x, "complex", inverse), onepass=(kernel, out))
+        for which, (k, p) in held.items():
             key = "bluestein_" + which
             errs[key] = max(errs[key], max((a - q).abs().max().item() for a, q in zip(k, p)))
             rels[f"{key} inverse={inverse}"] = rel = held_pair(k, p)
             check(rel <= KERNEL_LIMIT, f"{key} at [{b}, {n}] inverse={inverse}: {rel:.3e} vs plain")
     print(json.dumps({"phase": "bluestein_kernels_at_main_shape", "rel_diff_vs_plain": rels}),
           flush=True)
-    fwd, inv, _, _ = _bl_passes(x, "complex")
+    fwd, inv, onepass, _, _ = _bl_passes(x, "complex")
     lib = time_ms(lambda: torch.fft.fft(x))[0]
-    bnd = bound(8 * (n + m) * b, (5 * m * (m.bit_length() - 1) + 6 * (n + m)) * b)
+    pair_bound = bound(8 * (n + m) * b, (5 * m * log_m + 6 * (n + m)) * b)
     rows = []
-    for key, fn, repl in (("bluestein_fwd", fwd, "watfft_tpu/ops/bluestein.py:91"),
-                          ("bluestein_inv", inv, "watfft_tpu/ops/bluestein.py:113")):
+    for key, fn, repl, launches, bnd in (
+            ("bluestein_fwd", fwd, "watfft_tpu/ops/bluestein.py:91",
+             main["pair"]["launches"]["bluestein_fwd"], pair_bound),
+            ("bluestein_inv", inv, "watfft_tpu/ops/bluestein.py:113",
+             main["pair"]["launches"]["bluestein_inv"], pair_bound),
+            ("bluestein_onepass", onepass, "watfft_tpu/ops/bluestein.py:192",
+             main["main"]["launches"]["bluestein_onepass"],
+             bound(16 * n * b, (10 * m * log_m + 6 * (2 * n + m)) * b))):
+        what = "the whole transform" if key == "bluestein_onepass" else "the pair #17 + #18"
         rows.append({"name": key, "route": "cuda", "source": BL_SRC, "replaces": repl,
-                     "also_replaces": [], "launches": main["main"]["launches"][key],
+                     "also_replaces": [], "launches": launches,
                      "max_abs_err": errs[key], "ms": time_ms(fn)[0],
                      "plain_ms": time_ms(lambda: fn(plain=True), reps=3, warmup=1)[0],
                      "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib,
-                     "library_call": f"torch.fft.fft on [{b}, {n}] complex64 (the pair #17 + #18)",
+                     "library_call": f"torch.fft.fft on [{b}, {n}] complex64 ({what})",
                      "card": name, "power_limit": limit})
     return rows
 

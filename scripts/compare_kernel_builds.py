@@ -16,14 +16,16 @@ library `_build.library` returns:
   2^13 and 2^14;
 * `watfft_fft2_cube` at h x w = 2x2..128x128 and on the extremes 2x8192,
   8192x2;
-* `watfft_bluestein_fwd` / `watfft_bluestein_inv` at n = 3..2000;
+* `watfft_bluestein_fwd` / `watfft_bluestein_inv` at n = 3..2000 (the
+  pair in turn on complex64, a batch-major intermediate between them);
 * the FP64 instances `watfft_stockham_c2c_f64` (n = 2..4096, complex128
   and time-major planes), `watfft_rfft_r2c_f64` and `watfft_irfft_c2r_f64`
   (n = 4..8192, batch-major);
 * where both builds have them: the bf16 instances `watfft_stockham_c2c_bf16`
   (interop: time-major and batch-major planes) and
   `watfft_stockham_c2c_bf16c` (compute: time-major planes) at n = 2..4096,
-  and `watfft_dft_matmul` at n = 1..128 (complex64 layout); an entry point
+  `watfft_dft_matmul` at n = 1..128 (complex64 layout) and
+  `watfft_bluestein_onepass` at n = 3..2000 (three layouts); an entry point
   the other build lacks is counted under "skipped",
 
 at batch 3 and at 2^20 points per call (2^19 in FP64), or at the listed
@@ -86,6 +88,30 @@ def c2c(x, inverse, time_major):
     if time_major:
         return st.stockham_fft_nb(x.real.T.contiguous(), x.imag.T.contiguous(), inverse)
     return (st.stockham_fft(x, inverse),)
+
+
+def bluestein_pair(x, inverse):
+    """#17 then #18 on the complex [batch, n] x, a batch-major [2, batch * m]
+    intermediate between them (the fused route before the one-pass
+    kernel)."""
+    batch, n = x.shape
+    bt = bl.device_bluestein_tables(n, inverse, x.device)
+    fx = torch.view_as_real(x.contiguous()).view(-1)
+    out = torch.empty_like(fx)
+    f = torch.empty(2, batch * bt.m, device=x.device)
+    bl._fwd((fx, fx[1:]), (2, 2 * n), (f[0], f[1]), (1, bt.m), batch, bt, False)
+    bl._inv((f[0], f[1]), (1, bt.m), (out, out[1:]), (2, 2 * n), batch, bt, False)
+    return out
+
+
+def bluestein_onepass(x, inverse, layout):
+    """The fused route (the one-pass kernel) on x in `layout`."""
+    if layout == "complex":
+        return (bl.bluestein_fft(x, inverse),)
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    if layout == "bm":
+        return bl.bluestein_fft_bm(re, im, inverse)
+    return bl.bluestein_fft_nb(re.T.contiguous(), im.T.contiguous(), inverse)
 
 
 def main() -> int:
@@ -159,7 +185,7 @@ def main() -> int:
     for n in BLUESTEIN_SIZES:
         x = crand((3, n))
         for inverse in (False, True):
-            same("bluestein_fwd_inv", (n, inverse), lambda: bl.bluestein_fft(x, inverse))
+            same("bluestein_fwd_inv", (n, inverse), lambda: bluestein_pair(x, inverse))
     for n in (1 << k for k in range(1, 13)):
         for batch in (3, POINTS // 2 // n):
             x = crand((batch, n)).to(torch.complex128)
@@ -191,6 +217,14 @@ def main() -> int:
             for inverse in (False, True):
                 same("dft_matmul", (n, batch, inverse), lambda: md.dft_matmul(x, inverse),
                      "watfft_dft_matmul")
+    for n in BLUESTEIN_SIZES:
+        for batch in (3, POINTS // bl.bluestein_m(n)):
+            x = crand((batch, n))
+            for inverse in (False, True):
+                for layout in ("complex", "bm", "nb"):
+                    same("bluestein_onepass", (n, batch, inverse, layout),
+                         lambda: bluestein_onepass(x, inverse, layout),
+                         "watfft_bluestein_onepass")
     torch.cuda.synchronize()
     print(json.dumps({"bit_identical": not differ, "cases": cases, "skipped": skipped,
                       "differ": differ[:20], "device": torch.cuda.get_device_name(0)}),

@@ -147,6 +147,80 @@ def test_plain_kernels_match_jax_interpret(n, inverse):
     assert _rel_to_max(_c(*got), want) <= JAX_LIMIT
 
 
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", INTERPRET_SIZES)
+def test_plain_onepass_matches_jax_fused_interpret(n, inverse):
+    """The one-pass kernel's plain version against `_bluestein_fused` (#17
+    then #18 in interpret mode) on [n, 128], on the JAX tables."""
+    b = 128
+    chirp = jb._ChirpCache.get(n, inverse)
+    m, cre, cim, bre, bim = chirp
+    tables = convert.bluestein_tables_from_jax(n, chirp, jst.stage_plan(m),
+                                               jst.make_twiddle_pack(m, False),
+                                               jst.make_twiddle_pack(m, True), inverse)
+    x = _x((n, b), 40 + n + inverse)
+    want = _c(*jb._bluestein_fused(_j(x.real), _j(x.imag), n, m, inverse, cre, cim, bre, bim))
+    got = bl.plain_bluestein_onepass(_t(x.real), _t(x.imag), inverse, tables)
+    assert got[0].shape == (n, b)
+    assert _rel_to_max(_c(*got), want) <= JAX_LIMIT
+
+
+def _operands(x: torch.Tensor, layout: str):
+    """The complex [batch, n] x as the fused route's operands in `layout`:
+    (x, x strides, y, y as complex [batch, n])."""
+    batch, n = x.shape
+    if layout == "complex":
+        fx = torch.view_as_real(x.contiguous()).view(-1)
+        y = torch.empty_like(fx)
+        return ((fx, fx[1:]), (2, 2 * n), (y, y[1:]),
+                lambda: torch.view_as_complex(y.view(batch, n, 2)))
+    if layout == "bm":
+        xo, xs = (x.real.contiguous(), x.imag.contiguous()), (1, n)
+        yo = (torch.empty_like(xo[0]), torch.empty_like(xo[1]))
+        return xo, xs, yo, lambda: torch.complex(*yo)
+    xo, xs = (x.real.T.contiguous(), x.imag.T.contiguous()), (batch, 1)
+    yo = (torch.empty_like(xo[0]), torch.empty_like(xo[1]))
+    return xo, xs, yo, lambda: torch.complex(*yo).T
+
+
+@pytest.mark.parametrize("layout", ["complex", "bm", "nb"])
+@pytest.mark.parametrize("n", [2, 3, 12, 97, 1000])
+def test_plain_onepass_equals_the_chained_pair(n, layout):
+    """The one-pass kernel's plain version and #17's then #18's, through a
+    batch-major [2, batch * m] intermediate as the pair runs, agree bit for
+    bit on the same strided operands, both directions."""
+    batch = 5
+    x = torch.from_numpy(_x((batch, n), 50 + n))
+    for inverse in (False, True):
+        bt = bl.device_bluestein_tables(n, inverse, "cpu")
+        xo, xs, yo, out = _operands(x, layout)
+        f = torch.empty(2, batch * bt.m)
+        bl._fwd(xo, xs, (f[0], f[1]), (1, bt.m), batch, bt, plain=True)
+        bl._inv((f[0], f[1]), (1, bt.m), yo, xs, batch, bt, plain=True)
+        pair = out().clone()
+        bl._onepass(xo, xs, yo, xs, batch, bt, plain=True)
+        assert torch.equal(out(), pair)
+        if layout == "nb":
+            got = bl.plain_bluestein_onepass(xo[0], xo[1], inverse)
+            assert torch.equal(torch.complex(*got).T, pair)
+
+
+def test_fused_route_runs_the_onepass_plain_version(monkeypatch):
+    """On the CPU the fused route (n = 1000) makes one call of the one-pass
+    kernel's plain version per transform, through `bluestein_fft` and
+    `fftlib.fft` alike."""
+    from watfft_tpu_torch import fftlib
+    calls = []
+    real = bl._plain_onepass
+    monkeypatch.setattr(bl, "_plain_onepass", lambda *a: calls.append(a[0].shape) or real(*a))
+    x = torch.from_numpy(_x((3, 1000), 7))
+    want = np.fft.fft(x.numpy().astype(np.complex128))
+    assert _rel_to_max(bl.bluestein_fft(x).numpy(), want) <= MAX_REL
+    assert calls == [(1000, 3)]
+    assert _rel_to_max(fftlib.fft(x, device="cpu").numpy(), want) <= MAX_REL
+    assert calls == [(1000, 3)] * 2
+
+
 # -- the transform as a whole ------------------------------------------------------------
 
 def _forms(x, inverse):

@@ -1,9 +1,9 @@
 """The Hopper kernels on the card (the Stockham c2c kernel, the fused r2c
 and c2r real kernels, the hybrid real path that drives the c2c kernel
 through strides, the FP64 instances of these three, the four-step kernels
-of the large-N path, the 2D path's cube and passes, the Bluestein pair, the
-small-n DFT matmul (#20) and the c2c kernel's two bf16 instances), against
-their plain torch versions.
+of the large-N path, the 2D path's cube and passes, the Bluestein pair and
+one-pass kernel, the small-n DFT matmul (#20) and the c2c kernel's two bf16
+instances), against their plain torch versions.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no JAX, so it runs on a GPU host that has none; tests/conftest.py imports
@@ -523,7 +523,8 @@ BLUESTEIN_SIZES = [2, 3, 5, 7, 12, 17, 97, 360, 1000, 1009, 2047, 2048]
 @pytest.mark.parametrize("n", BLUESTEIN_SIZES)
 def test_bluestein_kernels_match_plain_all_layouts(n, dev):
     """#17 and #18 alone (time-major [n, b] -> [m, b] -> [n, b]) and the
-    fused transform in three layouts, on ragged batches, both directions."""
+    fused transform (the one-pass kernel) in three layouts, on ragged
+    batches, both directions."""
     from watfft_tpu_torch.ops import bluestein as bl
     for batch in (1, 3, 257):
         x = _x((batch, n), seed=n + batch, dev=dev)
@@ -541,10 +542,30 @@ def test_bluestein_kernels_match_plain_all_layouts(n, dev):
             assert _rel(torch.complex(*bl.bluestein_fft_bm(re, im, inverse)), want) <= KERNEL_LIMIT
             assert _rel(torch.complex(*bl.bluestein_fft_nb(tre, tim, inverse)).T, want) \
                 <= KERNEL_LIMIT
-            assert bl.launches == {k: v + 3 for k, v in before.items()}
+            assert bl.launches == {**before,
+                                   "bluestein_onepass": before["bluestein_onepass"] + 3}
             ref = (torch.fft.ifft if inverse else torch.fft.fft)(x.to(torch.complex128))
             got = bl.bluestein_fft(x, inverse).to(torch.complex128)
             assert _rel(got, ref) <= MAX_REL["float32"]
+
+
+@pytest.mark.parametrize("n", BLUESTEIN_SIZES)
+def test_bluestein_onepass_matches_plain_and_pair(n, dev):
+    """The one-pass kernel on time-major planes (the fused route of
+    bluestein_fft_nb) against its plain version (within KERNEL_LIMIT) and
+    against #17 then #18 on the card (bit for bit: the same operations in
+    the same order), both directions."""
+    from watfft_tpu_torch.ops import bluestein as bl
+    for batch in (1, 3, 257):
+        x = _x((batch, n), seed=2 * n + batch, dev=dev)
+        tre, tim = x.real.T.contiguous(), x.imag.T.contiguous()
+        for inverse in (False, True):
+            got = torch.complex(*bl.bluestein_fft_nb(tre, tim, inverse))
+            want = torch.complex(*bl.plain_bluestein_onepass(tre, tim, inverse))
+            assert _rel(got, want) <= KERNEL_LIMIT
+            pair = torch.complex(*bl.bluestein_inv(*bl.bluestein_fwd(tre, tim, inverse), n,
+                                                   inverse))
+            assert torch.equal(got, pair)
 
 
 def test_fftlib_any_n_on_the_card(dev):
@@ -557,11 +578,13 @@ def test_fftlib_any_n_on_the_card(dev):
     want = torch.fft.fft(x.to(torch.complex128))
     before, c2c = dict(bl.launches), st.launches
     y = fftlib.fft(x)
-    assert bl.launches == {k: v + 1 for k, v in before.items()} and st.launches == c2c
+    onepass = before["bluestein_onepass"]
+    assert bl.launches == {**before, "bluestein_onepass": onepass + 1} and st.launches == c2c
     assert _rel(y.to(torch.complex128), want) <= MAX_REL["float32"]
     assert (fftlib.ifft(y) - x).abs().max().item() < 1e-4
     fftlib.fft(x, n=1024)
-    assert st.launches == c2c + 1 and bl.launches == {k: v + 2 for k, v in before.items()}
+    assert st.launches == c2c + 1
+    assert bl.launches == {**before, "bluestein_onepass": onepass + 2}
     xu = _x((2, 4099), seed=12, dev=dev)
     stage1 = lg.launches["stage1"] + lg.launches["cube"]
     yu = fftlib.fft(xu)
@@ -587,8 +610,9 @@ def test_bluestein_kernels_refuse_what_they_do_not_take(dev):
             bl.bluestein_fft_nb(*(torch.zeros(n, 2, device=dev, dtype=torch.float64),) * 2)
     bt = bl.device_bluestein_tables(12, False, dev)
     x = torch.zeros(2 * bt.m, device=dev)
-    with pytest.raises(RuntimeError, match="out of range"):  # n > m: kErrArgs
-        bl._launch(True, (x, x), (1, bt.m), (x, x), (1, bt.m), bt.m + 1, 1, bt)
+    for key in ("bluestein_fwd", "bluestein_onepass"):
+        with pytest.raises(RuntimeError, match="out of range"):  # n > m: kErrArgs
+            bl._launch(key, (x, x), (1, bt.m), (x, x), (1, bt.m), bt.m + 1, 1, bt)
 
 
 # -- #20, the small-n DFT matmul ---------------------------------------------------------

@@ -13,7 +13,7 @@ tensor, a numpy array or a list) moves there and the result is a torch
 tensor on it, complex64 or float32; with device="cpu" the kernels' plain
 versions run. Power-of-two axes run the port's API (`fft`, `ifft`, `rfft`,
 `irfft`, `fft2`, `ifft2`, `rfft2`, `irfft2`); every other length runs the
-Bluestein transform of ops/bluestein.py, its own two kernels up to
+Bluestein transform of ops/bluestein.py, its one-pass kernel up to
 n = 2048 and the four-step kernels past that. The real transforms of other
 lengths are the complex transform of the real signal (rfft keeps the
 n//2+1 non-negative bins) and, for irfft, of the Hermitian extension of

@@ -138,6 +138,12 @@ def library() -> ctypes.CDLL:
     lib.watfft_bluestein_inv.argtypes = [p, p, p, p, i64, i64, i64, i64, i32, i32, i64,
                                          p, p, p, p, ip, ip, i32, p]
     lib.watfft_bluestein_inv.restype = i32
+    # (xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, m, batch, cre, cim, bre, bim,
+    #  fre, fim, the m-point forward plan, the m-point inverse plan, stream)
+    lib.watfft_bluestein_onepass.argtypes = [p, p, p, p, i64, i64, i64, i64, i32, i32, i64,
+                                             p, p, p, p, p, p, p, p, ip, ip, i32,
+                                             p, p, ip, ip, i32, p]
+    lib.watfft_bluestein_onepass.restype = i32
     lib.watfft_error_string.argtypes = [i32]
     lib.watfft_error_string.restype = ctypes.c_char_p
     build_info.update(path=str(out), log=log)

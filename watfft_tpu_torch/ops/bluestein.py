@@ -20,22 +20,27 @@ FFT). The inverse uses the conjugate chirp and a final 1/n.
 
 Two routes, chosen by `planner.bluestein_kernel` from m alone:
 
-* "bluestein-fused" (m <= planner.STOCKHAM_MAX_N, i.e. n <= 2048): the two
-  kernels of `csrc/bluestein.cu`. #17 (`_bl_fwd_kernel`) multiplies the n
-  input rows by the chirp and zero-extends them in its load, runs the
-  m-point forward stages and multiplies by B in its store, into a
-  batch-major [batch, m] intermediate; #18 (`_bl_inv_kernel`) runs the
-  m-point inverse stages and stores the first n rows times the final chirp,
-  which carries the inverse's 1/n. Two passes through device memory.
+* "bluestein-fused" (m <= planner.STOCKHAM_MAX_N, i.e. n <= 2048): one
+  launch of the one-pass kernel of `csrc/bluestein.cu`, the counterpart of
+  the JAX package's `_bluestein_fused` (#17 then #18). It multiplies the n
+  input rows by the chirp, zero-extends them to m in shared memory, runs
+  the m-point forward stages, multiplies by B, runs the m-point inverse
+  stages and stores the first n rows times the final chirp, which carries
+  the inverse's 1/n: one pass through device memory, 8n bytes read and 8n
+  written per transform. The pair #17 (`bluestein_fwd`: x to the m-point
+  spectrum times B) and #18 (`bluestein_inv`: that spectrum to the
+  transform) remain as kernels of their own, the counterparts of
+  `_bl_fwd_call` and `_bl_inv_call`.
 * "bluestein-<route of m>" (n > 2048): the chirp multiplies and the zero
   extension as torch ops, the two m-point transforms on the port's own
   route for m (the four-step kernels to 2^24, the matmul surface past it),
   as `_bluestein_jit` runs them in XLA.
 
-The plain versions (`plain_bluestein_fwd`, `plain_bluestein_inv`) compute
-each kernel's function in torch ops around `stockham.run_stages`; the
-wrappers use them for CPU tensors, and on CUDA they are the references the
-kernels are held against. A CUDA tensor launches the kernels or raises.
+The plain versions (`plain_bluestein_fwd`, `plain_bluestein_inv`,
+`plain_bluestein_onepass`) compute each kernel's function in torch ops
+around `stockham.run_stages`; the wrappers use them for CPU tensors, and on
+CUDA they are the references the kernels are held against. A CUDA tensor
+launches the kernels or raises.
 
 Forms: time-major planes [n, ...] (`bluestein_fft_nb`, the JAX signature),
 batch-major planes [..., n] (`bluestein_fft_bm`) and complex tensors
@@ -61,12 +66,13 @@ from .stockham import Tables, check_device, run_stages
 
 __all__ = ["bluestein_m", "chirp_tables", "BluesteinTables", "make_bluestein_tables",
            "device_bluestein_tables", "plain_bluestein_fwd", "plain_bluestein_inv",
-           "bluestein_fwd", "bluestein_inv", "bluestein_fft_nb", "bluestein_fft_bm",
-           "bluestein_fft", "plain_bluestein_fft", "launches"]
+           "plain_bluestein_onepass", "bluestein_fwd", "bluestein_inv", "bluestein_fft_nb",
+           "bluestein_fft_bm", "bluestein_fft", "plain_bluestein_fft", "launches"]
 
 # Kernel launches made by the CUDA wrappers since the counts were last set
-# to 0: #17 and #18. The unfused route counts in `large.launches`.
-launches = {"bluestein_fwd": 0, "bluestein_inv": 0}
+# to 0: #17, #18 and the one-pass kernel (the fused route). The unfused
+# route counts in `large.launches`.
+launches = {"bluestein_fwd": 0, "bluestein_inv": 0, "bluestein_onepass": 0}
 
 
 @functools.cache
@@ -204,28 +210,44 @@ def _plain_inv(fre, fim, bt: BluesteinTables):
     return _cmul(ore, oim, _col(bt.fre, ore), _col(bt.fim, ore))
 
 
+def _plain_onepass(xre, xim, bt: BluesteinTables):
+    """The one-pass kernel's function on [n, ...] planes -> new [n, ...]
+    planes: #17's then #18's, the intermediate never leaving torch
+    (`_bluestein_fused`, bluestein.py:192-213)."""
+    return _plain_inv(*_plain_fwd(xre, xim, bt), bt)
+
+
 def _use_kernel(t: torch.Tensor, plain: bool) -> bool:
     return t.device.type == "cuda" and not plain
 
 
-def _launch(fwd: bool, x, xs, y, ys, n: int, batch: int, bt: BluesteinTables) -> None:
+def _plan(t: Tables) -> tuple:
+    return t.twre.data_ptr(), t.twim.data_ptr(), t.c_radices, t.c_offsets, len(t.stages)
+
+
+def _launch(key: str, x, xs, y, ys, n: int, batch: int, bt: BluesteinTables) -> None:
+    """Launches the kernel `key` ("bluestein_fwd", "bluestein_inv" or
+    "bluestein_onepass") on the operands' raw addresses."""
     from ._build import library
 
     stockham._kernel_dtype(x[0], torch.float32)
     lib = library()
-    key = "bluestein_fwd" if fwd else "bluestein_inv"
-    t = bt.fwd if fwd else bt.inv
     args = (x[0].data_ptr(), x[1].data_ptr(), y[0].data_ptr(), y[1].data_ptr(), *xs, *ys,
             n, bt.m, batch)
-    plan = (t.twre.data_ptr(), t.twim.data_ptr(), t.c_radices, t.c_offsets, len(t.stages))
     with torch.cuda.device(x[0].device):
         stream = torch.cuda.current_stream().cuda_stream
-        if fwd:
+        if key == "bluestein_fwd":
             err = lib.watfft_bluestein_fwd(*args, bt.cre.data_ptr(), bt.cim.data_ptr(),
-                                           bt.bre.data_ptr(), bt.bim.data_ptr(), *plan, stream)
-        else:
-            err = lib.watfft_bluestein_inv(*args, bt.fre.data_ptr(), bt.fim.data_ptr(), *plan,
+                                           bt.bre.data_ptr(), bt.bim.data_ptr(), *_plan(bt.fwd),
                                            stream)
+        elif key == "bluestein_inv":
+            err = lib.watfft_bluestein_inv(*args, bt.fre.data_ptr(), bt.fim.data_ptr(),
+                                           *_plan(bt.inv), stream)
+        else:
+            err = lib.watfft_bluestein_onepass(
+                *args, bt.cre.data_ptr(), bt.cim.data_ptr(), bt.bre.data_ptr(),
+                bt.bim.data_ptr(), bt.fre.data_ptr(), bt.fim.data_ptr(), *_plan(bt.fwd),
+                *_plan(bt.inv), stream)
     if err:
         raise RuntimeError(f"{key} kernel launch failed (n={n}, m={bt.m}, batch={batch}): "
                            f"{lib.watfft_error_string(err).decode()}")
@@ -235,7 +257,7 @@ def _launch(fwd: bool, x, xs, y, ys, n: int, batch: int, bt: BluesteinTables) ->
 def _fwd(x, xs, y, ys, batch: int, bt: BluesteinTables, plain: bool) -> None:
     """#17: y [m points] = FFT_m(c . x zero-extended) . B, per sequence."""
     if _use_kernel(x[0], plain):
-        _launch(True, x, xs, y, ys, bt.n, batch, bt)
+        _launch("bluestein_fwd", x, xs, y, ys, bt.n, batch, bt)
         return
     ore, oim = _plain_fwd(*(_as(t, (bt.n, batch), xs) for t in x), bt)
     _as(y[0], (bt.m, batch), ys).copy_(ore)
@@ -245,9 +267,19 @@ def _fwd(x, xs, y, ys, batch: int, bt: BluesteinTables, plain: bool) -> None:
 def _inv(x, xs, y, ys, batch: int, bt: BluesteinTables, plain: bool) -> None:
     """#18: y [n points] = IFFT_m(x)[0..n) . final chirp, per sequence."""
     if _use_kernel(x[0], plain):
-        _launch(False, x, xs, y, ys, bt.n, batch, bt)
+        _launch("bluestein_inv", x, xs, y, ys, bt.n, batch, bt)
         return
     ore, oim = _plain_inv(*(_as(t, (bt.m, batch), xs) for t in x), bt)
+    _as(y[0], (bt.n, batch), ys).copy_(ore)
+    _as(y[1], (bt.n, batch), ys).copy_(oim)
+
+
+def _onepass(x, xs, y, ys, batch: int, bt: BluesteinTables, plain: bool) -> None:
+    """The fused route: y [n points] = DFT_n(x), per sequence, in one launch."""
+    if _use_kernel(x[0], plain):
+        _launch("bluestein_onepass", x, xs, y, ys, bt.n, batch, bt)
+        return
+    ore, oim = _plain_onepass(*(_as(t, (bt.n, batch), xs) for t in x), bt)
     _as(y[0], (bt.n, batch), ys).copy_(ore)
     _as(y[1], (bt.n, batch), ys).copy_(oim)
 
@@ -258,9 +290,10 @@ def _check_planes(a, b) -> None:
                          f"{b.shape} {b.dtype} {b.device}")
 
 
-def _kernel_planes(xre, xim, rows: int, n: int, inverse: bool, tables, fwd: bool, plain: bool):
-    """One kernel on the JAX kernels' time-major planes [rows, b], on the
-    port's tables or (the plain versions) the caller's."""
+def _kernel_planes(xre, xim, rows: int, n: int, inverse: bool, tables, kernel, plain: bool):
+    """One kernel (`_fwd`, `_inv` or `_onepass`) on the JAX kernels'
+    time-major planes [rows, b], on the port's tables or (the plain
+    versions) the caller's."""
     _check_planes(xre, xim)
     if xre.dim() != 2 or xre.shape[0] != rows:
         raise ValueError(f"expected [{rows}, b] planes, got {tuple(xre.shape)}")
@@ -278,10 +311,10 @@ def _kernel_planes(xre, xim, rows: int, n: int, inverse: bool, tables, fwd: bool
                          f"(planner.bluestein_kernel)")
     b = xre.shape[1]
     x = (stockham._dense(xre), stockham._dense(xim))
-    rows_out = bt.m if fwd else n
+    rows_out = bt.m if kernel is _fwd else n
     y = (x[0].new_empty(rows_out, b), x[1].new_empty(rows_out, b))
     if b:
-        (_fwd if fwd else _inv)(x, (b, 1), y, (b, 1), b, bt, plain)
+        kernel(x, (b, 1), y, (b, 1), b, bt, plain)
     return y
 
 
@@ -290,7 +323,7 @@ def bluestein_fwd(xre, xim, inverse: bool = False):
     JAX package's `_bl_fwd_call`). `inverse` picks the direction's tables
     (the conjugate chirp); the m-point stages are forward either way."""
     n = xre.shape[0]
-    return _kernel_planes(xre, xim, n, n, inverse, None, True, plain=False)
+    return _kernel_planes(xre, xim, n, n, inverse, None, _fwd, plain=False)
 
 
 def plain_bluestein_fwd(xre, xim, inverse: bool = False, tables: BluesteinTables | None = None):
@@ -298,21 +331,32 @@ def plain_bluestein_fwd(xre, xim, inverse: bool = False, tables: BluesteinTables
     example the JAX package's, through `convert.bluestein_tables_from_jax`)
     replace the port's own."""
     n = xre.shape[0]
-    return _kernel_planes(xre, xim, n, n, inverse, tables, True, plain=True)
+    return _kernel_planes(xre, xim, n, n, inverse, tables, _fwd, plain=True)
 
 
 def bluestein_inv(fre, fim, n: int, inverse: bool = False):
     """#18 alone on time-major planes [m, b] -> [n, b] (`_bl_inv_call`'s
     shapes): the m-point inverse, the first n rows times the final chirp
     (with 1/n for the Bluestein inverse)."""
-    return _kernel_planes(fre, fim, bluestein_m(n), n, inverse, None, False, plain=False)
+    return _kernel_planes(fre, fim, bluestein_m(n), n, inverse, None, _inv, plain=False)
 
 
 def plain_bluestein_inv(fre, fim, n: int, inverse: bool = False,
                         tables: BluesteinTables | None = None):
     """The plain version of `bluestein_inv`, on any device; `tables` as for
     `plain_bluestein_fwd`."""
-    return _kernel_planes(fre, fim, bluestein_m(n), n, inverse, tables, False, plain=True)
+    return _kernel_planes(fre, fim, bluestein_m(n), n, inverse, tables, _inv, plain=True)
+
+
+def plain_bluestein_onepass(xre, xim, inverse: bool = False,
+                            tables: BluesteinTables | None = None):
+    """The plain version of the one-pass kernel on time-major planes
+    [n, b] -> [n, b] (the shapes of the JAX package's `_bluestein_fused`;
+    on the card `bluestein_fft_nb` launches the kernel for n <= 2048), on
+    any device: the plain versions of #17 and #18 in turn; `tables` as for
+    `plain_bluestein_fwd`."""
+    n = xre.shape[0]
+    return _kernel_planes(xre, xim, n, n, inverse, tables, _onepass, plain=True)
 
 
 # -- the routes on [n, batch] operands ----------------------------------------------
@@ -354,11 +398,7 @@ def _run(x, xs, y, batch: int, bt: BluesteinTables, plain: bool) -> None:
     if bt.fwd is None:  # the unfused route (planner.bluestein_kernel)
         _unfused(x, xs, y, batch, bt, plain)
         return
-    # the intermediate is batch-major, so #17's store and #18's load coalesce
-    f = x[0].new_empty(2, batch * bt.m)
-    fo, fs = (f[0], f[1]), (1, bt.m)
-    _fwd(x, xs, fo, fs, batch, bt, plain)
-    _inv(fo, fs, y, xs, batch, bt, plain)
+    _onepass(x, xs, y, xs, batch, bt, plain)
 
 
 # -- forms, autograd ------------------------------------------------------------------
@@ -436,8 +476,8 @@ def bluestein_fft(x, inverse: bool = False):
 
 
 def plain_bluestein_fft(x, inverse: bool = False):
-    """The plain version of `bluestein_fft` on any device: each kernel's
-    plain version on the same strided views (on the unfused route, the
-    four-step kernels' plain version). On CUDA it is the reference the
+    """The plain version of `bluestein_fft` on any device: the one-pass
+    kernel's plain version on the same strided views (on the unfused route,
+    the four-step kernels' plain version). On CUDA it is the reference the
     kernels are held against."""
     return _forms(x, None, bool(inverse), "complex", plain=True)

@@ -221,15 +221,18 @@ __device__ __forceinline__ void small_dft(const cplx<Real>* in, cplx<Real>* out)
   }
 }
 
-// One radix-R stage on the transform at c (shared memory), in place. The
+// One radix-R stage of an n-point transform, thread th of its tpt. The
 // thread does butterflies i = th + m*tpt, m < P/R, of the q = n/R in the
-// stage: inputs at rows p*q + i, outputs to rows j*R*l + s*l + k (i = j*l + k),
-// row r at c[rows(r)].
-template <int R, int P, bool INV, typename Rows, typename Real>
-__device__ __forceinline__ void stage(cplx<Real>* c, Rows rows, int th, int tpt, int n,
-                                      int log2l, int twoff, bool fold,
-                                      const Real* __restrict__ twre,
-                                      const Real* __restrict__ twim) {
+// stage: input rows p*q + i, read through ld(row), output rows
+// j*R*l + s*l + k (i = j*l + k), written through st(row, value).
+// `in_place`: the stage reads and writes the same shared rows, so every
+// read waits for the block's others before any write. No sync after the
+// writes: the caller syncs where a later stage reads them.
+template <int R, int P, bool INV, typename Real, typename Ld, typename St>
+__device__ __forceinline__ void stage_io(int th, int tpt, int n, int log2l, int twoff, bool fold,
+                                         const Real* __restrict__ twre,
+                                         const Real* __restrict__ twim, bool in_place, Ld ld,
+                                         St st) {
   using C = cplx<Real>;
   constexpr int M = P / R;
   const int q = n / R;
@@ -239,7 +242,7 @@ __device__ __forceinline__ void stage(cplx<Real>* c, Rows rows, int th, int tpt,
   for (int m = 0; m < M; ++m) {
     const int i = th + m * tpt;
 #pragma unroll
-    for (int p = 0; p < R; ++p) v[m * R + p] = c[rows(p * q + i)];
+    for (int p = 0; p < R; ++p) v[m * R + p] = ld(p * q + i);
     if (twoff >= 0) {
 #pragma unroll
       for (int p = 1; p < R; ++p) {
@@ -254,7 +257,7 @@ __device__ __forceinline__ void stage(cplx<Real>* c, Rows rows, int th, int tpt,
       }
     }
   }
-  __syncthreads();  // every read of this stage is done before any write
+  if (in_place) __syncthreads();  // every read of this stage is done before any write
   const int lmask = (1 << log2l) - 1;
 #pragma unroll
   for (int m = 0; m < M; ++m) {
@@ -263,8 +266,21 @@ __device__ __forceinline__ void stage(cplx<Real>* c, Rows rows, int th, int tpt,
     C out[R];
     small_dft<R, 1, INV, Real>(v + m * R, out);
 #pragma unroll
-    for (int s = 0; s < R; ++s) c[rows(base + (s << log2l))] = out[s];
+    for (int s = 0; s < R; ++s) st(base + (s << log2l), out[s]);
   }
+}
+
+// One radix-R stage on the transform at c (shared memory), in place, row
+// r at c[rows(r)]; ends with a block sync.
+template <int R, int P, bool INV, typename Rows, typename Real>
+__device__ __forceinline__ void stage(cplx<Real>* c, Rows rows, int th, int tpt, int n,
+                                      int log2l, int twoff, bool fold,
+                                      const Real* __restrict__ twre,
+                                      const Real* __restrict__ twim) {
+  using C = cplx<Real>;
+  stage_io<R, P, INV, Real>(
+      th, tpt, n, log2l, twoff, fold, twre, twim, true, [&](int r) { return c[rows(r)]; },
+      [&](int r, C z) { c[rows(r)] = z; });
   __syncthreads();
 }
 

@@ -119,14 +119,16 @@ def bluestein_m(n: int) -> int:
 def bluestein_kernel(n: int, batch: int | None = None) -> str:
     """The route of the Bluestein transform of n >= 1 points (ops/bluestein.py),
     fused or not by its convolution length m = bluestein_m(n) alone:
-    "bluestein-fused" (#17 and #18, csrc/bluestein.cu) for
-    m <= STOCKHAM_MAX_N, i.e. n <= 2048; otherwise "bluestein-" + the
-    m-point route of `c2c_kernel` at this batch ("bluestein-large-cube",
-    "bluestein-large-pipe2", "bluestein-fourstep"), with the chirp
-    multiplies as torch ops. The threshold is one thread block of the stage
-    engine: each fused kernel holds whole m-point transforms in shared
-    memory, m/16 threads a transform and at most 256 a block, as the c2c
-    kernel does. The JAX package's threshold is its Stockham kernel's
+    "bluestein-fused" (the one-pass kernel of csrc/bluestein.cu, #17 then
+    #18 in one launch) for m <= STOCKHAM_MAX_N, i.e. n <= 2048; otherwise
+    "bluestein-" + the m-point route of `c2c_kernel` at this batch
+    ("bluestein-large-cube", "bluestein-large-pipe2", "bluestein-fourstep"),
+    with the chirp multiplies as torch ops. The threshold is one thread
+    block of the stage engine: the kernel holds whole m-point transforms in
+    shared memory, m/16 threads a transform and at most 256 a block, as the
+    c2c kernel does. It beat the pair #17 + #18 at every fused n timed on
+    an H100 (chip_smoke.py's bluestein_times, PERF.md), so no n keeps the
+    pair. The JAX package's threshold is its Stockham kernel's
     range on the TPU (`_fused_available`), VMEM-derived, which does not
     carry over. `batch` only names the m-point route; the choice between
     the two routes is m's alone."""
