@@ -179,6 +179,18 @@ Phases (any failure exits nonzero and prints no result):
    (one TF32 pass, within 1e-2 of the largest output), with the device
    time; no kernel launches, and the caller's TF32 setting is back after
    every call.
+29. The column tile (C > T adjacent transforms a block on walks down
+   columns): the c2c kernel's four instances on time-major planes at
+   n = 512..4096 (2^22 points and an odd tail of C * 132 + 3) and the
+   strided kernel through fft2_cols (native [h, w, B], h = 512..4096,
+   w = 2, 16, 4096), fft2_k2 on native [2, 4096, 2048], the pipe2 stages on
+   the [n2, n1, b] blocks of [16, 2^20] and [1, 2^24], pipe2 at [16, 2^20]
+   and fft2 on one 4096^2 image, forward and inverse: each against the
+   same launch at C = T (`config.COLUMN_TILE = 0`, torch.equal) and its
+   plain version (1e-6, 1e-12, 2^-7 of the largest output); each timed at
+   C = T and at the kept C. Then a path run with its launch counts:
+   `create_fft_f32(n).forward_planes_nb` on time-major [n, 2^22/n] at each
+   n and fft2 on a 4096^2 image (against torch.fft in complex128).
 
 The line before the last is a JSON object naming each kernel of the paths
 with its launch count, error, times and the least time the card could take
@@ -281,6 +293,18 @@ LADDER_TF32_GAIN = 10.0
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s, FP32 flop/s
 # outside the tensor cores, and FP64 flop/s (non-tensor)
 PEAK_BYTES, PEAK_FLOPS, PEAK_FLOPS_F64 = 3.35e12, 67e12, 34e12
+# the column tile: the c2c kernel's four instances (tier, planes, tables,
+# limit against the plain version) at these n on time-major planes; the
+# strided kernel through fft2_cols at these widths, fft2_k2 on native
+# [2, 4096, 2048] and the pipe2 stages of [sequences, n]
+COL_SIZES = (512, 1024, 2048, 4096)
+COL_TIERS = (("f32", torch.float32, torch.float32, KERNEL_LIMIT),
+             ("f64", torch.float64, torch.float64, F64_KERNEL_LIMIT),
+             ("bf16", torch.bfloat16, torch.float32, BF16_KERNEL_LIMIT),
+             ("bf16c", torch.bfloat16, torch.bfloat16, BF16_KERNEL_LIMIT))
+COL_FFT2_WIDTHS = (2, 16, 4096)
+COL_K2_SHAPE = (2, 4096, 2048)
+COL_PIPE2 = ((LARGE_B, LARGE_N), (1, 1 << 24))
 
 
 class Failed(Exception):
@@ -436,6 +460,7 @@ def phase_times(dev, gen, name: str, limit: str) -> dict:
         x = rand_complex((batch, n), gen, dev)
         re, im = x.real.contiguous(), x.imag.contiguous()
         re_t, im_t = re.T.contiguous(), im.T.contiguous()
+        xt = x.T.contiguous()
         out = torch.empty_like(x)
         fns = {
             "kernel_fwd": lambda: st.stockham_fft(x),
@@ -446,6 +471,8 @@ def phase_times(dev, gen, name: str, limit: str) -> dict:
             "plain_inv": lambda: st.plain_fft(x, True),
             "cufft_fwd": lambda: torch.fft.fft(x),
             "cufft_inv": lambda: torch.fft.ifft(x),
+            # the library call for time-major [n, B] (#2): the transform down dim 0
+            "cufft_nb_fwd": lambda: torch.fft.fft(xt, dim=0),
             "copy": lambda: out.copy_(x),  # the same 16 B per point, no FFT
         }
         row = {}
@@ -2503,6 +2530,197 @@ def phase_ladder(dev, gen, name: str, limit: str) -> dict:
     return out
 
 
+# -- the column tile -------------------------------------------------------------
+
+@contextlib.contextmanager
+def column_tile(setting):
+    """config.COLUMN_TILE set inside the block (0: the engine's T on every
+    launch), restored after it."""
+    prev, config.COLUMN_TILE = config.COLUMN_TILE, setting
+    try:
+        yield
+    finally:
+        config.COLUMN_TILE = prev
+
+
+def at_t(fn):
+    """fn() with every launch at the engine's own T (no column tile)."""
+    with column_tile(0):
+        return fn()
+
+
+def wide(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.complex128 if t.is_complex() else torch.float64)
+
+
+def planes_rel(got, want) -> float:
+    """max |got - want| / max |want| over pairs of tensors, in double."""
+    return (max((wide(g) - wide(w)).abs().max().item() for g, w in zip(got, want))
+            / max(wide(w).abs().max().item() for w in want))
+
+
+def held_tile(what: str, kernel, plain, limit: float, checks: dict) -> float:
+    """The kept tile's launch against the same launch at C = T (torch.equal)
+    and against the plain version (relative to its largest output)."""
+    got = kernel()
+    same = all(torch.equal(a, b) for a, b in zip(got, at_t(kernel)))
+    rel = planes_rel(got, plain())
+    check(same, f"column tile {what}: differs from the launch at C = T")
+    check(rel <= limit, f"column tile {what}: {rel:.3e} vs plain (limit {limit:.0e})")
+    checks[what] = rel
+    return max((wide(g) - wide(w)).abs().max().item() for g, w in zip(got, plain()))
+
+
+def tile_times(fn) -> dict:
+    """Device ms of fn at C = T and at the kept C."""
+    return {"ms_at_T": at_t(lambda: time_ms(fn)[0]), "ms": time_ms(fn)[0]}
+
+
+def phase_column_tile(dev, gen, name: str, limit: str) -> dict:
+    """The column-tile instances (csrc/stockham.cu, csrc/large.cu, COLS): each
+    held against the same launch at C = T with torch.equal and against its
+    plain version (1e-6 f32, 1e-12 FP64, 2^-7 bf16 of the largest output),
+    at full size and on an odd tail (C * 132 + 3 columns), forward and
+    inverse; then timed once at C = T and at the kept C. The c2c kernel's
+    four instances on time-major planes at n = 512..4096 (2^22 points);
+    the strided kernel through fft2_cols on native [h, w, B] (h = 512..4096,
+    w = 2, 16, 4096), fft2_k2 on native [2, 4096, 2048], the pipe2 stages on
+    [n2, n1, b] blocks of [16, 2^20] and [1, 2^24], pipe2 and fft2 whole.
+    Then the path run: counts set to 0, ctx.forward_planes_nb on time-major
+    [n, 2^22/n] at each n and fft2 on one 4096 x 4096 image, counts read."""
+    checks, out = {}, {"c2c": {}, "strided": {}}
+    for tier, dtype, tdtype, lim in COL_TIERS:
+        for n in COL_SIZES:
+            C, threads = st.tile_shape(n, dtype.itemsize, 2 * tdtype.itemsize,
+                                       batch=POINTS // n)
+            T = st.engine_transforms(n)
+            err = 0.0
+            for batch in (POINTS // n, C * st.SMS + 3):
+                re, im = (t.to(dtype) for t in (rand_real((n, batch), gen, dev),
+                                                  rand_real((n, batch), gen, dev)))
+                for inverse in (False, True):
+                    tabs = st.device_tables(n, inverse, dev, tdtype)
+                    err = max(err, held_tile(
+                        f"{tier} n={n} batch={batch} inverse={inverse}",
+                        lambda: st.stockham_fft_nb(re, im, inverse, tabs),
+                        lambda: st.plain_fft_nb(re, im, inverse, tabs), lim, checks))
+            b = POINTS // n
+            re, im = (t.to(dtype) for t in (rand_real((n, b), gen, dev),
+                                              rand_real((n, b), gen, dev)))
+            tabs = st.device_tables(n, False, dev, tdtype)
+            row = {"C": C, "threads": threads, "T": T, "max_abs_err": err,
+                   **tile_times(lambda: st.stockham_fft_nb(re, im, tables=tabs))}
+            if tier == "f32":
+                xt = torch.complex(re, im)
+                row["library_ms"] = time_ms(lambda: torch.fft.fft(xt, dim=0))[0]
+                row["plain_ms"] = time_ms(lambda: st.plain_fft_nb(re, im), reps=3, warmup=1)[0]
+            out["c2c"][(tier, n)] = row
+            print(json.dumps({"phase": "column_tile", "kernel": f"stockham_c2c_{tier}",
+                              "layout": "time-major", "n": n, "batch": b, **row,
+                              "card": name, "power_limit": limit}), flush=True)
+
+    def strided(key, shape, fn, pfn, n, split=None):
+        err = 0.0
+        for inverse in (False, True):
+            x = rand_complex(shape, gen, dev)
+            err = max(err, held_tile(f"{key} {list(shape)} inverse={inverse}",
+                                     lambda: fn(x, inverse), lambda: pfn(x, inverse),
+                                     KERNEL_LIMIT, checks))
+        x = rand_complex(shape, gen, dev)
+        row = {"n": n, "max_abs_err": err, **tile_times(lambda: fn(x, False))}
+        out["strided"][(key, tuple(shape))] = row
+        print(json.dumps({"phase": "column_tile", "kernel": key, "shape": list(shape), **row,
+                          "card": name, "power_limit": limit}), flush=True)
+
+    def nb(fn):
+        """fn on the native [h, w, B] planes of a complex [h, w, B] tensor."""
+        return lambda x, inv: fn(x.real.contiguous(), x.imag.contiguous(), inv)
+
+    for h in COL_SIZES:
+        for w in COL_FFT2_WIDTHS:
+            for b in sorted({max(1, POINTS // (h * w)), max(1, 8 * st.SMS // w) + 1}):
+                if h * w * b > FFT2_TIME_POINTS:
+                    continue
+                strided("fft2_cols", (h, w, b), nb(f2.fft2_cols), nb(f2.plain_fft2_cols), h)
+    strided("fft2_k2", COL_K2_SHAPE, nb(f2.fft2_k2), nb(f2.plain_fft2_k2), COL_K2_SHAPE[1])
+    for seq, n in COL_PIPE2:
+        n1, n2 = lg.large_split(n)
+        strided("large_stage1", (n2, n1, seq), nb(lg.stage1), nb(lg.plain_stage1), n2)
+        strided("large_stage2", (n2, n1, seq), nb(lg.stage2), nb(lg.plain_stage2), n1)
+    strided("pipe2", (LARGE_B, LARGE_N),
+            lambda x, inv: (lg.fft_large_complex(x, inv, mode="pipe2"),),
+            lambda x, inv: (lg.plain_fft_large(x, inv),), LARGE_N)
+    m = FFT2_MAIN
+    strided("fft2", (1, m, m), lambda x, inv: (f2._complex_route(x, inv, "fft2-2pass"),),
+            lambda x, inv: (f2.plain_fft2(x, inv),), m)
+    xm = rand_complex((m, m), gen, dev)
+    col, _, c, _ = _passes(xm, m, m, 1)
+    col()
+    kept = [t.clone() for t in c]
+    at_t(col)
+    check(all(torch.equal(a, b) for a, b in zip(kept, c)),
+          "column tile: the 4096^2 column pass differs from the launch at C = T")
+    out["fft2_cols_main"] = {**tile_times(col),
+                             "library_ms": time_ms(lambda: torch.fft.fft(xm, dim=-2))[0],
+                             "plain_ms": time_ms(lambda: col(plain=True), reps=3, warmup=1)[0],
+                             "C": st.tile_shape(m, 4, 8, batch=m)[0],
+                             "threads": st.tile_shape(m, 4, 8, batch=m)[1]}
+    print(json.dumps({"phase": "column_tile", "kernel": "fft2_cols", "shape": [m, m],
+                      **out["fft2_cols_main"], "card": name, "power_limit": limit}),
+          flush=True)
+
+    # the path: the time-major transforms and one 4096^2 fft2, counts read after
+    ctxs = {n: create_fft_f32(n, device="cuda") for n in COL_SIZES}
+    xs = {n: (rand_real((n, POINTS // n), gen, dev), rand_real((n, POINTS // n), gen, dev))
+          for n in COL_SIZES}
+    torch.cuda.synchronize()
+    zero_counts()
+    ys = {n: ctxs[n].forward_planes_nb(*xs[n]) for n in COL_SIZES}
+    yf = wtt.fft2(xm)
+    torch.cuda.synchronize()
+    got = counts()
+    check(got == expect(stockham_c2c=len(COL_SIZES) + 1, fft2_cols=1, fft2_rows=1),
+          f"column-tile path: launches {got}")
+    for n in COL_SIZES:
+        check(all(bool(torch.isfinite(t).all()) for t in ys[n]), f"column-tile path n={n}")
+    check(max_rel(yf, c128_2d(xm)) <= MAX_REL["float32"], "column-tile path: fft2 4096^2")
+    out["launches"] = got
+    print(json.dumps({"phase": "column_tile_path", "launches": got,
+                      "checks": len(checks), "worst_rel": max(checks.values())}), flush=True)
+    return out
+
+
+def column_tile_rows(tile: dict, name: str, limit: str) -> list:
+    """The kernels line's rows for the column walk: #2 time-major at
+    n = 512..4096 (f32 planes, 2^22 points) and the 2D column pass
+    at one 4096^2 image, each with its kept C and its time at C = T."""
+    rows = []
+    for n in COL_SIZES:
+        r = tile["c2c"][("f32", n)]
+        b = POINTS // n
+        bnd = bound(16 * n * b, 5 * n * (n.bit_length() - 1) * b)
+        rows.append({"name": f"stockham_c2c_time_major_n{n}", "route": "cuda",
+                     "source": "watfft_tpu_torch/ops/csrc/stockham.cu",
+                     "replaces": "watfft_tpu/ops/pallas_stockham.py:355", "also_replaces": [],
+                     "launches": tile["launches"]["stockham_c2c"],
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"], "ms_at_T": r["ms_at_T"],
+                     "cols": r["C"], "threads": r["threads"], "plain_ms": r["plain_ms"],
+                     "bound_ms": bnd[0],
+                     "bound_by": bnd[1], "library_ms": r["library_ms"], "card": name,
+                     "power_limit": limit})
+    m = FFT2_MAIN
+    r, s = tile["fft2_cols_main"], tile["strided"][("fft2", (1, m, m))]
+    bnd = bound(16 * m * m, 5 * m * m * (m.bit_length() - 1))
+    rows.append({"name": "fft2_cols_4096x4096", "route": "cuda", "source": LARGE_SRC,
+                 "replaces": "watfft_tpu/ops/large.py:136",
+                 "also_replaces": ["watfft_tpu/ops/fft2.py:191"],
+                 "launches": tile["launches"]["fft2_cols"], "max_abs_err": s["max_abs_err"],
+                 "ms": r["ms"], "ms_at_T": r["ms_at_T"], "cols": r["C"],
+                 "threads": r["threads"], "plain_ms": r["plain_ms"], "bound_ms": bnd[0], "bound_by": bnd[1],
+                 "library_ms": r["library_ms"], "card": name, "power_limit": limit})
+    return rows
+
+
 def bound(nbytes: float, flops: float, peak: float = PEAK_FLOPS) -> tuple[float, str]:
     """The least time in ms the card could take: bytes over its memory rate
     or flops over its peak rate for their type (FP32 unless given),
@@ -2618,6 +2836,7 @@ def main() -> int:
         bf16_times = phase_bf16_times(dev, gen, name, limit)
         bf16_rows = bf16_kernel_rows(bf16_main, bf16_times, dev, gen, name, limit)
         phase_ladder(dev, gen, name, limit)
+        tile_rows = column_tile_rows(phase_column_tile(dev, gen, name, limit), name, limit)
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2627,6 +2846,7 @@ def main() -> int:
     line["kernels"].extend(f64_rows)
     line["kernels"].extend(dft_rows)
     line["kernels"].extend(bf16_rows)
+    line["kernels"].extend(tile_rows)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

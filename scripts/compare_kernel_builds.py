@@ -28,13 +28,25 @@ library `_build.library` returns:
   `watfft_bluestein_onepass` at n = 3..2000 (three layouts); an entry point
   the other build lacks is counted under "skipped",
 
+* the walks down columns, where this build takes the column tile: the
+  c2c kernel's four instances on time-major planes at n = 512..4096 with
+  a batch tail (C * 132 + 3 columns), and the strided kernel through
+  `fft2_cols` (native [h, w, B], h = 1024..4096, w = 2 and 16), `fft2_k2`
+  on native [2, 4096, B] and the pipe2 stages on [n2, n1, b] blocks, with
+  odd batches,
+
 at batch 3 and at 2^20 points per call (2^19 in FP64), or at the listed
 shapes, forward and inverse, with this checkout's tables for both. The
-outputs are compared with torch.equal. Needs one CUDA device:
+outputs are compared with torch.equal. A build without the column tile
+ignores the C the wrappers pass it. Where both builds were compiled in this
+run, each kernel instance of the other build is also held to the same
+registers, spills and stack in this one (ptxas -v; instances only this
+build has are listed as new). Needs one CUDA device:
 
     python3 scripts/compare_kernel_builds.py OTHER_CHECKOUT
 
-Prints one JSON line and exits 1 if any output differs.
+Prints one JSON line and exits 1 if any output or any instance's resources
+differ.
 """
 
 from __future__ import annotations
@@ -42,6 +54,7 @@ from __future__ import annotations
 import contextlib
 import importlib.util
 import json
+import re
 import sys
 from pathlib import Path
 
@@ -65,12 +78,49 @@ BLUESTEIN_SIZES = (3, 17, 100, 400, 1000, 1009, 2000)
 DFT_SIZES = [1 << k for k in range(8)] + [12, 100]
 
 
-def other_library(checkout: Path):
+def other_build(checkout: Path):
+    """The other checkout's `_build` module."""
     spec = importlib.util.spec_from_file_location(
         "other_build", checkout / "watfft_tpu_torch" / "ops" / "_build.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.library()
+    return mod
+
+
+def other_library(checkout: Path):
+    return other_build(checkout).library()
+
+
+def ptxas_resources(log: str) -> dict:
+    """Each kernel instance of a ptxas -v log: (registers, stack bytes,
+    spill stores, spill loads), under its mangled name with the anonymous
+    namespace's per-build tag taken out."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = re.sub(r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "ANON", m.group(1))
+            out[cur] = [None, 0, 0, 0]
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m:
+            out[cur][1:] = [int(v) for v in m.groups()]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def compare_ptxas(this_log: str, other_log: str) -> dict:
+    this, other = ptxas_resources(this_log), ptxas_resources(other_log)
+    if not this or not other:
+        return {"ptxas": "not compared (a library was loaded, not built, in this run)"}
+    changed = [f"{k}: {other[k]} -> {this.get(k)}" for k in other if this.get(k) != other[k]]
+    return {"ptxas_instances": len(other), "ptxas_same": not changed,
+            "ptxas_changed": changed[:20], "ptxas_new": sorted(set(this) - set(other))}
 
 
 @contextlib.contextmanager
@@ -122,7 +172,9 @@ def main() -> int:
         print("compare_kernel_builds: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    libs = (_build.library(), other_library(Path(sys.argv[1]).resolve()))
+    other = other_build(Path(sys.argv[1]).resolve())
+    libs = (_build.library(), other.library())
+    resources = compare_ptxas(_build.build_info.get("log", ""), other.build_info.get("log", ""))
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
@@ -225,11 +277,42 @@ def main() -> int:
                     same("bluestein_onepass", (n, batch, inverse, layout),
                          lambda: bluestein_onepass(x, inverse, layout),
                          "watfft_bluestein_onepass")
+    # the walks down columns at the tiles of this build, with batch tails
+    for n in (512, 1024, 2048, 4096):
+        for dtype, tdtype, entry in ((torch.float32, torch.float32, None),
+                                     (torch.float64, torch.float64, None),
+                                     (torch.bfloat16, torch.float32, "watfft_stockham_c2c_bf16"),
+                                     (torch.bfloat16, torch.bfloat16,
+                                      "watfft_stockham_c2c_bf16c")):
+            C = st.tile_shape(n, dtype.itemsize, 2 * tdtype.itemsize, batch=POINTS // n)[0]
+            for batch in (C * st.SMS + 3, POINTS // n):
+                re, im = (rand((n, batch)).to(dtype) for _ in range(2))
+                for inverse in (False, True):
+                    tabs = st.device_tables(n, inverse, dev, tdtype)
+                    same(f"column_tile_c2c_{dtype}_{tdtype}", (n, batch, inverse),
+                         lambda: st.stockham_fft_nb(re, im, tables=tabs), entry)
+    cplanes = [(lambda x: (x.real.contiguous(), x.imag.contiguous()))(crand(shape))
+               for shape in [(h, w, b) for h in (1024, 2048, 4096) for w, b in ((2, 265), (16, 33))]
+               + [(2, 4096, 265), (2, 4096, 64)]]
+    for xre, xim in cplanes:
+        for inverse in (False, True):
+            fn = f2.fft2_k2 if xre.shape[0] == 2 else f2.fft2_cols
+            same("column_tile_strided", (fn.__name__, tuple(xre.shape), inverse),
+                 lambda: fn(xre, xim, inverse))
+    for n2, n1, b in ((1024, 1024, 3), (1024, 16, 67), (4096, 64, 9), (2048, 32, 33)):
+        xre, xim = rand((n2, n1, b)), rand((n2, n1, b))
+        for inverse in (False, True):
+            same("column_tile_strided", ("stage1", (n2, n1, b), inverse),
+                 lambda: lg.stage1(xre, xim, inverse))
+            x2re, x2im = rand((n1, n2, b)), rand((n1, n2, b))
+            same("column_tile_strided", ("stage2", (n1, n2, b), inverse),
+                 lambda: lg.stage2(x2re, x2im, inverse))
     torch.cuda.synchronize()
+    ptxas_ok = resources.get("ptxas_same", True)
     print(json.dumps({"bit_identical": not differ, "cases": cases, "skipped": skipped,
-                      "differ": differ[:20], "device": torch.cuda.get_device_name(0)}),
-          flush=True)
-    return 1 if differ else 0
+                      "differ": differ[:20], **resources,
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
+    return 1 if differ or not ptxas_ok else 0
 
 
 if __name__ == "__main__":

@@ -1,26 +1,43 @@
-"""Time the fused Bluestein route of several builds of the port's CUDA
-library on one card, in turns.
+"""Time routes of several builds of the port's CUDA library on one card, in
+turns.
 
 Builds the library from this checkout and from one or more others (each
 unpacked with `git archive` into a directory that .gitignore lists, as for
-`compare_kernel_builds.py`) and times `bluestein_fft` / `bluestein_fft_bm`
-/ `bluestein_fft_nb` through this checkout's wrappers with each library in
-turn (this, the others in order, then the same in reverse; CUDA events,
-the median of 25 calls each time, `chip_smoke.time_ms`), at [4096, 1000]
-in three layouts and both directions, and at 2^22 points per call for
-each fused n of `chip_smoke.BL_TIME_SIZES` (complex64 and time-major
-planes). The pair #17 + #18 of this
-build is timed beside them. Needs one CUDA device:
+`compare_kernel_builds.py`) and times routes through this checkout's
+wrappers with each library in turn (this, the others in order, then the
+same in reverse; CUDA events, the median of 25 calls each time,
+`chip_smoke.time_ms`). A library that lacks the column tile ignores the C
+the wrappers pass it and runs the engine's own walk. Routes (`--routes`,
+comma-separated, default all):
 
-    python3 scripts/time_kernel_builds.py OTHER_CHECKOUT [OTHER_CHECKOUT ...]
+* `bluestein`: `bluestein_fft` / `_bm` / `_nb` at [4096, 1000] in three
+  layouts and both directions, and at 2^22 points for each fused n of
+  `chip_smoke.BL_TIME_SIZES` (complex64 and time-major planes); the pair
+  #17 + #18 of this build beside them;
+* `columns`: the walks down columns: `stockham_fft_nb` on time-major planes
+  at n = 16..4096 (2^22 points; f32 also at batches of 6..600) in each of
+  the four instances (f32,
+  FP64, bf16 interop, bf16 compute), the 2D column pass and the whole fft2
+  on one 4096 x 4096 complex64 image, pipe2 on [16, 2^20] complex64 and
+  its stages on time-major [n2, n1, b] blocks;
+* `main`: the batch-major main path, 4096 x 1024: the c2c kernel
+  (complex64), the fused r2c and c2r kernels.
 
-Prints one JSON line per shape (device ms, each build's two turns
-averaged: `this_ms`, and `other_ms` in the order of the arguments) and the
-card's name and power limit.
+`--sweep` also times this build's `columns` cases at every column tile C
+from T up to what shared memory holds, in blocks of 256 and 512 threads
+(`config.COLUMN_TILE`), beside the kept tile of `tile_shape`. Needs one
+CUDA device:
+
+    python3 scripts/time_kernel_builds.py [--routes R] [--sweep] [OTHER_CHECKOUT ...]
+
+Prints one JSON line per case (device ms: `this_ms`, each build's two turns
+averaged, and `other_ms` in the order of the arguments; with --sweep
+`sweep_ms` by C) and the card's name and power limit.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 from pathlib import Path
@@ -32,9 +49,17 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 from compare_kernel_builds import other_library, using  # noqa: E402
-from watfft_tpu_torch import planner  # noqa: E402
+from watfft_tpu_torch import config, planner  # noqa: E402
 from watfft_tpu_torch.ops import _build  # noqa: E402
 from watfft_tpu_torch.ops import bluestein as bl  # noqa: E402
+from watfft_tpu_torch.ops import fft2 as f2  # noqa: E402
+from watfft_tpu_torch.ops import large as lg  # noqa: E402
+from watfft_tpu_torch.ops import rfft as rf  # noqa: E402
+from watfft_tpu_torch.ops import stockham as st  # noqa: E402
+
+ROUTES = ("bluestein", "columns", "main")
+# batches of few columns, where a block per SM comes before a wider tile
+TAIL_BATCHES = (6, 100, 300, 600)
 
 
 def layouts(x: torch.Tensor, inverse: bool) -> dict:
@@ -45,48 +70,133 @@ def layouts(x: torch.Tensor, inverse: bool) -> dict:
             "nb": lambda: bl.bluestein_fft_nb(tre, tim, inverse)}
 
 
-def in_turns(libs, fn) -> list[float]:
-    """Each build's ms, the mean of its two turns: 0, 1, ..., k, k, ..., 1, 0."""
+def in_turns(libs, fn) -> list:
+    """Each build's ms, the mean of its two turns: 0, 1, ..., k, k, ..., 1, 0
+    (None for a build that refuses the launch)."""
     ms = [[] for _ in libs]
     order = list(range(len(libs)))
     for k in order + order[::-1]:
         with using(libs[k]):
-            ms[k].append(cs.time_ms(fn)[0])
-    return [sum(v) / len(v) for v in ms]
+            try:
+                ms[k].append(cs.time_ms(fn)[0])
+            except RuntimeError:
+                ms[k].append(None)
+    return [None if None in v else sum(v) / len(v) for v in ms]
+
+
+def bluestein_cases(gen, dev) -> list:
+    cases = []
+    x = cs.rand_complex((cs.BL_MAIN_B, cs.BL_MAIN_N), gen, dev)
+    for inverse in (False, True):
+        for layout, fn in layouts(x, inverse).items():
+            row = {"route": "bluestein", "shape": [cs.BL_MAIN_B, cs.BL_MAIN_N],
+                   "layout": layout, "inverse": inverse}
+            if layout == "complex":
+                fwd, inv, _, _, _ = cs._bl_passes(x, "complex", inverse)
+                row["pair_ms"] = cs.time_ms(lambda: (fwd(), inv()))[0]
+            cases.append((row, fn, None))
+    for n in cs.BL_TIME_SIZES:
+        batch = cs.POINTS // n
+        if planner.bluestein_kernel(n, batch) != "bluestein-fused":
+            continue
+        fns = layouts(cs.rand_complex((batch, n), gen, dev), False)
+        cases += [({"route": "bluestein", "shape": [batch, n], "layout": layout,
+                    "inverse": False}, fns[layout], None) for layout in ("complex", "nb")]
+    return cases
+
+
+def column_cases(gen, dev) -> list:
+    """(row, fn, (n, point bytes)) for each walk down columns; the last item
+    names the tiles a sweep may try."""
+    cases = []
+    shapes = [(n, cs.POINTS // n) for n in (16, 32, 64, 128, 256, *cs.COL_SIZES)]
+    tails = [(n, b) for n in cs.COL_SIZES[1:] for b in TAIL_BATCHES]
+    for tier, dtype, tdtype, _ in cs.COL_TIERS:
+        for n, b in shapes + (tails if tier == "f32" else []):
+            re, im = (cs.rand_real((n, b), gen, dev).to(dtype) for _ in range(2))
+            tabs = st.device_tables(n, False, dev, tdtype)
+            C = st.tile_shape(n, dtype.itemsize, 2 * tdtype.itemsize, batch=b)
+            cases.append(({"route": "columns", "case": f"c2c_nb_{tier}", "shape": [n, b],
+                           "tile": C}, lambda re=re, im=im, tabs=tabs: st.stockham_fft_nb(
+                               re, im, tables=tabs), (n, 2 * tdtype.itemsize)))
+    m = cs.FFT2_MAIN
+    xm = cs.rand_complex((m, m), gen, dev)
+    col, _, _, _ = cs._passes(xm, m, m, 1)
+    cases.append(({"route": "columns", "case": "fft2_cols", "shape": [m, m],
+                   "tile": st.tile_shape(m, 4, 8, batch=m)}, col, (m, 8)))
+    cases.append(({"route": "columns", "case": "fft2", "shape": [m, m]},
+                  lambda: f2.fft2_complex(xm), (m, 8)))
+    n1, n2 = lg.large_split(cs.LARGE_N)
+    x = cs.rand_complex((cs.LARGE_B, cs.LARGE_N), gen, dev)
+    cases.append(({"route": "columns", "case": "pipe2", "shape": [cs.LARGE_B, cs.LARGE_N]},
+                  lambda: lg.fft_large_complex(x, mode="pipe2"), (n2, 8)))
+    blocks = tuple(cs.rand_real((n2, n1, cs.LARGE_B), gen, dev) for _ in range(2))
+    cases.append(({"route": "columns", "case": "pipe2_stage1_nb",
+                   "shape": [n2, n1, cs.LARGE_B]}, lambda: lg.stage1(*blocks), (n2, 8)))
+    cases.append(({"route": "columns", "case": "pipe2_stage2_nb",
+                   "shape": [n2, n1, cs.LARGE_B]}, lambda: lg.stage2(*blocks), (n1, 8)))
+    return cases
+
+
+def main_cases(gen, dev) -> list:
+    n, b = cs.MAIN_N, cs.MAIN_B
+    x = cs.rand_complex((b, n), gen, dev)
+    xr = cs.rand_real((b, n), gen, dev)
+    spec = torch.fft.rfft(xr)
+    sre, sim = spec.real.contiguous(), spec.imag.contiguous()
+    return [({"route": "main", "case": "c2c_complex", "shape": [b, n]},
+             lambda: st.stockham_fft(x), None),
+            ({"route": "main", "case": "r2c", "shape": [b, n]}, lambda: rf.rfft_bm(xr), None),
+            ({"route": "main", "case": "c2r", "shape": [b, n]},
+             lambda: rf.irfft_bm(sre, sim), None)]
+
+
+def sweep(fn, n: int, point: int) -> dict:
+    """ms at every tile from C = T up to the opt-in shared memory, in blocks
+    of 256 and 512 threads ("C/threads"), this build."""
+    out, C = {}, st.engine_transforms(n)
+    while C * st.smem_stride(n) * point <= st.SMEM_OPTIN_BYTES:
+        for threads in (256, 512):
+            if C == st.engine_transforms(n) and threads == 512:
+                continue
+            if C != st.engine_transforms(n) and not threads * 16 <= C * n <= threads * n:
+                continue  # a block holds whole groups, and a thread a column
+            config.COLUMN_TILE = (C, threads)
+            try:
+                out[f"{C}/{threads}"] = cs.time_ms(fn)[0]
+            except (RuntimeError, ValueError) as exc:
+                out[f"{C}/{threads}"] = f"refused: {exc}"
+            finally:
+                config.COLUMN_TILE = None
+        C *= 2
+    return out
 
 
 def main() -> int:
-    if len(sys.argv) < 2:
-        print(__doc__, file=sys.stderr)
-        return 2
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("others", nargs="*", help="other checkouts to build and time in turns")
+    ap.add_argument("--routes", default=",".join(ROUTES))
+    ap.add_argument("--sweep", action="store_true")
+    args = ap.parse_args()
+    routes = args.routes.split(",")
+    if not set(routes) <= set(ROUTES):
+        ap.error(f"routes are {ROUTES}, got {routes}")
     if not torch.cuda.is_available():
         print("time_kernel_builds: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
     name, limit = cs.card()
-    libs = [_build.library(), *(other_library(Path(a).resolve()) for a in sys.argv[1:])]
+    libs = [_build.library(), *(other_library(Path(a).resolve()) for a in args.others)]
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    cases = []
-    x = cs.rand_complex((cs.BL_MAIN_B, cs.BL_MAIN_N), gen, dev)
-    for inverse in (False, True):
-        for layout, fn in layouts(x, inverse).items():
-            cases.append(((cs.BL_MAIN_B, cs.BL_MAIN_N), layout, inverse, fn, x))
-    for n in cs.BL_TIME_SIZES:
-        batch = cs.POINTS // n
-        if planner.bluestein_kernel(n, batch) != "bluestein-fused":
-            continue
-        xn = cs.rand_complex((batch, n), gen, dev)
-        fns = layouts(xn, False)
-        cases += [((batch, n), layout, False, fns[layout], xn) for layout in ("complex", "nb")]
-    for shape, layout, inverse, fn, xs in cases:
-        this, *other = in_turns(libs, fn)
-        row = {"shape": list(shape), "layout": layout, "inverse": inverse, "this_ms": this,
-               "other_ms": other}
-        if layout == "complex":
-            fwd, inv, _, _, _ = cs._bl_passes(xs, "complex", inverse)
-            row["pair_ms"] = cs.time_ms(lambda: (fwd(), inv()))[0]
-        print(json.dumps({**row, "card": name, "power_limit": limit}), flush=True)
+    makers = {"bluestein": bluestein_cases, "columns": column_cases, "main": main_cases}
+    for route in routes:
+        for row, fn, tiles in makers[route](gen, dev):
+            this, *other = in_turns(libs, fn)
+            row = {**row, "this_ms": this, "other_ms": other}
+            if args.sweep and tiles is not None:
+                row["sweep_ms"] = sweep(fn, *tiles)
+            print(json.dumps({**row, "card": name, "power_limit": limit}), flush=True)
     return 0
 
 

@@ -726,3 +726,120 @@ def test_bf16_folded_view_and_backward(dev, monkeypatch):
     (yre.sum() + 2 * yim.sum()).backward()
     want = torch.complex(rf.grad.double(), imf.grad.double())
     assert _rel(torch.complex(rg.grad.double().cpu(), ig.grad.double().cpu()), want) < 5e-2
+
+
+# -- the column tile (walks down columns) -----------------------------------------------------
+
+# (planes, tables, limit against the plain version): f32, FP64, bf16 interop, bf16 compute
+TILE_TIERS = [(torch.float32, torch.float32, KERNEL_LIMIT),
+              (torch.float64, torch.float64, F64_KERNEL_LIMIT),
+              (torch.bfloat16, torch.float32, BF16_KERNEL_LIMIT),
+              (torch.bfloat16, torch.bfloat16, BF16_KERNEL_LIMIT)]
+
+
+def _planes_on(shape, dtype, seed, dev):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32)).to(dev)
+                 .to(dtype) for _ in range(2))
+
+
+def _rel_planes(got, want):
+    return max((g.double() - w.double()).abs().max().item() for g, w in zip(got, want)) / max(
+        w.double().abs().max().item() for w in want)
+
+
+def _at_t(fn, monkeypatch):
+    from watfft_tpu_torch import config
+    monkeypatch.setattr(config, "COLUMN_TILE", 0)
+    out = fn()
+    monkeypatch.setattr(config, "COLUMN_TILE", None)
+    return out
+
+
+@pytest.mark.parametrize("dtype,tdtype,limit", TILE_TIERS)
+@pytest.mark.parametrize("n", [16, 256, 1024, 2048, 4096])
+def test_column_tile_c2c_matches_plain_and_the_engine(n, dtype, tdtype, limit, dev,
+                                                      monkeypatch):
+    C, threads = st.tile_shape(n, dtype.itemsize, 2 * tdtype.itemsize, batch=1 << 16)
+    assert C > st.engine_transforms(n)
+    for batch in (C * st.SMS + 3, C * st.SMS // 2 + 1):   # tails: a partial last tile
+        re, im = _planes_on((n, batch), dtype, n + batch, dev)
+        for inverse in (False, True):
+            tabs = st.device_tables(n, inverse, dev, tdtype)
+            got = st.stockham_fft_nb(re, im, inverse, tabs)
+            same = _at_t(lambda: st.stockham_fft_nb(re, im, inverse, tabs), monkeypatch)
+            assert all(torch.equal(a, b) for a, b in zip(got, same))
+            assert _rel_planes(got, st.plain_fft_nb(re, im, inverse, tabs)) <= limit
+
+
+def test_column_tile_blocks_of_either_size_agree(dev, monkeypatch):
+    from watfft_tpu_torch import config
+    n, batch = 1024, 8 * st.SMS + 5
+    re, im = _planes_on((n, batch), torch.float32, 3, dev)
+    outs = []
+    for tile in (0, (8, 256), (8, 512), (16, 256), (16, 512)):
+        monkeypatch.setattr(config, "COLUMN_TILE", tile)
+        outs.append(st.stockham_fft_nb(re, im))
+    assert all(torch.equal(a, b) for out in outs[1:] for a, b in zip(out, outs[0]))
+
+
+@pytest.mark.parametrize("shape", [(4096, 2, 265), (1024, 2, 529), (2048, 16, 33),
+                                   (1024, 4096, 1)])
+def test_column_tile_fft2_cols_matches(shape, dev, monkeypatch):
+    re, im = _planes_on(shape, torch.float32, sum(shape), dev)
+    for inverse in (False, True):
+        got = f2.fft2_cols(re, im, inverse)
+        same = _at_t(lambda: f2.fft2_cols(re, im, inverse), monkeypatch)
+        assert all(torch.equal(a, b) for a, b in zip(got, same))
+        assert _rel_planes(got, f2.plain_fft2_cols(re, im, inverse)) <= KERNEL_LIMIT
+    # batch-major [B, h, w] at w = 2: a tile of the 2 columns of each image
+    b, h, w = 265, 4096, 2
+    x = _x((b, h, w), seed=9, dev=dev)
+    got = f2.fft2_complex(x)
+    assert torch.equal(got, _at_t(lambda: f2.fft2_complex(x), monkeypatch))
+    assert _rel(got, f2.plain_fft2(x)) <= KERNEL_LIMIT
+
+
+@pytest.mark.parametrize("n2,n1,b", [(1024, 1024, 3), (4096, 64, 9), (1024, 16, 67)])
+def test_column_tile_pipe2_stages_match(n2, n1, b, dev, monkeypatch):
+    re, im = _planes_on((n2, n1, b), torch.float32, n2 + b, dev)
+    for inverse in (False, True):
+        for fn, plain in ((lg.stage1, lg.plain_stage1), (lg.stage2, lg.plain_stage2)):
+            got = fn(re, im, inverse)
+            same = _at_t(lambda: fn(re, im, inverse), monkeypatch)
+            assert all(torch.equal(a, c) for a, c in zip(got, same))
+            assert _rel_planes(got, plain(re, im, inverse)) <= KERNEL_LIMIT
+    re2, im2 = _planes_on((2, 4096, 265), torch.float32, 11, dev)
+    got = f2.fft2_k2(re2, im2)
+    assert all(torch.equal(a, c) for a, c in
+               zip(got, _at_t(lambda: f2.fft2_k2(re2, im2), monkeypatch)))
+
+
+def test_column_tile_refusals(dev, monkeypatch):
+    from watfft_tpu_torch import config
+    from watfft_tpu_torch.ops import _build
+    re, im = _planes_on((1024, 40), torch.float32, 1, dev)
+    for tile in (3, 2, 1 << 10, (8, 384)):
+        monkeypatch.setattr(config, "COLUMN_TILE", tile)
+        with pytest.raises(ValueError, match="column tile"):
+            st.stockham_fft_nb(re, im)
+    monkeypatch.setattr(config, "COLUMN_TILE", None)
+    # the kernels' own refusals, before any launch (kErrTile = -6)
+    lib = _build.library()
+    tabs = st.device_tables(1024, False, dev)
+    x = torch.zeros(1024 * 8, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for cols, threads in ((3, 0), (2, 0), (64, 0), (1 << 20, 0), (8, 384), (16, 256)):
+        if (cols, threads) == (16, 256):
+            cols, n, t16 = 512, 16, st.device_tables(16, False, dev)  # more columns than threads
+            err = lib.watfft_stockham_c2c(x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
+                                          8, 1, 8, 1, n, 8, t16.twre.data_ptr(),
+                                          t16.twim.data_ptr(), t16.c_radices, t16.c_offsets,
+                                          len(t16.stages), 0, stream, cols, threads)
+        else:
+            err = lib.watfft_stockham_c2c(x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
+                                          8, 1, 8, 1, 1024, 8, tabs.twre.data_ptr(),
+                                          tabs.twim.data_ptr(), tabs.c_radices, tabs.c_offsets,
+                                          len(tabs.stages), 0, stream, cols, threads)
+        assert err == -6, (cols, threads, err)
+    assert "column tile" in lib.watfft_error_string(-6).decode()

@@ -27,8 +27,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Filled by `library()`: the library's path and the compiler's report
-# (ptxas -v: registers, shared memory and spills per kernel; empty when an
-# existing build was loaded).
+# (ptxas -v: registers, shared memory and spills per kernel), kept beside
+# the library so a build that is loaded, not compiled, still has it.
 build_info: dict = {}
 
 
@@ -80,19 +80,22 @@ def library() -> ctypes.CDLL:
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     out = _BUILD_DIR / f"libwatfft_kernels-{digest.hexdigest()[:16]}.so"
-    log = ""
+    report = out.with_suffix(".ptxas.txt")
     if not out.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        log = _compile(sources, tmp)
+        report.write_text(_compile(sources, tmp))
         os.replace(tmp, out)  # atomic: a concurrent process never loads half a file
+    log = report.read_text() if report.exists() else ""
     lib = ctypes.CDLL(str(out))
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     ip = ctypes.POINTER(ctypes.c_int)
     # each of these three in float32 and, under the _f64 name, float64
+    # the c2c kernel's last arguments: the column tile C (0: none), its threads
     for suffix in ("", "_f64"):
         c2c = getattr(lib, "watfft_stockham_c2c" + suffix)
-        c2c.argtypes = [p, p, p, p, i64, i64, i64, i64, i32, i64, p, p, ip, ip, i32, i32, p]
+        c2c.argtypes = [p, p, p, p, i64, i64, i64, i64, i32, i64, p, p, ip, ip, i32, i32, p,
+                        i32, i32]
         c2c.restype = i32
         # (x, x_sn, x_sb, yre, yim, y_sn, y_sb, n, batch, twre, twim, radices,
         #  offsets, nstages, wre, wim, stream) and the c2r mirror of it
@@ -105,17 +108,18 @@ def library() -> ctypes.CDLL:
     # the c2c kernel's bf16 instances: interop (f32 tables) and compute (bf16)
     for suffix in ("_bf16", "_bf16c"):
         c2c = getattr(lib, "watfft_stockham_c2c" + suffix)
-        c2c.argtypes = [p, p, p, p, i64, i64, i64, i64, i32, i64, p, p, ip, ip, i32, i32, p]
+        c2c.argtypes = [p, p, p, p, i64, i64, i64, i64, i32, i64, p, p, ip, ip, i32, i32, p,
+                        i32, i32]
         c2c.restype = i32
     # (xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch, W^T, stream)
     lib.watfft_dft_matmul.argtypes = [p, p, p, p, i64, i64, i64, i64, i32, i64, p, p]
     lib.watfft_dft_matmul.restype = i32
     # (xre, xim, yre, yim, x_sn, x_sa, x_sb, y_sn, y_sa, y_sb, pmre, pmim,
     #  m_sn, m_sa, m_sb, mul, n, inner, batch, twre, twim, radices, offsets,
-    #  nstages, inverse, stream)
+    #  nstages, inverse, stream, cols, threads)
     lib.watfft_strided_c2c.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, i64, p, p,
                                        i64, i64, i64, i32, i32, i64, i64,
-                                       p, p, ip, ip, i32, i32, p]
+                                       p, p, ip, ip, i32, i32, p, i32, i32]
     lib.watfft_strided_c2c.restype = i32
     # (xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n1, n2, batch, pmre, pmim,
     #  the n2-point twre, twim, radices, offsets, nstages, the n1-point ones,

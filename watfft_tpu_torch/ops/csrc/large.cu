@@ -27,9 +27,15 @@
 // per point (the multiplier adds 8 more, from L2 while the [n2, n1] table
 // fits its 50 MB, i.e. N <= 2^22); the pipe2 and 2d modes make two passes,
 // the cube one. The stage engine's rate (PERF.md) is the first limit in
-// practice. Stage 2 stores D[k1, k2] along k2, so at large n1 (T = 1..4
-// transforms per block) its stores stride by n2 rows: the uncoalesced
-// pattern of the time-major c2c layout. Left as it is in this first version.
+// practice. Where a pass walks down columns (stage 1 and the 2D column
+// pass: rows n1 or w points apart; stage 2's transposed store: D[k1, k2]
+// along k2, rows n2 apart), the host asks for a column tile, as for the
+// time-major c2c layout (stockham.cu): strided_cols_kernel stages C > T
+// adjacent columns of the inner batch axis (or of both axes, where the
+// outer continues the inner) and reads or writes each row's run of C whole
+// (the load by cp.async unless it multiplies); a side whose rows are
+// contiguous (stage 2's load) keeps the engine's walk over the same C
+// transforms. The tile opts in past 48 KB of shared memory.
 //
 // The cube holds one whole N <= 2^14 transform in dynamic shared memory
 // (N + N/16 float2: 68 KB at 2^13, 136 KB at 2^14, over the 48 KB a launch
@@ -47,6 +53,8 @@
 // C interface (loaded with ctypes): each entry launches on the given
 // stream, allocates nothing, and returns cudaGetLastError() after the
 // launch, or a negative code (stockham.cuh) for arguments it refuses.
+// watfft_strided_c2c's last two arguments are the column tile C (0: none)
+// and its block's threads.
 
 #include "stockham.cuh"
 
@@ -95,33 +103,108 @@ strided_c2c_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
   });
 }
 
-template <int P, bool INV, int MUL>
-void launch_strided(const float* xre, const float* xim, float* yre, float* yim,
+// The column-tile instances (P = 16): T = C columns a block of 256 or 512
+// threads, the stages on its groups in turn (see stockham.cu's
+// stockham_cols_kernel).
+template <bool INV, int MUL>
+__global__ void __launch_bounds__(kColsThreads, 1)
+strided_cols_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
+                    float* __restrict__ yre, float* __restrict__ yim,
                     int64_t x_sn, Batch2 xb, int64_t y_sn, Batch2 yb,
-                    const float* pmre, const float* pmim, int64_t m_sn, Batch2 mb,
-                    int64_t batch, const float* twre, const float* twim,
-                    const Plan& plan, int T, cudaStream_t stream) {
+                    const float* __restrict__ pmre, const float* __restrict__ pmim,
+                    int64_t m_sn, Batch2 mb, int64_t batch, int T, int S,
+                    const float* __restrict__ twre, const float* __restrict__ twim,
+                    Plan plan) {
+  extern __shared__ float2 smem[];
+  const int n = 1 << plan.log2n;
+  const int tpt = n / 16;
+  const int64_t first = (int64_t)blockIdx.x * T;
+  const int count = (int)min((int64_t)T, batch - first);
+  const int log2c = 31 - __clz(T);
+  // the multiplier's offset of the thread's column in the column walk
+  const int64_t mcol = MUL == kMulNone ? 0 : mb(first + (threadIdx.x & (T - 1)));
+
+  const auto put = [&](int t, int k, float2 v) { smem[t * S + pad(k)] = v; };
+  if (MUL != kMulLoad && x_sn > xb.sb) {
+    copy_cols(plan.log2n, log2c, count, first, x_sn, xb, xre, xim, smem, S);
+  } else if (x_sn > xb.sb) {
+    load_cols(plan.log2n, log2c, count, first, x_sn, xb, [&](int k, int64_t g) {
+      float2 v = make_float2(xre[g], xim[g]);
+      if constexpr (MUL == kMulLoad) {
+        const int64_t w = mcol + (int64_t)k * m_sn;
+        v = cmul(v, make_float2(__ldg(pmre + w), __ldg(pmim + w)));
+      }
+      return v;
+    }, put);
+  } else {
+    for_tile_b(plan.log2n, T, count, first, x_sn, xb, [&](int t, int k, int64_t g) {
+      float2 v = make_float2(xre[g], xim[g]);
+      if constexpr (MUL == kMulLoad) {
+        const int64_t w = mb(first + t) + (int64_t)k * m_sn;
+        v = cmul(v, make_float2(__ldg(pmre + w), __ldg(pmim + w)));
+      }
+      put(t, k, v);
+    });
+  }
+  __syncthreads();
+
+  const int t = threadIdx.x / tpt, th = threadIdx.x - t * tpt;
+  for (int c = t; c < T; c += blockDim.x / tpt) {
+    run_stages<16, INV>(smem + c * S, th, tpt, plan, twre, twim);
+  }
+
+  // point k of column t to y at g, times pm at w + k*m_sn for kMulStore
+  const auto store = [&](int t, int k, int64_t w, int64_t g) {
+    float2 z = smem[t * S + pad(k)];
+    if constexpr (MUL == kMulStore) {
+      w += (int64_t)k * m_sn;
+      z = cmul(z, make_float2(__ldg(pmre + w), __ldg(pmim + w)));
+    }
+    yre[g] = z.x;
+    yim[g] = z.y;
+  };
+  if (y_sn > yb.sb) {
+    for_cols(plan.log2n, log2c, count, first, y_sn, yb,
+             [&](int t, int k, int64_t g) { store(t, k, mcol, g); });
+  } else {
+    for_tile_b(plan.log2n, T, count, first, y_sn, yb, [&](int t, int k, int64_t g) {
+      store(t, k, MUL == kMulNone ? 0 : mb(first + t), g);
+    });
+  }
+}
+
+template <int P, bool INV, int MUL, bool COLS>
+int launch_strided(const float* xre, const float* xim, float* yre, float* yim,
+                   int64_t x_sn, Batch2 xb, int64_t y_sn, Batch2 yb,
+                   const float* pmre, const float* pmim, int64_t m_sn, Batch2 mb,
+                   int64_t batch, const float* twre, const float* twim,
+                   const Plan& plan, int T, cudaStream_t stream, int threads) {
   const int S = smem_stride(1 << plan.log2n);
   const size_t smem = (size_t)T * S * sizeof(float2);
   const int64_t blocks = (batch + T - 1) / T;
-  strided_c2c_kernel<P, INV, MUL><<<(unsigned)blocks, kBlockThreads, smem, stream>>>(
+  auto kernel = strided_c2c_kernel<P, INV, MUL>;
+  if constexpr (COLS) kernel = strided_cols_kernel<INV, MUL>;
+  if (const int err = opt_in_smem(kernel, smem)) return err;
+  kernel<<<(unsigned)blocks, threads, smem, stream>>>(
       xre, xim, yre, yim, x_sn, xb, y_sn, yb, pmre, pmim, m_sn, mb, batch, T, S, twre, twim,
       plan);
+  return 0;
 }
 
-template <int P, bool INV>
-void launch_mul(int mul, const float* xre, const float* xim, float* yre, float* yim,
-                int64_t x_sn, Batch2 xb, int64_t y_sn, Batch2 yb,
-                const float* pmre, const float* pmim, int64_t m_sn, Batch2 mb,
-                int64_t batch, const float* twre, const float* twim,
-                const Plan& plan, int T, cudaStream_t st) {
-#define WATFFT_LAUNCH(MUL)                                                                   \
-  launch_strided<P, INV, MUL>(xre, xim, yre, yim, x_sn, xb, y_sn, yb, pmre, pmim, m_sn, mb, \
-                              batch, twre, twim, plan, T, st)
+template <int P, bool INV, bool COLS = false>
+int launch_mul(int mul, const float* xre, const float* xim, float* yre, float* yim,
+               int64_t x_sn, Batch2 xb, int64_t y_sn, Batch2 yb,
+               const float* pmre, const float* pmim, int64_t m_sn, Batch2 mb,
+               int64_t batch, const float* twre, const float* twim,
+               const Plan& plan, int T, cudaStream_t st, int threads = kBlockThreads) {
+#define WATFFT_LAUNCH(MUL)                                                                  \
+  return launch_strided<P, INV, MUL, COLS>(xre, xim, yre, yim, x_sn, xb, y_sn, yb, pmre,   \
+                                           pmim, m_sn, mb, batch, twre, twim, plan, T, st, \
+                                           threads)
   switch (mul) {
-    case kMulLoad:  WATFFT_LAUNCH(kMulLoad); break;
-    case kMulStore: WATFFT_LAUNCH(kMulStore); break;
-    default:        WATFFT_LAUNCH(kMulNone); break;
+    case kMulLoad:  WATFFT_LAUNCH(kMulLoad);
+    case kMulStore: WATFFT_LAUNCH(kMulStore);
+    default:        WATFFT_LAUNCH(kMulNone);
   }
 #undef WATFFT_LAUNCH
 }
@@ -192,7 +275,9 @@ extern "C" {
 // b / inner); element (k, i, o) of x sits at k*x_sn + i*x_sa + o*x_sb floats
 // past xre and xim (y and pm likewise; pm is read only when mul != 0). y
 // must not overlap x. The plan is given as its radices and twiddle-pack
-// offsets, stage by stage.
+// offsets, stage by stage. cols: the column tile C over the inner axis, a
+// power of two >= T (0: the engine's T); threads: its block, 256 or 512
+// (0: 256).
 int watfft_strided_c2c(const float* xre, const float* xim, float* yre, float* yim,
                        int64_t x_sn, int64_t x_sa, int64_t x_sb,
                        int64_t y_sn, int64_t y_sa, int64_t y_sb,
@@ -201,9 +286,10 @@ int watfft_strided_c2c(const float* xre, const float* xim, float* yre, float* yi
                        int n, int64_t inner, int64_t batch,
                        const float* twre, const float* twim,
                        const int* radices, const int* twoffsets, int nstages,
-                       int inverse, void* stream) {
+                       int inverse, void* stream, int cols, int threads) {
   Plan plan;
-  int maxr, T;
+  int maxr, T, C, NT;
+  bool tiled;
   if (const int err = make_plan(n, batch, radices, twoffsets, nstages, plan, maxr, T)) {
     return err;
   }
@@ -211,12 +297,26 @@ int watfft_strided_c2c(const float* xre, const float* xim, float* yre, float* yi
       mul > kMulStore) {
     return kErrArgs;
   }
+  if (const int err = tile_shape(cols, threads, n, maxr, T, batch, sizeof(float2), C, NT,
+                                 tiled)) {
+    return err;
+  }
   const uint32_t in = (uint32_t)inner;
   const Batch2 xb{x_sa, x_sb, in}, yb{y_sa, y_sb, in}, mb{m_sa, m_sb, in};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define WATFFT_LAUNCH(P, INV)                                                                   \
-  launch_mul<P, INV>(mul, xre, xim, yre, yim, x_sn, xb, y_sn, yb, pmre, pmim, m_sn, mb, batch, \
-                     twre, twim, plan, T, st)
+  int err;
+  if (tiled) {  // the column-tile instances: P = 16 (tile_shape checked)
+    err = inverse ? launch_mul<16, true, true>(mul, xre, xim, yre, yim, x_sn, xb, y_sn, yb,
+                                               pmre, pmim, m_sn, mb, batch, twre, twim, plan,
+                                               C, st, NT)
+                  : launch_mul<16, false, true>(mul, xre, xim, yre, yim, x_sn, xb, y_sn, yb,
+                                                pmre, pmim, m_sn, mb, batch, twre, twim, plan,
+                                                C, st, NT);
+    return err ? err : (int)cudaGetLastError();
+  }
+#define WATFFT_LAUNCH(P, INV)                                                                 \
+  err = launch_mul<P, INV>(mul, xre, xim, yre, yim, x_sn, xb, y_sn, yb, pmre, pmim, m_sn, mb, \
+                           batch, twre, twim, plan, T, st)
   switch (maxr * 2 + (inverse ? 1 : 0)) {
     case 4:  WATFFT_LAUNCH(2, false); break;
     case 5:  WATFFT_LAUNCH(2, true); break;
@@ -228,7 +328,7 @@ int watfft_strided_c2c(const float* xre, const float* xim, float* yre, float* yi
     default: WATFFT_LAUNCH(16, true); break;
   }
 #undef WATFFT_LAUNCH
-  return (int)cudaGetLastError();
+  return err ? err : (int)cudaGetLastError();
 }
 
 // y = DFT_N(x) by the four-step in one block per sequence, N = n1*n2:

@@ -50,6 +50,19 @@
 //  * Global access. Loads and stores walk the tile along whichever of the
 //    two strides is smaller, so neighbouring threads touch neighbouring
 //    addresses in batch-major layouts and, where T allows, in time-major.
+//    Where it does not (time-major planes at n >= 1024: T <= 4 columns, 4-16
+//    bytes of each 32-byte sector), the host asks for a column tile, and
+//    takes it at every n >= 16 of a walk down columns, where it measured
+//    faster too: a block of stockham_cols_kernel stages C > T adjacent
+//    transforms (ops/stockham.py `tile_shape`: the widest tile that leaves
+//    room for three blocks an SM, in 256 threads, where its rows fill a
+//    sector, else the widest the opt-in shared memory holds, 139 KB, in 512
+//    threads), reads each row's run of C columns whole (cp.async straight
+//    into shared memory where the planes hold the stages' scalar, batched
+//    register loads for bf16 planes), and runs the stages on its groups of
+//    transforms in turn. Each transform's operations are the engine's, so
+//    the outputs do not change; the instances without the tile compile to
+//    what they did before it.
 //  * Twiddles come from the packed table through the read-only cache; the
 //    largest pack (n=4096) is 2 x 7680 floats and stays in L2.
 //  * Constants of the radix-2 network are the f32 roundings of the f64
@@ -75,7 +88,8 @@
 // f32 stages) and watfft_stockham_c2c_bf16c (bf16 throughout) launch on
 // the given stream, allocate nothing, and return cudaGetLastError() after
 // the launch, or a negative code for arguments they refuse before
-// launching.
+// launching. Their last two arguments are the column tile C (0: none) and
+// its block's threads.
 
 #include "stockham.cuh"
 
@@ -116,17 +130,73 @@ stockham_c2c_kernel(const Store* __restrict__ xre, const Store* __restrict__ xim
   });
 }
 
-template <typename Real, typename Store, int P, bool INV>
+// The column-tile instances (P = 16): a block of 256 or 512 threads stages
+// T = C columns, C/T' groups of T' = blockDim * 16 / n transforms, each run
+// as the engine runs it. A side whose rows lie further apart than its
+// columns takes the column walk; the other keeps the engine's walk over the
+// tile.
+template <typename Real, typename Store, bool INV>
+__global__ void __launch_bounds__(kColsThreads, 1)
+stockham_cols_kernel(const Store* __restrict__ xre, const Store* __restrict__ xim,
+                     Store* __restrict__ yre, Store* __restrict__ yim,
+                     int64_t x_sn, int64_t x_sb, int64_t y_sn, int64_t y_sb,
+                     int64_t batch, int T, int S,
+                     const Real* __restrict__ twre, const Real* __restrict__ twim,
+                     Plan plan) {
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  cplx<Real>* smem = reinterpret_cast<cplx<Real>*>(smem_bytes);
+  const int n = 1 << plan.log2n;
+  const int tpt = n / 16;
+  const int64_t first = (int64_t)blockIdx.x * T;
+  const int count = (int)min((int64_t)T, batch - first);
+  const int log2c = 31 - __clz(T);
+  const Batch1 xb{x_sb}, yb{y_sb};
+
+  const auto put = [&](int t, int k, cplx<Real> v) { smem[t * S + pad(k)] = v; };
+  if (x_sn > x_sb) {
+    if constexpr (sizeof(Store) == sizeof(Real) && sizeof(Real) >= 4) {
+      copy_cols(plan.log2n, log2c, count, first, x_sn, xb, xre, xim, smem, S);
+    } else {
+      load_cols(plan.log2n, log2c, count, first, x_sn, xb, [&](int, int64_t g) {
+        return make_c(widen<Real>(xre[g]), widen<Real>(xim[g]));
+      }, put);
+    }
+  } else {
+    for_tile_b(plan.log2n, T, count, first, x_sn, xb, [&](int t, int k, int64_t g) {
+      put(t, k, make_c(widen<Real>(xre[g]), widen<Real>(xim[g])));
+    });
+  }
+  __syncthreads();
+
+  const int t = threadIdx.x / tpt, th = threadIdx.x - t * tpt;
+  for (int c = t; c < T; c += blockDim.x / tpt) {
+    run_stages<16, INV>(smem + c * S, th, tpt, plan, twre, twim);
+  }
+
+  const auto store = [&](int t, int k, int64_t g) {
+    const cplx<Real> z = smem[t * S + pad(k)];
+    yre[g] = narrow<Store>(z.x);
+    yim[g] = narrow<Store>(z.y);
+  };
+  if (y_sn > y_sb) {
+    for_cols(plan.log2n, log2c, count, first, y_sn, yb, store);
+  } else {
+    for_tile_b(plan.log2n, T, count, first, y_sn, yb, store);
+  }
+}
+
+template <typename Real, typename Store, int P, bool INV, bool COLS = false>
 int launch(const Store* xre, const Store* xim, Store* yre, Store* yim,
            int64_t x_sn, int64_t x_sb, int64_t y_sn, int64_t y_sb,
            int64_t batch, const Real* twre, const Real* twim,
-           const Plan& plan, int T, cudaStream_t stream) {
+           const Plan& plan, int T, cudaStream_t stream, int threads = kBlockThreads) {
   const int S = smem_stride(1 << plan.log2n);
   const size_t smem = (size_t)T * S * sizeof(cplx<Real>);
   const int64_t blocks = (batch + T - 1) / T;
   auto kernel = stockham_c2c_kernel<Real, Store, P, INV>;
+  if constexpr (COLS) kernel = stockham_cols_kernel<Real, Store, INV>;
   if (const int err = opt_in_smem(kernel, smem)) return err;
-  kernel<<<(unsigned)blocks, kBlockThreads, smem, stream>>>(
+  kernel<<<(unsigned)blocks, threads, smem, stream>>>(
       xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, batch, T, S, twre, twim, plan);
   return (int)cudaGetLastError();
 }
@@ -135,13 +205,27 @@ template <typename Real, typename Store>
 int c2c(const Store* xre, const Store* xim, Store* yre, Store* yim,
         int64_t x_sn, int64_t x_sb, int64_t y_sn, int64_t y_sb,
         int n, int64_t batch, const Real* twre, const Real* twim,
-        const int* radices, const int* twoffsets, int nstages, int inverse, void* stream) {
+        const int* radices, const int* twoffsets, int nstages, int inverse, void* stream,
+        int cols, int threads) {
   Plan plan;
-  int maxr, T;
+  int maxr, T, C, NT;
+  bool tiled;
   if (const int err = make_plan(n, batch, radices, twoffsets, nstages, plan, maxr, T)) {
     return err;
   }
+  if (const int err = tile_shape(cols, threads, n, maxr, T, batch, sizeof(cplx<Real>), C, NT,
+                                 tiled)) {
+    return err;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tiled) {  // the column-tile instances: P = 16 (tile_shape checked)
+    if (inverse) {
+      return launch<Real, Store, 16, true, true>(xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb,
+                                                 batch, twre, twim, plan, C, st, NT);
+    }
+    return launch<Real, Store, 16, false, true>(xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb,
+                                                batch, twre, twim, plan, C, st, NT);
+  }
 #define WATFFT_LAUNCH(P, INV)                                                            \
   return launch<Real, Store, P, INV>(xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, batch, \
                                      twre, twim, plan, T, st)
@@ -164,14 +248,16 @@ extern "C" {
 
 // y = DFT_n(x) for each of `batch` sequences; element (k, b) of a plane sits
 // at k*x_sn + b*x_sb (y likewise). y must not overlap x. The plan is given
-// as its radices and twiddle-pack offsets, stage by stage.
+// as its radices and twiddle-pack offsets, stage by stage. cols: the column
+// tile C, a power of two >= T (0: the engine's T); threads: its block, 256
+// or 512 (0: 256).
 int watfft_stockham_c2c(const float* xre, const float* xim, float* yre, float* yim,
                         int64_t x_sn, int64_t x_sb, int64_t y_sn, int64_t y_sb,
                         int n, int64_t batch, const float* twre, const float* twim,
                         const int* radices, const int* twoffsets, int nstages,
-                        int inverse, void* stream) {
+                        int inverse, void* stream, int cols, int threads) {
   return c2c<float, float>(xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch, twre,
-                           twim, radices, twoffsets, nstages, inverse, stream);
+                           twim, radices, twoffsets, nstages, inverse, stream, cols, threads);
 }
 
 // The same on float64 planes with a float64 twiddle pack.
@@ -179,9 +265,9 @@ int watfft_stockham_c2c_f64(const double* xre, const double* xim, double* yre, d
                             int64_t x_sn, int64_t x_sb, int64_t y_sn, int64_t y_sb,
                             int n, int64_t batch, const double* twre, const double* twim,
                             const int* radices, const int* twoffsets, int nstages,
-                            int inverse, void* stream) {
+                            int inverse, void* stream, int cols, int threads) {
   return c2c<double, double>(xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch, twre,
-                             twim, radices, twoffsets, nstages, inverse, stream);
+                             twim, radices, twoffsets, nstages, inverse, stream, cols, threads);
 }
 
 // The bf16 interop tier: bfloat16 planes, float32 stages and twiddle pack.
@@ -190,9 +276,10 @@ int watfft_stockham_c2c_bf16(const __nv_bfloat16* xre, const __nv_bfloat16* xim,
                              int64_t x_sn, int64_t x_sb, int64_t y_sn, int64_t y_sb,
                              int n, int64_t batch, const float* twre, const float* twim,
                              const int* radices, const int* twoffsets, int nstages,
-                             int inverse, void* stream) {
+                             int inverse, void* stream, int cols, int threads) {
   return c2c<float, __nv_bfloat16>(xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch,
-                                   twre, twim, radices, twoffsets, nstages, inverse, stream);
+                                   twre, twim, radices, twoffsets, nstages, inverse, stream,
+                                   cols, threads);
 }
 
 // The bf16 compute tier: bfloat16 planes, stages and twiddle pack.
@@ -201,10 +288,11 @@ int watfft_stockham_c2c_bf16c(const __nv_bfloat16* xre, const __nv_bfloat16* xim
                               int64_t x_sn, int64_t x_sb, int64_t y_sn, int64_t y_sb,
                               int n, int64_t batch, const __nv_bfloat16* twre,
                               const __nv_bfloat16* twim, const int* radices,
-                              const int* twoffsets, int nstages, int inverse, void* stream) {
+                              const int* twoffsets, int nstages, int inverse, void* stream,
+                              int cols, int threads) {
   return c2c<__nv_bfloat16, __nv_bfloat16>(xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n,
                                            batch, twre, twim, radices, twoffsets, nstages,
-                                           inverse, stream);
+                                           inverse, stream, cols, threads);
 }
 
 const char* watfft_error_string(int code) {
@@ -215,6 +303,9 @@ const char* watfft_error_string(int code) {
     case kErrSplit: return "four-step factors outside the cube kernel's range (16 <= n1, n2; "
                            "8192 <= n1*n2, and its shared memory within the card's limit)";
     case kErrDirect: return "n outside the DFT-matmul kernel's range 1..128";
+    case kErrTile: return "column tile refused: C must be a power of two, at least the "
+                          "engine's transforms per block, within the card's opt-in shared "
+                          "memory, and above that only on plans whose largest radix is 16";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

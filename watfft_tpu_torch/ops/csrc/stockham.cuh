@@ -41,6 +41,8 @@ constexpr int kErrPlan = -2;      // radix not in {2,4,8,16}, or product != n
 constexpr int kErrTooLong = -3;   // a transform needs more than one block
 constexpr int kErrSplit = -4;     // four-step factors out of the cube's range
 constexpr int kErrDirect = -5;    // n outside the DFT-matmul kernel's 1..128
+constexpr int kErrTile = -6;      // column tile not a power of two, below T, too large, or
+                                  // not held by its block of threads
 
 struct Plan {
   int log2n;
@@ -319,7 +321,11 @@ __device__ __forceinline__ void run_stages(cplx<Real>* c, int th, int tpt, const
 // its element offset in device memory (batch entry first + t at bat(...)).
 // The walk runs along whichever of the row stride and the batch stride
 // bat.sb is smaller, so neighbouring threads touch neighbouring addresses;
-// transforms past the end of the batch are skipped.
+// transforms past the end of the batch are skipped. Where the batch stride
+// is the smaller, a warp covers 32/T rows of only T adjacent columns: at
+// n >= 1024 (T <= 4) that is 4-16 bytes of each 32-byte sector on f32
+// planes. Those layouts take the column tile below instead, where the
+// host asks for it.
 template <typename B, typename F>
 __device__ __forceinline__ void for_tile_b(int log2n, int T, int count, int64_t first,
                                            int64_t sn, B bat, F f) {
@@ -341,6 +347,89 @@ template <typename F>
 __device__ __forceinline__ void for_tile(int log2n, int T, int count, int64_t first,
                                          int64_t sn, int64_t sb, F f) {
   for_tile_b(log2n, T, count, first, sn, Batch1{sb}, f);
+}
+
+// The column tile: a block stages C = 2^log2c adjacent transforms (columns)
+// of a layout whose rows lie further apart than its columns, C > T, so that
+// each row's run of C columns fills (or comes nearer to filling) a 32-byte
+// sector. The stages run the tile's C/T' groups of T' = blockDim * P / n
+// transforms in turn, each exactly as the engine runs them (run_stages), so
+// every transform's arithmetic is the same as without the tile. A block
+// has kColsThreads threads or half as many (the host's choice at launch);
+// the bound of kColsThreads at one block an SM leaves a P = 16 thread 128
+// registers either way, where the engine's bound of 80 spills. C > T means
+// C * n >= 2 * 256 * 16, a multiple of kColsLoads * kColsThreads, which the
+// batched load below relies on.
+constexpr int kColsThreads = 512;
+constexpr int kColsLoads = 8;   // device-memory reads a thread issues before their writes
+
+// The column walk of a C-wide tile, C = 2^log2c <= blockDim: thread i takes
+// column i % C at every (blockDim/C)-th row from row i / C, so a warp reads
+// 32/C rows of C adjacent columns. A thread's column is fixed, so its batch
+// offset is computed once. ld(k, g) reads point k of the thread's column
+// at element offset g; put(t, k, v) writes it to the tile. Each thread
+// issues kColsLoads reads before their writes, so one block per SM keeps
+// enough reads in flight. Columns past the batch (t >= count) are skipped.
+template <typename B, typename Ld, typename Put>
+__device__ __forceinline__ void load_cols(int log2n, int log2c, int count, int64_t first,
+                                          int64_t sn, B bat, Ld ld, Put put) {
+  const int t = threadIdx.x & ((1 << log2c) - 1);
+  if (t >= count) return;
+  const int step = blockDim.x >> log2c;
+  const int64_t base = bat(first + t);
+  for (int k0 = threadIdx.x >> log2c; k0 < (1 << log2n); k0 += kColsLoads * step) {
+    decltype(ld(0, base)) v[kColsLoads];
+#pragma unroll
+    for (int u = 0; u < kColsLoads; ++u) {
+      const int k = k0 + u * step;
+      v[u] = ld(k, base + (int64_t)k * sn);
+    }
+#pragma unroll
+    for (int u = 0; u < kColsLoads; ++u) put(t, k0 + u * step, v[u]);
+  }
+}
+
+// The same load by cp.async, where the planes hold the tile's own scalar
+// (Real == Store, 4 or 8 bytes): each re and im value is copied from device
+// memory straight into its complex slot, every copy of the thread in flight
+// before the wait; no registers are staged. Ends with the thread's wait; the
+// caller syncs the block.
+template <int B>
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src), "n"(B));
+}
+
+template <typename Real, typename B>
+__device__ __forceinline__ void copy_cols(int log2n, int log2c, int count, int64_t first,
+                                          int64_t sn, B bat, const Real* __restrict__ xre,
+                                          const Real* __restrict__ xim, cplx<Real>* tile,
+                                          int S) {
+  const int t = threadIdx.x & ((1 << log2c) - 1);
+  if (t < count) {
+    const int step = blockDim.x >> log2c;
+    const int64_t base = bat(first + t);
+    for (int k = threadIdx.x >> log2c; k < (1 << log2n); k += step) {
+      const int64_t g = base + (int64_t)k * sn;
+      Real* d = reinterpret_cast<Real*>(tile + t * S + pad(k));
+      copy_async<sizeof(Real)>(d, xre + g);
+      copy_async<sizeof(Real)>(d + 1, xim + g);
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// The same walk calling f(t, k, g) for every point of the tile (the store).
+template <typename B, typename F>
+__device__ __forceinline__ void for_cols(int log2n, int log2c, int count, int64_t first,
+                                         int64_t sn, B bat, F f) {
+  const int t = threadIdx.x & ((1 << log2c) - 1);
+  if (t >= count) return;
+  const int step = blockDim.x >> log2c;
+  const int64_t base = bat(first + t);
+  for (int k = threadIdx.x >> log2c; k < (1 << log2n); k += step) {
+    f(t, k, base + (int64_t)k * sn);
+  }
 }
 
 // Blocks per SM each instance must fit, i.e. its register budget. Measured
@@ -406,5 +495,38 @@ inline int make_plan(int n, int64_t batch, const int* radices, const int* twoffs
 // Complex slots per transform in shared memory: odd, so transforms start on
 // distinct banks.
 inline int smem_stride(int n) { return (n + (n >> 4)) | 1; }
+
+// Host side: the tile a launch takes. `cols` is the caller's C (0: the
+// engine's T, no column tile), `threads` its block (0: kColsThreads / 2).
+// Refuses (kErrTile) a C that is not a power of two, is below T, or whose
+// C * S slots of `point` bytes exceed the card's opt-in shared memory; a C
+// above T also needs the plan's largest radix to be 16 (the column-tile
+// instances are P = 16), a block of kColsThreads or half as many threads,
+// C to hold whole groups of them, and no more columns than threads (the
+// column walk gives each thread one column). Sets C, the block's threads NT and
+// whether it is a column tile; 0, kErrTile or a CUDA error.
+inline int tile_shape(int cols, int threads, int n, int maxr, int T, int64_t batch,
+                      size_t point, int& C, int& NT, bool& tiled) {
+  C = T;
+  NT = kBlockThreads;
+  tiled = false;
+  if (cols == 0 || cols == T) return 0;
+  if (threads == 0) threads = kColsThreads / 2;
+  if (cols < T || (cols & (cols - 1)) || maxr != 16 ||
+      (threads != kColsThreads && threads != kColsThreads / 2) || cols < threads * maxr / n ||
+      cols > threads) {
+    return kErrTile;
+  }
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return (int)e;
+  if ((size_t)cols * smem_stride(n) * point > (size_t)optin) return kErrTile;
+  if ((batch + cols - 1) / cols > 0x7fffffff) return kErrArgs;
+  C = cols;
+  NT = threads;
+  tiled = true;
+  return 0;
+}
 
 }  // namespace

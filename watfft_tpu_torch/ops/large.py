@@ -191,9 +191,16 @@ def strided_c2c(x, y, n: int, sn, axes, inverse: bool, tables: Tables, key: str,
     if na * nb == 0:
         return
     x_sn, y_sn, m_sn = sn
+    # the kernel's walks: the row stride against the inner axis's. A column
+    # tile stays within the inner axis unless the outer one continues it in
+    # x and y (one run of na * nb columns). On every device, so a tile the
+    # kernel would refuse raises on the CPU too.
+    runs_on = nb == 1 or (xb == na * xa and yb == na * ya)
+    cols = stockham.column_tile(n, ((x_sn, xa), (y_sn, ya)), 4, 8, tables.radix, na * nb,
+                                None if runs_on else na)
     if _use_kernel(x[0], plain):
         _launch(x, y, n, (x_sn, xa, xb), (y_sn, ya, yb), pm, (m_sn, ma, mb), mul,
-                na, na * nb, inverse, tables, key, launches if counts is None else counts)
+                na, na * nb, inverse, tables, key, launches if counts is None else counts, cols)
         return
     size = (n, na, nb)
     xre, xim = (_as(t, size, (x_sn, xa, xb)) for t in x)
@@ -224,7 +231,8 @@ def _check(lib, err: int, key: str, n: int, batch: int, counts=launches) -> None
     counts[key] += 1
 
 
-def _launch(x, y, n, xs, ys, pm, ms, mul, inner, batch, inverse, tables, key, counts) -> None:
+def _launch(x, y, n, xs, ys, pm, ms, mul, inner, batch, inverse, tables, key, counts,
+            cols) -> None:
     lib = _library(x[0], tables.twre.device)
     pmp = (pm[0].data_ptr(), pm[1].data_ptr()) if mul else (None, None)
     with torch.cuda.device(x[0].device):
@@ -232,7 +240,7 @@ def _launch(x, y, n, xs, ys, pm, ms, mul, inner, batch, inverse, tables, key, co
             x[0].data_ptr(), x[1].data_ptr(), y[0].data_ptr(), y[1].data_ptr(), *xs, *ys,
             *pmp, *ms, mul, n, inner, batch, tables.twre.data_ptr(), tables.twim.data_ptr(),
             tables.c_radices, tables.c_offsets, len(tables.stages), int(inverse),
-            torch.cuda.current_stream().cuda_stream)
+            torch.cuda.current_stream().cuda_stream, *cols)
     _check(lib, err, key, n, batch, counts)
 
 

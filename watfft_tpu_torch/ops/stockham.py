@@ -51,6 +51,15 @@ The kernel takes separate re and im pointers with an element stride along
 n and one along the batch, so one launch serves interleaved complex64
 (stride 2, im at base + 4 bytes), split planes, batch-major `[B, n]` and
 time-major `[n, B]` — the `[n, 8, W]` view of `_kernel_dma3d` included.
+
+Where the rows lie further apart than the transforms (time-major planes,
+and the four-step and 2D passes down columns, `ops/large.py`), a block of
+the engine's T = 256 * P / n transforms reads only T adjacent columns of
+each row: at n >= 1024 (T <= 4) a fraction of each 32-byte sector. There
+(and at every n >= 16, where it measured faster too) the wrappers ask the
+kernels for a column tile of C > T adjacent transforms in a block of 256
+or 512 threads, as `tile_shape` gives it; `config.COLUMN_TILE` sets the
+tile by hand. The transforms' arithmetic is the same at every tile.
 """
 
 from __future__ import annotations
@@ -69,6 +78,7 @@ __all__ = ["stage_plan", "make_twiddle_pack", "run_stages", "plain_fft",
            "Tables", "make_tables", "device_tables", "fft_views", "stockham_fft_nb",
            "plain_fft_nb", "plain_fft_bm",
            "stockham_fft_bm", "stockham_fft", "stockham_fft_nb_postmul", "plain_postmul",
+           "engine_transforms", "tile_shape", "check_tile", "column_tile",
            "launches", "launches_f64", "launches_bf16", "launches_bf16c"]
 
 # Kernel launches made by the CUDA wrapper since the counts were last reset:
@@ -266,6 +276,123 @@ def run_stages(cre, cim, n, inverse, offsets, stages, twre, twim):
     return cre, cim
 
 
+# -- the column tile -------------------------------------------------------------
+# What csrc/stockham.cuh calls T, C and the tile's shared memory, on the host.
+
+BLOCK_THREADS = 256          # the engine's threads a block (kBlockThreads)
+SECTOR_BYTES = 32            # the unit device memory is read and written in
+# Shared memory a block may opt in to on the H100 (227 KB; the hopper-kernels
+# table). The kernels ask the card itself and refuse past its own limit.
+SMEM_OPTIN_BYTES = 232_448
+# SMs of the card (H100 and H200: 132). A tile's block runs its groups in
+# turn, so where few columns give fewer blocks than SMs a wider tile only
+# lengthens each block's pass: C stays at most 2 * batch / SMS, a block for
+# every two SMs (6 columns of 4096 points took 24.4 us at C = 4 against
+# 17.5 at T = 1; 300 columns 35.5 at C = 4 against 69.7; PERF.md).
+SMS = 132
+
+
+def engine_transforms(n: int, radix: int = MAX_RADIX) -> int:
+    """T, the transforms a block of the engine holds: 256 threads of
+    n / radix threads each (csrc/stockham.cuh `make_plan`)."""
+    return max(1, BLOCK_THREADS * radix // n)
+
+
+def smem_stride(n: int) -> int:
+    """Complex slots a transform takes in shared memory (`smem_stride`)."""
+    return (n + (n >> 4)) | 1
+
+
+def _pow2_floor(x: int) -> int:
+    return 1 << (x.bit_length() - 1) if x >= 1 else 0
+
+
+@functools.cache
+def tile_shape(n: int, run_bytes: int | None, point_bytes: int, inner: int | None = None,
+               radix: int = MAX_RADIX, batch: int | None = None) -> tuple[int, int]:
+    """(C, threads): the transforms (columns) a block of the c2c or strided
+    c2c kernel stages on a walk down columns, and the block's threads. The
+    rule the H100 measured fastest at every n = 16..4096 in the four tiers
+    (PERF.md): the widest C whose tile leaves room for three blocks an SM
+    (C * smem_stride(n) * point_bytes <= SMEM_OPTIN_BYTES / 3), in 256
+    threads, where that is more than T and its rows fill a 32-byte sector;
+    else the widest the opt-in shared memory holds, one block an SM, in
+    512 threads. At most `inner` for a batch over two axes (the columns of
+    the inner axis; a tile past it is right but not contiguous) and
+    2 * batch / SMS. (T, 256), no tile, where there is no column walk
+    (`run_bytes` None: batch-major on both sides) and on plans whose
+    largest radix is not 16.
+
+    run_bytes: bytes from one column to the next in device memory (the
+    batch stride times the element size: 4 on f32 planes, 2 on bf16, 8 on
+    f64 planes and interleaved complex64, 16 on complex128); point_bytes:
+    a point in shared memory (8 for f32 stages, 16 for f64, 4 for bf16)."""
+    T = engine_transforms(n, radix)
+    if run_bytes is None or radix != MAX_RADIX:
+        return T, BLOCK_THREADS
+    column = smem_stride(n) * point_bytes
+    c, threads = min(_pow2_floor(SMEM_OPTIN_BYTES // 3 // column), BLOCK_THREADS), BLOCK_THREADS
+    if c <= T or c * run_bytes < SECTOR_BYTES:
+        c, threads = min(_pow2_floor(SMEM_OPTIN_BYTES // column), 2 * BLOCK_THREADS), 512
+    if inner is not None:
+        c = min(c, _pow2_floor(inner))
+    if batch is not None:
+        c = min(c, _pow2_floor(2 * batch // SMS))
+    if c <= T:
+        return T, BLOCK_THREADS
+    return c, threads if c >= threads * radix // n else BLOCK_THREADS
+
+
+def check_tile(cols: int, n: int, point_bytes: int, radix: int = MAX_RADIX,
+               threads: int = 256) -> None:
+    """Raise ValueError for a tile the kernels refuse (kErrTile): C not a
+    power of two, below T, over the opt-in shared memory, or above T on a
+    plan whose largest radix is not 16; a block of other than 256 or 512
+    threads, of more transforms (threads * 16 / n) than C, or of fewer
+    threads than C."""
+    T = engine_transforms(n, radix)
+    if cols == T:
+        return
+    if threads not in (256, 512) or not threads * radix // n <= cols <= threads:
+        raise ValueError(f"column tile C={cols} at n={n}: a block of {threads} threads "
+                         f"must be 256 or 512, hold at most C transforms and at least C "
+                         f"threads")
+    if cols < T or cols & (cols - 1):
+        raise ValueError(f"column tile C={cols} at n={n}: C must be a power of two and at "
+                         f"least the engine's T={T} transforms a block")
+    if radix != MAX_RADIX:
+        raise ValueError(f"column tile C={cols} at n={n}: above T={T} the kernels take plans "
+                         f"whose largest radix is {MAX_RADIX}, got {radix}")
+    need = cols * smem_stride(n) * point_bytes
+    if need > SMEM_OPTIN_BYTES:
+        raise ValueError(f"column tile C={cols} at n={n}: {need} bytes of shared memory, over "
+                         f"the {SMEM_OPTIN_BYTES} a block may take")
+
+
+def column_tile(n: int, walks, elem_bytes: int, point_bytes: int, radix: int, batch: int,
+                inner: int | None = None) -> tuple[int, int]:
+    """The `cols, threads` arguments of a launch ((0, 0): the engine's T).
+    walks: the (row stride, batch stride) of the load and of the store, in
+    elements; a side walks down columns where its row stride is the
+    larger, and its run is its batch stride times `elem_bytes`; the
+    narrower run sets C (interleaved complex64 in, f32 planes out: 4
+    bytes). The wrappers call it on every device, so a tile the kernels
+    refuse raises on the CPU too. `config.COLUMN_TILE`, where set, takes
+    the helper's place (0: no tile; C or (C, threads): every column walk
+    at that tile)."""
+    runs = [sb * elem_bytes for sn, sb in walks if sn > sb]
+    run = min(runs) if runs else None
+    forced = config.COLUMN_TILE
+    if forced == 0 or (forced is not None and run is None):
+        return 0, 0
+    if forced is None:
+        cols, threads = tile_shape(n, run, point_bytes, inner, radix, batch)
+    else:
+        cols, threads = forced if isinstance(forced, tuple) else (forced, 256)
+        check_tile(cols, n, point_bytes, radix, threads)
+    return (0, 0) if cols == engine_transforms(n, radix) else (cols, threads)
+
+
 # -- device tables -------------------------------------------------------------
 
 @dataclass(eq=False)
@@ -291,6 +418,7 @@ class Tables:
         nst = len(self.stages)
         self.c_radices = (ctypes.c_int * nst)(*(r for r, _ in self.stages))
         self.c_offsets = (ctypes.c_int * nst)(*self.offsets)
+        self.radix = max((r for r, _ in self.stages), default=1)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -366,11 +494,19 @@ def _plain_into(xre, xim, yre, yim, inverse: bool, tables: Tables) -> None:
     yim.copy_(oim)
 
 
+_ITEMSIZE = {torch.float32: 4, torch.float64: 8, torch.bfloat16: 2}
+
 # The kernel instance for (data dtype, tables dtype) and its counter.
 _ENTRIES = {(torch.float32, torch.float32): ("watfft_stockham_c2c", "launches"),
             (torch.float64, torch.float64): ("watfft_stockham_c2c_f64", "launches_f64"),
             (torch.bfloat16, torch.float32): ("watfft_stockham_c2c_bf16", "launches_bf16"),
             (torch.bfloat16, torch.bfloat16): ("watfft_stockham_c2c_bf16c", "launches_bf16c")}
+
+
+def _cols(dtype, x_sn, x_sb, y_sn, y_sb, n, batch, tables) -> tuple[int, int]:
+    """The column tile of a launch on planes of `dtype` (`column_tile`)."""
+    return column_tile(n, ((x_sn, x_sb), (y_sn, y_sb)), _ITEMSIZE[dtype],
+                       2 * _ITEMSIZE[tables.dtype], tables.radix, batch)
 
 
 def _launch(device, dtype, xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch,
@@ -379,11 +515,12 @@ def _launch(device, dtype, xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch,
     element (k, b) sits k*x_sn + b*x_sb elements past the addresses xre,
     xim (input) and k*y_sn + b*y_sb elements past yre, yim (output); the
     instance of the data's dtype and the tables' (the caller has checked
-    the pair)."""
+    the pair), with the column tile `_cols` gives."""
     from ._build import library
 
     if tables.twre.device != device:
         raise ValueError(f"tables on {tables.twre.device}, data on {device}")
+    cols = _cols(dtype, x_sn, x_sb, y_sn, y_sb, n, batch, tables)
     lib = library()
     name, counter = _ENTRIES[(dtype, tables.dtype)]
     entry = getattr(lib, name)
@@ -391,11 +528,12 @@ def _launch(device, dtype, xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch,
         err = entry(xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch,
                     tables.twre.data_ptr(), tables.twim.data_ptr(), tables.c_radices,
                     tables.c_offsets, len(tables.stages), int(inverse),
-                    torch.cuda.current_stream().cuda_stream)
+                    torch.cuda.current_stream().cuda_stream, *cols)
     if err:
         raise RuntimeError(
             f"Stockham kernel launch failed (n={n}, batch={batch}, {dtype} data, "
-            f"{tables.dtype} tables): {lib.watfft_error_string(err).decode()}")
+            f"{tables.dtype} tables, column tile {cols}): "
+            f"{lib.watfft_error_string(err).decode()}")
     globals()[counter] += 1
 
 
@@ -413,6 +551,7 @@ def fft_views(xre, xim, yre, yim, inverse: bool, tables: Tables) -> None:
         _launch(xre.device, xre.dtype, xre.data_ptr(), xim.data_ptr(), yre.data_ptr(),
                 yim.data_ptr(), *xre.stride(), *yre.stride(), n, batch, inverse, tables)
     else:
+        _cols(xre.dtype, *xre.stride(), *yre.stride(), n, batch, tables)
         _plain_into(xre, xim, yre, yim, inverse, tables)
 
 
@@ -468,11 +607,13 @@ def _planes(re, im, inverse, time_major, tables, plain=False):
     batch = re.numel() // n
     if batch == 0:
         return ore, oim
+    sn, sb = (batch, 1) if time_major else (1, n)
     if re.device.type == "cuda" and not plain:
-        sn, sb = (batch, 1) if time_major else (1, n)
         _launch(re.device, re.dtype, re.data_ptr(), im.data_ptr(), ore.data_ptr(),
                 oim.data_ptr(), sn, sb, sn, sb, n, batch, inverse, tables)
-    elif time_major:
+        return ore, oim
+    _cols(re.dtype, sn, sb, sn, sb, n, batch, tables)
+    if time_major:
         _plain_into(*(t.view(n, batch) for t in (re, im, ore, oim)), inverse, tables)
     else:
         _plain_into(*(t.view(batch, n).T for t in (re, im, ore, oim)), inverse, tables)
