@@ -75,8 +75,9 @@ Phases (any failure exits nonzero and prints no result):
    alone (time-major [n2, n1, b] blocks), the split's other order at 2^15
    and 2^21, the plain version (3 calls), torch.fft.fft and a device copy
    of the same bytes; then cube against pipe2 over batches at 2^13 and
-   2^14, the planner's crossover; and the large real path at its main
-   shape (each direction, its core alone, torch.fft.rfft / irfft).
+   2^14 in complex64 and time-major planes, the planner's crossovers; and
+   the large real path at its main shape (each direction, its core alone,
+   torch.fft.rfft / irfft).
 16. 2D kernels against their plain versions: the 2D cube at every
    power-of-two h, w >= 2 with h*w <= 2^14, forward and inverse, at batch 3
    in three layouts (batch-major planes, interleaved complex64, native
@@ -191,6 +192,18 @@ Phases (any failure exits nonzero and prints no result):
    C = T and at the kept C. Then a path run with its launch counts:
    `create_fft_f32(n).forward_planes_nb` on time-major [n, 2^22/n] at each
    n and fft2 on a 4096^2 image (against torch.fft in complex128).
+30. The redesigned kernels at their main shapes: the cube (#12) on
+   [2048, 8192] and [256, 16384] complex64, both directions, torch.equal
+   to pipe2's kernels (the same operations in two passes) and within 1e-6
+   of its plain version, timed beside pipe2; the fused f32 r2c (#9) at
+   every n = 4..8192, batch 3 and 2^22 real points, complex64 and
+   batch-major spectra, the resident kernel torch.equal to the engine's
+   walk (the kernel before the redesign, each forced at every n through
+   the walk argument `rfft.r2c_launch` passes) and within 1e-6 of its
+   plain version, timed in both walks. The kernels line's #12 and #9 rows
+   carry what they were held to and the time in the other walk. Their
+   launch counts come from the cube path of phase 12 and the real path of
+   phase 8, which run them.
 
 The line before the last is a JSON object naming each kernel of the paths
 with its launch count, error, times and the least time the card could take
@@ -239,7 +252,7 @@ LARGE_N, LARGE_B = 1 << 20, 16
 CUBE_N, CUBE_B = 1 << 13, 2048
 SINGLE_SIZES = (1 << 20, 1 << 24)        # fft_large, one flat sequence
 FOURSTEP_N, PLANNER_FOURSTEP_N = 1 << 16, 1 << 25
-CROSSOVER_BATCHES = (16, 64, 132, 264, 1024)
+CROSSOVER_BATCHES = (1, 2, 4, 8, 16, 32, 64, 132, 264, 1024)
 LARGE_SRC = "watfft_tpu_torch/ops/csrc/large.cu"
 # the 2D cube at every h*w <= 2^14; squares and extremes also at 2^20 points
 FFT2_PAIRS = [(1 << a, 1 << b) for a in range(1, 14) for b in range(1, 15 - a)]
@@ -305,6 +318,9 @@ COL_TIERS = (("f32", torch.float32, torch.float32, KERNEL_LIMIT),
 COL_FFT2_WIDTHS = (2, 16, 4096)
 COL_K2_SHAPE = (2, 4096, 2048)
 COL_PIPE2 = ((LARGE_B, LARGE_N), (1, 1 << 24))
+# the redesigned cube's main shapes (sequences, n); the redesigned r2c runs at
+# every REAL_SIZES n
+CUBE_SHAPES = ((CUBE_B, CUBE_N), (256, 1 << 14))
 
 
 class Failed(Exception):
@@ -1007,16 +1023,35 @@ def phase_large_times(dev, gen, name: str, limit: str) -> dict:
         times[n] = row
         print(json.dumps({"phase": "large_times", "n": n, "batch": batch, "split": [n1, n2],
                           **row, "card": name, "power_limit": limit}), flush=True)
+    return times
+
+
+def phase_large_crossover(dev, gen, name: str, limit: str) -> dict:
+    """Cube against pipe2 over batches at 2^13 and 2^14, complex64 (the
+    least batch from which the cube wins at every larger batch timed; the
+    planner sends every batch to the cube) and time-major planes (the
+    batches at which the cube wins; the planner sends more than
+    CUBE_NB_MAX_BATCH sequences to pipe2, `large_mode`)."""
+    wins = {}
     for n in (1 << 13, planner.CUBE_MAX_N):
-        row = {}
+        row, nb = {}, {}
         for batch in CROSSOVER_BATCHES:
             x = rand_complex((batch, n), gen, dev)
+            re_t, im_t = x.real.T.contiguous(), x.imag.T.contiguous()
             for mode in ("cube", "pipe2"):
                 row[f"{mode}_b{batch}_ms"] = time_ms(
                     lambda: lg.fft_large_complex(x, mode=mode))[0]
-        print(json.dumps({"phase": "large_crossover", "n": n, **row, "card": name,
+                nb[f"{mode}_nb_b{batch}_ms"] = time_ms(
+                    lambda: lg.fft_large_nb(re_t, im_t, mode=mode))[0]
+        losing = [b for b in CROSSOVER_BATCHES if row[f"cube_b{b}_ms"] > row[f"pipe2_b{b}_ms"]]
+        wins[n] = next((b for b in CROSSOVER_BATCHES if not losing or b > max(losing)), None)
+        nb_wins = [b for b in CROSSOVER_BATCHES
+                   if nb[f"cube_nb_b{b}_ms"] <= nb[f"pipe2_nb_b{b}_ms"]]
+        print(json.dumps({"phase": "large_crossover", "n": n, **row, **nb,
+                          "cube_wins_from": wins[n], "cube_nb_wins_at": nb_wins,
+                          "planner_nb_max_batch": planner.CUBE_NB_MAX_BATCH[n], "card": name,
                           "power_limit": limit}), flush=True)
-    return times
+    return wins
 
 
 def large_kernel_rows(main: dict, cube: dict, single: dict, times: dict, dev, gen) -> list:
@@ -2721,6 +2756,93 @@ def column_tile_rows(tile: dict, name: str, limit: str) -> list:
     return rows
 
 
+# -- the redesigned kernels --------------------------------------------------------
+
+@contextlib.contextmanager
+def r2c_walk(walk: int):
+    """The f32 r2c wrapper forced to one walk at every n inside the block:
+    rf.WALK_ENGINE (rfft_r2c_kernel, the kernel before the redesign) or
+    rf.WALK_RESIDENT (with the resident walk's 8-byte accesses)."""
+    real = rf.r2c_launch
+
+    def launch(n, x, y):
+        return (walk, 0, 0) if walk == rf.WALK_ENGINE else real(1 << 13, x, y)
+    rf.r2c_launch = launch
+    try:
+        yield
+    finally:
+        rf.r2c_launch = real
+
+
+def phase_resident(dev, gen, name: str, limit: str) -> dict:
+    """The redesigned kernels (csrc/large.cu cube_kernel, #12; csrc/rfft.cu
+    rfft_r2c_resident_kernel, #9) at their main shapes. The cube on
+    [2048, 8192] and [256, 16384] complex64, both directions: torch.equal
+    to pipe2's kernels (the same operations in two passes) and within
+    KERNEL_LIMIT of the plain version; timed beside pipe2. The r2c at every
+    n = 4..8192 (2^22 real points and batch 3; complex and batch-major
+    layouts): the resident kernel torch.equal to the engine's walk (the
+    kernel before the redesign) and within KERNEL_LIMIT of the plain
+    version; timed in both walks."""
+    out = {"cube": {}, "r2c": {}}
+    for b, n in CUBE_SHAPES:
+        x = rand_complex((b, n), gen, dev)
+        row = {"threads": lg.cube_threads(n), "max_rel_diff": 0.0}
+        for inverse in (False, True):
+            got = lg.fft_large_complex(x, inverse, mode="cube")
+            check(torch.equal(got, lg.fft_large_complex(x, inverse, mode="pipe2")),
+                  f"cube [{b}, {n}] inverse={inverse}: differs from pipe2")
+            rel = rel_diff(got, lg.plain_fft_large(x, inverse))
+            check(rel <= KERNEL_LIMIT, f"cube [{b}, {n}] inverse={inverse}: {rel:.3e} vs plain")
+            row["max_rel_diff"] = max(row["max_rel_diff"], rel)
+        row["ms"] = time_ms(lambda: lg.fft_large_complex(x, mode="cube"))[0]
+        row["pipe2_ms"] = time_ms(lambda: lg.fft_large_complex(x, mode="pipe2"))[0]
+        out["cube"][(b, n)] = row
+        print(json.dumps({"phase": "resident", "kernel": "cube", "shape": [b, n], **row,
+                          "card": name, "power_limit": limit}), flush=True)
+    for n in REAL_SIZES:
+        row = {"max_rel_diff": 0.0}
+        for batch in (3, POINTS // n):
+            x = rand_real((batch, n), gen, dev)
+            want = rf.plain_rfft(x)
+            for layout, fn in (("complex", lambda: (rf.rfft(x),)), ("bm", lambda: rf.rfft_bm(x))):
+                with r2c_walk(rf.WALK_RESIDENT):
+                    got = fn()
+                with r2c_walk(rf.WALK_ENGINE):
+                    engine = fn()
+                check(all(torch.equal(a, c) for a, c in zip(got, engine)),
+                      f"r2c n={n} batch={batch} {layout}: resident differs from the engine walk")
+                y = got[0] if len(got) == 1 else torch.complex(*got)
+                rel = rel_diff(y, want)
+                check(rel <= KERNEL_LIMIT, f"r2c n={n} batch={batch} {layout}: {rel:.3e}")
+                row["max_rel_diff"] = max(row["max_rel_diff"], rel)
+        row["walk"] = "engine" if n <= rf.R2C_ENGINE_MAX_N else "resident"
+        for walk, key in ((rf.WALK_RESIDENT, "resident_ms"), (rf.WALK_ENGINE, "engine_ms")):
+            with r2c_walk(walk):
+                row[key] = time_ms(lambda: rf.rfft(x))[0]
+        out["r2c"][n] = row
+        print(json.dumps({"phase": "resident", "kernel": "rfft_r2c", "n": n,
+                          "batch": POINTS // n, **row, "card": name, "power_limit": limit}),
+              flush=True)
+    return out
+
+
+def resident_rows(rows: list, resident: dict) -> None:
+    """The kernels line's #12 and #9 rows are the redesigned kernels: each
+    gains what phase_resident held it to and its time in the other walk
+    (the cube's in pipe2; the r2c's in the engine's walk, the kernel
+    before the redesign)."""
+    by_name = {r["name"]: r for r in rows}
+    cube = resident["cube"][(CUBE_B, CUBE_N)]
+    by_name["large_cube"].update(
+        threads=cube["threads"], equal_to_old_walk=True, old_walk="pipe2",
+        old_walk_ms=cube["pipe2_ms"])
+    r2c = resident["r2c"][MAIN_N]
+    by_name["rfft_r2c_fused"].update(
+        walk=r2c["walk"], equal_to_old_walk=True, old_walk="engine",
+        old_walk_ms=r2c["engine_ms"])
+
+
 def bound(nbytes: float, flops: float, peak: float = PEAK_FLOPS) -> tuple[float, str]:
     """The least time in ms the card could take: bytes over its memory rate
     or flops over its peak rate for their type (FP32 unless given),
@@ -2813,6 +2935,7 @@ def main() -> int:
         phase_large_real_main_path(dev, gen)
         single = phase_large_single(dev, gen)
         large_times = phase_large_times(dev, gen, name, limit)
+        phase_large_crossover(dev, gen, name, limit)
         phase_large_real_times(dev, gen, name, limit)
         large_rows = large_kernel_rows(main, cube, single, large_times, dev, gen)
         phase_fft2_kernel_vs_plain(dev, gen)
@@ -2837,6 +2960,7 @@ def main() -> int:
         bf16_rows = bf16_kernel_rows(bf16_main, bf16_times, dev, gen, name, limit)
         phase_ladder(dev, gen, name, limit)
         tile_rows = column_tile_rows(phase_column_tile(dev, gen, name, limit), name, limit)
+        resident = phase_resident(dev, gen, name, limit)
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2847,6 +2971,7 @@ def main() -> int:
     line["kernels"].extend(dft_rows)
     line["kernels"].extend(bf16_rows)
     line["kernels"].extend(tile_rows)
+    resident_rows(line["kernels"], resident)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

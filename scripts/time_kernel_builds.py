@@ -20,8 +20,13 @@ comma-separated, default all):
   FP64, bf16 interop, bf16 compute), the 2D column pass and the whole fft2
   on one 4096 x 4096 complex64 image, pipe2 on [16, 2^20] complex64 and
   its stages on time-major [n2, n1, b] blocks;
-* `main`: the batch-major main path, 4096 x 1024: the c2c kernel
-  (complex64), the fused r2c and c2r kernels.
+* `cube`: the cube (#12) at [2048, 8192] and [256, 16384], complex64 and
+  split planes, both directions, and the real large route (rfft_large /
+  irfft_large) at [2048, 2^14], whose m = 8192 core the planner sends to
+  the cube;
+* `main`: the batch-major main path: the c2c kernel on 4096 x 1024
+  complex64, the fused r2c kernel at every n = 4..8192 (2^22 real points)
+  and the c2r kernel at 4096 x 1024.
 
 `--sweep` also times this build's `columns` cases at every column tile C
 from T up to what shared memory holds, in blocks of 256 and 512 threads
@@ -57,7 +62,9 @@ from watfft_tpu_torch.ops import large as lg  # noqa: E402
 from watfft_tpu_torch.ops import rfft as rf  # noqa: E402
 from watfft_tpu_torch.ops import stockham as st  # noqa: E402
 
-ROUTES = ("bluestein", "columns", "main")
+ROUTES = ("bluestein", "columns", "cube", "main")
+# the real large route's shape (signals, n): its m = 8192 core on the cube
+CUBE_REAL = (cs.CUBE_B, 1 << 14)
 # batches of few columns, where a block per SM comes before a wider tile
 TAIL_BATCHES = (6, 100, 300, 600)
 
@@ -138,17 +145,51 @@ def column_cases(gen, dev) -> list:
     return cases
 
 
+def cube_cases(gen, dev) -> list:
+    """The cube (#12) at its main shapes in complex64 and split planes,
+    both directions, and the real large route at n = 2^14, whose m = 8192
+    core the planner sends to the cube."""
+    cases = []
+    for b, n in cs.CUBE_SHAPES:
+        x = cs.rand_complex((b, n), gen, dev)
+        re, im = x.real.contiguous(), x.imag.contiguous()
+        for inverse in (False, True):
+            cases.append(({"route": "cube", "case": "complex", "shape": [b, n],
+                           "inverse": inverse, "threads": lg.cube_threads(n)},
+                          lambda x=x, inv=inverse: lg.fft_large_complex(x, inv, mode="cube"),
+                          None))
+            cases.append(({"route": "cube", "case": "bm", "shape": [b, n], "inverse": inverse,
+                           "threads": lg.cube_threads(n)},
+                          lambda re=re, im=im, inv=inverse: lg.fft_large_bm(re, im, inv,
+                                                                            mode="cube"),
+                          None))
+    b, n = CUBE_REAL
+    xr = cs.rand_real((b, n), gen, dev)
+    spec = lg.rfft_large(xr)
+    cases.append(({"route": "cube", "case": "rfft_large", "shape": [b, n],
+                   "core": planner.large_mode(n // 2, b)}, lambda: lg.rfft_large(xr), None))
+    cases.append(({"route": "cube", "case": "irfft_large", "shape": [b, n],
+                   "core": planner.large_mode(n // 2, b)}, lambda: lg.irfft_large(spec),
+                  None))
+    return cases
+
+
 def main_cases(gen, dev) -> list:
     n, b = cs.MAIN_N, cs.MAIN_B
     x = cs.rand_complex((b, n), gen, dev)
-    xr = cs.rand_real((b, n), gen, dev)
-    spec = torch.fft.rfft(xr)
-    sre, sim = spec.real.contiguous(), spec.imag.contiguous()
-    return [({"route": "main", "case": "c2c_complex", "shape": [b, n]},
-             lambda: st.stockham_fft(x), None),
-            ({"route": "main", "case": "r2c", "shape": [b, n]}, lambda: rf.rfft_bm(xr), None),
-            ({"route": "main", "case": "c2r", "shape": [b, n]},
-             lambda: rf.irfft_bm(sre, sim), None)]
+    cases = [({"route": "main", "case": "c2c_complex", "shape": [b, n]},
+              lambda: st.stockham_fft(x), None)]
+    for n in cs.REAL_SIZES:
+        b = cs.POINTS // n
+        xr = cs.rand_real((b, n), gen, dev)
+        spec = torch.fft.rfft(xr)
+        sre, sim = spec.real.contiguous(), spec.imag.contiguous()
+        cases.append(({"route": "main", "case": "r2c", "shape": [b, n]},
+                      lambda xr=xr: rf.rfft_bm(xr), None))
+        if n == cs.MAIN_N:
+            cases.append(({"route": "main", "case": "c2r", "shape": [b, n]},
+                          lambda sre=sre, sim=sim: rf.irfft_bm(sre, sim), None))
+    return cases
 
 
 def sweep(fn, n: int, point: int) -> dict:
@@ -189,7 +230,8 @@ def main() -> int:
     libs = [_build.library(), *(other_library(Path(a).resolve()) for a in args.others)]
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    makers = {"bluestein": bluestein_cases, "columns": column_cases, "main": main_cases}
+    makers = {"bluestein": bluestein_cases, "columns": column_cases, "cube": cube_cases,
+              "main": main_cases}
     for route in routes:
         for row, fn, tiles in makers[route](gen, dev):
             this, *other = in_turns(libs, fn)

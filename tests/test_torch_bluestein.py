@@ -112,7 +112,8 @@ def test_planner_routes_any_n():
     k = planner.bluestein_kernel
     assert k(1) == k(3) == k(1000) == k(2048) == "bluestein-fused"     # m <= 4096
     assert k(2049) == "bluestein-large-cube"                           # m = 8192
-    assert k(4097, batch=4) == "bluestein-large-pipe2"                 # m = 2^14
+    assert k(4097, batch=4) == "bluestein-large-cube"                  # m = 2^14: the cube
+    assert k(4097, batch=1) == "bluestein-large-cube"                  # at every batch
     assert k(10007) == "bluestein-large-pipe2"                         # m = 2^15
     assert k((1 << 23) + 1) == "bluestein-fourstep"                    # m = 2^25
     with pytest.raises(ValueError):

@@ -356,15 +356,27 @@ def test_large_kernels_match_plain_one_by_one(dev):
 
 
 def test_large_context_launches_and_oracle(dev):
-    ctx = wtt.create_fft_f32(1 << 14, device=dev)
-    for batch, kernel in ((200, "cube"), (4, "stage1")):  # by planner.CUBE_MIN_BATCH
-        x = _x((batch, 1 << 14), seed=batch, dev=dev)
+    """The planner's routes (planner.large_mode): the cube for complex64 at
+    every batch, pipe2 for time-major planes of more than
+    CUBE_NB_MAX_BATCH[2^14] = 2 sequences."""
+    n = 1 << 14
+    ctx = wtt.create_fft_f32(n, device=dev)
+    for batch, layout, kernel in ((200, "complex", "cube"), (4, "complex", "cube"),
+                                  (4, "nb", "stage1")):
+        x = _x((batch, n), seed=batch, dev=dev)
         before = dict(lg.launches)
-        y = ctx.forward(x)
-        assert lg.launches[kernel] == before[kernel] + 1
+        if layout == "complex":
+            y = ctx.forward(x)
+            back = ctx.inverse(y)
+        else:
+            y = torch.complex(*ctx.forward_planes_nb(x.real.T.contiguous(),
+                                                      x.imag.T.contiguous())).T
+            back = torch.complex(*ctx.inverse_planes_nb(y.real.T.contiguous(),
+                                                        y.imag.T.contiguous())).T
+        assert lg.launches[kernel] == before[kernel] + 2
         want = torch.fft.fft(x.to(torch.complex128))
         assert _rel(y.to(torch.complex128), want) <= MAX_REL["float32"]
-        assert (ctx.inverse(y) - x).abs().max().item() < 1e-4
+        assert (back - x).abs().max().item() < 1e-4
 
 
 def test_large_conj_view_and_backward(dev):
@@ -843,3 +855,140 @@ def test_column_tile_refusals(dev, monkeypatch):
                                           len(tabs.stages), 0, stream, cols, threads)
         assert err == -6, (cols, threads, err)
     assert "column tile" in lib.watfft_error_string(-6).decode()
+
+
+# -- the redesigned kernels: the cube (#12) and the fused f32 r2c (#9) -------------------
+
+@pytest.mark.parametrize("n", [1 << 13, 1 << 14])
+def test_resident_cube_matches_plain_and_pipe2(n, dev):
+    """Three layouts, batch 1, a few sequences, and more than the SMs hold
+    at once by a tail, both directions: within KERNEL_LIMIT of the plain
+    version and equal to pipe2's kernels (the same operations in two
+    passes)."""
+    for batch in (1, 5, 2 * st.SMS + 7):
+        x = _x((batch, n), seed=n + batch, dev=dev)
+        re, im = x.real.contiguous(), x.imag.contiguous()
+        calls = {"complex": lambda inv, mode: (lg.fft_large_complex(x, inv, mode=mode),),
+                 "bm": lambda inv, mode: lg.fft_large_bm(re, im, inv, mode=mode)}
+        if batch <= 5:
+            calls["nb"] = lambda inv, mode: tuple(t.T for t in lg.fft_large_nb(
+                re.T.contiguous(), im.T.contiguous(), inv, mode=mode))
+        for inverse in (False, True):
+            want = lg.plain_fft_large(x, inverse)
+            for layout, call in calls.items():
+                got, two_pass = call(inverse, "cube"), call(inverse, "pipe2")
+                assert all(torch.equal(a, b) for a, b in zip(got, two_pass)), (
+                    layout, batch, inverse)
+                y = got[0] if layout == "complex" else torch.complex(*got)
+                assert _rel(y, want) <= KERNEL_LIMIT
+
+
+@pytest.mark.parametrize("n", [1 << 13, 1 << 14])
+def test_resident_cube_on_misaligned_views(n, dev):
+    """Interleaved points 4 bytes off 8-byte alignment take the 4-byte
+    copies (input) and stores (output)."""
+    batch = 6
+    flat = _r((2 * n * batch + 3,), 12, dev)
+    for off in (0, 1):
+        out = torch.zeros_like(flat)
+        views = [torch.as_strided(t, (n, batch), (2, 2 * n), o)
+                 for t, o in ((flat, off), (flat, off + 1), (out, 1 - off), (out, 2 - off))]
+        for inverse in (False, True):
+            lg.fft_large_views(*views, inverse, mode="cube")
+            got = torch.complex(views[2], views[3])
+            x = torch.complex(views[0], views[1]).T.contiguous()
+            want = lg.plain_fft_large(x, inverse).T
+            assert _rel(got, want) <= KERNEL_LIMIT
+
+
+def test_resident_cube_refusals(dev):
+    """The kernel refuses, before any launch, a block other than 256 or 512
+    threads (kErrCube = -7) and 8-byte pairs where re and im are not
+    adjacent in 8-byte aligned points (kErrPairs = -8)."""
+    from watfft_tpu_torch.ops import _build
+    lib = _build.library()
+    n = 1 << 13
+    lt = lg.device_large_tables(n, False, dev)
+    t1, t2 = lt.t1, lt.t2
+    buf = torch.zeros(2 * n * 3 + 2, device=dev)
+    p = buf.data_ptr()
+
+    def cube(x, y, threads, pairs_x, pairs_y):
+        return lib.watfft_large_cube(
+            *x[:2], *y[:2], *x[2:], *y[2:], lt.n1, lt.n2, 3, lt.pmre.data_ptr(),
+            lt.pmim.data_ptr(), t1.twre.data_ptr(), t1.twim.data_ptr(), t1.c_radices,
+            t1.c_offsets, len(t1.stages), t2.twre.data_ptr(), t2.twim.data_ptr(),
+            t2.c_radices, t2.c_offsets, len(t2.stages), 0,
+            torch.cuda.current_stream().cuda_stream, threads, pairs_x, pairs_y)
+    pairs = (p, p + 4, 2, 2 * n)
+    for threads in (384, 1024, 0):
+        assert cube(pairs, pairs, threads, 1, 1) == -7, threads
+    for x in ((p + 4, p + 8, 2, 2 * n), (p, p + 4, 2, 2 * n + 1), (p, p + 8 * n, 1, n)):
+        assert cube(x, pairs, 256, 1, 0) == -8, x
+        assert cube(pairs, x, 256, 0, 1) == -8, x
+    assert "cube block" in lib.watfft_error_string(-7).decode()
+    assert "8-byte pairs" in lib.watfft_error_string(-8).decode()
+
+
+def _r2c_walk(monkeypatch, walk):
+    """The f32 r2c wrapper with its walk forced (rf.WALK_ENGINE, the kernel
+    before the redesign, or rf.WALK_RESIDENT) at every n."""
+    real = rf.r2c_launch
+
+    def launch(n, x, y):   # the resident walk's pairs at any n past R2C_ENGINE_MAX_N
+        return (walk, 0, 0) if walk == rf.WALK_ENGINE else real(1 << 13, x, y)
+    monkeypatch.setattr(rf, "r2c_launch", launch)
+
+
+@pytest.mark.parametrize("n", [1 << k for k in range(2, 14)])
+def test_resident_r2c_matches_plain_and_the_engine(n, dev, monkeypatch):
+    """Three layouts and rows 4 bytes off 8-byte alignment (4-byte copies),
+    batch 1, a few tiles, and more than the resident grid by a tail that is
+    not a multiple of T: within KERNEL_LIMIT of the plain version and equal
+    to the engine's walk (the parent's kernel), both kernels forced at
+    every n."""
+    m = n // 2
+    T = st.engine_transforms(m, max(r for r, _ in st.stage_plan(m)))
+    for batch in (1, 3, 2 * st.SMS * T + T // 2 + 1):
+        flat = _r((batch * n + 1,), n + batch, dev)
+        x, xm = flat[:-1].view(batch, n), flat[1:].view(batch, n)
+        want = rf.plain_rfft(x)
+        calls = {"complex": lambda: (rf.rfft(x),), "bm": lambda: rf.rfft_bm(x),
+                 "nb": lambda: tuple(t.T for t in rf.rfft_nb_fused(x.T.contiguous())),
+                 "misaligned": lambda: (rf.rfft(xm),)}
+        for layout, call in calls.items():
+            _r2c_walk(monkeypatch, rf.WALK_RESIDENT)
+            got = call()
+            _r2c_walk(monkeypatch, rf.WALK_ENGINE)
+            engine = call()
+            monkeypatch.undo()
+            assert all(torch.equal(a, b) for a, b in zip(got, engine)), (layout, batch)
+            y = got[0] if len(got) == 1 else torch.complex(*got)
+            ref = rf.plain_rfft(xm) if layout == "misaligned" else want
+            assert _rel(y, ref) <= KERNEL_LIMIT, (layout, batch)
+
+
+def test_resident_r2c_refusals(dev):
+    """The f32 entry refuses a walk other than 1 or 2 (kErrArgs = -1) and
+    8-byte pairs on the engine's walk or where the layout does not allow
+    them (kErrPairs = -8)."""
+    n, batch = 1024, 3
+    rt = rf.device_rtables(n, False, dev)
+    x = torch.zeros(batch * n + 2, device=dev)
+    y = torch.zeros(2 * batch * (n // 2 + 1) + 2, device=dev)
+    lib, targs = rf._kernel_args(rt, x, "rfft_r2c_fused")
+    stream = torch.cuda.current_stream().cuda_stream
+    xp, yp = x.data_ptr(), y.data_ptr()
+    m1 = n // 2 + 1
+
+    def r2c(xa, x_sb, ya, walk, px, py):
+        return lib.watfft_rfft_r2c(xa, 1, x_sb, ya, ya + 4, 2, 2 * m1, n, batch, *targs,
+                                   stream, walk, px, py)
+    for walk in (0, 3):
+        assert r2c(xp, n, yp, walk, 0, 0) == -1, walk
+    assert r2c(xp, n, yp, rf.WALK_ENGINE, 1, 0) == -8
+    assert r2c(xp, n, yp, rf.WALK_ENGINE, 0, 1) == -8
+    assert r2c(xp + 4, n, yp, rf.WALK_RESIDENT, 1, 1) == -8      # rows 4 bytes off
+    assert r2c(xp, n + 1, yp, rf.WALK_RESIDENT, 1, 1) == -8      # an odd row stride
+    assert r2c(xp, n, yp + 4, rf.WALK_RESIDENT, 1, 1) == -8      # bins 4 bytes off
+    torch.cuda.synchronize()

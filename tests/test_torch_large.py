@@ -87,10 +87,10 @@ def test_planner_routes_large_sizes():
     assert c2c(8192, "float32", batch=1) == "large-cube"
     assert c2c(8192, "float32", batch=16, time_major=True) == "large-pipe2"
     assert c2c(8192, "float32", batch=1, time_major=True) == "large-cube"
-    least = planner.CUBE_MIN_BATCH[1 << 14]
-    assert c2c(1 << 14, "float32", batch=least) == "large-cube"
-    assert c2c(1 << 14, "float32", batch=least - 1) == "large-pipe2"
+    assert c2c(1 << 14, "float32", batch=1) == "large-cube"       # the cube at every batch
     assert c2c(1 << 14, "float32", batch=1024) == "large-cube"
+    assert c2c(1 << 14, "float32", batch=2, time_major=True) == "large-cube"
+    assert c2c(1 << 14, "float32", batch=3, time_major=True) == "large-pipe2"
     assert planner.large_mode(4096, batch=1024) == "pipe2"  # the cube takes n >= 8192
     assert c2c(1 << 15, "float32", batch=1024) == "large-pipe2"
     assert c2c(1 << 24, "float32", batch=1) == "large-pipe2"

@@ -98,9 +98,11 @@ def library() -> ctypes.CDLL:
                         i32, i32]
         c2c.restype = i32
         # (x, x_sn, x_sb, yre, yim, y_sn, y_sb, n, batch, twre, twim, radices,
-        #  offsets, nstages, wre, wim, stream) and the c2r mirror of it
+        #  offsets, nstages, wre, wim, stream) and the c2r mirror of it; the
+        #  f32 r2c also takes its walk, pairs_x and pairs_y
         r2c = getattr(lib, "watfft_rfft_r2c" + suffix)
-        r2c.argtypes = [p, i64, i64, p, p, i64, i64, i32, i64, p, p, ip, ip, i32, p, p, p]
+        r2c.argtypes = [p, i64, i64, p, p, i64, i64, i32, i64, p, p, ip, ip, i32, p, p, p,
+                        *([] if suffix else [i32, i32, i32])]
         r2c.restype = i32
         c2r = getattr(lib, "watfft_irfft_c2r" + suffix)
         c2r.argtypes = [p, p, i64, i64, p, i64, i64, i32, i64, p, p, ip, ip, i32, p, p, p]
@@ -123,9 +125,10 @@ def library() -> ctypes.CDLL:
     lib.watfft_strided_c2c.restype = i32
     # (xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n1, n2, batch, pmre, pmim,
     #  the n2-point twre, twim, radices, offsets, nstages, the n1-point ones,
-    #  inverse, stream)
+    #  inverse, stream, threads, pairs_x, pairs_y)
     lib.watfft_large_cube.argtypes = [p, p, p, p, i64, i64, i64, i64, i32, i32, i64, p, p,
-                                      p, p, ip, ip, i32, p, p, ip, ip, i32, i32, p]
+                                      p, p, ip, ip, i32, p, p, ip, ip, i32, i32, p, i32, i32,
+                                      i32]
     lib.watfft_large_cube.restype = i32
     # (xre, xim, yre, yim, x_sh, x_sw, x_sb, y_sh, y_sw, y_sb, h, w, batch,
     #  the h-point twre, twim, radices, offsets, nstages, the w-point ones,

@@ -137,33 +137,6 @@ bluestein_inv_kernel(const float* __restrict__ xre, const float* __restrict__ xi
   });
 }
 
-template <int R, int P, bool INV, typename Ld, typename St>
-__device__ __forceinline__ void stage_io_if(int radix, int th, int tpt, int m, int log2l,
-                                            int twoff, bool fold, const float* __restrict__ twre,
-                                            const float* __restrict__ twim, bool in_place, Ld ld,
-                                            St st) {
-  if constexpr (R <= P) {
-    if (radix == R) {
-      stage_io<R, P, INV, float>(th, tpt, m, log2l, twoff, fold, twre, twim, in_place, ld, st);
-    }
-  }
-}
-
-// Stage s of the plan through the engine's stage_io (stockham.cuh), its
-// radix picked at run time: the rows move through ld and st.
-template <int P, bool INV, typename Ld, typename St>
-__device__ __forceinline__ void stage_at(const Plan& plan, int s, int th, int tpt,
-                                         const float* __restrict__ twre,
-                                         const float* __restrict__ twim, bool in_place, Ld ld,
-                                         St st) {
-  const int m = 1 << plan.log2n, r = plan.radix[s], ll = plan.log2l[s], off = plan.twoff[s];
-  const bool fold = INV && s == plan.nstages - 1;
-  stage_io_if<2, P, INV>(r, th, tpt, m, ll, off, fold, twre, twim, in_place, ld, st);
-  stage_io_if<4, P, INV>(r, th, tpt, m, ll, off, fold, twre, twim, in_place, ld, st);
-  stage_io_if<8, P, INV>(r, th, tpt, m, ll, off, fold, twre, twim, in_place, ld, st);
-  stage_io_if<16, P, INV>(r, th, tpt, m, ll, off, fold, twre, twim, in_place, ld, st);
-}
-
 // The one-pass transform (#17 then #18 in one kernel, the JAX package's
 // _bluestein_fused): the m-point data of each transform stays in shared
 // memory from the chirp multiply to the final chirp. ROWS (the point

@@ -11,7 +11,8 @@
 //  * pallas_stockham.py::_kernel_postmul (#3): the c2c stages followed by
 //    out = y * pm in the store (the "2d" mode's first pass and fft_large);
 //  * large.py::_cube_kernel (#12): the whole four-step of one sequence in
-//    one block (n2-point pass, twiddle, n1-point pass, one store).
+//    one block (n2-point pass, twiddle, n1-point pass, one store):
+//    cube_kernel.
 //
 // #11, #13, #3 and the "2d" mode's second pass are one kernel,
 // `strided_c2c_kernel`: the c2c kernel of stockham.cu with a batch over two
@@ -41,20 +42,42 @@
 // (N + N/16 float2: 68 KB at 2^13, 136 KB at 2^14, over the 48 KB a launch
 // gets by default, so the launch opts in with cudaFuncSetAttribute). Its
 // layout is the sequence's own order, point j = j1 + n1*j2 at pad(j): the
-// n2-point pass reads column j1 at rows j1 + k*n1 (Strided rows), the
-// n1-point pass reads row k2 at k2*n1 + k (contiguous), and the store reads
-// D[k1, k2] at k2*n1 + k1. There is no room for a second buffer to
-// transpose into, and none is needed. The strided pass's rows are n1 + n1/16
-// float2 apart (136 at n1 = 128: 2-way bank conflicts). Every thread runs
-// the same number of column groups, so each __syncthreads inside
-// run_stages is reached by the whole block: N/16 is a multiple of the
-// block's 512 threads for every N >= 8192.
-//
+// n2-point pass reads column j1 at rows j1 + k*n1 (Strided rows) and the
+// n1-point pass row k2 at k2*n1 + k. What bounded the first cube (one
+// block a sequence: 356 us at [2048, 8192] against 80 us of bytes) was
+// that a block ran load, passes and store in turn with its SM's memory
+// idle between, the load one scalar read at a time. cube_kernel<INV, NT>
+// keeps the arithmetic and changes the walk (PERF.md has each step's time
+// on the H100: 167 us at [2048, 8192]):
+//  * blocks of 256 threads at N = 8192, two an SM (what the SM's shared
+//    memory holds), and of 512 at 16384, one a sequence. A second buffer,
+//    so the next sequence lands during the passes, fits only one block of
+//    512 at 8192 and measured slower than two blocks of one buffer, and
+//    resident blocks looping over sequences slower than a block a
+//    sequence: neither is kept;
+//  * the sequence lands by cp.async, all of a thread's copies in flight at
+//    once, 8 bytes a point where re and im are adjacent;
+//  * the column pass runs the column fastest across a warp (rows n1 + n1/16
+//    slots apart put a warp's threads of one column on the same banks);
+//  * the twiddle T multiplies each point in the row pass's first stage
+//    (l = 1, which has no twiddle of its own), as the load of stage 2
+//    (#13) does: the same product, without a pass over shared memory and
+//    its sync;
+//  * the row pass's last stage writes D[k1, k2] straight to output row
+//    k1*n2 + k2, its threads mapped so a warp covers 8 adjacent rows k2:
+//    each store instruction writes runs of 8 points (64 bytes interleaved,
+//    32 a plane). A transposed read of shared memory before a coalesced
+//    store, or a last stage mapped like the others, measured slower.
+// Every thread runs the same number of column and row groups (N/16 is a
+// multiple of the block's threads for every N >= 8192), so each
+// __syncthreads is reached by the whole block.
+
 // C interface (loaded with ctypes): each entry launches on the given
 // stream, allocates nothing, and returns cudaGetLastError() after the
 // launch, or a negative code (stockham.cuh) for arguments it refuses.
 // watfft_strided_c2c's last two arguments are the column tile C (0: none)
-// and its block's threads.
+// and its block's threads; watfft_large_cube's last three are the cube's
+// threads and whether it copies and stores 8 bytes a point.
 
 #include "stockham.cuh"
 
@@ -209,60 +232,117 @@ int launch_mul(int mul, const float* xre, const float* xim, float* yre, float* y
 #undef WATFFT_LAUNCH
 }
 
-// One block per sequence s: the four-step of N = n1*n2 points (p1: the
-// n2-point plan, p2: the n1-point plan) with the twiddle pm [n2, n1].
-template <bool INV>
-__global__ void __launch_bounds__(kCubeThreads, 1)
+// The cube (#12): the whole four-step of N = n1*n2 points of sequence
+// blockIdx.x in one block (p1: the n2-point plan, p2: the n1-point plan,
+// pm: the twiddle T[k2, j1] at k2*n1 + j1). The sequence lands by
+// cp.async, 8 bytes a point where the host asks for pairs (`pairs_x`: re
+// and im adjacent in 8-byte aligned points, as in interleaved complex64 and
+// the real route's even and odd rows), else 4 bytes per plane; the output
+// is stored 8 bytes a point where it asks for them (`pairs_y`). NT threads
+// a block: 256 at two blocks an SM or 512 at one, 128 registers a thread
+// either way.
+constexpr int cube_min_blocks(int NT) { return NT == kCubeThreads ? 1 : 2; }
+constexpr int kCubeStoreRows = 8;  // rows a warp's stores of the last row stage cover
+
+// The sequence at xs (point j at xs + j*x_sn) into c by cp.async, point
+// j = j1 + n1*j2 at pad(j); ends with the thread's wait.
+__device__ __forceinline__ void cube_copy(float2* c, const float* __restrict__ xre,
+                                          const float* __restrict__ xim, int64_t xs,
+                                          int64_t x_sn, int nn, bool pairs) {
+  if (pairs) {
+    for (int j = threadIdx.x; j < nn; j += blockDim.x) {
+      copy_async<8>(c + pad(j), xre + xs + (int64_t)j * x_sn);
+    }
+  } else {
+    for (int j = threadIdx.x; j < nn; j += blockDim.x) {
+      const int64_t g = xs + (int64_t)j * x_sn;
+      float* d = reinterpret_cast<float*>(c + pad(j));
+      copy_async<4>(d, xre + g);
+      copy_async<4>(d + 1, xim + g);
+    }
+  }
+  copy_commit();
+  copy_wait<0>();
+}
+
+template <bool INV, int NT>
+__global__ void __launch_bounds__(NT, cube_min_blocks(NT))
 cube_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
             float* __restrict__ yre, float* __restrict__ yim,
-            int64_t x_sn, int64_t x_sb, int64_t y_sn, int64_t y_sb,
+            int64_t x_sn, int64_t x_sb, int64_t y_sn, int64_t y_sb, bool pairs_x, bool pairs_y,
             const float* __restrict__ pmre, const float* __restrict__ pmim,
             const float* __restrict__ t1re, const float* __restrict__ t1im, Plan p1,
             const float* __restrict__ t2re, const float* __restrict__ t2im, Plan p2) {
-  extern __shared__ float2 smem[];
+  extern __shared__ float2 c[];
   const int log2n1 = p2.log2n, log2n2 = p1.log2n;
   const int n1 = 1 << log2n1, n2 = 1 << log2n2, nn = n1 * n2;
-  const int64_t xs = (int64_t)blockIdx.x * x_sb, ys = (int64_t)blockIdx.x * y_sb;
+  // The n2-point pass: ctpt threads a column, cper columns at a time, the
+  // column fastest across a warp (rows n1 + n1/16 slots apart would put a
+  // warp's threads of one column on the same banks).
+  const int ctpt = n2 / kCubeP, cper = NT / ctpt;
+  const int c0 = threadIdx.x % cper, cth = threadIdx.x / cper;
+  // The n1-point pass, rper rows at a time: its stages in shared memory with
+  // the thread's point of its row fastest (r0, rth); its last stage, which
+  // stores, with groups of g adjacent rows fastest (s0, sth), so a warp's
+  // stores fill runs of g points of the output.
+  const int rtpt = n1 / kCubeP, rper = NT / rtpt;
+  const int r0 = threadIdx.x / rtpt, rth = threadIdx.x - r0 * rtpt;
+  const int g = min(kCubeStoreRows, rper);
+  const int s0 = threadIdx.x % g + threadIdx.x / (g * rtpt) * g;
+  const int sth = threadIdx.x / g % rtpt;
+  const int last = p2.nstages - 1;
 
-  // point j = j1 + n1*j2 to pad(j): row j2, column j1 of the [n2, n1] block
-  for (int j = threadIdx.x; j < nn; j += blockDim.x) {
-    const int64_t g = xs + (int64_t)j * x_sn;
-    smem[pad(j)] = make_float2(xre[g], xim[g]);
-  }
+  const int64_t s = blockIdx.x;
+  cube_copy(c, xre, xim, s * x_sb, x_sn, nn, pairs_x);
   __syncthreads();
 
-  // n2-point FFTs down the n1 columns, `per` columns at a time
-  {
-    const int tpt = n2 / kCubeP, per = kCubeThreads / tpt;
-    const int c0 = threadIdx.x / tpt, th = threadIdx.x - c0 * tpt;
-    for (int c = c0; c < n1; c += per) {
-      run_stages<kCubeP, INV>(smem, th, tpt, p1, t1re, t1im, Strided{c, log2n1});
+  // n2-point FFTs down the n1 columns (row j2, column j1 at pad(j1 + n1*j2))
+  for (int col = c0; col < n1; col += cper) {
+    run_stages<kCubeP, INV>(c, cth, ctpt, p1, t1re, t1im, Strided{col, log2n1});
+  }
+
+  // n1-point FFTs along the n2 rows: the first stage reads C[k2, j1] times
+  // T[k2, j1] (l = 1, which has no twiddle of its own), the last writes
+  // D[k1, k2] straight to output row k1*n2 + k2
+  const int64_t ys = s * y_sb;
+  for (int base = 0; base < n2; base += rper) {
+    const auto row_of = [&](int r) { return c + pad(r << log2n1); };
+    float2* const row = row_of(base + r0);
+    const float* const wre = pmre + ((base + r0) << log2n1);
+    const float* const wim = pmim + ((base + r0) << log2n1);
+    const auto twiddled = [&](int k) {
+      return cmul(row[pad(k)], make_float2(__ldg(wre + k), __ldg(wim + k)));
+    };
+    const auto from_row = [&](int k) { return row[pad(k)]; };
+    const auto to_row = [&](int k, float2 z) { row[pad(k)] = z; };
+    const int k2 = base + s0;
+    const float2* const srow = row_of(k2);
+    const auto from_srow = [&](int k) { return srow[pad(k)]; };
+    const auto to_y = [&](int k1, float2 z) {
+      const int64_t o = ys + (int64_t)((k1 << log2n2) + k2) * y_sn;
+      if (pairs_y) {
+        *reinterpret_cast<float2*>(yre + o) = z;
+      } else {
+        yre[o] = z.x;
+        yim[o] = z.y;
+      }
+    };
+    if (last == 0) {
+      // one stage: the twiddled load and the store in one thread mapping
+      const float* const swre = pmre + (k2 << log2n1);
+      const float* const swim = pmim + (k2 << log2n1);
+      stage_at<kCubeP, INV>(p2, 0, sth, rtpt, t2re, t2im, false, [&](int k) {
+        return cmul(srow[pad(k)], make_float2(__ldg(swre + k), __ldg(swim + k)));
+      }, to_y);
+    } else {
+      stage_at<kCubeP, INV>(p2, 0, rth, rtpt, t2re, t2im, true, twiddled, to_row);
+      __syncthreads();
+      for (int st = 1; st < last; ++st) {
+        stage_at<kCubeP, INV>(p2, st, rth, rtpt, t2re, t2im, true, from_row, to_row);
+        __syncthreads();
+      }
+      stage_at<kCubeP, INV>(p2, last, sth, rtpt, t2re, t2im, false, from_srow, to_y);
     }
-  }
-
-  // C[k2, j1] *= T[k2, j1]
-  for (int e = threadIdx.x; e < nn; e += blockDim.x) {
-    const int i = pad(e);
-    smem[i] = cmul(smem[i], make_float2(__ldg(pmre + e), __ldg(pmim + e)));
-  }
-  __syncthreads();
-
-  // n1-point FFTs along the n2 rows
-  {
-    const int tpt = n1 / kCubeP, per = kCubeThreads / tpt;
-    const int r0 = threadIdx.x / tpt, th = threadIdx.x - r0 * tpt;
-    for (int r = r0; r < n2; r += per) {
-      run_stages<kCubeP, INV>(smem + pad(r << log2n1), th, tpt, p2, t2re, t2im);
-    }
-  }
-
-  // D[k1, k2] (at k2*n1 + k1) to output row k1*n2 + k2
-  for (int q = threadIdx.x; q < nn; q += blockDim.x) {
-    const int k1 = q >> log2n2, k2 = q & (n2 - 1);
-    const float2 z = smem[pad((k2 << log2n1) + k1)];
-    const int64_t g = ys + (int64_t)q * y_sn;
-    yre[g] = z.x;
-    yim[g] = z.y;
   }
 }
 
@@ -335,7 +415,10 @@ int watfft_strided_c2c(const float* xre, const float* xim, float* yre, float* yi
 // point j of sequence s at j*x_sn + s*x_sb floats past xre and xim, output
 // row r at r*y_sn + s*y_sb. pm holds T[k2, j1] at k2*n1 + j1. The n2-point
 // plan (p1: radices, offsets, count, twiddle pack t1) and the n1-point plan
-// (p2, t2) are of the direction asked for.
+// (p2, t2) are of the direction asked for. threads: the block, 256 or 512
+// (kErrCube otherwise); pairs_x, pairs_y: 8-byte copies of the input and
+// stores of the output, refused (kErrPairs) where re and im are not
+// adjacent in 8-byte aligned points.
 int watfft_large_cube(const float* xre, const float* xim, float* yre, float* yim,
                       int64_t x_sn, int64_t x_sb, int64_t y_sn, int64_t y_sb,
                       int n1, int n2, int64_t batch,
@@ -344,7 +427,7 @@ int watfft_large_cube(const float* xre, const float* xim, float* yre, float* yim
                       const int* r1, const int* o1, int ns1,
                       const float* t2re, const float* t2im,
                       const int* r2, const int* o2, int ns2,
-                      int inverse, void* stream) {
+                      int inverse, void* stream, int threads, int pairs_x, int pairs_y) {
   Plan p1, p2;
   int maxr, T;
   if (const int err = make_plan(n2, 1, r1, o1, ns1, p1, maxr, T)) return err;
@@ -360,11 +443,20 @@ int watfft_large_cube(const float* xre, const float* xim, float* yre, float* yim
   }
   if (e != cudaSuccess) return (int)e;
   if (smem > (size_t)optin) return kErrSplit;
-  auto kernel = inverse ? cube_kernel<true> : cube_kernel<false>;
+  if (threads != kCubeThreads && threads != kCubeThreads / 2) return kErrCube;
+  if ((pairs_x && !complex_pairs(xre, xim, x_sn, x_sb)) ||
+      (pairs_y && !complex_pairs(yre, yim, y_sn, y_sb))) {
+    return kErrPairs;
+  }
+  auto kernel = threads == kCubeThreads
+                    ? (inverse ? cube_kernel<true, kCubeThreads> : cube_kernel<false, kCubeThreads>)
+                    : (inverse ? cube_kernel<true, kCubeThreads / 2>
+                               : cube_kernel<false, kCubeThreads / 2>);
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<(unsigned)batch, kCubeThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, pmre, pmim, t1re, t1im, p1, t2re, t2im, p2);
+  kernel<<<(unsigned)batch, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, pairs_x != 0, pairs_y != 0, pmre, pmim, t1re,
+      t1im, p1, t2re, t2im, p2);
   return (int)cudaGetLastError();
 }
 

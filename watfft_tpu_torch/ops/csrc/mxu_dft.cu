@@ -90,15 +90,13 @@ struct DftTile {
 };
 
 // 4 bytes from device to shared memory, asynchronously (cp.async); zeros
-// where !valid (nothing is read then).
+// where !valid (nothing is read then). Its groups are committed and
+// awaited by stockham.cuh's copy_commit and copy_wait.
 __device__ __forceinline__ void copy_async(float* dst, const float* src, bool valid) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
                "r"(valid ? 4 : 0));
 }
-__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void copy_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 // Rows k0 .. k0+KC of W^T into ws ([KC][MP]), zero past 2n, asynchronously.
 template <int KC, int MP>

@@ -2,7 +2,8 @@
 // (forward) and c2r (normalized inverse) of n = 2m real points, in one pass
 // each.
 //
-// rfft_r2c_kernel replaces watfft_tpu/ops/pallas_rfft.py::_rfft_fused_kernel
+// rfft_r2c_resident_kernel (f32; rfft_r2c_kernel, its first form, at
+// n <= 8) replaces watfft_tpu/ops/pallas_rfft.py::_rfft_fused_kernel
 // (deinterleave + m-point stages + Hermitian mirror + post-twiddle) and
 // irfft_c2r_kernel replaces ::_irfft_fused_kernel (mirror + pre-process +
 // m-point inverse stages with 1/m folded + re-interleave). They compute
@@ -51,6 +52,17 @@
 //    memory, whose per-transform stride is sized for the m rows of Z.
 //  * Block shape, stages, bank padding and the walk along the smaller
 //    stride are those of the c2c kernel (stockham.cu), with n replaced by m.
+//  * The f32 forward as resident blocks (rfft_r2c_resident_kernel). The
+//    first form, a block a tile at three blocks an SM, ran 4096 x 1024 in
+//    40.1 us against 10.0 of bytes: 512 blocks in two waves, the second 29%
+//    full, P = 16 spilling under the 85-register bound, scalar loads and
+//    stores, and the load, stages and store of a block in turn. The
+//    resident kernel keeps its arithmetic: two blocks of 256 threads an SM
+//    (128 registers), each looping over tiles of T transforms with the next
+//    tile landing by cp.async in a second buffer during the stages and the
+//    post; z[j] = (x[2j], x[2j+1]) copied as one 8-byte pair, each bin
+//    stored as one 8-byte pair, where the layout allows (PERF.md has the
+//    times).
 //  * Layouts are strides: the real side has an element stride along n and
 //    one along the batch, the spectrum side separate re and im pointers
 //    with their own pair, so interleaved complex64 (stride 2), split planes,
@@ -198,6 +210,96 @@ irfft_c2r_kernel(const Real* __restrict__ xre, const Real* __restrict__ xim,
   });
 }
 
+// watfft_rfft_r2c's `walk`: the engine's walk (rfft_r2c_kernel, a block a
+// tile) or the resident kernel. The host takes the engine's walk at n <= 8
+// (one radix-m stage, 256 transforms a block), where it measured faster
+// at eight blocks an SM than the resident kernel at two (PERF.md).
+constexpr int kWalkEngine = 1, kWalkResident = 2;
+constexpr int kR2cBlocks = 2;  // resident blocks an SM: 128 registers a thread
+
+// The f32 r2c kernel (#9) as resident blocks: the grid is the card's SMs
+// times kR2cBlocks (P = 16's stages do not spill at 128 registers), and
+// block b takes tiles b, b + grid, ... of T transforms; every thread runs
+// the same trip count. While the stages and the Hermitian post run on
+// tile i, tile i + grid lands in the second buffer by cp.async. The
+// deinterleave is the copy: z[j] = (x[2j], x[2j+1]) moves as one 8-byte
+// copy where the host asks for pairs (`pairs_x`: the signal's rows
+// contiguous and 8-byte aligned), else as two 4-byte copies. Each bin is
+// one 8-byte store where it asks for them (`pairs_y`: the spectrum
+// interleaved complex64). The arithmetic is rfft_r2c_kernel's.
+template <int P>
+__global__ void __launch_bounds__(kBlockThreads, kR2cBlocks)
+rfft_r2c_resident_kernel(const float* __restrict__ x, int64_t x_sn, int64_t x_sb,
+                         float* __restrict__ yre, float* __restrict__ yim,
+                         int64_t y_sn, int64_t y_sb, int64_t batch, int T, int S,
+                         bool pairs_x, bool pairs_y,
+                         const float* __restrict__ twre, const float* __restrict__ twim,
+                         const float* __restrict__ wre, const float* __restrict__ wim,
+                         Plan plan) {
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  float2* smem = reinterpret_cast<float2*>(smem_bytes);
+  const int m = 1 << plan.log2n;
+  const int tpt = m / P;
+  const int64_t tiles = (batch + T - 1) / T, step = gridDim.x;
+  const int tile_slots = T * S;
+  const int t = threadIdx.x / tpt, th = threadIdx.x - t * tpt;
+
+  // tile `tile` into buffer c: z[j] = x[2j] + i x[2j+1], complex point j
+  // 2j real strides in; transforms past the batch are not copied
+  const auto copy = [&](float2* c, int64_t tile) {
+    const int64_t first = tile * T;
+    const int count = (int)min((int64_t)T, batch - first);
+    for_tile(plan.log2n, T, count, first, 2 * x_sn, x_sb, [&](int t, int j, int64_t g) {
+      float2* d = c + t * S + pad(j);
+      if (pairs_x) {
+        copy_async<8>(d, x + g);
+      } else {
+        copy_async<4>(&d->x, x + g);
+        copy_async<4>(&d->y, x + g + x_sn);
+      }
+    });
+    copy_commit();
+  };
+
+  int64_t tile = blockIdx.x;
+  if (tile < tiles) copy(smem, tile);
+  for (int it = 0; tile < tiles; tile += step, ++it) {
+    float2* const c = smem + (it & 1) * tile_slots;
+    copy_wait<0>();
+    __syncthreads();  // tile i is in c, and every read of the other buffer is done
+    if (tile + step < tiles) copy(smem + ((it + 1) & 1) * tile_slots, tile + step);
+
+    run_stages<P, false>(c + t * S, th, tpt, plan, twre, twim);
+
+    // Hermitian post, one mirror pair per thread (the stages ended with a sync)
+    const int64_t first = tile * T;
+    const int count = (int)min((int64_t)T, batch - first);
+    const auto put = [&](int64_t g, float2 v) {
+      if (pairs_y) {
+        *reinterpret_cast<float2*>(yre + g) = v;
+      } else {
+        yre[g] = v.x;
+        yim[g] = v.y;
+      }
+    };
+    for_pairs(m, T, count, first, y_sn, y_sb, [&](int t, int k, int64_t g) {
+      const float2* z = c + t * S;
+      if (k == 0) {
+        const float2 z0 = z[0];
+        put(g, make_float2(z0.x + z0.y, 0.0f));
+        put(g + m * y_sn, make_float2(z0.x - z0.y, 0.0f));
+        return;
+      }
+      const float2 a = z[pad(k)], b = z[pad(m - k)];
+      put(g + k * y_sn, post_fwd(a, b, make_float2(__ldg(wre + k), __ldg(wim + k))));
+      if (2 * k != m) {
+        const int j = m - k;
+        put(g + j * y_sn, post_fwd(b, a, make_float2(__ldg(wre + j), __ldg(wim + j))));
+      }
+    });
+  }
+}
+
 // The grid of a launch over `batch` transforms, its shared memory, and the
 // kernel's opt-in when that is past the default; 0 or an error code.
 template <typename Real, typename K>
@@ -232,6 +334,40 @@ int r2c(const Real* x, int64_t x_sn, int64_t x_sb, Real* yre, Real* yim, int64_t
   return (int)cudaGetLastError();
 }
 
+// The f32 r2c launch: resident blocks of rfft_r2c_resident_kernel,
+// kR2cBlocks an SM, each with two tiles of T transforms in shared memory.
+int r2c_resident(const float* x, int64_t x_sn, int64_t x_sb, float* yre, float* yim,
+                 int64_t y_sn, int64_t y_sb, int n, int64_t batch, const float* twre,
+                 const float* twim, const int* radices, const int* twoffsets, int nstages,
+                 const float* wre, const float* wim, void* stream, bool pairs_x, bool pairs_y) {
+  Plan plan;
+  int maxr, T;
+  if (n < 4 || (n & (n - 1))) return kErrArgs;
+  if (const int err = make_plan(n / 2, batch, radices, twoffsets, nstages, plan, maxr, T)) {
+    return err;
+  }
+  // z[j] = (x[2j], x[2j+1]): point j of the pairs (x, x + x_sn) at stride 2 x_sn
+  if ((pairs_x && !complex_pairs(x, x + x_sn, 2 * x_sn, x_sb)) ||
+      (pairs_y && !complex_pairs(yre, yim, y_sn, y_sb))) {
+    return kErrPairs;
+  }
+  auto kernel = maxr == 2 ? rfft_r2c_resident_kernel<2> : maxr == 4 ? rfft_r2c_resident_kernel<4>
+              : maxr == 8 ? rfft_r2c_resident_kernel<8> : rfft_r2c_resident_kernel<16>;
+  const int S = smem_stride(n / 2);
+  const size_t smem = 2 * (size_t)T * S * sizeof(float2);
+  if (const int err = opt_in_smem(kernel, smem)) return err;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t tiles = (batch + T - 1) / T, resident = kR2cBlocks * (int64_t)sms;
+  const unsigned grid = (unsigned)(tiles < resident ? tiles : resident);
+  kernel<<<grid, kBlockThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, x_sn, x_sb, yre, yim, y_sn, y_sb, batch, T, S, pairs_x, pairs_y, twre, twim, wre, wim,
+      plan);
+  return (int)cudaGetLastError();
+}
+
 template <typename Real>
 int c2r(const Real* xre, const Real* xim, int64_t x_sn, int64_t x_sb, Real* y, int64_t y_sn,
         int64_t y_sb, int n, int64_t batch, const Real* twre, const Real* twim,
@@ -263,14 +399,25 @@ extern "C" {
 // sits at j*x_sn + b*x_sb; bin k of the m+1 = n/2+1 at k*y_sn + b*y_sb of
 // the planes yre and yim. The m-point forward plan is given as its radices
 // and twiddle-pack offsets; wre/wim hold w_n^k, k = 0..m. y must not
-// overlap x.
+// overlap x. walk: 1 the engine's walk (rfft_r2c_kernel), 2 the resident
+// kernel; pairs_x, pairs_y: the resident kernel's 8-byte copies of the
+// signal and stores of the spectrum, refused (kErrPairs) where the layout
+// does not allow them or on the engine's walk. (The FP64 entry below runs
+// the engine's walk and takes none of the three.)
 int watfft_rfft_r2c(const float* x, int64_t x_sn, int64_t x_sb,
                     float* yre, float* yim, int64_t y_sn, int64_t y_sb,
                     int n, int64_t batch, const float* twre, const float* twim,
                     const int* radices, const int* twoffsets, int nstages,
-                    const float* wre, const float* wim, void* stream) {
-  return r2c(x, x_sn, x_sb, yre, yim, y_sn, y_sb, n, batch, twre, twim, radices, twoffsets,
-             nstages, wre, wim, stream);
+                    const float* wre, const float* wim, void* stream, int walk, int pairs_x,
+                    int pairs_y) {
+  if (walk == kWalkEngine) {
+    if (pairs_x || pairs_y) return kErrPairs;
+    return r2c(x, x_sn, x_sb, yre, yim, y_sn, y_sb, n, batch, twre, twim, radices, twoffsets,
+               nstages, wre, wim, stream);
+  }
+  if (walk != kWalkResident) return kErrArgs;
+  return r2c_resident(x, x_sn, x_sb, yre, yim, y_sn, y_sb, n, batch, twre, twim, radices,
+                      twoffsets, nstages, wre, wim, stream, pairs_x != 0, pairs_y != 0);
 }
 
 // The same on float64 signals, spectrum planes and tables.

@@ -306,6 +306,9 @@ const char* watfft_error_string(int code) {
     case kErrTile: return "column tile refused: C must be a power of two, at least the "
                           "engine's transforms per block, within the card's opt-in shared "
                           "memory, and above that only on plans whose largest radix is 16";
+    case kErrCube: return "cube block refused: 256 or 512 threads";
+    case kErrPairs: return "8-byte pairs refused: re and im must be 4 bytes apart in 8-byte "
+                           "aligned points, with even point and batch strides";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

@@ -43,6 +43,9 @@ constexpr int kErrSplit = -4;     // four-step factors out of the cube's range
 constexpr int kErrDirect = -5;    // n outside the DFT-matmul kernel's 1..128
 constexpr int kErrTile = -6;      // column tile not a power of two, below T, too large, or
                                   // not held by its block of threads
+constexpr int kErrCube = -7;      // cube block not 256 or 512 threads
+constexpr int kErrPairs = -8;     // 8-byte pairs asked for where re and im are not adjacent
+                                  // in 8-byte aligned points
 
 struct Plan {
   int log2n;
@@ -298,6 +301,33 @@ __device__ __forceinline__ void stage_if(int radix, cplx<Real>* c, Rows rows, in
   }
 }
 
+template <int R, int P, bool INV, typename Ld, typename St>
+__device__ __forceinline__ void stage_io_if(int radix, int th, int tpt, int m, int log2l,
+                                            int twoff, bool fold, const float* __restrict__ twre,
+                                            const float* __restrict__ twim, bool in_place, Ld ld,
+                                            St st) {
+  if constexpr (R <= P) {
+    if (radix == R) {
+      stage_io<R, P, INV, float>(th, tpt, m, log2l, twoff, fold, twre, twim, in_place, ld, st);
+    }
+  }
+}
+
+// Stage s of the plan through stage_io, its
+// radix picked at run time: the rows move through ld and st.
+template <int P, bool INV, typename Ld, typename St>
+__device__ __forceinline__ void stage_at(const Plan& plan, int s, int th, int tpt,
+                                         const float* __restrict__ twre,
+                                         const float* __restrict__ twim, bool in_place, Ld ld,
+                                         St st) {
+  const int m = 1 << plan.log2n, r = plan.radix[s], ll = plan.log2l[s], off = plan.twoff[s];
+  const bool fold = INV && s == plan.nstages - 1;
+  stage_io_if<2, P, INV>(r, th, tpt, m, ll, off, fold, twre, twim, in_place, ld, st);
+  stage_io_if<4, P, INV>(r, th, tpt, m, ll, off, fold, twre, twim, in_place, ld, st);
+  stage_io_if<8, P, INV>(r, th, tpt, m, ll, off, fold, twre, twim, in_place, ld, st);
+  stage_io_if<16, P, INV>(r, th, tpt, m, ll, off, fold, twre, twim, in_place, ld, st);
+}
+
 // Every stage of the plan on the transform at c, thread th of its tpt; the
 // inverse folds 1/n into the last stage. Ends with a block sync, so every
 // thread of the block must call it. Real is the twiddle pack's scalar.
@@ -399,6 +429,18 @@ __device__ __forceinline__ void copy_async(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src), "n"(B));
 }
+
+// Host side: re and im 4 bytes apart in 8-byte aligned points, with even
+// point and batch strides (in floats): each point one 8-byte access.
+inline bool complex_pairs(const float* re, const float* im, int64_t sn, int64_t sb) {
+  return im == re + 1 && sn % 2 == 0 && sb % 2 == 0 && (uintptr_t)re % 8 == 0;
+}
+
+// The copies issued since the last commit become one group; the wait
+// returns once all but the N most recent groups have landed.
+__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void copy_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 template <typename Real, typename B>
 __device__ __forceinline__ void copy_cols(int log2n, int log2c, int count, int64_t first,

@@ -19,7 +19,8 @@ stages) with the conjugate twiddle. Three modes compute this:
   steps 1-2), then the c2c kernel over j1 with transposed output strides
   (the "outer" pass, step 3): two passes;
 * "cube": one block holds a whole sequence (#12 `_cube_kernel`): one pass,
-  for N <= planner.CUBE_MAX_N.
+  for N <= planner.CUBE_MAX_N; `cube_launch` picks its block and its
+  8-byte copies and stores.
 
 Stage 1, stage 2, the post-multiplying pass and the outer pass are one CUDA
 kernel (`csrc/large.cu`, `strided_c2c_kernel`) driven through strides: a
@@ -56,7 +57,8 @@ __all__ = ["large_split", "pm_grid", "LargeTables", "make_large_tables",
            "plain_stage1", "plain_stage2", "fft_large_views", "fft_large_nb",
            "fft_large_bm", "fft_large_complex", "fft_large", "plain_fft_large",
            "rfft_large", "irfft_large", "rfft_large_bm", "irfft_large_bm",
-           "rfft_large_nb", "irfft_large_nb", "launches", "MODES"]
+           "rfft_large_nb", "irfft_large_nb", "cube_threads", "complex_pairs", "cube_launch",
+           "launches", "MODES"]
 
 # Kernel launches made by the CUDA wrappers since the counts were last set
 # to 0: stage 1 (#11), stage 2 (#13), the cube (#12), the post-multiplying
@@ -247,14 +249,50 @@ def _launch(x, y, n, xs, ys, pm, ms, mul, inner, batch, inverse, tables, key, co
 def _launch_cube(x, y, xs, ys, batch, lt: LargeTables) -> None:
     lib = _library(x[0], lt.pmre.device)
     t1, t2 = lt.t1, lt.t2
+    ptrs = [t.data_ptr() for t in (*x, *y)]
+    launch = cube_launch(lt.n, (*ptrs[:2], *xs), (*ptrs[2:], *ys))
     with torch.cuda.device(x[0].device):
         err = lib.watfft_large_cube(
-            x[0].data_ptr(), x[1].data_ptr(), y[0].data_ptr(), y[1].data_ptr(), *xs, *ys,
+            *ptrs, *xs, *ys,
             lt.n1, lt.n2, batch, lt.pmre.data_ptr(), lt.pmim.data_ptr(),
             t1.twre.data_ptr(), t1.twim.data_ptr(), t1.c_radices, t1.c_offsets, len(t1.stages),
             t2.twre.data_ptr(), t2.twim.data_ptr(), t2.c_radices, t2.c_offsets, len(t2.stages),
-            int(lt.inverse), torch.cuda.current_stream().cuda_stream)
+            int(lt.inverse), torch.cuda.current_stream().cuda_stream, *launch)
     _check(lib, err, "cube", lt.n, batch)
+
+
+# -- the cube's launch ---------------------------------------------------------------
+
+# Shared memory of one SM of the H100 (228 KB); each block also takes 1 KB
+# of it for itself.
+SMEM_SM_BYTES = 233_472
+SMEM_BLOCK_RESERVED = 1024
+
+
+def cube_threads(n: int) -> int:
+    """The cube's block at n points: 256 threads where two blocks'
+    sequences (n + n/16 complex64 slots each) fit an SM's shared memory
+    (n = 8192), else 512 (16384). The kernel's register bound gives 128 a
+    thread either way. On the H100 two blocks of 256 at n = 8192 ran faster
+    than one of 512, with or without a second buffer for the next sequence
+    (PERF.md)."""
+    two = 2 * ((n + n // 16) * 8 + SMEM_BLOCK_RESERVED) <= SMEM_SM_BYTES
+    return 256 if two else 512
+
+
+def complex_pairs(re: int, im: int, sn: int, sb: int) -> bool:
+    """Whether a complex operand moves 8 bytes a point: im 4 bytes after re
+    (addresses) in 8-byte aligned points (the point and batch strides, in
+    floats, even). The kernels refuse pairs asked for otherwise."""
+    return im == re + 4 and sn % 2 == 0 and sb % 2 == 0 and re % 8 == 0
+
+
+def cube_launch(n: int, x, y) -> tuple[int, int, int]:
+    """The last arguments of a cube launch at n points: its threads
+    (`cube_threads`) and whether it copies the input and stores the output
+    8 bytes a point (`complex_pairs`). x, y: (re address, im address, point
+    stride, batch stride), strides in floats."""
+    return cube_threads(n), int(complex_pairs(*x)), int(complex_pairs(*y))
 
 
 # -- the modes on [N, B] operands ------------------------------------------------

@@ -61,13 +61,13 @@ import torch
 
 from . import stockham
 from .fourstep import rfft_post_twiddles
-from .large import fft_large_views
+from .large import complex_pairs, fft_large_views
 from .stockham import Tables, check_device, check_dtype, fft_views
 
 __all__ = ["rfft_post_twiddles", "RTables", "make_rtables", "device_rtables",
            "hermitian_post_nb", "hermitian_pre_nb", "plain_rfft", "plain_irfft",
            "rfft_nb", "irfft_nb", "rfft_nb_fused", "irfft_nb_fused",
-           "rfft_bm", "irfft_bm", "rfft", "irfft", "launches"]
+           "rfft_bm", "irfft_bm", "rfft", "irfft", "r2c_launch", "launches"]
 
 # Kernel launches made by the CUDA wrappers since the counts were last set
 # to 0: the fused kernels (f32, and their FP64 instances under `_f64`), and
@@ -287,6 +287,33 @@ def _large_c2r(xre, xim, out, w) -> None:
     fft_large_views(zre, zim, out[0::2], out[1::2], True)
 
 
+# The n up to which the f32 r2c runs the engine's walk (rfft_r2c_kernel, a
+# block a tile): one radix-m stage, 256 transforms a block, where eight
+# blocks an SM measured faster than the resident kernel's two (PERF.md).
+R2C_ENGINE_MAX_N = 8
+WALK_ENGINE, WALK_RESIDENT = 1, 2
+
+
+def r2c_launch(n: int, x, y) -> tuple[int, int, int]:
+    """The last arguments of the f32 r2c launch on signals of n points: its
+    walk (WALK_ENGINE up to R2C_ENGINE_MAX_N, else WALK_RESIDENT, the
+    resident kernel) and, on the resident walk, whether it copies
+    z[j] = (x[2j], x[2j+1]) and stores each bin 8 bytes at once
+    (`complex_pairs`). x: (address, element stride, batch stride), y: (re
+    address, im address, bin stride, batch stride), strides in floats."""
+    if n <= R2C_ENGINE_MAX_N:
+        return WALK_ENGINE, 0, 0
+    xa, x_sn, x_sb = x
+    return (WALK_RESIDENT, int(complex_pairs(xa, xa + 4 * x_sn, 2 * x_sn, x_sb)),
+            int(complex_pairs(*y)))
+
+
+def _use_kernel(t: torch.Tensor) -> bool:
+    """The fused kernels run on CUDA tensors; CPU tensors take the plain
+    version."""
+    return t.device.type == "cuda"
+
+
 def _launch_r2c(x, x_sn, x_sb, yre, yim, y_sn, y_sb, n, batch, rt: RTables) -> None:
     """The r2c kernel on real sequences of x (element j of sequence b at
     j*x_sn + b*x_sb floats) into spectrum planes at the addresses yre, yim
@@ -294,9 +321,10 @@ def _launch_r2c(x, x_sn, x_sb, yre, yim, y_sn, y_sb, n, batch, rt: RTables) -> N
     lib, targs = _kernel_args(rt, x, "rfft_r2c_fused")
     f64 = rt.dtype == torch.float64
     entry = lib.watfft_rfft_r2c_f64 if f64 else lib.watfft_rfft_r2c
+    launch = () if f64 else r2c_launch(n, (x.data_ptr(), x_sn, x_sb), (yre, yim, y_sn, y_sb))
     with torch.cuda.device(x.device):
         err = entry(x.data_ptr(), x_sn, x_sb, yre, yim, y_sn, y_sb, n, batch,
-                    *targs, torch.cuda.current_stream().cuda_stream)
+                    *targs, torch.cuda.current_stream().cuda_stream, *launch)
     _check(lib, err, "rfft_r2c_fused" + ("_f64" if f64 else ""), n, batch)
 
 
@@ -393,7 +421,7 @@ def _r2c(x, route: str, layout: str, tables):
         out = (x.new_empty(x.shape[:-1] + (m1,)), x.new_empty(x.shape[:-1] + (m1,)))
     else:
         out = (x.new_empty(x.shape[:-1] + (m1,), dtype=x.dtype.to_complex()),)
-    if batch and route == "fused" and x.device.type == "cuda":
+    if batch and route == "fused" and _use_kernel(x):
         _launch_r2c(x, *_strides(layout if layout == "nb" else "bm", n, batch),
                     *_spectrum(layout, batch, m1, *out), n, batch, rt)
     elif batch:
@@ -427,7 +455,7 @@ def _c2r(re, im, route: str, layout: str, tables):
         out = re.new_empty((n,) + re.shape[1:])
     else:
         out = re.new_empty(re.shape[:-1] + (n,), dtype=re.real.dtype)
-    if batch and route == "fused" and out.device.type == "cuda":
+    if batch and route == "fused" and _use_kernel(out):
         _launch_c2r(re, *_spectrum(layout, batch, m1, re, im), out,
                     *_strides(layout if layout == "nb" else "bm", n, batch), n, batch, rt)
     elif batch:

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 from .plan import is_power_of_two
 
-__all__ = ["STOCKHAM_MAX_N", "RFFT_MAX_N", "LARGE_MIN_N", "CUBE_MAX_N", "CUBE_MIN_BATCH",
+__all__ = ["STOCKHAM_MAX_N", "RFFT_MAX_N", "LARGE_MIN_N", "CUBE_MAX_N", "CUBE_NB_MAX_BATCH",
            "LARGE_MAX_N", "RFFT_LARGE_MAX_N", "c2c_kernel", "large_mode", "r2c_kernel",
            "bluestein_m", "bluestein_kernel",
            "FFT2_CUBE_MIN_BATCH", "FFT2_NATIVE_MAX_AXIS", "FFT2_NATIVE_MIN_BATCH", "fft2_kernel"]
@@ -37,13 +37,17 @@ LARGE_MIN_N = 2 * STOCKHAM_MAX_N
 # The cube kernel holds one whole transform in shared memory, n + n/16
 # float2: 136 KB at 2^14 and 272 KB at 2^15, against 227 KB a block can use.
 CUBE_MAX_N = 1 << 14
-# The least batch at which the cube beats the two-pass pipeline, per n. A
-# cube block holds one transform, so a small batch leaves SMs idle; measured
-# on the H100 (chip_smoke.py's large_crossover phase, complex64 layout): at
-# 2^13 (68 KB, 3 blocks per SM) the cube won at every batch from 16 up
-# (21 us against 31 at 16); at 2^14 (136 KB, one block per SM) pipe2 won
-# at 16 and 64 (30 and 40 us against 41 and 42) and the cube from 132 up.
-CUBE_MIN_BATCH = {1 << 13: 1, 1 << 14: 128}
+# The cube beat the two-pass pipeline at every batch on complex64 and
+# batch-major planes, and on time-major planes [n, b] (where a cube block
+# reads its sequence b floats apart) up to CUBE_NB_MAX_BATCH[n] sequences.
+# Measured on an H100 80GB HBM3 at a 700 W limit (chip_smoke.py's
+# large_crossover phase, batches 1..1024; PERF.md): on complex64 at 2^13
+# 16.8 us against 28.6 at batch 1 and 91.5 against 196.8 at 1024, at 2^14
+# 25.3 against 29.0 at 1 and 203.9 against 383.4 at 1024 (the cube before
+# it lost at 2^14 below a batch of 128). Time-major, the cube won at 2^13
+# up to a batch of 8 (28.5 against 30.4) and lost from 16 (32.9 against
+# 30.7), at 2^14 up to 2 (30.6 against 31.0; 35.5 against 30.8 at 4).
+CUBE_NB_MAX_BATCH = {1 << 13: 8, 1 << 14: 2}
 # Each four-step factor is one thread block of the engine: n1, n2 <= 4096.
 LARGE_MAX_N = STOCKHAM_MAX_N * STOCKHAM_MAX_N
 RFFT_LARGE_MAX_N = 2 * LARGE_MAX_N
@@ -60,17 +64,15 @@ def _check(n: int, dtype: str, minimum: int) -> None:
 
 def large_mode(n: int, batch: int | None = None, time_major: bool = False) -> str:
     """The four-step mode for n = LARGE_MIN_N .. LARGE_MAX_N: "cube" for
-    n <= CUBE_MAX_N at a batch of at least CUBE_MIN_BATCH[n] (or an unknown
-    batch), else "pipe2". Time-major planes [n, b] with b > 1 take pipe2:
-    a cube block reads one sequence, b floats apart, and measured 1.9-2.1x
-    slower than pipe2 there (chip_smoke.py's large_times phase, cube_nb).
-    Under LARGE_MIN_N (a four-step asked for by hand) pipe2: the cube
-    kernel takes n >= 8192."""
-    if not LARGE_MIN_N <= n <= CUBE_MAX_N or (time_major and batch not in (None, 1)):
+    n <= CUBE_MAX_N at any batch, on time-major planes [n, b] only up to
+    CUBE_NB_MAX_BATCH[n] sequences (or an unknown batch); else "pipe2".
+    Under LARGE_MIN_N (a four-step asked for by hand) pipe2: the cube kernel
+    takes n >= 8192."""
+    if not LARGE_MIN_N <= n <= CUBE_MAX_N:
         return "pipe2"
-    if batch is None or batch >= CUBE_MIN_BATCH.get(n, 1):
-        return "cube"
-    return "pipe2"
+    if time_major and batch is not None and batch > CUBE_NB_MAX_BATCH[n]:
+        return "pipe2"
+    return "cube"
 
 
 def c2c_kernel(n: int, dtype: str, batch: int | None = None, time_major: bool = False) -> str:
