@@ -204,6 +204,25 @@ Phases (any failure exits nonzero and prints no result):
    carry what they were held to and the time in the other walk. Their
    launch counts come from the cube path of phase 12 and the real path of
    phase 8, which run them.
+31. The redesigned batch-major walk (`stockham_c2c_resident_kernel`,
+   `rfft_r2c_block_f64_kernel`), each launch forced in every walk
+   (`forced_walk`: the engine's, the kernel before the redesign; resident
+   blocks with two buffers; a block a tile): the c2c kernel at every
+   n = 2..4096 in f32 and FP64, both directions, in four layouts
+   (interleaved complex, split planes, views one scalar off alignment
+   whose pairs are refused, the real core's even and odd rows) at batch 1,
+   a tail under one tile, more tiles than the resident grid by a tail and
+   2^22 points, and the rows pass of one 4096^2 image; the FP64 r2c at
+   every n = 4..8192 in four layouts at the same kinds of batch. The
+   redesigned walks torch.equal to the engine's and within 1e-6 (f32) /
+   1e-12 (FP64) of the plain version; each case timed in the three walks
+   in turns, and the real core (batch-major and time-major), the hybrid
+   real route and the end-to-end calls `create_fft_f32(1024)`,
+   `create_fft(1024)` and a 4096^2 fft2 likewise. The kernels line's
+   #1/#4, #16, #19, FP64 r2c and real core rows gain the walk the rule
+   takes and `old_walk_ms`, their time in the engine's walk. Their launch
+   counts come from the main paths of phases 4, 8, 17 and 23, which run
+   the redesigned walk.
 
 The line before the last is a JSON object naming each kernel of the paths
 with its launch count, error, times and the least time the card could take
@@ -321,6 +340,10 @@ COL_PIPE2 = ((LARGE_B, LARGE_N), (1, 1 << 24))
 # the redesigned cube's main shapes (sequences, n); the redesigned r2c runs at
 # every REAL_SIZES n
 CUBE_SHAPES = ((CUBE_B, CUBE_N), (256, 1 << 14))
+# the redesigned batch-major walk: the c2c's tiers (complex dtype, limit
+# against the plain version) and the walks it is held and timed in
+WALK_TIERS = (("f32", torch.complex64, KERNEL_LIMIT), ("f64", torch.complex128, F64_KERNEL_LIMIT))
+WALKS = (("engine", st.WALK_ENGINE), ("resident", st.WALK_RESIDENT), ("block", st.WALK_BLOCK))
 
 
 class Failed(Exception):
@@ -2759,19 +2782,31 @@ def column_tile_rows(tile: dict, name: str, limit: str) -> list:
 # -- the redesigned kernels --------------------------------------------------------
 
 @contextlib.contextmanager
-def r2c_walk(walk: int):
-    """The f32 r2c wrapper forced to one walk at every n inside the block:
-    rf.WALK_ENGINE (rfft_r2c_kernel, the kernel before the redesign) or
-    rf.WALK_RESIDENT (with the resident walk's 8-byte accesses)."""
-    real = rf.r2c_launch
+def forced_walk(walk: int):
+    """The c2c and r2c wrappers forced to one batch-major walk at every n
+    inside the block: st.WALK_ENGINE (the kernels before the redesign, no
+    pairs), st.WALK_RESIDENT or st.WALK_BLOCK, with the pairs the rules
+    give. A c2c launch that takes a column tile or walks down columns, and
+    a bf16 one, keeps what the rule gives; the r2c has one redesigned walk
+    a precision (f32 resident blocks, FP64 a block a tile), which it takes
+    for either."""
+    c2c, r2c = st.c2c_launch, rf.r2c_launch
 
-    def launch(n, x, y):
-        return (walk, 0, 0) if walk == rf.WALK_ENGINE else real(1 << 13, x, y)
-    rf.r2c_launch = launch
+    def c2c_forced(n, dtype, cols, x, y):
+        got = c2c(n, dtype, cols, x, y)
+        if not got or cols != (0, 0) or x[2] > x[3] or y[2] > y[3]:
+            return got
+        if walk == st.WALK_ENGINE:
+            return walk, 0, 0
+        return walk, *(int(st.complex_pairs(*s, dtype.itemsize)) for s in (x, y))
+
+    def r2c_forced(n, x, y, size=4):
+        return (walk, 0, 0) if walk == st.WALK_ENGINE else r2c(1 << 13, x, y, size)
+    st.c2c_launch, rf.r2c_launch = c2c_forced, r2c_forced
     try:
         yield
     finally:
-        rf.r2c_launch = real
+        st.c2c_launch, rf.r2c_launch = c2c, r2c
 
 
 def phase_resident(dev, gen, name: str, limit: str) -> dict:
@@ -2806,9 +2841,9 @@ def phase_resident(dev, gen, name: str, limit: str) -> dict:
             x = rand_real((batch, n), gen, dev)
             want = rf.plain_rfft(x)
             for layout, fn in (("complex", lambda: (rf.rfft(x),)), ("bm", lambda: rf.rfft_bm(x))):
-                with r2c_walk(rf.WALK_RESIDENT):
+                with forced_walk(rf.WALK_RESIDENT):
                     got = fn()
-                with r2c_walk(rf.WALK_ENGINE):
+                with forced_walk(rf.WALK_ENGINE):
                     engine = fn()
                 check(all(torch.equal(a, c) for a, c in zip(got, engine)),
                       f"r2c n={n} batch={batch} {layout}: resident differs from the engine walk")
@@ -2818,7 +2853,7 @@ def phase_resident(dev, gen, name: str, limit: str) -> dict:
                 row["max_rel_diff"] = max(row["max_rel_diff"], rel)
         row["walk"] = "engine" if n <= rf.R2C_ENGINE_MAX_N else "resident"
         for walk, key in ((rf.WALK_RESIDENT, "resident_ms"), (rf.WALK_ENGINE, "engine_ms")):
-            with r2c_walk(walk):
+            with forced_walk(walk):
                 row[key] = time_ms(lambda: rf.rfft(x))[0]
         out["r2c"][n] = row
         print(json.dumps({"phase": "resident", "kernel": "rfft_r2c", "n": n,
@@ -2841,6 +2876,203 @@ def resident_rows(rows: list, resident: dict) -> None:
     by_name["rfft_r2c_fused"].update(
         walk=r2c["walk"], equal_to_old_walk=True, old_walk="engine",
         old_walk_ms=r2c["engine_ms"])
+
+
+def walk_layouts(x: torch.Tensor, inverse: bool) -> dict:
+    """The c2c wrapper's batch-major layouts on the complex [batch, n] x,
+    each a function returning its output tensors: interleaved complex (one
+    copy and one store a point), split planes, views one scalar off
+    alignment on the input (pairs refused there) and the real core's views,
+    the even and odd rows of a contiguous signal (pairs on the input).
+    Every layout holds x's values, so each computes DFT(x)."""
+    batch, n = x.shape
+    real = x.real.dtype
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    tabs = st.device_tables(n, inverse, x.device, real)
+    flat = torch.empty(2 * batch * n + 1, dtype=real, device=x.device)
+    flat[1:].view(batch, n, 2).copy_(torch.view_as_real(x))
+    xv = torch.view_as_real(x).reshape(batch, 2 * n).T       # [2n, batch]
+
+    def misaligned():
+        out = torch.empty(batch, n, 2, dtype=real, device=x.device)
+        views = [torch.as_strided(flat, (n, batch), (2, 2 * n), 1 + k) for k in (0, 1)]
+        st.fft_views(*views, out[..., 0].T, out[..., 1].T, inverse, tabs)
+        return (torch.view_as_complex(out),)
+
+    def real_core():
+        zre, zim = (torch.empty(batch, n, dtype=real, device=x.device) for _ in range(2))
+        st.fft_views(xv[0::2], xv[1::2], zre.T, zim.T, inverse, tabs)
+        return zre, zim
+    return {"complex": lambda: (st.stockham_fft(x, inverse),),
+            "bm": lambda: st.stockham_fft_bm(re, im, inverse),
+            "misaligned": misaligned, "real_core": real_core}
+
+
+def as_complex(out) -> torch.Tensor:
+    return out[0] if len(out) == 1 else torch.complex(*out)
+
+
+def held_walks(what: str, fn, want, limit: float) -> float:
+    """fn's outputs in every walk: the redesigned walks torch.equal to the
+    engine's, and within `limit` of `want` relative to its largest value."""
+    outs = {}
+    for key, walk in WALKS:
+        with forced_walk(walk):
+            outs[key] = fn()
+    for key in ("resident", "block"):
+        check(all(torch.equal(a, b) for a, b in zip(outs[key], outs["engine"])),
+              f"{what}: the {key} walk differs from the engine's")
+    rel = rel_diff(as_complex(outs["resident"]), want)
+    check(rel <= limit, f"{what}: {rel:.3e} vs plain")
+    return rel
+
+
+def walk_times(fn) -> dict:
+    """fn's device ms in each walk, in turns (engine, resident, block, then
+    the same in reverse), each the mean of its two turns."""
+    ms = {key: [] for key, _ in WALKS}
+    for key, walk in WALKS + WALKS[::-1]:
+        with forced_walk(walk):
+            ms[key].append(time_ms(fn)[0])
+    return {key: sum(v) / 2 for key, v in ms.items()}
+
+
+def phase_c2c_walk(dev, gen, name: str, limit: str) -> dict:
+    """The redesigned batch-major walk of the c2c kernel (csrc/stockham.cu
+    stockham_c2c_resident_kernel) and of the FP64 r2c kernel
+    (csrc/rfft.cu rfft_r2c_block_f64_kernel), each forced in every walk
+    (`forced_walk`): the engine's, the resident blocks and a block a tile.
+    The c2c at every n = 2..4096 in f32 and FP64, both directions, in the
+    four layouts of `walk_layouts`, at batch 1, a tail under one tile, more
+    tiles than the resident grid by a tail, and 2^22 points; the rows pass
+    of one 4096^2 image (#16); the FP64 r2c at every n = 4..8192 in four
+    layouts (rows one float64 off alignment among them) at the same kinds of
+    batch. The redesigned walks torch.equal to the engine's, within 1e-6
+    (f32) / 1e-12 (FP64) of the plain version; each timed in the three walks
+    at 2^22 points (complex and batch-major, both directions); the real
+    core at n = 1024 batch-major (this walk) and time-major (the column
+    tile); and the end-to-end calls `create_fft_f32(1024)`,
+    `create_fft(1024)` on [4096, 1024] and fft2 on one 4096^2 image."""
+    out = {"c2c": {}, "r2c_f64": {}}
+    for tier, cdtype, lim in WALK_TIERS:
+        for n in SIZES:
+            T = st.engine_transforms(n, max(r for r, _ in st.stage_plan(n)))
+            row = {"max_rel_diff": 0.0}
+            for batch in (1, T // 2 + 1, 2 * st.SMS * T + T // 2 + 1, POINTS // n):
+                x = rand_complex((batch, n), gen, dev).to(cdtype)
+                for inverse in (False, True):
+                    want = st.plain_fft(x, inverse)
+                    for layout, fn in walk_layouts(x, inverse).items():
+                        rel = held_walks(f"c2c {tier} n={n} batch={batch} {layout} "
+                                         f"inverse={inverse}", fn, want, lim)
+                        row["max_rel_diff"] = max(row["max_rel_diff"], rel)
+            for inverse in (False, True):
+                fns = walk_layouts(x, inverse)
+                for layout in ("complex", "bm"):
+                    for key, ms in walk_times(fns[layout]).items():
+                        row[f"{layout}_{'inv' if inverse else 'fwd'}_{key}_ms"] = ms
+            p, size = x.data_ptr(), x.element_size() // 2
+            side = (p, p + size, 2, 2 * n)
+            row["walk"] = st.c2c_launch(n, x.real.dtype, (0, 0), side, side)[0]
+            out["c2c"][(tier, n)] = row
+            print(json.dumps({"phase": "c2c_walk", "tier": tier, "n": n, "batch": POINTS // n,
+                              **row, "card": name, "power_limit": limit}), flush=True)
+    m = FFT2_MAIN
+    xm = rand_complex((m, m), gen, dev)
+    row = {"max_rel_diff": 0.0}
+    for inverse in (False, True):
+        col, rows, _, img = _passes(xm, m, m, 1, inverse)
+        col()
+        rows(plain=True)
+        want = img.clone()
+
+        def kernel():
+            rows()
+            return (img.clone(),)
+        rel = held_walks(f"fft2 rows {m}^2 inverse={inverse}", kernel, want, KERNEL_LIMIT)
+        row["max_rel_diff"] = max(row["max_rel_diff"], rel)
+    rows = _passes(xm, m, m, 1)[1]
+    row.update({f"{k}_ms": v for k, v in walk_times(rows).items()})
+    out["rows"] = row
+    print(json.dumps({"phase": "c2c_walk", "case": "fft2_rows", "shape": [m, m], **row,
+                      "card": name, "power_limit": limit}), flush=True)
+    for n in REAL_SIZES:
+        m_ = n // 2
+        T = st.engine_transforms(m_, max(r for r, _ in st.stage_plan(m_)))
+        row = {"max_rel_diff": 0.0}
+        for batch in (1, 3, 2 * st.SMS * T + T // 2 + 1, POINTS // n):
+            flat = rand_f64((batch * n + 1,), gen, dev)
+            x, xm_ = flat[:-1].view(batch, n), flat[1:].view(batch, n)
+            xt = x.T.contiguous()
+            for layout, fn, src in (
+                    ("complex", lambda: (rf.rfft(x),), x), ("bm", lambda: rf.rfft_bm(x), x),
+                    ("nb", lambda: tuple(t.T for t in rf.rfft_nb_fused(xt)), x),
+                    ("misaligned", lambda: (rf.rfft(xm_),), xm_)):
+                rel = held_walks(f"r2c f64 n={n} batch={batch} {layout}", fn,
+                                 rf.plain_rfft(src), F64_KERNEL_LIMIT)
+                row["max_rel_diff"] = max(row["max_rel_diff"], rel)
+        row.update({f"{k}_ms": v for k, v in walk_times(lambda: rf.rfft(x)).items()})
+        row["walk"] = rf.r2c_launch(n, (x.data_ptr(), 1, n), (0, 8, 2, n + 2), 8)[0]
+        out["r2c_f64"][n] = row
+        print(json.dumps({"phase": "c2c_walk", "case": "r2c_f64", "n": n, "batch": POINTS // n,
+                          **row, "card": name, "power_limit": limit}), flush=True)
+    # the real core (#5 / #6) alone, batch-major (this walk) and time-major
+    # (the column tile), the hybrid route around it, and end-to-end calls
+    n, b, m = MAIN_N, MAIN_B, MAIN_N // 2
+    xr = rand_real((b, n), gen, dev)
+    spec = rf.rfft(xr)
+    sre, sim = spec.real.contiguous(), spec.imag.contiguous()
+    xt, tre, tim = xr.T.contiguous(), sre.T.contiguous(), sim.T.contiguous()
+    c, ci = rf.device_rtables(n, False, dev).core, rf.device_rtables(n, True, dev).core
+    xv = xr.T
+    zre, zim = (torch.empty(b, m, device=dev).T for _ in range(2))
+    tzre, tzim = (torch.empty(m, b, device=dev) for _ in range(2))
+    zv = torch.view_as_real(rand_complex((b, m), gen, dev))
+    sig, sig_t = torch.empty(b, n, device=dev), torch.empty(n, b, device=dev)
+    x32, x64 = rand_complex((b, n), gen, dev), rand_c128((b, n), gen, dev)
+    ctx32, ctx64 = create_fft_f32(n, device=dev), create_fft(n, device=dev)
+    xi = rand_complex((FFT2_MAIN, FFT2_MAIN), gen, dev)
+    for key, fn in (("core_fwd_bm", lambda: st.fft_views(xv[0::2], xv[1::2], zre, zim, False, c)),
+                    ("core_inv_bm", lambda: st.fft_views(zv[..., 0].T, zv[..., 1].T,
+                                                         sig.T[0::2], sig.T[1::2], True, ci)),
+                    ("core_fwd_nb", lambda: st.fft_views(xt[0::2], xt[1::2], tzre, tzim, False,
+                                                         c)),
+                    ("core_inv_nb", lambda: st.fft_views(tzre, tzim, sig_t[0::2], sig_t[1::2],
+                                                         True, ci)),
+                    ("hybrid_fwd_bm", lambda: rf.rfft_bm(xr, fused=False)),
+                    ("hybrid_inv_bm", lambda: rf.irfft_bm(sre, sim, fused=False)),
+                    ("hybrid_fwd_nb", lambda: rf.rfft_nb(xt)),
+                    ("hybrid_inv_nb", lambda: rf.irfft_nb(tre, tim)),
+                    ("create_fft_f32_fwd", lambda: ctx32.forward(x32)),
+                    ("create_fft_f32_inv", lambda: ctx32.inverse(x32)),
+                    ("create_fft_fwd", lambda: ctx64.forward(x64)),
+                    ("fft2_4096", lambda: wtt.fft2(xi))):
+        out[key] = walk_times(fn)
+        print(json.dumps({"phase": "c2c_walk", "case": key, **out[key], "card": name,
+                          "power_limit": limit}), flush=True)
+    return out
+
+
+def walk_rows(rows: list, walk: dict) -> None:
+    """The kernels line's rows on the redesigned walk (#1/#4, the real core
+    #5/#6, #16, #19 and the FP64 r2c) gain the walk the rule takes at their
+    shape and their time in the engine's walk (the kernel before the
+    redesign), from phase_c2c_walk."""
+    by_name = {r["name"]: r for r in rows}
+    names = {st.WALK_ENGINE: "engine", st.WALK_RESIDENT: "resident", st.WALK_BLOCK: "block"}
+    for key, tier in (("stockham_c2c", "f32"), ("stockham_c2c_f64", "f64")):
+        row = walk["c2c"][(tier, MAIN_N)]
+        by_name[key].update(walk=names[row["walk"]], old_walk="engine",
+                            old_walk_ms=row["complex_fwd_engine_ms"])
+    by_name["fft2_rows"].update(walk=names[walk["c2c"][("f32", FFT2_MAIN)]["walk"]],
+                                old_walk="engine", old_walk_ms=walk["rows"]["engine_ms"])
+    by_name["rfft_r2c_fused_f64"].update(walk=names[walk["r2c_f64"][MAIN_N]["walk"]],
+                                         old_walk="engine",
+                                         old_walk_ms=walk["r2c_f64"][MAIN_N]["engine_ms"])
+    for key, case in (("stockham_c2c_real_core_fwd", "core_fwd_bm"),
+                      ("stockham_c2c_real_core_inv", "core_inv_bm")):
+        by_name[key].update(walk=names[st.c2c_walk(MAIN_N // 2, torch.float32)],
+                            old_walk="engine", old_walk_ms=walk[case]["engine"])
 
 
 def bound(nbytes: float, flops: float, peak: float = PEAK_FLOPS) -> tuple[float, str]:
@@ -2961,6 +3193,7 @@ def main() -> int:
         phase_ladder(dev, gen, name, limit)
         tile_rows = column_tile_rows(phase_column_tile(dev, gen, name, limit), name, limit)
         resident = phase_resident(dev, gen, name, limit)
+        walk = phase_c2c_walk(dev, gen, name, limit)
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2972,6 +3205,7 @@ def main() -> int:
     line["kernels"].extend(bf16_rows)
     line["kernels"].extend(tile_rows)
     resident_rows(line["kernels"], resident)
+    walk_rows(line["kernels"], walk)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

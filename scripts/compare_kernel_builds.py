@@ -28,6 +28,14 @@ library `_build.library` returns:
   `watfft_bluestein_onepass` at n = 3..2000 (three layouts); an entry point
   the other build lacks is counted under "skipped",
 
+* the batch-major walk, which this build takes on the redesigned kernels:
+  the c2c kernel in f32 and FP64 at n = 2..4096 in four layouts
+  (`chip_smoke.walk_layouts`: complex, split planes, views one scalar off
+  alignment, the real core's even and odd rows) at batch 1, a tail under
+  one tile, more tiles than the resident grid and 2^20 points; the hybrid
+  real route; the rows pass of one 4096^2 image; the FP64 r2c at
+  n = 4..8192 in four layouts;
+
 * the walks down columns, where this build takes the column tile: the
   c2c kernel's four instances on time-major planes at n = 512..4096 with
   a batch tail (C * 132 + 3 columns), and the strided kernel through
@@ -63,6 +71,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+import chip_smoke as cs  # noqa: E402
 from watfft_tpu_torch.ops import _build  # noqa: E402
 from watfft_tpu_torch.ops import bluestein as bl  # noqa: E402
 from watfft_tpu_torch.ops import fft2 as f2  # noqa: E402
@@ -364,6 +373,40 @@ def main() -> int:
             same("rfft_r2c_resident", (n, batch, "bm"), lambda: rf.rfft_bm(xa))
             same("rfft_r2c_resident", (n, batch, "nb"), lambda: rf.rfft_nb_fused(xt))
             same("rfft_r2c_resident", (n, batch, "misaligned"), lambda: rf.rfft(xm))
+    # the redesigned batch-major walk of the c2c kernel, f32 and FP64: four
+    # layouts (complex, split planes, views one scalar off alignment, the
+    # real core's even and odd rows), batch 1, a tail under one tile, more
+    # tiles than the resident grid by a tail, and 2^20 points; the hybrid
+    # real route on it; the rows pass of one 4096^2 image
+    for cdtype in (torch.complex64, torch.complex128):
+        for n in (1 << k for k in range(1, 13)):
+            T = st.engine_transforms(n, max(r for r, _ in st.stage_plan(n)))
+            for batch in (1, T // 2 + 1, 2 * st.SMS * T + T // 2 + 1, POINTS // n):
+                x = crand((batch, n)).to(cdtype)
+                for inverse in (False, True):
+                    for layout, fn in cs.walk_layouts(x, inverse).items():
+                        same(f"c2c_walk_{cdtype}", (n, batch, inverse, layout), fn)
+        for n in (1 << k for k in range(2, 14)):
+            xr = rand((POINTS // n, n)).to(cdtype.to_real())
+            sre, sim = (rand((POINTS // n, n // 2 + 1)).to(xr.dtype) for _ in range(2))
+            same(f"c2c_walk_{cdtype}", (n, "hybrid"), lambda: rf.rfft_bm(xr, fused=False))
+            same(f"c2c_walk_{cdtype}", (n, "hybrid_inv"),
+                 lambda: (rf.irfft_bm(sre, sim, fused=False),))
+    xm = crand((cs.FFT2_MAIN, cs.FFT2_MAIN))
+    for inverse in (False, True):
+        same("c2c_walk_rows", (cs.FFT2_MAIN, inverse),
+             lambda: f2._complex_route(xm, inverse, "fft2-2pass"))
+    # the FP64 r2c: four layouts, batch 1, 3, past the grid and 2^19 points
+    for n in (1 << k for k in range(2, 14)):
+        T = st.engine_transforms(n // 2, max(r for r, _ in st.stage_plan(n // 2)))
+        for batch in (1, 3, 2 * st.SMS * T + 3, POINTS // 2 // n + 1):
+            flat = rand(batch * n + 1).double()
+            xa, xm_ = flat[:-1].view(batch, n), flat[1:].view(batch, n)
+            xt = xa.T.contiguous()
+            same("rfft_r2c_f64_walk", (n, batch, "complex"), lambda: rf.rfft(xa))
+            same("rfft_r2c_f64_walk", (n, batch, "bm"), lambda: rf.rfft_bm(xa))
+            same("rfft_r2c_f64_walk", (n, batch, "nb"), lambda: rf.rfft_nb_fused(xt))
+            same("rfft_r2c_f64_walk", (n, batch, "misaligned"), lambda: rf.rfft(xm_))
     torch.cuda.synchronize()
     ptxas_ok = resources.get("ptxas_same", True)
     print(json.dumps({"bit_identical": not differ, "cases": cases, "skipped": skipped,

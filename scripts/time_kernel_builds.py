@@ -24,20 +24,25 @@ comma-separated, default all):
   split planes, both directions, and the real large route (rfft_large /
   irfft_large) at [2048, 2^14], whose m = 8192 core the planner sends to
   the cube;
-* `main`: the batch-major main path: the c2c kernel on 4096 x 1024
-  complex64, the fused r2c kernel at every n = 4..8192 (2^22 real points)
-  and the c2r kernel at 4096 x 1024.
+* `main`: the batch-major walks (`main_cases`): the c2c kernel at every
+  n = 2..4096 in complex64, split planes and complex128, both directions,
+  the 4096^2 rows pass, the real core batch-major and time-major, the
+  fused r2c at every n = 4..8192 in f32 and FP64, the c2r, and the
+  end-to-end `create_fft_f32(1024)`, `create_fft(1024)` and 4096^2 fft2.
 
 `--sweep` also times this build's `columns` cases at every column tile C
 from T up to what shared memory holds, in blocks of 256 and 512 threads
-(`config.COLUMN_TILE`), beside the kept tile of `tile_shape`. Needs one
-CUDA device:
+(`config.COLUMN_TILE`), beside the kept tile of `tile_shape`. `--walks`
+also times this build's `main` cases in each batch-major walk, forced
+(`chip_smoke.forced_walk`: the engine's, resident blocks, a block a
+tile), in turns. Needs one CUDA device:
 
-    python3 scripts/time_kernel_builds.py [--routes R] [--sweep] [OTHER_CHECKOUT ...]
+    python3 scripts/time_kernel_builds.py [--routes R] [--sweep] [--walks] [OTHER_CHECKOUT ...]
 
 Prints one JSON line per case (device ms: `this_ms`, each build's two turns
 averaged, and `other_ms` in the order of the arguments; with --sweep
-`sweep_ms` by C) and the card's name and power limit.
+`sweep_ms` by C, with --walks `walk_ms` by walk) and the card's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
+import watfft_tpu_torch as wtt  # noqa: E402
 from compare_kernel_builds import other_library, using  # noqa: E402
 from watfft_tpu_torch import config, planner  # noqa: E402
 from watfft_tpu_torch.ops import _build  # noqa: E402
@@ -175,20 +181,62 @@ def cube_cases(gen, dev) -> list:
 
 
 def main_cases(gen, dev) -> list:
+    """The batch-major walks: the c2c kernel at every n = 2..4096 (2^22
+    points) on complex64 and split planes and on complex128, both
+    directions; the rows pass of one 4096^2 image (#16); the real core
+    batch-major (`rfft_bm` / `irfft_bm`, fused=False) and time-major
+    (`rfft_nb` / `irfft_nb`, the column tile) at 4096 x 1024; the fused r2c
+    at every n = 4..8192 (2^22 real points) in f32 and FP64; the c2r at
+    4096 x 1024; and `create_fft_f32(1024)`, `create_fft(1024)` on
+    [4096, 1024] and fft2 on one 4096^2 image."""
+    cases = []
+    for n in cs.SIZES:
+        b = cs.POINTS // n
+        x = cs.rand_complex((b, n), gen, dev)
+        re, im = x.real.contiguous(), x.imag.contiguous()
+        x64 = cs.rand_c128((b, n), gen, dev)
+        for inverse in (False, True):
+            cases.append(({"route": "main", "case": "c2c_complex", "shape": [b, n],
+                           "inverse": inverse},
+                          lambda x=x, inv=inverse: st.stockham_fft(x, inv), None))
+            cases.append(({"route": "main", "case": "c2c_bm", "shape": [b, n],
+                           "inverse": inverse},
+                          lambda re=re, im=im, inv=inverse: st.stockham_fft_bm(re, im, inv),
+                          None))
+            cases.append(({"route": "main", "case": "c2c_complex128", "shape": [b, n],
+                           "inverse": inverse},
+                          lambda x=x64, inv=inverse: st.stockham_fft(x, inv), None))
+    m = cs.FFT2_MAIN
+    xm = cs.rand_complex((m, m), gen, dev)
+    _, rows, _, _ = cs._passes(xm, m, m, 1)
+    cases.append(({"route": "main", "case": "fft2_rows", "shape": [m, m]}, rows, None))
     n, b = cs.MAIN_N, cs.MAIN_B
-    x = cs.rand_complex((b, n), gen, dev)
-    cases = [({"route": "main", "case": "c2c_complex", "shape": [b, n]},
-              lambda: st.stockham_fft(x), None)]
+    xr = cs.rand_real((b, n), gen, dev)
+    spec = torch.fft.rfft(xr)
+    sre, sim = spec.real.contiguous(), spec.imag.contiguous()
+    xt, tre, tim = xr.T.contiguous(), sre.T.contiguous(), sim.T.contiguous()
+    cases += [({"route": "main", "case": key, "shape": [b, n]}, fn, None) for key, fn in (
+        ("real_core_fwd_bm", lambda: rf.rfft_bm(xr, fused=False)),
+        ("real_core_inv_bm", lambda: rf.irfft_bm(sre, sim, fused=False)),
+        ("real_core_fwd_nb", lambda: rf.rfft_nb(xt)),
+        ("real_core_inv_nb", lambda: rf.irfft_nb(tre, tim)),
+        ("c2r", lambda: rf.irfft_bm(sre, sim)))]
     for n in cs.REAL_SIZES:
         b = cs.POINTS // n
         xr = cs.rand_real((b, n), gen, dev)
-        spec = torch.fft.rfft(xr)
-        sre, sim = spec.real.contiguous(), spec.imag.contiguous()
+        xd = xr.double()
         cases.append(({"route": "main", "case": "r2c", "shape": [b, n]},
                       lambda xr=xr: rf.rfft_bm(xr), None))
-        if n == cs.MAIN_N:
-            cases.append(({"route": "main", "case": "c2r", "shape": [b, n]},
-                          lambda sre=sre, sim=sim: rf.irfft_bm(sre, sim), None))
+        cases.append(({"route": "main", "case": "r2c_f64", "shape": [b, n]},
+                      lambda xd=xd: rf.rfft(xd), None))
+    n, b = cs.MAIN_N, cs.MAIN_B
+    x32, x64 = cs.rand_complex((b, n), gen, dev), cs.rand_c128((b, n), gen, dev)
+    ctx32, ctx64 = wtt.create_fft_f32(n, device=dev), wtt.create_fft(n, device=dev)
+    cases += [({"route": "main", "case": key, "shape": shape}, fn, None) for key, shape, fn in (
+        ("create_fft_f32_fwd", [b, n], lambda: ctx32.forward(x32)),
+        ("create_fft_f32_inv", [b, n], lambda: ctx32.inverse(x32)),
+        ("create_fft_fwd", [b, n], lambda: ctx64.forward(x64)),
+        ("fft2", [m, m], lambda: wtt.fft2(xm)))]
     return cases
 
 
@@ -218,6 +266,7 @@ def main() -> int:
     ap.add_argument("others", nargs="*", help="other checkouts to build and time in turns")
     ap.add_argument("--routes", default=",".join(ROUTES))
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--walks", action="store_true")
     args = ap.parse_args()
     routes = args.routes.split(",")
     if not set(routes) <= set(ROUTES):
@@ -238,6 +287,8 @@ def main() -> int:
             row = {**row, "this_ms": this, "other_ms": other}
             if args.sweep and tiles is not None:
                 row["sweep_ms"] = sweep(fn, *tiles)
+            if args.walks and route == "main":
+                row["walk_ms"] = cs.walk_times(fn)
             print(json.dumps({**row, "card": name, "power_limit": limit}), flush=True)
     return 0
 

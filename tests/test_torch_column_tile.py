@@ -129,7 +129,9 @@ def test_forced_tile_leaves_batch_major_walks_alone(monkeypatch):
 class _Recorder:
     """A stand-in for the kernels' library: records each launch's column
     tile C and its block's threads, and returns 0 (the outputs are left as
-    allocated)."""
+    allocated). They are the last two arguments, but for the f32 and FP64
+    c2c entries, which take the batch-major walk and its pairs after
+    them."""
 
     def __init__(self):
         self.cols = []
@@ -137,8 +139,9 @@ class _Recorder:
 
     def __getattr__(self, name):
         def entry(*args):
-            self.cols.append((name, args[-2]))
-            self.threads.append(args[-1])
+            at = 17 if name in ("watfft_stockham_c2c", "watfft_stockham_c2c_f64") else -2
+            self.cols.append((name, args[at]))
+            self.threads.append(args[at + 1])
             return 0
         return entry
 

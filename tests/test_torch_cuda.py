@@ -2,8 +2,9 @@
 and c2r real kernels, the hybrid real path that drives the c2c kernel
 through strides, the FP64 instances of these three, the four-step kernels
 of the large-N path, the 2D path's cube and passes, the Bluestein pair and
-one-pass kernel, the small-n DFT matmul (#20) and the c2c kernel's two bf16
-instances), against their plain torch versions.
+one-pass kernel, the small-n DFT matmul (#20), the c2c kernel's two bf16
+instances and the redesigned batch-major walk of the c2c kernel and the
+FP64 r2c), against their plain torch versions.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no JAX, so it runs on a GPU host that has none; tests/conftest.py imports
@@ -847,12 +848,14 @@ def test_column_tile_refusals(dev, monkeypatch):
             err = lib.watfft_stockham_c2c(x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
                                           8, 1, 8, 1, n, 8, t16.twre.data_ptr(),
                                           t16.twim.data_ptr(), t16.c_radices, t16.c_offsets,
-                                          len(t16.stages), 0, stream, cols, threads)
+                                          len(t16.stages), 0, stream, cols, threads,
+                                          st.WALK_ENGINE, 0, 0)
         else:
             err = lib.watfft_stockham_c2c(x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
                                           8, 1, 8, 1, 1024, 8, tabs.twre.data_ptr(),
                                           tabs.twim.data_ptr(), tabs.c_radices, tabs.c_offsets,
-                                          len(tabs.stages), 0, stream, cols, threads)
+                                          len(tabs.stages), 0, stream, cols, threads,
+                                          st.WALK_ENGINE, 0, 0)
         assert err == -6, (cols, threads, err)
     assert "column tile" in lib.watfft_error_string(-6).decode()
 
@@ -930,16 +933,6 @@ def test_resident_cube_refusals(dev):
     assert "8-byte pairs" in lib.watfft_error_string(-8).decode()
 
 
-def _r2c_walk(monkeypatch, walk):
-    """The f32 r2c wrapper with its walk forced (rf.WALK_ENGINE, the kernel
-    before the redesign, or rf.WALK_RESIDENT) at every n."""
-    real = rf.r2c_launch
-
-    def launch(n, x, y):   # the resident walk's pairs at any n past R2C_ENGINE_MAX_N
-        return (walk, 0, 0) if walk == rf.WALK_ENGINE else real(1 << 13, x, y)
-    monkeypatch.setattr(rf, "r2c_launch", launch)
-
-
 @pytest.mark.parametrize("n", [1 << k for k in range(2, 14)])
 def test_resident_r2c_matches_plain_and_the_engine(n, dev, monkeypatch):
     """Three layouts and rows 4 bytes off 8-byte alignment (4-byte copies),
@@ -957,9 +950,10 @@ def test_resident_r2c_matches_plain_and_the_engine(n, dev, monkeypatch):
                  "nb": lambda: tuple(t.T for t in rf.rfft_nb_fused(x.T.contiguous())),
                  "misaligned": lambda: (rf.rfft(xm),)}
         for layout, call in calls.items():
-            _r2c_walk(monkeypatch, rf.WALK_RESIDENT)
+            _walk(monkeypatch, rf.WALK_RESIDENT)
             got = call()
-            _r2c_walk(monkeypatch, rf.WALK_ENGINE)
+            monkeypatch.undo()
+            _walk(monkeypatch, rf.WALK_ENGINE)
             engine = call()
             monkeypatch.undo()
             assert all(torch.equal(a, b) for a, b in zip(got, engine)), (layout, batch)
@@ -991,4 +985,181 @@ def test_resident_r2c_refusals(dev):
     assert r2c(xp + 4, n, yp, rf.WALK_RESIDENT, 1, 1) == -8      # rows 4 bytes off
     assert r2c(xp, n + 1, yp, rf.WALK_RESIDENT, 1, 1) == -8      # an odd row stride
     assert r2c(xp, n, yp + 4, rf.WALK_RESIDENT, 1, 1) == -8      # bins 4 bytes off
+    torch.cuda.synchronize()
+
+
+# -- the redesigned batch-major walk: the c2c kernel (f32, FP64) and the FP64 r2c ----------
+
+_C2C_LAUNCH, _R2C_LAUNCH = st.c2c_launch, rf.r2c_launch
+_WALKS = (st.WALK_ENGINE, st.WALK_RESIDENT, st.WALK_BLOCK)
+
+
+def _walk(monkeypatch, walk):
+    """The c2c and r2c wrappers forced to one batch-major walk at every n
+    (st.WALK_ENGINE: the kernels before the redesign, no pairs), with the
+    pairs the rules give; launches that take a column tile or walk down
+    columns keep what the rule gives, and the r2c takes its precision's
+    one redesigned walk for either."""
+    def c2c(n, dtype, cols, x, y):
+        got = _C2C_LAUNCH(n, dtype, cols, x, y)
+        if not got or cols != (0, 0) or x[2] > x[3] or y[2] > y[3]:
+            return got
+        if walk == st.WALK_ENGINE:
+            return walk, 0, 0
+        return walk, *(int(st.complex_pairs(*s, dtype.itemsize)) for s in (x, y))
+
+    def r2c(n, x, y, size=4):
+        return (walk, 0, 0) if walk == st.WALK_ENGINE else _R2C_LAUNCH(1 << 13, x, y, size)
+    monkeypatch.setattr(st, "c2c_launch", c2c)
+    monkeypatch.setattr(rf, "r2c_launch", r2c)
+
+
+def _in_walks(monkeypatch, call):
+    """call()'s outputs in each walk: the two redesigned walks equal to the
+    engine's; returns the resident walk's."""
+    outs = []
+    for walk in _WALKS:
+        _walk(monkeypatch, walk)
+        outs.append(call())
+        monkeypatch.undo()
+    engine, *redesigned = outs
+    for got in redesigned:
+        assert all(torch.equal(a, b) for a, b in zip(got, engine))
+    return outs[1]
+
+
+def _c2c_layouts(x, inverse):
+    """The batch-major layouts of the complex [batch, n] x, each holding x:
+    interleaved complex, split planes, views one scalar off alignment, and
+    the even and odd rows of a contiguous signal (the real core's views)."""
+    batch, n = x.shape
+    real = x.real.dtype
+    tabs = st.device_tables(n, inverse, x.device, real)
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    flat = torch.empty(2 * batch * n + 1, dtype=real, device=x.device)
+    flat[1:].view(batch, n, 2).copy_(torch.view_as_real(x))
+    xv = torch.view_as_real(x).reshape(batch, 2 * n).T
+
+    def misaligned():
+        out = torch.empty(batch, n, 2, dtype=real, device=x.device)
+        views = [torch.as_strided(flat, (n, batch), (2, 2 * n), 1 + k) for k in (0, 1)]
+        st.fft_views(*views, out[..., 0].T, out[..., 1].T, inverse, tabs)
+        return (torch.view_as_complex(out),)
+
+    def real_core():
+        zre, zim = (torch.empty(batch, n, dtype=real, device=x.device) for _ in range(2))
+        st.fft_views(xv[0::2], xv[1::2], zre.T, zim.T, inverse, tabs)
+        return zre, zim
+    return {"complex": lambda: (st.stockham_fft(x, inverse),),
+            "bm": lambda: st.stockham_fft_bm(re, im, inverse),
+            "misaligned": misaligned, "real_core": real_core}
+
+
+@pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("n", [1 << k for k in range(1, 13)])
+def test_c2c_walk_matches_plain_and_the_engine(n, cdtype, dev, monkeypatch):
+    """Four layouts, batch 1, a tail under one tile, and more tiles than
+    the resident grid by a tail, both directions: the resident blocks and
+    the block a tile equal to the engine's walk (the kernel before the
+    redesign) and within the precision's limit of the plain version."""
+    limit = KERNEL_LIMIT if cdtype == torch.complex64 else F64_KERNEL_LIMIT
+    T = st.engine_transforms(n, max(r for r, _ in st.stage_plan(n)))
+    for batch in (1, T // 2 + 1, 2 * st.SMS * T + T // 2 + 1):
+        x = _x((batch, n), seed=n + batch, dev=dev).to(cdtype)
+        for inverse in (False, True):
+            want = st.plain_fft(x, inverse)
+            for layout, call in _c2c_layouts(x, inverse).items():
+                got = _in_walks(monkeypatch, call)
+                y = got[0] if len(got) == 1 else torch.complex(*got)
+                assert _rel(y, want) <= limit, (layout, batch, inverse)
+
+
+def test_c2c_walk_rows_pass(dev, monkeypatch):
+    """The 2-pass route's rows pass (#16) of a 1024^2 image in each walk."""
+    x = _x((1, 1024, 1024), seed=5, dev=dev)
+    for inverse in (False, True):
+        got = _in_walks(monkeypatch, lambda: (f2._complex_route(x, inverse, "fft2-2pass"),))
+        assert _rel(got[0], f2.plain_fft2(x, inverse)) <= KERNEL_LIMIT
+
+
+@pytest.mark.parametrize("n", [1 << k for k in range(2, 14)])
+def test_r2c_f64_walk_matches_plain_and_the_engine(n, dev, monkeypatch):
+    """Four layouts (rows 8 bytes off 16-byte alignment among them), batch
+    1, 3 and past the resident grid by a tail: each walk equal to the
+    engine's and within F64_KERNEL_LIMIT of the plain version."""
+    m = n // 2
+    T = st.engine_transforms(m, max(r for r, _ in st.stage_plan(m)))
+    for batch in (1, 3, 2 * st.SMS * T + T // 2 + 1):
+        flat = _r((batch * n + 1,), n + batch, dev).double()
+        x, xm = flat[:-1].view(batch, n), flat[1:].view(batch, n)
+        calls = {"complex": (lambda: (rf.rfft(x),), x), "bm": (lambda: rf.rfft_bm(x), x),
+                 "nb": (lambda: tuple(t.T for t in rf.rfft_nb_fused(x.T.contiguous())), x),
+                 "misaligned": (lambda: (rf.rfft(xm),), xm)}
+        for layout, (call, src) in calls.items():
+            got = _in_walks(monkeypatch, call)
+            y = got[0] if len(got) == 1 else torch.complex(*got)
+            assert _rel(y, rf.plain_rfft(src)) <= F64_KERNEL_LIMIT, (layout, batch)
+
+
+def test_c2c_walk_refusals(dev):
+    """The f32 and FP64 c2c entries refuse a walk other than 1..3, and a
+    redesigned walk with a column tile (kErrArgs = -1); pairs on the
+    engine's walk, or where re and im are not adjacent in points aligned to
+    a whole point (kErrPairs = -8)."""
+    from watfft_tpu_torch.ops import _build
+    lib = _build.library()
+    n, batch = 1024, 3
+    stream = torch.cuda.current_stream().cuda_stream
+    for dtype, entry in ((torch.float32, lib.watfft_stockham_c2c),
+                         (torch.float64, lib.watfft_stockham_c2c_f64)):
+        size = dtype.itemsize
+        tabs = st.device_tables(n, False, dev, dtype)
+        buf = torch.zeros(2 * n * batch + 2, dtype=dtype, device=dev)
+        out = torch.zeros_like(buf)
+        p, q = buf.data_ptr(), out.data_ptr()
+
+        def c2c(x, y, walk, px, py, cols=0, threads=0):
+            return entry(*x[:2], *y[:2], *x[2:], *y[2:], n, batch, tabs.twre.data_ptr(),
+                         tabs.twim.data_ptr(), tabs.c_radices, tabs.c_offsets,
+                         len(tabs.stages), 0, stream, cols, threads, walk, px, py)
+        xs, ys = (p, p + size, 2, 2 * n), (q, q + size, 2, 2 * n)
+        for walk in (0, 4):
+            assert c2c(xs, ys, walk, 0, 0) == -1, (dtype, walk)
+        assert c2c(xs, ys, st.WALK_RESIDENT, 0, 0, cols=8, threads=256) == -1
+        assert c2c(xs, ys, st.WALK_ENGINE, 1, 0) == -8
+        assert c2c(xs, ys, st.WALK_ENGINE, 0, 1) == -8
+        for walk in (st.WALK_RESIDENT, st.WALK_BLOCK):
+            for bad in ((p + size, p + 2 * size, 2, 2 * n),     # one scalar off
+                        (p, p + size, 2, 2 * n + 1),            # an odd batch stride
+                        (p, p + 2 * size, 2, 2 * n),            # not adjacent
+                        (p, p + 4 * n * size, 1, n)):           # split planes
+                assert c2c(bad, ys, walk, 1, 0) == -8, (dtype, walk, bad)
+                assert c2c(xs, bad, walk, 0, 1) == -8, (dtype, walk, bad)
+    assert "pairs" in lib.watfft_error_string(-8).decode()
+    torch.cuda.synchronize()
+
+
+def test_r2c_f64_walk_refusals(dev):
+    """The FP64 r2c entry refuses a walk other than 1 and 3 (kErrArgs =
+    -1), and pairs on the engine's walk or where the layout does not allow
+    them (kErrPairs = -8)."""
+    n, batch = 1024, 3
+    rt = rf.device_rtables(n, False, dev, torch.float64)
+    x = torch.zeros(batch * n + 2, dtype=torch.float64, device=dev)
+    y = torch.zeros(2 * batch * (n // 2 + 1) + 2, dtype=torch.float64, device=dev)
+    lib, targs = rf._kernel_args(rt, x, "rfft_r2c_fused")
+    stream = torch.cuda.current_stream().cuda_stream
+    xp, yp = x.data_ptr(), y.data_ptr()
+    m1 = n // 2 + 1
+
+    def r2c(xa, x_sb, ya, walk, px, py):
+        return lib.watfft_rfft_r2c_f64(xa, 1, x_sb, ya, ya + 8, 2, 2 * m1, n, batch, *targs,
+                                       stream, walk, px, py)
+    for walk in (0, rf.WALK_RESIDENT, 4):
+        assert r2c(xp, n, yp, walk, 0, 0) == -1, walk
+    assert r2c(xp, n, yp, rf.WALK_ENGINE, 1, 0) == -8
+    assert r2c(xp, n, yp, rf.WALK_ENGINE, 0, 1) == -8
+    assert r2c(xp + 8, n, yp, rf.WALK_BLOCK, 1, 1) == -8      # rows 8 bytes off
+    assert r2c(xp, n + 1, yp, rf.WALK_BLOCK, 1, 1) == -8      # an odd row stride
+    assert r2c(xp, n, yp + 8, rf.WALK_BLOCK, 1, 1) == -8      # bins 8 bytes off
     torch.cuda.synchronize()

@@ -1,11 +1,13 @@
 """The host side of the redesigned kernels: the cube (#12, ops/large.py
-`cube_threads`, `complex_pairs`, `cube_launch`) and the fused f32 r2c
-kernel (#9, ops/rfft.py `r2c_launch`). The host picks each launch's block,
-walk and 8-byte accesses and passes them; the kernels refuse what they do
-not take. Here: the rules, and the arguments each wrapper passes, recorded
-by a stand-in library, on the CPU. No JAX is needed: the helpers are host
-arithmetic. The kernels themselves, and their refusals, run on the card
-(tests/test_torch_cuda.py, chip_smoke.py, scripts/compare_kernel_builds.py).
+`cube_threads`, `cube_launch`), the fused r2c kernel in f32 (#9) and FP64
+(ops/rfft.py `r2c_launch`) and the batch-major walk of the c2c kernel
+(ops/stockham.py `c2c_launch`, `complex_pairs`). The host picks each
+launch's block, walk and one-point accesses and passes them; the kernels
+refuse what they do not take. Here: the rules, and the arguments each
+wrapper passes, recorded by a stand-in library, on the CPU. No JAX is
+needed: the helpers are host arithmetic. The kernels themselves, and their
+refusals, run on the card (tests/test_torch_cuda.py, chip_smoke.py,
+scripts/compare_kernel_builds.py).
 """
 
 import contextlib
@@ -17,8 +19,10 @@ import torch
 
 from watfft_tpu_torch import planner
 from watfft_tpu_torch.ops import _build
+from watfft_tpu_torch.ops import fft2 as f2
 from watfft_tpu_torch.ops import large as lg
 from watfft_tpu_torch.ops import rfft as rf
+from watfft_tpu_torch.ops import stockham as st
 
 
 # -- the cube's block and copies -----------------------------------------------------
@@ -74,6 +78,8 @@ def recorder(monkeypatch):
                         lambda: types.SimpleNamespace(cuda_stream=0))
     monkeypatch.setattr(lg, "_use_kernel", lambda t, plain: not plain)
     monkeypatch.setattr(rf, "_use_kernel", lambda t: True)
+    monkeypatch.setattr(st, "_use_kernel", lambda t, plain=False: not plain)
+    monkeypatch.setattr(f2, "_use_kernel", lambda t, plain: not plain)
     return lib
 
 
@@ -160,10 +166,28 @@ def test_r2c_launch_arguments(n, layout, pairs, recorder):
         assert a[-3:] == (rf.WALK_RESIDENT, *pairs)
 
 
-def test_r2c_f64_takes_no_walk(recorder):
-    rf.rfft(_f32((3, 1024)).double())
+@pytest.mark.parametrize("layout,pairs", [
+    ("complex", (1, 1)), ("bm", (1, 0)), ("nb", (0, 0)), ("misaligned", (0, 1))])
+@pytest.mark.parametrize("n", [4, 8, 16, 1024, 8192])
+def test_r2c_f64_launch_arguments(n, layout, pairs, recorder):
+    """The FP64 r2c takes a block a tile at every n, with one 16-byte copy
+    of each pair of contiguous rows aligned to 16 bytes and one 16-byte
+    store a bin into interleaved complex128."""
+    batch = 6
+    flat = _f32(batch * n + 1).double()
+    x = flat[:-1].view(batch, n)
+    if layout == "complex":
+        rf.rfft(x)
+    elif layout == "bm":
+        rf.rfft_bm(x)
+    elif layout == "nb":
+        rf.rfft_nb_fused(x.T.contiguous())
+    else:
+        rf.rfft(flat[1:].view(batch, n))           # rows 8 bytes off 16-byte alignment
     (name, a), = recorder.calls[-1:]
-    assert name == "watfft_rfft_r2c_f64" and len(a) == 17
+    assert name == "watfft_rfft_r2c_f64" and len(a) == 20
+    assert a[7:9] == (n, batch)
+    assert a[-3:] == (rf.WALK_BLOCK, *pairs)
 
 
 @pytest.mark.parametrize("x,pairs", [
@@ -175,6 +199,153 @@ def test_r2c_f64_takes_no_walk(recorder):
 ])
 def test_r2c_copies_pairs_only_from_contiguous_aligned_rows(x, pairs):
     assert rf.r2c_launch(1024, x, (0, 4, 2, 1026)) == (rf.WALK_RESIDENT, pairs, 1)
+    xd = (2 * x[0], *x[1:])                    # the same rows of float64
+    assert rf.r2c_launch(1024, xd, (0, 8, 2, 1026), 8) == (rf.WALK_BLOCK, pairs, 1)
+
+
+# -- the c2c kernel's batch-major walk -----------------------------------------------
+
+@pytest.mark.parametrize("size,side,pairs", [
+    (4, (0, 4, 2, 2048), True),            # interleaved complex64
+    (4, (8, 12, 2, 2048), True),
+    (4, (4, 8, 2, 2048), False),           # 4 bytes off 8-byte alignment
+    (4, (0, 4, 2, 2049), False),           # an odd batch stride
+    (4, (0, 4, 1, 1024), False),           # planes that happen to sit 4 bytes apart
+    (8, (0, 8, 2, 2048), True),            # interleaved complex128
+    (8, (16, 24, 2, 2048), True),
+    (8, (8, 16, 2, 2048), False),          # 8 bytes off 16-byte alignment
+    (8, (0, 4, 2, 2048), False),           # im 4 bytes on: not a float64 pair
+    (8, (0, 8, 3, 2048), False),           # an odd point stride
+    (8, (0, 8 * 1024, 1, 1024), False),    # split planes
+])
+def test_complex_pairs_of_each_precision(size, side, pairs):
+    """re and im one scalar apart in points aligned to the whole point (8
+    bytes of float32, 16 of float64), with even strides."""
+    assert st.complex_pairs(*side, size) is pairs
+    dtype = torch.float32 if size == 4 else torch.float64
+    walk = st.c2c_launch(1024, dtype, (0, 0), side, side)
+    assert walk == (st.c2c_walk(1024, dtype), int(pairs), int(pairs))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_c2c_walk_rule(dtype):
+    """Where both sides walk along their rows and no column tile is taken:
+    resident blocks on f32 past C2C_BLOCK_MAX_N, a block a tile on f32 up
+    to it and on FP64 at every n. The engine's walk, without pairs, where a
+    column tile is taken or a side walks down columns; none for bf16 planes
+    (their entries take no walk)."""
+    size = dtype.itemsize
+    pair = (0, size, 2, 2048)
+    assert st.C2C_BLOCK_MAX_N == 4
+    for n in (2, 4, 8, 16, 1024, 4096):
+        f32_resident = dtype == torch.float32 and n > 4
+        walk = st.WALK_RESIDENT if f32_resident else st.WALK_BLOCK
+        assert st.c2c_walk(n, dtype) == walk
+        assert st.c2c_launch(n, dtype, (0, 0), pair, pair) == (walk, 1, 1)
+    walk = st.c2c_walk(1024, dtype)
+    assert st.c2c_launch(1024, dtype, (16, 256), pair, pair) == (st.WALK_ENGINE, 0, 0)
+    down = (0, 1 << 20, 4096, 1)                       # time-major planes
+    assert st.c2c_launch(1024, dtype, (0, 0), down, pair) == (st.WALK_ENGINE, 0, 0)
+    assert st.c2c_launch(1024, dtype, (0, 0), pair, down) == (st.WALK_ENGINE, 0, 0)
+    one = (0, 1 << 20, 1, 1)                           # batch 1 of a time-major plane
+    assert st.c2c_launch(1024, dtype, (0, 0), one, one) == (walk, 0, 0)
+    assert st.c2c_launch(1024, torch.bfloat16, (0, 0), pair, pair) == ()
+
+
+def _c2c_args(lib):
+    """(entry, n, batch, strides (x_sn, x_sb, y_sn, y_sb), (xre, xim, yre,
+    yim), last five (cols, threads, walk, pairs_x, pairs_y)) of the last
+    c2c launch."""
+    (name, a), = [c for c in lib.calls if c[0].startswith("watfft_stockham_c2c")][-1:]
+    return name, a[8], a[9], a[4:8], a[:4], a[17:]
+
+
+@pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])
+@pytest.mark.parametrize("n", [2, 16, 1024, 4096])
+def test_c2c_complex_and_planes_arguments(n, cdtype, recorder):
+    """Interleaved complex: one copy and one store a point; batch-major
+    split planes: one a plane; both on `c2c_walk`'s walk. Time-major
+    planes with few columns take no tile and the engine's walk."""
+    batch = 5
+    dtype = cdtype.to_real()
+    entry = "watfft_stockham_c2c" + ("_f64" if dtype == torch.float64 else "")
+    walk = (st.c2c_walk(n, dtype),)
+    x = torch.complex(_f32((batch, n), 1), _f32((batch, n), 2)).to(cdtype)
+    st.stockham_fft(x, True)
+    name, got_n, got_b, strides, ptrs, last = _c2c_args(recorder)
+    assert (name, got_n, got_b, strides) == (entry, n, batch, (2, 2 * n, 2, 2 * n))
+    assert ptrs[1] == ptrs[0] + dtype.itemsize and ptrs[3] == ptrs[2] + dtype.itemsize
+    assert last == (0, 0, *walk, 1, 1)
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    st.stockham_fft_bm(re, im)
+    name, _, _, strides, _, last = _c2c_args(recorder)
+    assert (name, strides, last) == (entry, (1, n, 1, n), (0, 0, *walk, 0, 0))
+    st.stockham_fft_nb(re.T.contiguous(), im.T.contiguous())
+    name, _, _, strides, _, last = _c2c_args(recorder)
+    assert (name, strides, last) == (entry, (batch, 1, batch, 1), (0, 0, st.WALK_ENGINE, 0, 0))
+
+
+def test_c2c_time_major_tile_keeps_the_engine_walk(recorder):
+    n, batch = 1024, 1024
+    st.stockham_fft_nb(_f32((n, batch), 1), _f32((n, batch), 2))
+    _, _, _, strides, _, last = _c2c_args(recorder)
+    assert strides == (batch, 1, batch, 1)
+    assert last[:2] == st.tile_shape(n, 4, 8, batch=batch) and last[2:] == (st.WALK_ENGINE, 0, 0)
+
+
+def test_c2c_bf16_planes_take_no_walk(recorder):
+    re, im = _f32((4, 1024), 1).bfloat16(), _f32((4, 1024), 2).bfloat16()
+    st.stockham_fft_bm(re, im)
+    (name, a), = recorder.calls[-1:]
+    assert name == "watfft_stockham_c2c_bf16" and len(a) == 19
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_c2c_views_one_scalar_off_alignment(dtype, recorder):
+    """fft_views on interleaved views whose re is one scalar off the
+    point's alignment: the input plane by plane, the aligned output by
+    points."""
+    n, batch, size = 1024, 3, dtype.itemsize
+    flat = _f32(2 * n * batch + 1).to(dtype)
+    out = torch.zeros(batch, n, 2, dtype=dtype)
+    views = [torch.as_strided(flat, (n, batch), (2, 2 * n), 1 + k) for k in (0, 1)]
+    tabs = st.device_tables(n, False, "cpu", dtype)
+    st.fft_views(*views, out[..., 0].T, out[..., 1].T, False, tabs)
+    _, _, _, strides, ptrs, last = _c2c_args(recorder)
+    assert strides == (2, 2 * n, 2, 2 * n) and ptrs[0] % (2 * size) == size
+    assert last == (0, 0, st.c2c_walk(n, dtype), 0, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_c2c_real_core_arguments(dtype, recorder):
+    """The hybrid real route's core on batch-major signals: the even and
+    odd rows of the signal are re and im one scalar apart, one copy a
+    point; its inverse stores z[j] into rows 2j and 2j + 1, one store a
+    point."""
+    n, batch, size = 2048, 4, dtype.itemsize
+    x = _f32((batch, n)).to(dtype)
+    rf.rfft_bm(x, fused=False)
+    _, m, b, strides, ptrs, last = _c2c_args(recorder)
+    assert (m, b, strides) == (n // 2, batch, (2, n, 1, n // 2))
+    walk = st.c2c_walk(n // 2, dtype)
+    assert ptrs[1] == ptrs[0] + size and last == (0, 0, walk, 1, 0)
+    spec = _f32((batch, n // 2 + 1)).to(dtype)
+    rf.irfft_bm(spec, spec, fused=False)
+    _, m, b, strides, ptrs, last = _c2c_args(recorder)
+    assert (m, b, strides[2:]) == (n // 2, batch, (2, n))
+    assert ptrs[3] == ptrs[2] + size and last[2:] == (walk, 0, 1)
+
+
+def test_c2c_fft2_rows_arguments(recorder):
+    """The 2-pass route's row pass (#16): batch-major planes in, the
+    interleaved image out, one store a point."""
+    h = w = 64
+    x = torch.complex(_f32((2, h, w), 1), _f32((2, h, w), 2))
+    f2._complex_route(x, False, "fft2-2pass")
+    name, got_n, batch, strides, ptrs, last = _c2c_args(recorder)
+    assert (name, got_n, batch) == ("watfft_stockham_c2c", w, 2 * h)
+    assert strides == (1, w, 2, 2 * w) and ptrs[3] == ptrs[2] + 4
+    assert last == (0, 0, st.WALK_RESIDENT, 0, 1)
 
 
 # -- the planner ---------------------------------------------------------------------

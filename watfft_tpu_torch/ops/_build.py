@@ -91,18 +91,19 @@ def library() -> ctypes.CDLL:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     ip = ctypes.POINTER(ctypes.c_int)
     # each of these three in float32 and, under the _f64 name, float64
-    # the c2c kernel's last arguments: the column tile C (0: none), its threads
+    # the c2c kernel's last arguments: the column tile C (0: none), its
+    # threads, the walk, pairs_x and pairs_y
     for suffix in ("", "_f64"):
         c2c = getattr(lib, "watfft_stockham_c2c" + suffix)
         c2c.argtypes = [p, p, p, p, i64, i64, i64, i64, i32, i64, p, p, ip, ip, i32, i32, p,
-                        i32, i32]
+                        i32, i32, i32, i32, i32]
         c2c.restype = i32
         # (x, x_sn, x_sb, yre, yim, y_sn, y_sb, n, batch, twre, twim, radices,
-        #  offsets, nstages, wre, wim, stream) and the c2r mirror of it; the
-        #  f32 r2c also takes its walk, pairs_x and pairs_y
+        #  offsets, nstages, wre, wim, stream, walk, pairs_x, pairs_y) and the
+        #  c2r mirror of it, without the last three
         r2c = getattr(lib, "watfft_rfft_r2c" + suffix)
         r2c.argtypes = [p, i64, i64, p, p, i64, i64, i32, i64, p, p, ip, ip, i32, p, p, p,
-                        *([] if suffix else [i32, i32, i32])]
+                        i32, i32, i32]
         r2c.restype = i32
         c2r = getattr(lib, "watfft_irfft_c2r" + suffix)
         c2r.argtypes = [p, p, i64, i64, p, i64, i64, i32, i64, p, p, ip, ip, i32, p, p, p]

@@ -27,7 +27,10 @@
 // real tier: the df kernel on the m = n/2-point core with the Hermitian
 // post or pre in jnp beside it, on hi/lo f32 pairs. Here the same one-pass
 // kernels run on double; their m = 4096 block (n = 8192) holds 69.6 KB and
-// opts in past the 48 KB default, as the FP64 c2c kernel does.
+// opts in past the 48 KB default, as the FP64 c2c kernel does. The FP64
+// forward runs rfft_r2c_block_f64_kernel: the engine's arithmetic on the
+// redesigned walk (a block a tile copied in by cp.async, 16-byte copies
+// and stores where the layout allows).
 //
 // What bounds them: 8 bytes of device memory per real point (4 read, and
 // about 4 written as (m+1) complex bins per n reals), against about
@@ -210,15 +213,14 @@ irfft_c2r_kernel(const Real* __restrict__ xre, const Real* __restrict__ xim,
   });
 }
 
-// watfft_rfft_r2c's `walk`: the engine's walk (rfft_r2c_kernel, a block a
-// tile) or the resident kernel. The host takes the engine's walk at n <= 8
-// (one radix-m stage, 256 transforms a block), where it measured faster
-// at eight blocks an SM than the resident kernel at two (PERF.md).
-constexpr int kWalkEngine = 1, kWalkResident = 2;
-constexpr int kR2cBlocks = 2;  // resident blocks an SM: 128 registers a thread
+// watfft_rfft_r2c's `walk` (stockham.cuh kWalk*): the engine's walk
+// (rfft_r2c_kernel, a block a tile) or the resident kernel. The host takes
+// the engine's walk at n <= 8 (one radix-m stage, 256 transforms a block),
+// where it measured faster at eight blocks an SM than the resident kernel
+// at two (PERF.md). The FP64 entry's redesigned walk is a block a tile.
 
 // The f32 r2c kernel (#9) as resident blocks: the grid is the card's SMs
-// times kR2cBlocks (P = 16's stages do not spill at 128 registers), and
+// times kResidentBlocks (P = 16's stages do not spill at 128 registers), and
 // block b takes tiles b, b + grid, ... of T transforms; every thread runs
 // the same trip count. While the stages and the Hermitian post run on
 // tile i, tile i + grid lands in the second buffer by cp.async. The
@@ -228,7 +230,7 @@ constexpr int kR2cBlocks = 2;  // resident blocks an SM: 128 registers a thread
 // one 8-byte store where it asks for them (`pairs_y`: the spectrum
 // interleaved complex64). The arithmetic is rfft_r2c_kernel's.
 template <int P>
-__global__ void __launch_bounds__(kBlockThreads, kR2cBlocks)
+__global__ void __launch_bounds__(kBlockThreads, kResidentBlocks)
 rfft_r2c_resident_kernel(const float* __restrict__ x, int64_t x_sn, int64_t x_sb,
                          float* __restrict__ yre, float* __restrict__ yim,
                          int64_t y_sn, int64_t y_sb, int64_t batch, int T, int S,
@@ -300,6 +302,62 @@ rfft_r2c_resident_kernel(const float* __restrict__ x, int64_t x_sn, int64_t x_sb
   }
 }
 
+// The FP64 r2c kernel on the redesigned walk: a block a tile of T
+// transforms, two blocks an SM (128 registers a thread), the tile copied
+// by cp.async straight into its padded slots, z[j] = (x[2j], x[2j+1]) as
+// one 16-byte copy where the host asks for pairs (`pairs_x`: the signal's
+// rows contiguous and 16-byte aligned), else as two; each bin one 16-byte
+// store where it asks for them (`pairs_y`: the spectrum interleaved
+// complex128). The arithmetic is rfft_r2c_kernel<double>'s. Resident
+// blocks with a second buffer fit one block an SM at P = 16 (a tile is
+// 69.6 KB) and measured slower at every n (PERF.md).
+template <int P>
+__global__ void __launch_bounds__(kBlockThreads, kResidentBlocks)
+rfft_r2c_block_f64_kernel(const double* __restrict__ x, int64_t x_sn, int64_t x_sb,
+                          double* __restrict__ yre, double* __restrict__ yim,
+                          int64_t y_sn, int64_t y_sb, int64_t batch, int T, int S,
+                          bool pairs_x, bool pairs_y,
+                          const double* __restrict__ twre, const double* __restrict__ twim,
+                          const double* __restrict__ wre, const double* __restrict__ wim,
+                          Plan plan) {
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  double2* smem = reinterpret_cast<double2*>(smem_bytes);
+  const int m = 1 << plan.log2n;
+  const int tpt = m / P;
+  const int64_t first = (int64_t)blockIdx.x * T;
+  const int count = (int)min((int64_t)T, batch - first);
+
+  // z[j] = x[2j] + i x[2j+1], complex point j 2j real strides in;
+  // transforms past the batch are not copied
+  for_tile(plan.log2n, T, count, first, 2 * x_sn, x_sb, [&](int t, int j, int64_t g) {
+    copy_point(smem + t * S + pad(j), x + g, x + g + x_sn, pairs_x);
+  });
+  copy_commit();
+  copy_wait<0>();
+  __syncthreads();
+
+  const int t = threadIdx.x / tpt, th = threadIdx.x - t * tpt;
+  run_stages<P, false>(smem + t * S, th, tpt, plan, twre, twim);
+
+  // Hermitian post, one mirror pair per thread (the stages ended with a sync)
+  const auto put = [&](int64_t g, double2 v) { store_point(yre + g, yim + g, v, pairs_y); };
+  for_pairs(m, T, count, first, y_sn, y_sb, [&](int t, int k, int64_t g) {
+    const double2* z = smem + t * S;
+    if (k == 0) {
+      const double2 z0 = z[0];
+      put(g, make_double2(z0.x + z0.y, 0.0));
+      put(g + m * y_sn, make_double2(z0.x - z0.y, 0.0));
+      return;
+    }
+    const double2 a = z[pad(k)], b = z[pad(m - k)];
+    put(g + k * y_sn, post_fwd(a, b, make_double2(__ldg(wre + k), __ldg(wim + k))));
+    if (2 * k != m) {
+      const int j = m - k;
+      put(g + j * y_sn, post_fwd(b, a, make_double2(__ldg(wre + j), __ldg(wim + j))));
+    }
+  });
+}
+
 // The grid of a launch over `batch` transforms, its shared memory, and the
 // kernel's opt-in when that is past the default; 0 or an error code.
 template <typename Real, typename K>
@@ -335,7 +393,8 @@ int r2c(const Real* x, int64_t x_sn, int64_t x_sb, Real* yre, Real* yim, int64_t
 }
 
 // The f32 r2c launch: resident blocks of rfft_r2c_resident_kernel,
-// kR2cBlocks an SM, each with two tiles of T transforms in shared memory.
+// kResidentBlocks an SM (`tiles_grid`), each with two tiles of T transforms
+// in shared memory.
 int r2c_resident(const float* x, int64_t x_sn, int64_t x_sb, float* yre, float* yim,
                  int64_t y_sn, int64_t y_sb, int n, int64_t batch, const float* twre,
                  const float* twim, const int* radices, const int* twoffsets, int nstages,
@@ -356,13 +415,41 @@ int r2c_resident(const float* x, int64_t x_sn, int64_t x_sb, float* yre, float* 
   const int S = smem_stride(n / 2);
   const size_t smem = 2 * (size_t)T * S * sizeof(float2);
   if (const int err = opt_in_smem(kernel, smem)) return err;
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  const int64_t tiles = (batch + T - 1) / T, resident = kR2cBlocks * (int64_t)sms;
-  const unsigned grid = (unsigned)(tiles < resident ? tiles : resident);
+  unsigned grid;
+  if (const int err = tiles_grid(kernel, smem, (batch + T - 1) / T, kWalkResident, grid)) {
+    return err;
+  }
   kernel<<<grid, kBlockThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, x_sn, x_sb, yre, yim, y_sn, y_sb, batch, T, S, pairs_x, pairs_y, twre, twim, wre, wim,
+      plan);
+  return (int)cudaGetLastError();
+}
+
+// The FP64 r2c launch on the redesigned walk: a block a tile of
+// rfft_r2c_block_f64_kernel.
+int r2c_block_f64(const double* x, int64_t x_sn, int64_t x_sb, double* yre, double* yim,
+                  int64_t y_sn, int64_t y_sb, int n, int64_t batch, const double* twre,
+                  const double* twim, const int* radices, const int* twoffsets, int nstages,
+                  const double* wre, const double* wim, void* stream, bool pairs_x,
+                  bool pairs_y) {
+  Plan plan;
+  int maxr, T;
+  if (n < 4 || (n & (n - 1))) return kErrArgs;
+  if (const int err = make_plan(n / 2, batch, radices, twoffsets, nstages, plan, maxr, T)) {
+    return err;
+  }
+  // z[j] = (x[2j], x[2j+1]): point j of the pairs (x, x + x_sn) at stride 2 x_sn
+  if ((pairs_x && !complex_pairs(x, x + x_sn, 2 * x_sn, x_sb)) ||
+      (pairs_y && !complex_pairs(yre, yim, y_sn, y_sb))) {
+    return kErrPairs;
+  }
+  auto kernel = maxr == 2 ? rfft_r2c_block_f64_kernel<2> : maxr == 4 ? rfft_r2c_block_f64_kernel<4>
+              : maxr == 8 ? rfft_r2c_block_f64_kernel<8> : rfft_r2c_block_f64_kernel<16>;
+  int S;
+  size_t smem;
+  unsigned blocks;
+  if (const int err = launch_grid<double>(kernel, plan, batch, T, S, smem, blocks)) return err;
+  kernel<<<blocks, kBlockThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       x, x_sn, x_sb, yre, yim, y_sn, y_sb, batch, T, S, pairs_x, pairs_y, twre, twim, wre, wim,
       plan);
   return (int)cudaGetLastError();
@@ -402,8 +489,7 @@ extern "C" {
 // overlap x. walk: 1 the engine's walk (rfft_r2c_kernel), 2 the resident
 // kernel; pairs_x, pairs_y: the resident kernel's 8-byte copies of the
 // signal and stores of the spectrum, refused (kErrPairs) where the layout
-// does not allow them or on the engine's walk. (The FP64 entry below runs
-// the engine's walk and takes none of the three.)
+// does not allow them or on the engine's walk.
 int watfft_rfft_r2c(const float* x, int64_t x_sn, int64_t x_sb,
                     float* yre, float* yim, int64_t y_sn, int64_t y_sb,
                     int n, int64_t batch, const float* twre, const float* twim,
@@ -420,14 +506,23 @@ int watfft_rfft_r2c(const float* x, int64_t x_sn, int64_t x_sb,
                       twoffsets, nstages, wre, wim, stream, pairs_x != 0, pairs_y != 0);
 }
 
-// The same on float64 signals, spectrum planes and tables.
+// The same on float64 signals, spectrum planes and tables, whose
+// redesigned walk is 3, a block a tile of rfft_r2c_block_f64_kernel
+// (16-byte pairs).
 int watfft_rfft_r2c_f64(const double* x, int64_t x_sn, int64_t x_sb,
                         double* yre, double* yim, int64_t y_sn, int64_t y_sb,
                         int n, int64_t batch, const double* twre, const double* twim,
                         const int* radices, const int* twoffsets, int nstages,
-                        const double* wre, const double* wim, void* stream) {
-  return r2c(x, x_sn, x_sb, yre, yim, y_sn, y_sb, n, batch, twre, twim, radices, twoffsets,
-             nstages, wre, wim, stream);
+                        const double* wre, const double* wim, void* stream, int walk,
+                        int pairs_x, int pairs_y) {
+  if (walk == kWalkEngine) {
+    if (pairs_x || pairs_y) return kErrPairs;
+    return r2c(x, x_sn, x_sb, yre, yim, y_sn, y_sb, n, batch, twre, twim, radices, twoffsets,
+               nstages, wre, wim, stream);
+  }
+  if (walk != kWalkBlock) return kErrArgs;
+  return r2c_block_f64(x, x_sn, x_sb, yre, yim, y_sn, y_sb, n, batch, twre, twim, radices,
+                       twoffsets, nstages, wre, wim, stream, pairs_x != 0, pairs_y != 0);
 }
 
 // y = irfft_n(X) for each of `batch` spectra of m+1 bins (bin k of spectrum

@@ -63,6 +63,23 @@
 //    transforms in turn. Each transform's operations are the engine's, so
 //    the outputs do not change; the instances without the tile compile to
 //    what they did before it.
+//  * The batch-major walk redesigned (stockham_c2c_resident_kernel, f32 and
+//    FP64). The engine's walk holds an f32 P = 16 thread to 80 registers
+//    (three blocks an SM; ~100 bytes of spills), loads and stores one scalar
+//    at a time, and leaves memory idle while a block runs its stages. Where
+//    both sides walk along their rows and no column tile is asked for, the
+//    host takes the redesigned kernel: 256 threads at 128 registers (no f32
+//    spill; FP64 P = 16 spills 80 bytes, as its engine instance does 64-72),
+//    tiles copied by cp.async straight into their padded slots, one copy and
+//    one store a point where re and im are adjacent (complex64, complex128,
+//    the real core's even and odd rows), and each transform's stages
+//    exactly as the engine runs them, so the outputs do not change. Resident
+//    blocks, two an SM, each with a second buffer for its next tile, on f32
+//    past n = 4; a block a tile on FP64 (two buffers of a P = 16 tile would
+//    leave one block an SM) and on f32 at n <= 4 (ops/stockham.py
+//    `c2c_walk`; PERF.md has the times). The stockham_c2c_kernel instances
+//    keep their text, and with it their registers; they serve the bf16
+//    planes and the layouts where a side walks down columns without a tile.
 //  * Twiddles come from the packed table through the read-only cache; the
 //    largest pack (n=4096) is 2 x 7680 floats and stays in L2.
 //  * Constants of the radix-2 network are the f32 roundings of the f64
@@ -88,8 +105,9 @@
 // f32 stages) and watfft_stockham_c2c_bf16c (bf16 throughout) launch on
 // the given stream, allocate nothing, and return cudaGetLastError() after
 // the launch, or a negative code for arguments they refuse before
-// launching. Their last two arguments are the column tile C (0: none) and
-// its block's threads.
+// launching. Their arguments after the stream are the column tile C (0:
+// none) and its block's threads, and for the f32 and FP64 entries the
+// walk and its pairs, which the host picks (ops/stockham.py `c2c_launch`).
 
 #include "stockham.cuh"
 
@@ -185,6 +203,95 @@ stockham_cols_kernel(const Store* __restrict__ xre, const Store* __restrict__ xi
   }
 }
 
+// The tile loop of the redesigned batch-major walk: the block takes tiles
+// blockIdx.x, blockIdx.x + gridDim.x, ... of `tiles`. copy(c, tile) issues
+// a tile's cp.async copies into the buffer c (tile_slots slots) and commits
+// them; work(c, tile) runs the stages and the store on it. bufs = 2: tile
+// i + 1 lands in the other buffer while work runs on tile i; bufs = 1: one
+// buffer, copied once the work is done. Every thread runs the same trip
+// count, so the syncs are uniform.
+template <typename C, typename Copy, typename Work>
+__device__ __forceinline__ void for_tiles(C* smem, int tile_slots, int64_t tiles, int bufs,
+                                          Copy copy, Work work) {
+  const int64_t step = gridDim.x;
+  int64_t tile = blockIdx.x;
+  if (tile < tiles) copy(smem, tile);
+  for (int it = 0; tile < tiles; tile += step, ++it) {
+    C* const c = smem + (it & (bufs - 1)) * tile_slots;
+    copy_wait<0>();
+    __syncthreads();  // the tile is in c, and every read of the other buffer is done
+    const int64_t next = tile + step;
+    if (bufs == 2 && next < tiles) copy(smem + ((it + 1) & 1) * tile_slots, next);
+    work(c, tile);
+    if (bufs == 1 && next < tiles) {
+      __syncthreads();  // every read of c is done
+      copy(smem, next);
+    }
+  }
+}
+
+// The batch-major walk redesigned (f32 and FP64): tiles of the engine's T
+// transforms, each copied by cp.async straight into its padded slots (one
+// copy a point where `pairs_x`: complex64 or complex128 storage, or the
+// real core's even and odd rows of a contiguous signal; else one a plane),
+// run as the engine runs them (run_stages) and stored one point at a time
+// where `pairs_y`, else one plane at a time. Two blocks of 256 threads an
+// SM leave a P = 16 thread 128 registers, where the f32 engine's bound of
+// 80 spills. bufs = 2: resident blocks, each looping over tiles with the
+// next one landing in a second buffer; bufs = 1: a block a tile (the grid
+// is `tiles_grid`'s, from the walk the host picked).
+template <typename Real, int P, bool INV>
+__global__ void __launch_bounds__(kBlockThreads, kResidentBlocks)
+stockham_c2c_resident_kernel(const Real* __restrict__ xre, const Real* __restrict__ xim,
+                             Real* __restrict__ yre, Real* __restrict__ yim,
+                             int64_t x_sn, int64_t x_sb, int64_t y_sn, int64_t y_sb,
+                             int64_t batch, int T, int S, int bufs, bool pairs_x, bool pairs_y,
+                             const Real* __restrict__ twre, const Real* __restrict__ twim,
+                             Plan plan) {
+  using C = cplx<Real>;
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  C* smem = reinterpret_cast<C*>(smem_bytes);
+  const int n = 1 << plan.log2n;
+  const int tpt = n / P;
+  const int t = threadIdx.x / tpt, th = threadIdx.x - t * tpt;
+  const auto count = [&](int64_t tile) { return (int)min((int64_t)T, batch - tile * T); };
+
+  // transforms past the batch are not copied, and their results not stored
+  const auto copy = [&](C* c, int64_t tile) {
+    for_tile(plan.log2n, T, count(tile), tile * T, x_sn, x_sb, [&](int t, int k, int64_t g) {
+      copy_point(c + t * S + pad(k), xre + g, xim + g, pairs_x);
+    });
+    copy_commit();
+  };
+  const auto work = [&](C* c, int64_t tile) {
+    run_stages<P, INV>(c + t * S, th, tpt, plan, twre, twim);
+    // the last stage ended with a sync
+    for_tile(plan.log2n, T, count(tile), tile * T, y_sn, y_sb, [&](int t, int k, int64_t g) {
+      store_point(yre + g, yim + g, c[t * S + pad(k)], pairs_y);
+    });
+  };
+  for_tiles(smem, T * S, (batch + T - 1) / T, bufs, copy, work);
+}
+
+template <typename Real, int P, bool INV>
+int launch_resident(const Real* xre, const Real* xim, Real* yre, Real* yim,
+                    int64_t x_sn, int64_t x_sb, int64_t y_sn, int64_t y_sb,
+                    int64_t batch, const Real* twre, const Real* twim,
+                    const Plan& plan, int T, cudaStream_t stream, int walk, bool pairs_x,
+                    bool pairs_y) {
+  const int S = smem_stride(1 << plan.log2n);
+  const int bufs = walk == kWalkResident ? 2 : 1;
+  const size_t smem = (size_t)bufs * T * S * sizeof(cplx<Real>);
+  auto kernel = stockham_c2c_resident_kernel<Real, P, INV>;
+  if (const int err = opt_in_smem(kernel, smem)) return err;
+  unsigned grid;
+  if (const int err = tiles_grid(kernel, smem, (batch + T - 1) / T, walk, grid)) return err;
+  kernel<<<grid, kBlockThreads, smem, stream>>>(xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb,
+                                                batch, T, S, bufs, pairs_x, pairs_y, twre, twim,
+                                                plan);
+  return (int)cudaGetLastError();
+}
+
 template <typename Real, typename Store, int P, bool INV, bool COLS = false>
 int launch(const Store* xre, const Store* xim, Store* yre, Store* yim,
            int64_t x_sn, int64_t x_sb, int64_t y_sn, int64_t y_sb,
@@ -206,7 +313,7 @@ int c2c(const Store* xre, const Store* xim, Store* yre, Store* yim,
         int64_t x_sn, int64_t x_sb, int64_t y_sn, int64_t y_sb,
         int n, int64_t batch, const Real* twre, const Real* twim,
         const int* radices, const int* twoffsets, int nstages, int inverse, void* stream,
-        int cols, int threads) {
+        int cols, int threads, int walk = kWalkEngine, int pairs_x = 0, int pairs_y = 0) {
   Plan plan;
   int maxr, T, C, NT;
   bool tiled;
@@ -218,6 +325,33 @@ int c2c(const Store* xre, const Store* xim, Store* yre, Store* yim,
     return err;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (walk != kWalkEngine) {
+    // the redesigned walk: f32 and FP64 planes, no column tile
+    constexpr bool kResident = sizeof(Store) == sizeof(Real) && sizeof(Real) >= 4;
+    if (!kResident || (walk != kWalkResident && walk != kWalkBlock) || tiled) return kErrArgs;
+    if constexpr (kResident) {
+      if ((pairs_x && !complex_pairs(xre, xim, x_sn, x_sb)) ||
+          (pairs_y && !complex_pairs(yre, yim, y_sn, y_sb))) {
+        return kErrPairs;
+      }
+#define WATFFT_RESIDENT(P, INV)                                                          \
+  return launch_resident<Real, P, INV>(xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, batch, \
+                                       twre, twim, plan, T, st, walk, pairs_x != 0,        \
+                                       pairs_y != 0)
+      switch (maxr * 2 + (inverse ? 1 : 0)) {
+        case 4:  WATFFT_RESIDENT(2, false);
+        case 5:  WATFFT_RESIDENT(2, true);
+        case 8:  WATFFT_RESIDENT(4, false);
+        case 9:  WATFFT_RESIDENT(4, true);
+        case 16: WATFFT_RESIDENT(8, false);
+        case 17: WATFFT_RESIDENT(8, true);
+        case 32: WATFFT_RESIDENT(16, false);
+        default: WATFFT_RESIDENT(16, true);
+      }
+#undef WATFFT_RESIDENT
+    }
+  }
+  if (pairs_x || pairs_y) return kErrPairs;  // the engine's walk copies plane by plane
   if (tiled) {  // the column-tile instances: P = 16 (tile_shape checked)
     if (inverse) {
       return launch<Real, Store, 16, true, true>(xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb,
@@ -250,24 +384,34 @@ extern "C" {
 // at k*x_sn + b*x_sb (y likewise). y must not overlap x. The plan is given
 // as its radices and twiddle-pack offsets, stage by stage. cols: the column
 // tile C, a power of two >= T (0: the engine's T); threads: its block, 256
-// or 512 (0: 256).
+// or 512 (0: 256). walk: 1 the engine's walk (stockham_c2c_kernel, or the
+// column tile), 2 resident blocks of stockham_c2c_resident_kernel with two
+// buffers, 3 a block a tile of it with one (refused with a column tile:
+// kErrArgs); pairs_x, pairs_y: its copies of the input and stores of the
+// output one point at a time, refused (kErrPairs) where re and im are not
+// adjacent in aligned points or on the engine's walk. The bf16 entries
+// below take the engine's walk and none of the three.
 int watfft_stockham_c2c(const float* xre, const float* xim, float* yre, float* yim,
                         int64_t x_sn, int64_t x_sb, int64_t y_sn, int64_t y_sb,
                         int n, int64_t batch, const float* twre, const float* twim,
                         const int* radices, const int* twoffsets, int nstages,
-                        int inverse, void* stream, int cols, int threads) {
+                        int inverse, void* stream, int cols, int threads, int walk,
+                        int pairs_x, int pairs_y) {
   return c2c<float, float>(xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch, twre,
-                           twim, radices, twoffsets, nstages, inverse, stream, cols, threads);
+                           twim, radices, twoffsets, nstages, inverse, stream, cols, threads,
+                           walk, pairs_x, pairs_y);
 }
 
-// The same on float64 planes with a float64 twiddle pack.
+// The same on float64 planes with a float64 twiddle pack (pairs: 16 bytes).
 int watfft_stockham_c2c_f64(const double* xre, const double* xim, double* yre, double* yim,
                             int64_t x_sn, int64_t x_sb, int64_t y_sn, int64_t y_sb,
                             int n, int64_t batch, const double* twre, const double* twim,
                             const int* radices, const int* twoffsets, int nstages,
-                            int inverse, void* stream, int cols, int threads) {
+                            int inverse, void* stream, int cols, int threads, int walk,
+                            int pairs_x, int pairs_y) {
   return c2c<double, double>(xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch, twre,
-                             twim, radices, twoffsets, nstages, inverse, stream, cols, threads);
+                             twim, radices, twoffsets, nstages, inverse, stream, cols, threads,
+                             walk, pairs_x, pairs_y);
 }
 
 // The bf16 interop tier: bfloat16 planes, float32 stages and twiddle pack.
@@ -297,7 +441,7 @@ int watfft_stockham_c2c_bf16c(const __nv_bfloat16* xre, const __nv_bfloat16* xim
 
 const char* watfft_error_string(int code) {
   switch (code) {
-    case kErrArgs: return "n, batch or stage count out of range";
+    case kErrArgs: return "n, batch, stage count or walk out of range";
     case kErrPlan: return "stage plan has a radix outside {2,4,8,16} or does not multiply to n";
     case kErrTooLong: return "transform too long for one thread block";
     case kErrSplit: return "four-step factors outside the cube kernel's range (16 <= n1, n2; "
@@ -307,8 +451,9 @@ const char* watfft_error_string(int code) {
                           "engine's transforms per block, within the card's opt-in shared "
                           "memory, and above that only on plans whose largest radix is 16";
     case kErrCube: return "cube block refused: 256 or 512 threads";
-    case kErrPairs: return "8-byte pairs refused: re and im must be 4 bytes apart in 8-byte "
-                           "aligned points, with even point and batch strides";
+    case kErrPairs: return "8-byte pairs refused: re and im must be adjacent (4 bytes apart in "
+                           "8-byte aligned points, 8 in 16-byte aligned points for float64), "
+                           "with even point and batch strides, on a walk that takes pairs";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

@@ -36,7 +36,7 @@ namespace {
 constexpr int kMaxStages = 16;
 constexpr int kBlockThreads = 256;
 
-constexpr int kErrArgs = -1;      // n, batch or stage count out of range
+constexpr int kErrArgs = -1;      // n, batch, stage count or walk out of range
 constexpr int kErrPlan = -2;      // radix not in {2,4,8,16}, or product != n
 constexpr int kErrTooLong = -3;   // a transform needs more than one block
 constexpr int kErrSplit = -4;     // four-step factors out of the cube's range
@@ -44,8 +44,8 @@ constexpr int kErrDirect = -5;    // n outside the DFT-matmul kernel's 1..128
 constexpr int kErrTile = -6;      // column tile not a power of two, below T, too large, or
                                   // not held by its block of threads
 constexpr int kErrCube = -7;      // cube block not 256 or 512 threads
-constexpr int kErrPairs = -8;     // 8-byte pairs asked for where re and im are not adjacent
-                                  // in 8-byte aligned points
+constexpr int kErrPairs = -8;     // pairs asked for where re and im are not adjacent in
+                                  // aligned points, or on a walk that takes none
 
 struct Plan {
   int log2n;
@@ -430,10 +430,12 @@ __device__ __forceinline__ void copy_async(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src), "n"(B));
 }
 
-// Host side: re and im 4 bytes apart in 8-byte aligned points, with even
-// point and batch strides (in floats): each point one 8-byte access.
-inline bool complex_pairs(const float* re, const float* im, int64_t sn, int64_t sb) {
-  return im == re + 1 && sn % 2 == 0 && sb % 2 == 0 && (uintptr_t)re % 8 == 0;
+// Host side: im one scalar past re in points aligned to a whole point (8
+// bytes of float, 16 of double), with even point and batch strides (in
+// scalars): each point one 8- or 16-byte access.
+template <typename Real>
+inline bool complex_pairs(const Real* re, const Real* im, int64_t sn, int64_t sb) {
+  return im == re + 1 && sn % 2 == 0 && sb % 2 == 0 && (uintptr_t)re % (2 * sizeof(Real)) == 0;
 }
 
 // The copies issued since the last commit become one group; the wait
@@ -441,6 +443,42 @@ inline bool complex_pairs(const float* re, const float* im, int64_t sn, int64_t 
 __device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void copy_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+// One point (re, im) into its complex slot d by cp.async: one copy of the
+// whole point where the host asked for pairs (re and im adjacent in aligned
+// points, `complex_pairs`), else one copy a plane.
+template <typename Real>
+__device__ __forceinline__ void copy_point(cplx<Real>* d, const Real* re, const Real* im,
+                                           bool pairs) {
+  if (pairs) {
+    copy_async<sizeof(cplx<Real>)>(d, re);
+  } else {
+    copy_async<sizeof(Real)>(&d->x, re);
+    copy_async<sizeof(Real)>(&d->y, im);
+  }
+}
+
+// One point z to (re, im): one store of the whole point where pairs, else
+// one a plane.
+template <typename Real>
+__device__ __forceinline__ void store_point(Real* re, Real* im, cplx<Real> z, bool pairs) {
+  if (pairs) {
+    *reinterpret_cast<cplx<Real>*>(re) = z;
+  } else {
+    *re = z.x;
+    *im = z.y;
+  }
+}
+
+// The batch-major walks of the c2c and r2c kernels, which the host picks
+// for each launch and passes (`walk`; ops/stockham.py `c2c_launch`,
+// ops/rfft.py `r2c_launch`): the engine's (a block a tile, the kernels
+// before the redesign), resident blocks (the card's SMs times the blocks an
+// SM holds, at most kResidentBlocks, each looping over tiles while the next
+// lands in a second buffer) or a block a tile copied in by cp.async, at
+// kResidentBlocks an SM.
+constexpr int kWalkEngine = 1, kWalkResident = 2, kWalkBlock = 3;
+constexpr int kResidentBlocks = 2;  // 128 registers a thread: P = 16 does not spill
 
 template <typename Real, typename B>
 __device__ __forceinline__ void copy_cols(int log2n, int log2c, int count, int64_t first,
@@ -502,6 +540,28 @@ template <typename K>
 inline int opt_in_smem(K kernel, size_t smem) {
   if (smem <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// Host side: the grid of a launch of `kernel` (kBlockThreads threads,
+// `smem` bytes of shared memory a block, opted in already) over `tiles`
+// tiles on the walk the host picked: a block a tile (kWalkBlock), or the
+// card's SMs times the blocks an SM holds, at most kResidentBlocks, and no
+// more than the tiles (kWalkResident). 0 or a CUDA error.
+template <typename K>
+inline int tiles_grid(K kernel, size_t smem, int64_t tiles, int walk, unsigned& grid) {
+  grid = (unsigned)tiles;
+  if (walk != kWalkResident) return 0;
+  int dev = 0, sms = 0, fit = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, kernel, kBlockThreads, smem);
+  }
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = fit < 1 ? 1 : fit < kResidentBlocks ? fit : kResidentBlocks;
+  const int64_t resident = (int64_t)sms * blocks;
+  if (resident < tiles) grid = (unsigned)resident;
+  return 0;
 }
 
 // Host side: checks a plan given as its radices and twiddle-pack offsets

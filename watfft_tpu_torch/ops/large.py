@@ -50,7 +50,7 @@ import torch
 
 from .. import planner
 from . import stockham
-from .stockham import Tables, check_device, run_stages
+from .stockham import Tables, check_device, complex_pairs, run_stages
 
 __all__ = ["large_split", "pm_grid", "LargeTables", "make_large_tables",
            "device_large_tables", "strided_c2c", "stage1", "stage2", "cube",
@@ -278,13 +278,6 @@ def cube_threads(n: int) -> int:
     (PERF.md)."""
     two = 2 * ((n + n // 16) * 8 + SMEM_BLOCK_RESERVED) <= SMEM_SM_BYTES
     return 256 if two else 512
-
-
-def complex_pairs(re: int, im: int, sn: int, sb: int) -> bool:
-    """Whether a complex operand moves 8 bytes a point: im 4 bytes after re
-    (addresses) in 8-byte aligned points (the point and batch strides, in
-    floats, even). The kernels refuse pairs asked for otherwise."""
-    return im == re + 4 and sn % 2 == 0 and sb % 2 == 0 and re % 8 == 0
 
 
 def cube_launch(n: int, x, y) -> tuple[int, int, int]:

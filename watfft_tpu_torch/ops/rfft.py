@@ -61,8 +61,9 @@ import torch
 
 from . import stockham
 from .fourstep import rfft_post_twiddles
-from .large import complex_pairs, fft_large_views
-from .stockham import Tables, check_device, check_dtype, fft_views
+from .large import fft_large_views
+from .stockham import (WALK_BLOCK, WALK_ENGINE, WALK_RESIDENT, Tables, check_device,
+                       check_dtype, complex_pairs, fft_views)
 
 __all__ = ["rfft_post_twiddles", "RTables", "make_rtables", "device_rtables",
            "hermitian_post_nb", "hermitian_pre_nb", "plain_rfft", "plain_irfft",
@@ -290,22 +291,25 @@ def _large_c2r(xre, xim, out, w) -> None:
 # The n up to which the f32 r2c runs the engine's walk (rfft_r2c_kernel, a
 # block a tile): one radix-m stage, 256 transforms a block, where eight
 # blocks an SM measured faster than the resident kernel's two (PERF.md).
+# The FP64 r2c takes a block a tile copied in by cp.async at every n, where
+# it measured faster than both (PERF.md).
 R2C_ENGINE_MAX_N = 8
-WALK_ENGINE, WALK_RESIDENT = 1, 2
 
 
-def r2c_launch(n: int, x, y) -> tuple[int, int, int]:
-    """The last arguments of the f32 r2c launch on signals of n points: its
-    walk (WALK_ENGINE up to R2C_ENGINE_MAX_N, else WALK_RESIDENT, the
-    resident kernel) and, on the resident walk, whether it copies
-    z[j] = (x[2j], x[2j+1]) and stores each bin 8 bytes at once
-    (`complex_pairs`). x: (address, element stride, batch stride), y: (re
-    address, im address, bin stride, batch stride), strides in floats."""
-    if n <= R2C_ENGINE_MAX_N:
+def r2c_launch(n: int, x, y, size: int = 4) -> tuple[int, int, int]:
+    """The last arguments of the r2c launch on signals of n points of
+    `size`-byte reals (4: f32, 8: FP64): its walk (f32: WALK_ENGINE up to
+    R2C_ENGINE_MAX_N, else WALK_RESIDENT; FP64: WALK_BLOCK) and, past the
+    engine's walk, whether it copies z[j] = (x[2j], x[2j+1]) and stores each
+    bin one point at a time (`complex_pairs`). x: (address, element stride,
+    batch stride), y: (re address, im address, bin stride, batch stride),
+    strides in reals."""
+    if size == 4 and n <= R2C_ENGINE_MAX_N:
         return WALK_ENGINE, 0, 0
     xa, x_sn, x_sb = x
-    return (WALK_RESIDENT, int(complex_pairs(xa, xa + 4 * x_sn, 2 * x_sn, x_sb)),
-            int(complex_pairs(*y)))
+    return (WALK_RESIDENT if size == 4 else WALK_BLOCK,
+            int(complex_pairs(xa, xa + size * x_sn, 2 * x_sn, x_sb, size)),
+            int(complex_pairs(*y, size)))
 
 
 def _use_kernel(t: torch.Tensor) -> bool:
@@ -321,7 +325,7 @@ def _launch_r2c(x, x_sn, x_sb, yre, yim, y_sn, y_sb, n, batch, rt: RTables) -> N
     lib, targs = _kernel_args(rt, x, "rfft_r2c_fused")
     f64 = rt.dtype == torch.float64
     entry = lib.watfft_rfft_r2c_f64 if f64 else lib.watfft_rfft_r2c
-    launch = () if f64 else r2c_launch(n, (x.data_ptr(), x_sn, x_sb), (yre, yim, y_sn, y_sb))
+    launch = r2c_launch(n, (x.data_ptr(), x_sn, x_sb), (yre, yim, y_sn, y_sb), 8 if f64 else 4)
     with torch.cuda.device(x.device):
         err = entry(x.data_ptr(), x_sn, x_sb, yre, yim, y_sn, y_sb, n, batch,
                     *targs, torch.cuda.current_stream().cuda_stream, *launch)

@@ -60,6 +60,14 @@ each row: at n >= 1024 (T <= 4) a fraction of each 32-byte sector. There
 kernels for a column tile of C > T adjacent transforms in a block of 256
 or 512 threads, as `tile_shape` gives it; `config.COLUMN_TILE` sets the
 tile by hand. The transforms' arithmetic is the same at every tile.
+
+Where both sides walk along their rows (batch-major planes, interleaved
+complex, the real core's views, the 2D row pass) and no tile is taken, the
+f32 and float64 launches take the redesigned batch-major walk of
+`stockham_c2c_resident_kernel`: tiles copied in by cp.async, one copy and
+one store a point where re and im are adjacent, resident blocks or a
+block a tile by the rule `c2c_launch` states. The host decides the walk
+and passes it; the arithmetic, and so every output, is the engine's.
 """
 
 from __future__ import annotations
@@ -78,7 +86,8 @@ __all__ = ["stage_plan", "make_twiddle_pack", "run_stages", "plain_fft",
            "Tables", "make_tables", "device_tables", "fft_views", "stockham_fft_nb",
            "plain_fft_nb", "plain_fft_bm",
            "stockham_fft_bm", "stockham_fft", "stockham_fft_nb_postmul", "plain_postmul",
-           "engine_transforms", "tile_shape", "check_tile", "column_tile",
+           "engine_transforms", "tile_shape", "check_tile", "column_tile", "c2c_walk",
+           "c2c_launch", "complex_pairs",
            "launches", "launches_f64", "launches_bf16", "launches_bf16c"]
 
 # Kernel launches made by the CUDA wrapper since the counts were last reset:
@@ -509,18 +518,71 @@ def _cols(dtype, x_sn, x_sb, y_sn, y_sb, n, batch, tables) -> tuple[int, int]:
                        2 * _ITEMSIZE[tables.dtype], tables.radix, batch)
 
 
+# -- the batch-major walk ----------------------------------------------------------
+# The walks of the c2c and r2c kernels (csrc/stockham.cuh kWalk*): the
+# engine's (a block a tile; the kernels before the redesign), resident
+# blocks with two buffers, or a block a tile copied in by cp.async.
+WALK_ENGINE, WALK_RESIDENT, WALK_BLOCK = 1, 2, 3
+# The n up to which the f32 c2c takes a block a tile rather than resident
+# blocks: one or two radix-2/4 stages on 4 or 8 KB tiles, too little work a
+# tile for the resident loop's syncs, where a block a tile ran 3-9% faster
+# than the engine's walk and 10-15% faster than resident blocks (PERF.md).
+C2C_BLOCK_MAX_N = 4
+
+
+def c2c_walk(n: int, dtype: torch.dtype) -> int:
+    """The redesigned walk of a batch-major c2c launch: resident blocks on
+    f32 past C2C_BLOCK_MAX_N; a block a tile on f32 up to it and on FP64
+    at every n, whose two buffers at P = 16 (139 KB) leave one block an SM
+    (PERF.md has the times that chose the rule)."""
+    return WALK_RESIDENT if dtype == torch.float32 and n > C2C_BLOCK_MAX_N else WALK_BLOCK
+
+
+def complex_pairs(re: int, im: int, sn: int, sb: int, size: int = 4) -> bool:
+    """Whether a complex operand of `size`-byte scalars moves one point at a
+    time: im one scalar after re (addresses) in points aligned to their
+    2 * size bytes (the point and batch strides, in scalars, even). The
+    kernels refuse pairs asked for otherwise."""
+    return im == re + size and sn % 2 == 0 and sb % 2 == 0 and re % (2 * size) == 0
+
+
+def c2c_launch(n: int, dtype: torch.dtype, cols: tuple[int, int], x, y) -> tuple[int, ...]:
+    """The walk arguments of a c2c launch at n points on planes of `dtype`
+    that takes the column tile `cols`: none for bf16 planes (their entries
+    run the engine's walk); else (walk, pairs_x, pairs_y). The engine's walk
+    without pairs where the launch takes a column tile or a side walks down
+    columns (row stride over batch stride); else `c2c_walk`, with one copy
+    and one store a point where re and im are adjacent (`complex_pairs`).
+    x, y: (re address, im address, point stride, batch stride), strides in
+    elements."""
+    if dtype not in (torch.float32, torch.float64):
+        return ()
+    if cols != (0, 0) or x[2] > x[3] or y[2] > y[3]:
+        return WALK_ENGINE, 0, 0
+    size = _ITEMSIZE[dtype]
+    return c2c_walk(n, dtype), int(complex_pairs(*x, size)), int(complex_pairs(*y, size))
+
+
+def _use_kernel(t: torch.Tensor, plain: bool = False) -> bool:
+    """CUDA tensors launch the kernel; CPU tensors (or plain=True) take the
+    plain version."""
+    return t.device.type == "cuda" and not plain
+
+
 def _launch(device, dtype, xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch,
             inverse, tables) -> None:
     """Kernel on the [n, batch] planes of `dtype` (their real dtype) whose
     element (k, b) sits k*x_sn + b*x_sb elements past the addresses xre,
     xim (input) and k*y_sn + b*y_sb elements past yre, yim (output); the
     instance of the data's dtype and the tables' (the caller has checked
-    the pair), with the column tile `_cols` gives."""
+    the pair), with the column tile `_cols` gives and the walk `c2c_launch`
+    gives."""
     from ._build import library
 
     if tables.twre.device != device:
         raise ValueError(f"tables on {tables.twre.device}, data on {device}")
     cols = _cols(dtype, x_sn, x_sb, y_sn, y_sb, n, batch, tables)
+    walk = c2c_launch(n, dtype, cols, (xre, xim, x_sn, x_sb), (yre, yim, y_sn, y_sb))
     lib = library()
     name, counter = _ENTRIES[(dtype, tables.dtype)]
     entry = getattr(lib, name)
@@ -528,11 +590,11 @@ def _launch(device, dtype, xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch,
         err = entry(xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch,
                     tables.twre.data_ptr(), tables.twim.data_ptr(), tables.c_radices,
                     tables.c_offsets, len(tables.stages), int(inverse),
-                    torch.cuda.current_stream().cuda_stream, *cols)
+                    torch.cuda.current_stream().cuda_stream, *cols, *walk)
     if err:
         raise RuntimeError(
             f"Stockham kernel launch failed (n={n}, batch={batch}, {dtype} data, "
-            f"{tables.dtype} tables, column tile {cols}): "
+            f"{tables.dtype} tables, column tile {cols}, walk {walk}): "
             f"{lib.watfft_error_string(err).decode()}")
     globals()[counter] += 1
 
@@ -547,7 +609,7 @@ def fft_views(xre, xim, yre, yim, inverse: bool, tables: Tables) -> None:
         raise ValueError("the re and im views of a side must share their strides")
     check_dtype(tables.dtype, xre.dtype)
     n, batch = xre.shape
-    if xre.device.type == "cuda":
+    if _use_kernel(xre):
         _launch(xre.device, xre.dtype, xre.data_ptr(), xim.data_ptr(), yre.data_ptr(),
                 yim.data_ptr(), *xre.stride(), *yre.stride(), n, batch, inverse, tables)
     else:
@@ -608,7 +670,7 @@ def _planes(re, im, inverse, time_major, tables, plain=False):
     if batch == 0:
         return ore, oim
     sn, sb = (batch, 1) if time_major else (1, n)
-    if re.device.type == "cuda" and not plain:
+    if _use_kernel(re, plain):
         _launch(re.device, re.dtype, re.data_ptr(), im.data_ptr(), ore.data_ptr(),
                 oim.data_ptr(), sn, sb, sn, sb, n, batch, inverse, tables)
         return ore, oim
@@ -648,7 +710,7 @@ def _complex(x, inverse, tables):
     tables = _resolve(tables, n, inverse, x.device, x.dtype)
     if not x.is_complex():
         raise TypeError(f"the complex entry point takes a complex tensor, got {x.dtype}")
-    if x.device.type != "cuda":
+    if not _use_kernel(x):
         return plain_fft(x, inverse, tables)
     x = _dense(x)
     out = torch.empty_like(x)
