@@ -223,6 +223,29 @@ Phases (any failure exits nonzero and prints no result):
    takes and `old_walk_ms`, their time in the engine's walk. Their launch
    counts come from the main paths of phases 4, 8, 17 and 23, which run
    the redesigned walk.
+32. The redesigned f32 c2r (`irfft_c2r_resident_kernel`) and 2D cube
+   (`fft2_cube_block_kernel`), each launch forced in every walk
+   (`forced_walk`; the cube's also with its row pass storing after the
+   pass and from its last stage): the c2r at every n = 4..8192 in four
+   layouts (interleaved complex, split planes, time-major planes, the
+   interleaved spectrum one scalar off alignment into signal rows one
+   scalar off) at batch 1, 3, past the resident grid by a tail and 2^22
+   real points; the cube at every h*w <= 2^14 in four layouts (complex64,
+   batch-major and native planes, rfft2's / irfft2's packed real layout)
+   at batch 1, 5 and past the SMs by a tail, both directions. Every
+   redesigned walk torch.equal to the engine's (the kernels before the
+   redesign) and within 1e-6 of the plain version; timed in each walk in
+   turns: the c2r at every n, the cube at the squares 16^2..128^2 (2^24
+   points) in three layouts and rfft2 / irfft2 there, and the end-to-end
+   `create_rfft_f32(1024).inverse`, the STFT's inverse and its frames'
+   transform alone (each the median of five rounds) and fft2 on
+   [1024, 128, 128]; beside them
+   `create_rfft(1024).inverse` (the FP64 c2r, which keeps the engine's
+   walk) and `torch.fft.fft` / `ifft` along dim 0 of the time-major real
+   core's complex [512, 4096]. The kernels line's c2r and 2D cube rows
+   gain the walk the rule takes and `old_walk_ms`, the FP64 c2r's the walk
+   it runs; their launch counts come from the main paths of phases 8, 9,
+   17 and 23, which run the rules' walks.
 
 The line before the last is a JSON object naming each kernel of the paths
 with its launch count, error, times and the least time the card could take
@@ -282,8 +305,9 @@ FFT2_MAIN = 4096                           # one 4096 x 4096 image (BASELINE con
 FFT2_CUBE_SHAPE, FFT2_2PASS_SHAPE = (1024, 128, 128), (64, 512, 512)
 FFT2_TIME_SHAPES = [(1 << k, 1 << k) for k in range(4, 13)] + [(128, 8192), (8192, 128),
                                                                   (2, 4096)]
-FFT2_CROSS_SHAPES = [(64, 64), (64, 128), (128, 128), (16, 1024), (1024, 16)]
-FFT2_CROSS_BATCHES = (1, 16, 64, 256, 1024)
+FFT2_CROSS_SHAPES = [(64, 64), (64, 128), (128, 128), (16, 1024), (1024, 16), (64, 256),
+                     (32, 512)]
+FFT2_CROSS_BATCHES = (1, 16, 64, 96, 128, 160, 192, 256, 1024)
 FFT2_SRC = "watfft_tpu_torch/ops/csrc/fft2.cu"
 # the any-n path: #17 and #18 at n = 2..64 and at these n
 BL_SIZES = list(range(2, 65)) + [97, 127, 360, 400, 509, 1000, 1001, 1009, 1023, 1025, 1500,
@@ -2782,15 +2806,17 @@ def column_tile_rows(tile: dict, name: str, limit: str) -> list:
 # -- the redesigned kernels --------------------------------------------------------
 
 @contextlib.contextmanager
-def forced_walk(walk: int):
-    """The c2c and r2c wrappers forced to one batch-major walk at every n
-    inside the block: st.WALK_ENGINE (the kernels before the redesign, no
+def forced_walk(walk: int, direct: int | None = None):
+    """The c2c, r2c, f32 c2r and 2D cube wrappers forced to one walk at every
+    n inside the block: st.WALK_ENGINE (the kernels before the redesign, no
     pairs), st.WALK_RESIDENT or st.WALK_BLOCK, with the pairs the rules
-    give. A c2c launch that takes a column tile or walks down columns, and
-    a bf16 one, keeps what the rule gives; the r2c has one redesigned walk
-    a precision (f32 resident blocks, FP64 a block a tile), which it takes
-    for either."""
-    c2c, r2c = st.c2c_launch, rf.r2c_launch
+    give for that walk. A c2c launch that takes a column tile or walks down
+    columns, and a bf16 one, keeps what the rule gives; the r2c has one
+    redesigned walk a precision (f32 resident blocks, FP64 a block a tile),
+    the f32 c2r one (resident blocks) and the 2D cube one (a block a tile),
+    which each takes for either. `direct` forces where the cube's row pass
+    stores (1: its last stage)."""
+    c2c, r2c, c2r, cube2 = st.c2c_launch, rf.r2c_launch, rf.c2r_launch, f2.cube2_launch
 
     def c2c_forced(n, dtype, cols, x, y):
         got = c2c(n, dtype, cols, x, y)
@@ -2802,11 +2828,23 @@ def forced_walk(walk: int):
 
     def r2c_forced(n, x, y, size=4):
         return (walk, 0, 0) if walk == st.WALK_ENGINE else r2c(1 << 13, x, y, size)
+
+    def c2r_forced(n, x, y):
+        if walk == st.WALK_ENGINE:
+            return walk, 0, 0
+        return st.WALK_RESIDENT, *rf.c2r_pairs(x, y)
+
+    def cube2_forced(h, w, x, y, radix=None):
+        if walk == st.WALK_ENGINE:
+            return walk, 0, 0, 0
+        got = f2.cube2_block(h, w, x, y, radix)
+        return (*got[:3], got[3] if direct is None else direct)
     st.c2c_launch, rf.r2c_launch = c2c_forced, r2c_forced
+    rf.c2r_launch, f2.cube2_launch = c2r_forced, cube2_forced
     try:
         yield
     finally:
-        st.c2c_launch, rf.r2c_launch = c2c, r2c
+        st.c2c_launch, rf.r2c_launch, rf.c2r_launch, f2.cube2_launch = c2c, r2c, c2r, cube2
 
 
 def phase_resident(dev, gen, name: str, limit: str) -> dict:
@@ -2912,14 +2950,15 @@ def as_complex(out) -> torch.Tensor:
     return out[0] if len(out) == 1 else torch.complex(*out)
 
 
-def held_walks(what: str, fn, want, limit: float) -> float:
-    """fn's outputs in every walk: the redesigned walks torch.equal to the
-    engine's, and within `limit` of `want` relative to its largest value."""
+def held_walks(what: str, fn, want, limit: float, walks=WALKS) -> float:
+    """fn's outputs in every walk of `walks`: the redesigned walks
+    torch.equal to the engine's, and within `limit` of `want` relative to
+    its largest value."""
     outs = {}
-    for key, walk in WALKS:
+    for key, walk in walks:
         with forced_walk(walk):
             outs[key] = fn()
-    for key in ("resident", "block"):
+    for key in list(outs)[1:]:
         check(all(torch.equal(a, b) for a, b in zip(outs[key], outs["engine"])),
               f"{what}: the {key} walk differs from the engine's")
     rel = rel_diff(as_complex(outs["resident"]), want)
@@ -2927,14 +2966,15 @@ def held_walks(what: str, fn, want, limit: float) -> float:
     return rel
 
 
-def walk_times(fn) -> dict:
-    """fn's device ms in each walk, in turns (engine, resident, block, then
-    the same in reverse), each the mean of its two turns."""
-    ms = {key: [] for key, _ in WALKS}
-    for key, walk in WALKS + WALKS[::-1]:
+def walk_times(fn, walks=WALKS, rounds: int = 1) -> dict:
+    """fn's device ms in each walk of `walks`, in turns (engine, resident,
+    block, then the same in reverse, `rounds` times), each the median of
+    its turns."""
+    ms = {key: [] for key, _ in walks}
+    for key, walk in (walks + walks[::-1]) * rounds:
         with forced_walk(walk):
             ms[key].append(time_ms(fn)[0])
-    return {key: sum(v) / 2 for key, v in ms.items()}
+    return {key: statistics.median(v) for key, v in ms.items()}
 
 
 def phase_c2c_walk(dev, gen, name: str, limit: str) -> dict:
@@ -3075,6 +3115,219 @@ def walk_rows(rows: list, walk: dict) -> None:
                             old_walk="engine", old_walk_ms=walk[case]["engine"])
 
 
+def c2r_layouts(spec: torch.Tensor) -> dict:
+    """The c2r wrapper's layouts of the complex [batch, m+1] spectrum, each
+    a function returning its [batch, n] signal as a 1-tuple: interleaved
+    complex (one copy and one store a point), split planes, time-major
+    planes, and, through `_launch_c2r`, the interleaved spectrum one scalar
+    off its point's alignment into signal rows one scalar off theirs (pairs
+    refused on both sides)."""
+    batch, m1 = spec.shape
+    n, real, dev = 2 * (m1 - 1), spec.real.dtype, spec.device
+    re, im = spec.real.contiguous(), spec.imag.contiguous()
+    tre, tim = re.T.contiguous(), im.T.contiguous()
+    flat = torch.zeros(2 * batch * m1 + 1, dtype=real, device=dev)
+    flat[1:].view(batch, m1, 2).copy_(torch.view_as_real(spec))
+    rt = rf.device_rtables(n, True, dev, real)
+
+    def misaligned():
+        out = torch.zeros(batch * n + 1, dtype=real, device=dev)
+        p, size = flat.data_ptr() + real.itemsize, real.itemsize
+        rf._launch_c2r(flat, p, p + size, 2, 2 * m1, out[1:], 1, n, n, batch, rt)
+        return (out[1:].view(batch, n),)
+    return {"complex": lambda: (rf.irfft(spec),), "bm": lambda: (rf.irfft_bm(re, im),),
+            "nb": lambda: (rf.irfft_nb_fused(tre, tim).T,), "misaligned": misaligned}
+
+
+def cube2_layouts(x: torch.Tensor, inverse: bool) -> dict:
+    """The 2D cube's layouts of the complex [batch, h, w] x on its own
+    route, each a pair (call, image): call() returns the route's own
+    outputs as a tuple (what is timed and compared bit for bit), image(out)
+    the complex [batch, h, w] they hold. Interleaved complex64, batch-major
+    planes, native [h, w, B] planes, and the packed real layout (rfft2's
+    input read as complex, irfft2's output written as real)."""
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    nre, nim = re.permute(1, 2, 0).contiguous(), im.permute(1, 2, 0).contiguous()
+    packed = torch.view_as_real(x).reshape(*x.shape[:-1], 2 * x.shape[-1])
+    if inverse:
+        real = (lambda: (f2._transform(re, im, True, "bm", "real", "fft2-cube", None),),
+                lambda out: torch.view_as_complex(out[0].view(*x.shape, 2)))
+    else:
+        real = (lambda: f2._transform(packed, None, False, "real", "bm", "fft2-cube", None),
+                lambda out: torch.complex(*out))
+    return {"complex": (lambda: (f2._complex_route(x, inverse, "fft2-cube"),),
+                        lambda out: out[0]),
+            "bm": (lambda: f2._planes_route(re, im, inverse, "fft2-cube"),
+                   lambda out: torch.complex(*out)),
+            "nb": (lambda: f2._nb_route(nre, nim, inverse, "fft2-cube"),
+                   lambda out: torch.complex(*out).permute(2, 0, 1)),
+            "real": real}
+
+
+CUBE2_CASES = (("engine", st.WALK_ENGINE, None), ("back", st.WALK_BLOCK, 0),
+               ("direct", st.WALK_BLOCK, 1))
+
+
+def held_cube2(what: str, fn, image, want) -> float:
+    """fn's outputs in the engine's walk and in a block a tile storing after
+    the row pass and from its last stage: both torch.equal to the engine's,
+    whose image is within KERNEL_LIMIT of `want`."""
+    outs = {}
+    for key, walk, direct in CUBE2_CASES:
+        with forced_walk(walk, direct):
+            outs[key] = fn()
+    for key in ("back", "direct"):
+        check(all(torch.equal(a, b) for a, b in zip(outs[key], outs["engine"])),
+              f"{what}: the redesigned walk ({key}) differs from the engine's")
+    rel = rel_diff(image(outs["engine"]), want)
+    check(rel <= KERNEL_LIMIT, f"{what}: {rel:.3e} vs plain")
+    return rel
+
+
+def cube2_times(fn) -> dict:
+    """fn's device ms in the engine's walk and in a block a tile with each
+    store (`CUBE2_CASES`), in turns (then the same in reverse), each the
+    mean of its two turns."""
+    cases = CUBE2_CASES
+    ms = {key: [] for key, _, _ in cases}
+    for key, walk, direct in cases + cases[::-1]:
+        with forced_walk(walk, direct):
+            ms[key].append(time_ms(fn)[0])
+    return {key: sum(v) / 2 for key, v in ms.items()}
+
+
+C2R_WALKS = WALKS[:2]       # the f32 c2r's walks: the engine's and resident blocks
+
+
+def phase_c2r_cube2(dev, gen, name: str, limit: str) -> dict:
+    """The redesigned f32 c2r (csrc/rfft.cu irfft_c2r_resident_kernel) and
+    2D cube (csrc/fft2.cu fft2_cube_block_kernel), each forced in every
+    walk (`forced_walk`): the engine's (the kernels before the redesign),
+    and the c2r's resident blocks, the cube's block a tile with its row
+    pass storing after the pass and from its last stage. The c2r at every
+    n = 4..8192, four layouts (`c2r_layouts`), batch 1, 3, past the
+    resident grid by a tail and 2^22 real points; the cube at every
+    h*w <= 2^14 in four layouts (`cube2_layouts`) at batch 1, 5 and past
+    the SMs by a tail, both directions: every redesigned walk torch.equal
+    to the engine's, within 1e-6 of the plain version. Times in each walk,
+    in turns: the c2r at every n (2^22 points, complex layout), the cube at
+    the squares 16..128 (2^24 points; complex, batch-major and native
+    planes), rfft2 / irfft2 there, and the end-to-end
+    `create_rfft_f32(1024).inverse` on [4096, 1024], the STFT's inverse
+    (phase 9's size) and its frames' transform alone (`inverse_planes`;
+    each the median of five rounds of turns) and fft2 on
+    [1024, 128, 128]; `create_rfft(1024)`'s inverse (the FP64 c2r, the
+    engine's walk); and `torch.fft.fft` / `ifft` along dim 0 of the
+    time-major real core's complex [512, 4096] (the library calls beside #7
+    and #8)."""
+    out = {"c2r": {}, "cube2": {}}
+    for n in REAL_SIZES:
+        m1 = n // 2 + 1
+        T = st.engine_transforms(n // 2, max(r for r, _ in st.stage_plan(n // 2)))
+        row = {"max_rel_diff": 0.0}
+        for batch in (1, 3, 2 * st.SMS * T + T // 2 + 1, POINTS // n):
+            spec = torch.complex(rand_real((batch, m1), gen, dev),
+                                 rand_real((batch, m1), gen, dev))
+            want = rf.plain_irfft(spec)
+            for layout, fn in c2r_layouts(spec).items():
+                rel = held_walks(f"c2r n={n} batch={batch} {layout}", fn, want, KERNEL_LIMIT,
+                                 C2R_WALKS)
+                row["max_rel_diff"] = max(row["max_rel_diff"], rel)
+        row.update({f"{k}_ms": v
+                    for k, v in walk_times(c2r_layouts(spec)["complex"], C2R_WALKS).items()})
+        row["walk"] = rf.c2r_launch(n, (0, 4, 2, 2 * m1), (0, 1, n))[0]
+        out["c2r"][n] = row
+        print(json.dumps({"phase": "c2r_cube2", "kernel": "irfft_c2r_f32", "n": n,
+                          "batch": POINTS // n, **row, "card": name, "power_limit": limit}),
+              flush=True)
+    for h, w in FFT2_PAIRS:
+        row = {"max_rel_diff": 0.0}
+        for batch in (1, 5, 2 * st.SMS + 5 if h * w >= 1024 else 300):
+            x = rand_complex((batch, h, w), gen, dev)
+            for inverse in (False, True):
+                want = f2.plain_fft2(x, inverse)
+                for layout, (fn, image) in cube2_layouts(x, inverse).items():
+                    rel = held_cube2(f"cube {h}x{w} batch={batch} {layout} inverse={inverse}",
+                                     fn, image, want)
+                    row["max_rel_diff"] = max(row["max_rel_diff"], rel)
+        out["cube2"][(h, w)] = row
+    worst = max(r["max_rel_diff"] for r in out["cube2"].values())
+    print(json.dumps({"phase": "c2r_cube2", "kernel": "fft2_cube", "pairs": len(FFT2_PAIRS),
+                      "max_rel_diff": worst}), flush=True)
+    for k in range(4, 8):
+        h = w = 1 << k
+        b = FFT2_TIME_POINTS // (h * w)
+        x = rand_complex((b, h, w), gen, dev)
+        fns = cube2_layouts(x, False)
+        xr = rand_real((b, h, 2 * w), gen, dev)
+        spec = wtt.rfft2(xr)
+        row = {"launch": list(f2.cube2_launch(h, w, (0, 4, 2 * w, 2, 2 * h * w),
+                                              (0, 4, 2 * w, 2, 2 * h * w)))}
+        for key, fn in (("complex", fns["complex"][0]), ("bm", fns["bm"][0]),
+                        ("nb", fns["nb"][0]), ("rfft2", lambda: wtt.rfft2(xr)),
+                        ("irfft2", lambda: wtt.irfft2(spec))):
+            row[key] = cube2_times(fn)
+        row["lib_fft2_ms"] = time_ms(lambda: torch.fft.fft2(x))[0]
+        row["lib_rfft2_ms"] = time_ms(lambda: torch.fft.rfft2(xr))[0]
+        out["cube2"][(h, w)].update(row)
+        print(json.dumps({"phase": "c2r_cube2", "kernel": "fft2_cube", "shape": [b, h, w],
+                          **out["cube2"][(h, w)], "card": name, "power_limit": limit}),
+              flush=True)
+    # end-to-end calls in each walk
+    n, b = MAIN_N, MAIN_B
+    spec32 = torch.fft.rfft(rand_real((b, n), gen, dev))
+    spec64 = torch.fft.rfft(rand_f64((b, n), gen, dev))
+    ctx32, ctx64 = create_rfft_f32(n, device=dev), create_rfft(n, device=dev)
+    sig = rand_real(((MAIN_B - 1) * STFT_HOP + n,), gen, dev)
+    sre, sim = wstft.stft(sig, n_fft=n, hop=STFT_HOP)
+    xc = rand_complex(FFT2_CUBE_SHAPE, gen, dev)
+    out["irfft_f32"] = walk_times(lambda: ctx32.inverse(spec32), C2R_WALKS)
+    out["istft"] = walk_times(lambda: wstft.istft(sre, sim, n_fft=n, hop=STFT_HOP), C2R_WALKS,
+                              rounds=5)
+    # the STFT inverse's own transform (its frames' batch-major planes), the
+    # rest of it being torch's overlap-add
+    out["istft_frames"] = walk_times(lambda: ctx32.inverse_planes(sre, sim), C2R_WALKS,
+                                     rounds=5)
+    out["irfft_f64"] = {"engine": time_ms(lambda: ctx64.inverse(spec64))[0]}
+    out["fft2_cube_shape"] = cube2_times(lambda: wtt.fft2(xc))
+    for key in ("irfft_f32", "istft", "istft_frames", "irfft_f64", "fft2_cube_shape"):
+        print(json.dumps({"phase": "c2r_cube2", "case": key, **out[key], "card": name,
+                          "power_limit": limit}), flush=True)
+    # the library calls beside the time-major real core (#7, #8): fft / ifft
+    # along dim 0 of the complex [m, B] the core transforms, z[j] = x[2j] +
+    # i x[2j+1] of the time-major [n, B] signal
+    xt = rand_real((n, b), gen, dev)
+    z = torch.complex(xt[0::2], xt[1::2])
+    out["lib_core_nb"] = {"fwd_ms": time_ms(lambda: torch.fft.fft(z, dim=0))[0],
+                          "inv_ms": time_ms(lambda: torch.fft.ifft(z, dim=0))[0]}
+    print(json.dumps({"phase": "c2r_cube2", "case": "lib_core_nb", "shape": [n // 2, b],
+                      **out["lib_core_nb"], "card": name, "power_limit": limit}), flush=True)
+    return out
+
+
+def c2r_cube2_rows(rows: list, res: dict) -> None:
+    """The kernels line's f32 c2r and 2D cube rows are the redesigned
+    kernels: each gains the walk the rule takes at its main shape, what
+    phase_c2r_cube2 held it to and its time in the engine's walk (the
+    kernel before the redesign). The FP64 c2r runs the engine's walk, its
+    redesign not kept: its row says so, with the time of the walk it
+    runs."""
+    by_name = {r["name"]: r for r in rows}
+    names = {st.WALK_ENGINE: "engine", st.WALK_RESIDENT: "resident", st.WALK_BLOCK: "block"}
+    row = res["c2r"][MAIN_N]
+    by_name["irfft_c2r_fused"].update(
+        walk=names[row["walk"]], equal_to_old_walk=True, old_walk="engine",
+        old_walk_ms=row["engine_ms"], walk_ms={k: row[f"{k}_ms"] for k, _ in C2R_WALKS})
+    by_name["irfft_c2r_fused_f64"].update(walk="engine", redesign="not kept (PERF.md)",
+                                          old_walk="engine",
+                                          old_walk_ms=res["irfft_f64"]["engine"])
+    b, h, w = FFT2_CUBE_SHAPE
+    launch = res["cube2"][(h, w)]["launch"]
+    by_name["fft2_cube"].update(walk=names[launch[0]], equal_to_old_walk=True,
+                                old_walk="engine",
+                                old_walk_ms=res["fft2_cube_shape"]["engine"])
+
+
 def bound(nbytes: float, flops: float, peak: float = PEAK_FLOPS) -> tuple[float, str]:
     """The least time in ms the card could take: bytes over its memory rate
     or flops over its peak rate for their type (FP32 unless given),
@@ -3194,6 +3447,7 @@ def main() -> int:
         tile_rows = column_tile_rows(phase_column_tile(dev, gen, name, limit), name, limit)
         resident = phase_resident(dev, gen, name, limit)
         walk = phase_c2c_walk(dev, gen, name, limit)
+        c2r_cube2 = phase_c2r_cube2(dev, gen, name, limit)
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -3206,6 +3460,7 @@ def main() -> int:
     line["kernels"].extend(tile_rows)
     resident_rows(line["kernels"], resident)
     walk_rows(line["kernels"], walk)
+    c2r_cube2_rows(line["kernels"], c2r_cube2)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,6 +36,15 @@ library `_build.library` returns:
   real route; the rows pass of one 4096^2 image; the FP64 r2c at
   n = 4..8192 in four layouts;
 
+* the redesigned f32 c2r at n = 4..8192 in four layouts
+  (`chip_smoke.c2r_layouts`: complex, split planes, time-major planes, the
+  interleaved spectrum one scalar off alignment into signal rows one scalar
+  off) at batch 1, 3, past the resident grid by a tail and 2^20 points;
+  the redesigned 2D cube at every h*w <= 2^14 in four
+  layouts (`chip_smoke.cube2_layouts`: complex64, batch-major and native
+  planes, the packed real layout of rfft2 / irfft2) at batch 1, 5 and past
+  the SMs by a tail, and on interleaved views one float off alignment;
+
 * the walks down columns, where this build takes the column tile: the
   c2c kernel's four instances on time-major planes at n = 512..4096 with
   a batch tail (C * 132 + 3 columns), and the strided kernel through
@@ -191,6 +200,17 @@ def cube_views(flat, n, batch, off, inverse):
     views = [torch.as_strided(t, (n, batch), (2, 2 * n), o)
              for t, o in ((flat, off), (flat, off + 1), (y, 1 - off), (y, 2 - off))]
     lg.fft_large_views(*views, inverse, mode="cube")
+    return y
+
+
+def cube2_views(flat, h, w, batch, off):
+    """The 2D cube on interleaved images whose re sits `off` floats past
+    flat's start, into the same layout `1 - off` floats in: one side 8-byte
+    aligned, the other not."""
+    y = torch.zeros_like(flat)
+    s = (2 * w, 2, 2 * h * w)
+    f2._run((flat[off:], flat[off + 1:]), s, (y[1 - off:], y[2 - off:]), s, h, w, batch, False,
+            "fft2-cube", None)
     return y
 
 
@@ -407,6 +427,27 @@ def main() -> int:
             same("rfft_r2c_f64_walk", (n, batch, "bm"), lambda: rf.rfft_bm(xa))
             same("rfft_r2c_f64_walk", (n, batch, "nb"), lambda: rf.rfft_nb_fused(xt))
             same("rfft_r2c_f64_walk", (n, batch, "misaligned"), lambda: rf.rfft(xm_))
+    # the redesigned f32 c2r: four layouts, batch 1, 3, past the resident
+    # grid by a tail, and 2^20 points
+    for n in (1 << k for k in range(2, 14)):
+        m1 = n // 2 + 1
+        T = st.engine_transforms(n // 2, max(r for r, _ in st.stage_plan(n // 2)))
+        for batch in (1, 3, 2 * st.SMS * T + 3, POINTS // n):
+            spec = torch.complex(rand((batch, m1)), rand((batch, m1)))
+            for layout, fn in cs.c2r_layouts(spec).items():
+                same("irfft_c2r_walk", (n, batch, layout), fn)
+    # the redesigned 2D cube: every h*w <= 2^14, four layouts, batch 1, 5
+    # and past the SMs by a tail, both directions; views one float off
+    for h, w in cs.FFT2_PAIRS:
+        for batch in (1, 5, 2 * st.SMS + 5 if h * w >= 1024 else 300):
+            x = crand((batch, h, w))
+            for inverse in (False, True):
+                for layout, (fn, _) in cs.cube2_layouts(x, inverse).items():
+                    same("fft2_cube_walk", (h, w, batch, inverse, layout), fn)
+        flat = rand(2 * 7 * h * w + 3)
+        for off in (0, 1):
+            same("fft2_cube_walk", (h, w, "views", off),
+                 lambda: cube2_views(flat, h, w, 7, off))
     torch.cuda.synchronize()
     ptxas_ok = resources.get("ptxas_same", True)
     print(json.dumps({"bit_identical": not differ, "cases": cases, "skipped": skipped,

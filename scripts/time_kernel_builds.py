@@ -24,10 +24,13 @@ comma-separated, default all):
   split planes, both directions, and the real large route (rfft_large /
   irfft_large) at [2048, 2^14], whose m = 8192 core the planner sends to
   the cube;
+* `fft2`: the 2D cube (#15) at every square 16^2..128^2 at 2^24 points in
+  complex64, batch-major and native planes, both directions, and
+  `rfft2` / `irfft2` at those shapes;
 * `main`: the batch-major walks (`main_cases`): the c2c kernel at every
   n = 2..4096 in complex64, split planes and complex128, both directions,
   the 4096^2 rows pass, the real core batch-major and time-major, the
-  fused r2c at every n = 4..8192 in f32 and FP64, the c2r, and the
+  fused r2c and c2r at every n = 4..8192 in f32 and FP64, and the
   end-to-end `create_fft_f32(1024)`, `create_fft(1024)` and 4096^2 fft2.
 
 `--sweep` also times this build's `columns` cases at every column tile C
@@ -35,7 +38,8 @@ from T up to what shared memory holds, in blocks of 256 and 512 threads
 (`config.COLUMN_TILE`), beside the kept tile of `tile_shape`. `--walks`
 also times this build's `main` cases in each batch-major walk, forced
 (`chip_smoke.forced_walk`: the engine's, resident blocks, a block a
-tile), in turns. Needs one CUDA device:
+tile), in turns, and the `fft2` cases in each walk and store of the
+cube (`chip_smoke.cube2_times`). Needs one CUDA device:
 
     python3 scripts/time_kernel_builds.py [--routes R] [--sweep] [--walks] [OTHER_CHECKOUT ...]
 
@@ -68,7 +72,7 @@ from watfft_tpu_torch.ops import large as lg  # noqa: E402
 from watfft_tpu_torch.ops import rfft as rf  # noqa: E402
 from watfft_tpu_torch.ops import stockham as st  # noqa: E402
 
-ROUTES = ("bluestein", "columns", "cube", "main")
+ROUTES = ("bluestein", "columns", "cube", "fft2", "main")
 # the real large route's shape (signals, n): its m = 8192 core on the cube
 CUBE_REAL = (cs.CUBE_B, 1 << 14)
 # batches of few columns, where a block per SM comes before a wider tile
@@ -180,6 +184,29 @@ def cube_cases(gen, dev) -> list:
     return cases
 
 
+def fft2_cases(gen, dev) -> list:
+    """The 2D cube at every square 16^2..128^2 (2^24 points) in complex64,
+    batch-major and native planes, both directions, and rfft2 / irfft2 of
+    real images of those shapes."""
+    cases = []
+    for k in range(4, 8):
+        h = w = 1 << k
+        b = cs.FFT2_TIME_POINTS // (h * w)
+        x = cs.rand_complex((b, h, w), gen, dev)
+        for inverse in (False, True):
+            fns = cs.cube2_layouts(x, inverse)
+            cases += [({"route": "fft2", "case": layout, "shape": [b, h, w],
+                        "inverse": inverse}, fns[layout][0], None)
+                      for layout in ("complex", "bm", "nb")]
+        xr = cs.rand_real((b, h, 2 * w), gen, dev)
+        spec = torch.fft.rfft2(xr)
+        cases.append(({"route": "fft2", "case": "rfft2", "shape": [b, h, 2 * w]},
+                      lambda xr=xr: wtt.rfft2(xr), None))
+        cases.append(({"route": "fft2", "case": "irfft2", "shape": [b, h, 2 * w]},
+                      lambda spec=spec: wtt.irfft2(spec), None))
+    return cases
+
+
 def main_cases(gen, dev) -> list:
     """The batch-major walks: the c2c kernel at every n = 2..4096 (2^22
     points) on complex64 and split planes and on complex128, both
@@ -219,16 +246,22 @@ def main_cases(gen, dev) -> list:
         ("real_core_fwd_bm", lambda: rf.rfft_bm(xr, fused=False)),
         ("real_core_inv_bm", lambda: rf.irfft_bm(sre, sim, fused=False)),
         ("real_core_fwd_nb", lambda: rf.rfft_nb(xt)),
-        ("real_core_inv_nb", lambda: rf.irfft_nb(tre, tim)),
-        ("c2r", lambda: rf.irfft_bm(sre, sim)))]
+        ("real_core_inv_nb", lambda: rf.irfft_nb(tre, tim)))]
     for n in cs.REAL_SIZES:
         b = cs.POINTS // n
         xr = cs.rand_real((b, n), gen, dev)
         xd = xr.double()
+        spec = torch.fft.rfft(xr)
+        sre, sim = spec.real.contiguous(), spec.imag.contiguous()
+        specd = torch.fft.rfft(xd)
         cases.append(({"route": "main", "case": "r2c", "shape": [b, n]},
                       lambda xr=xr: rf.rfft_bm(xr), None))
         cases.append(({"route": "main", "case": "r2c_f64", "shape": [b, n]},
                       lambda xd=xd: rf.rfft(xd), None))
+        cases.append(({"route": "main", "case": "c2r", "shape": [b, n]},
+                      lambda sre=sre, sim=sim: rf.irfft_bm(sre, sim), None))
+        cases.append(({"route": "main", "case": "c2r_f64", "shape": [b, n]},
+                      lambda s=specd: rf.irfft(s), None))
     n, b = cs.MAIN_N, cs.MAIN_B
     x32, x64 = cs.rand_complex((b, n), gen, dev), cs.rand_c128((b, n), gen, dev)
     ctx32, ctx64 = wtt.create_fft_f32(n, device=dev), wtt.create_fft(n, device=dev)
@@ -280,7 +313,7 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     makers = {"bluestein": bluestein_cases, "columns": column_cases, "cube": cube_cases,
-              "main": main_cases}
+              "fft2": fft2_cases, "main": main_cases}
     for route in routes:
         for row, fn, tiles in makers[route](gen, dev):
             this, *other = in_turns(libs, fn)
@@ -289,6 +322,8 @@ def main() -> int:
                 row["sweep_ms"] = sweep(fn, *tiles)
             if args.walks and route == "main":
                 row["walk_ms"] = cs.walk_times(fn)
+            if args.walks and route == "fft2":
+                row["walk_ms"] = cs.cube2_times(fn)
             print(json.dumps({**row, "card": name, "power_limit": limit}), flush=True)
     return 0
 

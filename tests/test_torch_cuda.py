@@ -3,8 +3,9 @@ and c2r real kernels, the hybrid real path that drives the c2c kernel
 through strides, the FP64 instances of these three, the four-step kernels
 of the large-N path, the 2D path's cube and passes, the Bluestein pair and
 one-pass kernel, the small-n DFT matmul (#20), the c2c kernel's two bf16
-instances and the redesigned batch-major walk of the c2c kernel and the
-FP64 r2c), against their plain torch versions.
+instances, the redesigned batch-major walk of the c2c kernel and the FP64
+r2c, and the redesigned f32 c2r and 2D cube), against their plain torch
+versions.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no JAX, so it runs on a GPU host that has none; tests/conftest.py imports
@@ -1162,4 +1163,207 @@ def test_r2c_f64_walk_refusals(dev):
     assert r2c(xp + 8, n, yp, rf.WALK_BLOCK, 1, 1) == -8      # rows 8 bytes off
     assert r2c(xp, n + 1, yp, rf.WALK_BLOCK, 1, 1) == -8      # an odd row stride
     assert r2c(xp, n, yp + 8, rf.WALK_BLOCK, 1, 1) == -8      # bins 8 bytes off
+    torch.cuda.synchronize()
+
+
+# -- the redesigned f32 c2r and 2D cube ---------------------------------------------------
+
+def _c2r_walk(monkeypatch, walk):
+    """The f32 c2r wrapper forced to one walk at every n (rf.WALK_ENGINE:
+    the kernel before the redesign, no pairs), with its pairs
+    (`c2r_pairs`)."""
+    def c2r(n, x, y):
+        return (walk, 0, 0) if walk == rf.WALK_ENGINE else (walk, *rf.c2r_pairs(x, y))
+    monkeypatch.setattr(rf, "c2r_launch", c2r)
+
+
+def _cube2_walk(monkeypatch, walk, direct=None):
+    """The 2D cube's wrapper forced to one walk (st.WALK_ENGINE: the kernel
+    before the redesign; st.WALK_BLOCK the redesigned one), with the pairs
+    the rule gives; `direct` forces where the row pass stores."""
+    def cube(h, w, x, y, radix=None):
+        if walk == st.WALK_ENGINE:
+            return walk, 0, 0, 0
+        got = f2.cube2_block(h, w, x, y, radix)
+        return (*got[:3], got[3] if direct is None else direct)
+    monkeypatch.setattr(f2, "cube2_launch", cube)
+
+
+def _c2r_layouts(spec, dev):
+    """The c2r's layouts of the complex [batch, m+1] spectrum, each a
+    function returning the [batch, n] signal: interleaved complex, split
+    planes, time-major planes, and through `_launch_c2r` the interleaved
+    spectrum one scalar off its point's alignment into signal rows one
+    scalar off theirs (pairs refused on both sides)."""
+    batch, m1 = spec.shape
+    n, real = 2 * (m1 - 1), spec.real.dtype
+    re, im = spec.real.contiguous(), spec.imag.contiguous()
+    flat = torch.zeros(2 * batch * m1 + 1, dtype=real, device=dev)
+    flat[1:].view(batch, m1, 2).copy_(torch.view_as_real(spec))
+    rt = rf.device_rtables(n, True, dev, real)
+
+    def misaligned():
+        out = torch.zeros(batch * n + 1, dtype=real, device=dev)
+        p, size = flat.data_ptr() + real.itemsize, real.itemsize
+        rf._launch_c2r(flat, p, p + size, 2, 2 * m1, out[1:], 1, n, n, batch, rt)
+        return out[1:].view(batch, n)
+    return {"complex": lambda: rf.irfft(spec), "bm": lambda: rf.irfft_bm(re, im),
+            "nb": lambda: rf.irfft_nb_fused(re.T.contiguous(), im.T.contiguous()).T,
+            "misaligned": misaligned}
+
+
+@pytest.mark.parametrize("n", [1 << k for k in range(2, 14)])
+def test_c2r_walks_match_plain_and_the_engine(n, dev, monkeypatch):
+    """Four layouts, batch 1, 5 and 271: the f32 c2r's resident blocks
+    torch.equal to the engine's walk (the kernel before the redesign), and
+    within KERNEL_LIMIT of the plain version; the inverse on spectra whose
+    DC and Nyquist bins have nonzero imaginary parts."""
+    for batch in (1, 5, 271):
+        m1 = n // 2 + 1
+        spec = torch.complex(_r((batch, m1), n + batch, dev), _r((batch, m1), 2 * n + batch, dev))
+        want = rf.plain_irfft(spec)
+        for layout, call in _c2r_layouts(spec, dev).items():
+            outs = []
+            for walk in (rf.WALK_ENGINE, rf.WALK_RESIDENT):
+                _c2r_walk(monkeypatch, walk)
+                outs.append(call())
+                monkeypatch.undo()
+            assert torch.equal(outs[1], outs[0]), (layout, batch)
+            assert _rel(outs[1], want) <= KERNEL_LIMIT, (layout, batch)
+
+
+def test_c2r_walk_refusals(dev):
+    """The f32 c2r entry refuses a walk other than 1 and 2 (kErrArgs = -1),
+    and pairs on the engine's walk or where the layout does not allow them
+    (kErrPairs = -8)."""
+    n, batch = 1024, 3
+    m1 = n // 2 + 1
+    stream = torch.cuda.current_stream().cuda_stream
+    rt = rf.device_rtables(n, True, dev)
+    x = torch.zeros(2 * batch * m1 + 2, device=dev)
+    y = torch.zeros(batch * n + 2, device=dev)
+    lib, targs = rf._kernel_args(rt, x, "irfft_c2r_fused")
+    xp, yp = x.data_ptr(), y.data_ptr()
+
+    def c2r(xa, x_sb, ya, y_sn, y_sb, walk, px, py):
+        return lib.watfft_irfft_c2r(xa, xa + 4, 2, x_sb, ya, y_sn, y_sb, n, batch, *targs,
+                                    stream, walk, px, py)
+    for walk in (0, rf.WALK_BLOCK, 4):
+        assert c2r(xp, 2 * m1, yp, 1, n, walk, 0, 0) == -1, walk
+    assert c2r(xp, 2 * m1, yp, 1, n, rf.WALK_ENGINE, 1, 0) == -8
+    assert c2r(xp, 2 * m1, yp, 1, n, rf.WALK_ENGINE, 0, 1) == -8
+    walk = rf.WALK_RESIDENT
+    assert c2r(xp + 4, 2 * m1, yp, 1, n, walk, 1, 1) == -8     # bins off
+    assert c2r(xp, 2 * m1 + 1, yp, 1, n, walk, 1, 1) == -8     # an odd batch stride
+    assert c2r(xp, 2 * m1, yp + 4, 1, n, walk, 1, 1) == -8     # rows off
+    assert c2r(xp, 2 * m1, yp, 1, n + 1, walk, 1, 1) == -8     # an odd row stride
+    assert c2r(xp, 2 * m1, yp, 2, 2 * n, walk, 1, 1) == -8     # rows not contiguous
+    torch.cuda.synchronize()
+
+
+def _cube2_layouts(x, inverse):
+    """The 2D cube's layouts of the complex [batch, h, w] x, each a function
+    returning its output as complex [batch, h, w]: interleaved complex64,
+    batch-major planes, native [h, w, B] planes, and the packed real layout
+    (rfft2's input read as complex, irfft2's output written as real)."""
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    nre, nim = re.permute(1, 2, 0).contiguous(), im.permute(1, 2, 0).contiguous()
+    packed = torch.view_as_real(x).reshape(*x.shape[:-1], 2 * x.shape[-1])
+
+    def real():
+        if inverse:
+            y = f2._transform(re, im, True, "bm", "real", "fft2-cube", None)
+            return torch.view_as_complex(y.view(*x.shape, 2))
+        return torch.complex(*f2._transform(packed, None, False, "real", "bm", "fft2-cube",
+                                            None))
+    return {"complex": lambda: f2._complex_route(x, inverse, "fft2-cube"),
+            "bm": lambda: torch.complex(*f2._planes_route(re, im, inverse, "fft2-cube")),
+            "nb": lambda: torch.complex(*f2._nb_route(nre, nim, inverse,
+                                                      "fft2-cube")).permute(2, 0, 1),
+            "real": real}
+
+
+_CUBE2_PAIRS = [(1 << a, 1 << b) for a in range(1, 14) for b in range(1, 15 - a)]
+
+
+@pytest.mark.parametrize("h,w", _CUBE2_PAIRS)
+def test_cube2_walks_match_plain_and_the_engine(h, w, dev, monkeypatch):
+    """Every h, w with h*w <= 2^14, four layouts, batch 1, 5 and 271, both
+    directions: a block a tile, storing from the row pass's last stage and
+    after it, torch.equal to the engine's walk (the kernel before the
+    redesign), and within KERNEL_LIMIT of the plain version."""
+    for batch in (1, 5, 271):
+        x = _x((batch, h, w), seed=h + 3 * w + batch, dev=dev)
+        for inverse in (False, True):
+            want = f2.plain_fft2(x, inverse)
+            for layout, call in _cube2_layouts(x, inverse).items():
+                _cube2_walk(monkeypatch, st.WALK_ENGINE)
+                engine = call()
+                monkeypatch.undo()
+                for direct in (0, 1):
+                    _cube2_walk(monkeypatch, st.WALK_BLOCK, direct)
+                    got = call()
+                    monkeypatch.undo()
+                    assert torch.equal(got, engine), (layout, batch, inverse, direct)
+                assert _rel(engine, want) <= KERNEL_LIMIT, (layout, batch, inverse)
+
+
+def _radix8_tables(n, inverse, dev):
+    """Tables of an n-point plan of radix 8 and 4 stages, no radix 16."""
+    stages, l, m = [], 1, n
+    while m > 1:
+        r = 8 if m % 8 == 0 else 4 if m % 4 == 0 else 2
+        stages.append((r, l))
+        l, m = l * r, m // r
+    twre, twim, offsets = st.make_twiddle_pack(n, inverse, stages=stages)
+    return st.make_tables(stages, offsets, twre, twim, dev)
+
+
+def test_cube2_small_radix_plans(dev):
+    """Plans with no radix-16 axis take the engine's walk where they may
+    need a 512-thread block (`cube2_launch`), and match the plain version
+    on them; the redesigned walk below that point."""
+    for h, w in ((8, 16), (128, 128), (2, 1024)):
+        x = _x((3, h, w), seed=h + w, dev=dev)
+        for inverse in (False, True):
+            tables = tuple(_radix8_tables(n, inverse, dev) for n in (h, w))
+            got = f2._complex_route(x, inverse, "fft2-cube", tables)
+            assert _rel(got, f2.plain_fft2(x, inverse)) <= KERNEL_LIMIT, (h, w, inverse)
+
+
+def test_cube2_walk_refusals(dev):
+    """The 2D cube's entry refuses a walk other than 1 and 3, and the
+    redesigned walk on a 512-thread block without a radix-16 axis (kErrArgs
+    = -1), and pairs or a store choice on the engine's walk or pairs the
+    layout does not allow (kErrPairs = -8)."""
+    from watfft_tpu_torch.ops import _build
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    buf = torch.zeros(2 * 8192 * 2 * 3 + 2, device=dev)
+    out = torch.zeros_like(buf)
+    p, q = buf.data_ptr(), out.data_ptr()
+
+    def cube(h, w, x, y, walk, px, py, direct=0, tables=None):
+        th, tw = tables or (st.device_tables(h, False, dev), st.device_tables(w, False, dev))
+        return lib.watfft_fft2_cube(
+            *x[:2], *y[:2], *x[2:], *y[2:], h, w, 3, th.twre.data_ptr(), th.twim.data_ptr(),
+            th.c_radices, th.c_offsets, len(th.stages), tw.twre.data_ptr(),
+            tw.twim.data_ptr(), tw.c_radices, tw.c_offsets, len(tw.stages), 0, stream, walk,
+            px, py, direct)
+    h = w = 64
+    xs, ys = (p, p + 4, 2 * w, 2, 2 * h * w), (q, q + 4, 2 * w, 2, 2 * h * w)
+    for walk in (0, st.WALK_RESIDENT, 4):
+        assert cube(h, w, xs, ys, walk, 0, 0) == -1, walk
+    small = tuple(_radix8_tables(128, False, dev) for _ in range(2))
+    s128 = (2 * 128, 2, 2 * 128 * 128)
+    assert cube(128, 128, (p, p + 4, *s128), (q, q + 4, *s128), st.WALK_BLOCK, 0, 0,
+                tables=small) == -1
+    for args in ((1, 0, 0), (0, 1, 0), (0, 0, 1)):
+        assert cube(h, w, xs, ys, st.WALK_ENGINE, *args) == -8, args
+    for bad in ((p + 4, p + 8, 2 * w, 2, 2 * h * w),        # 4 bytes off
+                (p, p + 4, 2 * w + 1, 2, 2 * h * w),        # an odd row stride
+                (p, p + 4, 2 * w, 2, 2 * h * w + 1),        # an odd image stride
+                (p, p + 4 * h * w * 3, w, 1, h * w)):       # split planes
+        assert cube(h, w, bad, ys, st.WALK_BLOCK, 1, 0) == -8, bad
+        assert cube(h, w, xs, bad, st.WALK_BLOCK, 0, 1) == -8, bad
     torch.cuda.synchronize()

@@ -280,10 +280,12 @@ def test_planner_routes():
     assert route(256, 128) == "fft2-2pass"
     assert route(4096, 4096) == "fft2-2pass"
     assert route(8192, 4) == route(4, 8192) == "fft2-axes"
-    # measured on the card: under 64 images of 2^14 points the 2-pass route
+    # measured on the card: up to 64 images of 2^14 points the 2-pass route,
+    # from 96 the cube
     least = planner.FFT2_CUBE_MIN_BATCH[1 << 14]
-    assert route(128, 128, least) == "fft2-cube"
+    assert route(128, 128, least) == route(16, 1024, 96) == "fft2-cube"
     assert route(128, 128, least - 1) == route(16, 1024, 1) == "fft2-2pass"
+    assert route(128, 128, 64) == route(32, 512, 64) == "fft2-2pass"
     assert route(64, 64, 1) == route(8192, 2, 1) == "fft2-cube"
     # native [h, w, B] planes with one image per cube block: the 2-pass route
     assert route(64, 64, 1024, "nb") == route(128, 128, 1024, "nb") == "fft2-2pass"

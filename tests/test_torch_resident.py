@@ -1,7 +1,9 @@
 """The host side of the redesigned kernels: the cube (#12, ops/large.py
 `cube_threads`, `cube_launch`), the fused r2c kernel in f32 (#9) and FP64
-(ops/rfft.py `r2c_launch`) and the batch-major walk of the c2c kernel
-(ops/stockham.py `c2c_launch`, `complex_pairs`). The host picks each
+(ops/rfft.py `r2c_launch`), the batch-major walk of the c2c kernel
+(ops/stockham.py `c2c_launch`, `complex_pairs`), the fused c2r kernel in
+f32 (#10, ops/rfft.py `c2r_launch`) and the 2D cube (#15, ops/fft2.py
+`cube2_launch`). The host picks each
 launch's block, walk and one-point accesses and passes them; the kernels
 refuse what they do not take. Here: the rules, and the arguments each
 wrapper passes, recorded by a stand-in library, on the CPU. No JAX is
@@ -363,3 +365,169 @@ def test_planner_sends_the_cube_what_it_won(n):
     assert planner.large_mode(n, most_nb + 1, time_major=True) == "pipe2"
     assert planner.large_mode(n, None, time_major=True) == "cube"
     assert planner.large_mode(2 * planner.CUBE_MAX_N, 1024) == "pipe2"
+
+
+# -- the c2r kernel's walk and accesses ----------------------------------------------
+
+def _c2r_call(layout, n, batch, dtype):
+    """The c2r launch of `layout` on a spectrum of `batch` rows: interleaved
+    complex, batch-major planes, time-major planes, or the interleaved
+    spectrum one scalar off its point's alignment (misaligned_x) or the
+    signal's rows one scalar off (misaligned_y), through `_launch_c2r`."""
+    m1 = n // 2 + 1
+    size = dtype.itemsize
+    spec = torch.complex(_f32((batch, m1), 1), _f32((batch, m1), 2)).to(dtype.to_complex())
+    re, im = spec.real.contiguous(), spec.imag.contiguous()
+    if layout == "complex":
+        rf.irfft(spec)
+    elif layout == "bm":
+        rf.irfft_bm(re, im)
+    elif layout == "nb":
+        rf.irfft_nb_fused(re.T.contiguous(), im.T.contiguous())
+    else:
+        flat = torch.zeros(2 * batch * m1 + 1, dtype=dtype)
+        out = torch.zeros(batch * n + 1, dtype=dtype)
+        xo, yo = (1, 0) if layout == "misaligned_x" else (0, 1)
+        p = flat.data_ptr() + xo * size
+        rt = rf.device_rtables(n, True, "cpu", dtype)
+        rf._launch_c2r(flat, p, p + size, 2, 2 * m1, out[yo:], 1, n, n, batch, rt)
+
+
+@pytest.mark.parametrize("layout,pairs", [
+    ("complex", (1, 1)), ("bm", (0, 1)), ("nb", (0, 0)), ("misaligned_x", (0, 1)),
+    ("misaligned_y", (1, 0))])
+@pytest.mark.parametrize("n", [4, 8, 16, 32, 1024, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_c2r_launch_arguments(dtype, n, layout, pairs, recorder):
+    """f32: the engine's walk up to C2R_ENGINE_MAX_N with no pairs,
+    resident blocks past it, with one copy a bin of an interleaved spectrum
+    aligned to its point and one store a point into contiguous aligned
+    signal rows; FP64: the engine's walk at every n, its entry taking no
+    walk."""
+    batch = 6
+    f64 = dtype == torch.float64
+    _c2r_call(layout, n, batch, dtype)
+    (name, a), = recorder.calls[-1:]
+    assert name == "watfft_irfft_c2r" + ("_f64" if f64 else "") and len(a) == 17 + 3 * (not f64)
+    assert a[7:9] == (n, batch)
+    m1 = n // 2 + 1
+    strides = {"complex": (2, 2 * m1, 1, n), "bm": (1, m1, 1, n), "nb": (batch, 1, batch, 1)}
+    assert (a[2], a[3], a[5], a[6]) == strides.get(layout, (2, 2 * m1, 1, n))
+    if f64:
+        return
+    if n <= rf.C2R_ENGINE_MAX_N:
+        assert a[-3:] == (rf.WALK_ENGINE, 0, 0)
+    else:
+        assert a[-3:] == (rf.WALK_RESIDENT, *pairs)
+
+
+@pytest.mark.parametrize("y,pairs", [
+    ((0, 1, 1024), 1),         # contiguous rows, aligned to a point
+    ((4, 1, 1024), 0),         # one f32 scalar off
+    ((0, 1, 1023), 0),         # an odd row stride
+    ((0, 6, 1), 0),            # time-major
+    ((0, 2, 1), 0),
+])
+def test_c2r_stores_pairs_only_into_contiguous_aligned_rows(y, pairs):
+    x = (0, 4, 2, 1026)
+    for n in (32, 1024, 8192):
+        assert rf.c2r_launch(n, x, y) == (rf.WALK_RESIDENT, 1, pairs)
+        assert rf.c2r_launch(n, (4, 8, 2, 1026), y) == (rf.WALK_RESIDENT, 0, pairs)
+    for n in (4, 8, 16):
+        assert rf.c2r_launch(n, x, y) == (rf.WALK_ENGINE, 0, 0)
+
+
+# -- the 2D cube's walk, block and accesses ------------------------------------------
+
+@pytest.mark.parametrize("h,w", [(2, 2), (64, 64), (128, 128), (2, 1024), (1024, 2)])
+def test_cube2_small_radix_plans_take_the_engine_walk(h, w):
+    """Plans with no radix-16 axis (a caller's own tables) take the engine's
+    walk from CUBE2_SMALL_RADIX_POINTS, where they may need a 512-thread
+    block that the redesigned walk builds only with a radix-16 axis; the
+    port's own plans have one wherever that many points are."""
+    cx = (0, 4, 2 * w, 2, 2 * h * w)
+    small = h * w < f2.CUBE2_SMALL_RADIX_POINTS
+    for radix in ((2, 2), (8, 4), (4, 8)):
+        walk = f2.cube2_launch(h, w, cx, cx, radix)[0]
+        assert walk == (st.WALK_BLOCK if small else st.WALK_ENGINE), radix
+    assert f2.cube2_launch(h, w, cx, cx, (16, 2))[0] == st.WALK_BLOCK
+    own = max(r for n in (h, w) for r, _ in st.stage_plan(n))
+    assert small or own == st.MAX_RADIX
+
+
+@pytest.mark.parametrize("h,w", [(2, 2), (4, 64), (64, 64), (64, 128), (128, 128)])
+def test_cube2_walk_rule(h, w):
+    """A block a tile, save native planes whose images fill a block (the
+    engine's walk); one copy and one store a point on interleaved complex64
+    aligned to its point with even strides; the row pass's last stage
+    stores where y's point stride is the smaller and a row's threads span a
+    sector."""
+    hw = h * w
+    rtpt = w // max(r for r, _ in st.stage_plan(w))
+    cx = (0, 4, 2 * w, 2, 2 * hw)
+    assert f2.cube2_launch(h, w, cx, cx) == (st.WALK_BLOCK, 1, 1, int(rtpt >= 4))
+    planes = (0, 4 * hw * 8, w, 1, hw)
+    assert f2.cube2_launch(h, w, planes, planes) == (st.WALK_BLOCK, 0, 0, int(rtpt >= 8))
+    native = (0, 4 * hw * 8, 8 * w, 8, 1)
+    if hw >= 4096:      # one image a block: the engine's walk
+        assert f2.cube2_launch(h, w, native, native) == (st.WALK_ENGINE, 0, 0, 0)
+    else:
+        assert f2.cube2_launch(h, w, native, native) == (st.WALK_BLOCK, 0, 0, 0)
+    for bad in ((4, 8, 2 * w, 2, 2 * hw),           # 4 bytes off 8-byte alignment
+                (0, 4, 2 * w, 2, 2 * hw + 1),       # an odd image stride
+                (0, 4, 2 * w + 1, 2, 2 * hw)):      # an odd row stride
+        assert f2.cube2_launch(h, w, bad, cx)[1:3] == (0, 1), bad
+        assert f2.cube2_launch(h, w, cx, bad)[1:3] == (1, 0), bad
+
+
+def _cube2_args(lib):
+    """(x side, y side, h, w, batch, (walk, pairs_x, pairs_y, direct)) of
+    the last 2D cube launch; a side is (re address, im address, row, point
+    and image strides)."""
+    (name, a), = [c for c in lib.calls if c[0] == "watfft_fft2_cube"][-1:]
+    return ((a[0], a[1], *a[4:7]), (a[2], a[3], *a[7:10]), a[10], a[11], a[12], a[-4:])
+
+
+@pytest.mark.parametrize("layout", ["complex", "bm", "nb", "rfft2", "irfft2", "misaligned"])
+@pytest.mark.parametrize("h,w", [(2, 2), (16, 16), (64, 64), (128, 128), (2, 8192),
+                                 (8192, 2), (16, 1024)])
+def test_cube2_launch_arguments(h, w, layout, recorder):
+    """The arguments each form passes the cube: batch-major planes,
+    interleaved complex64, native [h, w, B] planes, rfft2's packed real
+    input and irfft2's packed real output (re and im 4 bytes apart in
+    8-byte aligned points), and interleaved views one float off alignment;
+    each with the walk, pairs and store `cube2_launch` gives."""
+    batch, hw = 3, h * w
+    x = torch.complex(_f32((batch, h, w), 1), _f32((batch, h, w), 2))
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    if layout == "complex":
+        f2._complex_route(x, False, "fft2-cube")
+    elif layout == "bm":
+        f2._planes_route(re, im, False, "fft2-cube")
+    elif layout == "nb":
+        f2._nb_route(re.permute(1, 2, 0).contiguous(), im.permute(1, 2, 0).contiguous(),
+                     False, "fft2-cube")
+    elif layout == "rfft2":
+        f2._transform(_f32((batch, h, 2 * w)), None, False, "real", "bm", "fft2-cube", None)
+    elif layout == "irfft2":
+        f2._transform(re, im, True, "bm", "real", "fft2-cube", None)
+    else:
+        flat = _f32(2 * batch * hw + 1)
+        out = torch.zeros(2 * batch * hw)
+        s = (2 * w, 2, 2 * hw)
+        f2._run((flat[1:], flat[2:]), s, (out, out[1:]), s, h, w, batch, False, "fft2-cube",
+                None)
+    xs, ys, gh, gw, b, launch = _cube2_args(recorder)
+    assert (gh, gw, b) == (h, w, batch)
+    strides = {"bm": (w, 1, hw), "nb": (w * batch, batch, 1), "pairs": (2 * w, 2, 2 * hw)}
+    sides = {"complex": ("pairs", "pairs"), "bm": ("bm", "bm"), "nb": ("nb", "nb"),
+             "rfft2": ("pairs", "bm"), "irfft2": ("bm", "pairs"),
+             "misaligned": ("pairs", "pairs")}[layout]
+    pairs_x = int(layout in ("complex", "rfft2"))
+    pairs_y = int(layout in ("complex", "irfft2", "misaligned"))
+    assert (xs[2:], ys[2:]) == tuple(strides[k] for k in sides)
+    if layout == "nb" and h * w >= 4096:        # one image a block: the engine's walk
+        assert launch == (st.WALK_ENGINE, 0, 0, 0)
+    else:
+        assert launch[:3] == (st.WALK_BLOCK, pairs_x, pairs_y)
+    assert launch == f2.cube2_launch(h, w, xs, ys)

@@ -100,13 +100,14 @@ def library() -> ctypes.CDLL:
         c2c.restype = i32
         # (x, x_sn, x_sb, yre, yim, y_sn, y_sb, n, batch, twre, twim, radices,
         #  offsets, nstages, wre, wim, stream, walk, pairs_x, pairs_y) and the
-        #  c2r mirror of it, without the last three
+        #  c2r mirror of it, the walk and pairs in f32 only
         r2c = getattr(lib, "watfft_rfft_r2c" + suffix)
         r2c.argtypes = [p, i64, i64, p, p, i64, i64, i32, i64, p, p, ip, ip, i32, p, p, p,
                         i32, i32, i32]
         r2c.restype = i32
         c2r = getattr(lib, "watfft_irfft_c2r" + suffix)
-        c2r.argtypes = [p, p, i64, i64, p, i64, i64, i32, i64, p, p, ip, ip, i32, p, p, p]
+        c2r.argtypes = [p, p, i64, i64, p, i64, i64, i32, i64, p, p, ip, ip, i32, p, p, p,
+                        *([] if suffix else [i32, i32, i32])]
         c2r.restype = i32
     # the c2c kernel's bf16 instances: interop (f32 tables) and compute (bf16)
     for suffix in ("_bf16", "_bf16c"):
@@ -133,9 +134,10 @@ def library() -> ctypes.CDLL:
     lib.watfft_large_cube.restype = i32
     # (xre, xim, yre, yim, x_sh, x_sw, x_sb, y_sh, y_sw, y_sb, h, w, batch,
     #  the h-point twre, twim, radices, offsets, nstages, the w-point ones,
-    #  inverse, stream)
+    #  inverse, stream, walk, pairs_x, pairs_y, direct)
     lib.watfft_fft2_cube.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, i64, i32, i32, i64,
-                                     p, p, ip, ip, i32, p, p, ip, ip, i32, i32, p]
+                                     p, p, ip, ip, i32, p, p, ip, ip, i32, i32, p,
+                                     i32, i32, i32, i32]
     lib.watfft_fft2_cube.restype = i32
     # (xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, m, batch, cre, cim, bre, bim,
     #  the m-point twre, twim, radices, offsets, nstages, stream); the inverse

@@ -5,7 +5,8 @@
 // rfft_r2c_resident_kernel (f32; rfft_r2c_kernel, its first form, at
 // n <= 8) replaces watfft_tpu/ops/pallas_rfft.py::_rfft_fused_kernel
 // (deinterleave + m-point stages + Hermitian mirror + post-twiddle) and
-// irfft_c2r_kernel replaces ::_irfft_fused_kernel (mirror + pre-process +
+// irfft_c2r_resident_kernel (irfft_c2r_kernel, its first form, where the
+// host keeps it) replaces ::_irfft_fused_kernel (mirror + pre-process +
 // m-point inverse stages with 1/m folded + re-interleave). They compute
 // what the TPU kernels compute, in the same row conventions:
 //
@@ -66,6 +67,13 @@
 //    post; z[j] = (x[2j], x[2j+1]) copied as one 8-byte pair, each bin
 //    stored as one 8-byte pair, where the layout allows (PERF.md has the
 //    times).
+//  * The f32 c2r likewise (irfft_c2r_resident_kernel): its first form
+//    held the P = 16 instance to 80 registers (132 bytes of spills) and
+//    read four scalars a mirror pair; the redesigned kernel copies the raw
+//    bins in by cp.async, runs the pre-process in place in shared memory
+//    and stores each pair of samples as one point. The host keeps the
+//    first form at n <= 16, and the FP64 c2r keeps it at every n: the
+//    redesigned walk measured slower there (PERF.md).
 //  * Layouts are strides: the real side has an element stride along n and
 //    one along the batch, the spectrum side separate re and im pointers
 //    with their own pair, so interleaved complex64 (stride 2), split planes,
@@ -76,7 +84,9 @@
 // (and their _f64 twins on double) launch on the given stream, allocate nothing, and return
 // cudaGetLastError() after the launch, or a negative code (the kErr codes
 // of stockham.cuh, printed by watfft_error_string) for arguments they
-// refuse before launching.
+// refuse before launching. The r2c entries' and the f32 c2r's last three
+// arguments are the walk and its pairs, which the host picks (ops/rfft.py
+// `r2c_launch`, `c2r_launch`).
 
 #include "stockham.cuh"
 
@@ -358,6 +368,78 @@ rfft_r2c_block_f64_kernel(const double* __restrict__ x, int64_t x_sn, int64_t x_
   });
 }
 
+// The f32 c2r kernel (#10) redesigned: irfft_c2r_kernel's arithmetic on
+// the walk of the redesigned r2c, resident blocks (`tiles_grid`), 256
+// threads at kResidentBlocks an SM (128 registers), each looping over tiles
+// of T spectra with the next tile landing by cp.async in a second buffer
+// while the current one runs. A tile's bins X[0..m-1] of spectrum t land
+// straight in their padded slots (one copy a bin where the host asks for
+// pairs, `pairs_x`: the spectrum interleaved complex64; else one a plane),
+// and the Nyquist bin X[m], which has no slot of its own (pad(m) is S
+// itself at m = 16), in slot T*S + t after the tile's transforms. The
+// Hermitian pre-process then runs in place in shared memory, one mirror
+// pair per thread, with the pre_inv calls the engine's load makes.
+// (Reading Z[k] in the first stage's load instead, which saves the pass
+// and a sync, let the compiler contract pre_inv's products into other
+// FMAs: the outputs moved by an ulp, so it was not kept.) After the
+// stages, o[2j], o[2j+1] = z[j] goes out as one store of the whole point
+// where the host asks for it (`pairs_y`: the signal's rows contiguous and
+// aligned to a point), else as two (ops/rfft.py `c2r_launch` picks the
+// walk; PERF.md has the times that chose it).
+template <int P>
+__global__ void __launch_bounds__(kBlockThreads, kResidentBlocks)
+irfft_c2r_resident_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
+                          int64_t x_sn, int64_t x_sb, float* __restrict__ y,
+                          int64_t y_sn, int64_t y_sb, int64_t batch, int T, int S,
+                          bool pairs_x, bool pairs_y,
+                          const float* __restrict__ twre, const float* __restrict__ twim,
+                          const float* __restrict__ wre, const float* __restrict__ wim,
+                          Plan plan) {
+  using C = float2;
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  C* smem = reinterpret_cast<C*>(smem_bytes);
+  const int m = 1 << plan.log2n;
+  const int tpt = m / P, pairs = m / 2 + 1;
+  const int t = threadIdx.x / tpt, th = threadIdx.x - t * tpt;
+  const auto count = [&](int64_t tile) { return (int)min((int64_t)T, batch - tile * T); };
+
+  // spectra past the batch are not copied, and their signals not stored
+  const auto copy = [&](C* c, int64_t tile) {
+    const int64_t first = tile * T;
+    const int cnt = count(tile);
+    for_tile(plan.log2n, T, cnt, first, x_sn, x_sb, [&](int t, int k, int64_t g) {
+      copy_point(c + t * S + pad(k), xre + g, xim + g, pairs_x);
+    });
+    for (int u = threadIdx.x; u < cnt; u += blockDim.x) {
+      const int64_t g = (first + u) * x_sb + (int64_t)m * x_sn;
+      copy_point(c + T * S + u, xre + g, xim + g, pairs_x);
+    }
+    copy_commit();
+  };
+  const auto work = [&](C* c, int64_t tile) {
+    // Z[0] from X[0] and X[m], Z[k] and Z[m-k] from X[k] and X[m-k], in
+    // place, one mirror pair per thread
+    for (int e = threadIdx.x; e < T * pairs; e += blockDim.x) {
+      const int u = e / pairs, k = e - u * pairs;
+      C* const z = c + u * S;
+      const C a = z[pad(k)], b = k == 0 ? c[T * S + u] : z[pad(m - k)];
+      z[pad(k)] = pre_inv(a, b, make_c(__ldg(wre + k), __ldg(wim + k)));
+      if (k != 0 && 2 * k != m) {
+        const int j = m - k;
+        z[pad(j)] = pre_inv(b, a, make_c(__ldg(wre + j), __ldg(wim + j)));
+      }
+    }
+    __syncthreads();
+    run_stages<P, true>(c + t * S, th, tpt, plan, twre, twim);
+    // o[2j] = Re z[j], o[2j+1] = Im z[j] (the stages ended with a sync)
+    for_tile(plan.log2n, T, count(tile), tile * T, 2 * y_sn, y_sb,
+             [&](int t, int j, int64_t g) {
+               store_point(y + g, y + g + y_sn, c[t * S + pad(j)], pairs_y);
+             });
+  };
+  for_tiles(smem, T * S + T, (batch + T - 1) / T, 2, copy, work);
+}
+
 // The grid of a launch over `batch` transforms, its shared memory, and the
 // kernel's opt-in when that is past the default; 0 or an error code.
 template <typename Real, typename K>
@@ -478,6 +560,40 @@ int c2r(const Real* xre, const Real* xim, int64_t x_sn, int64_t x_sb, Real* y, i
   return (int)cudaGetLastError();
 }
 
+// The f32 c2r launch on the redesigned walk: resident blocks of
+// irfft_c2r_resident_kernel, each buffer T spectra and T Nyquist slots.
+int c2r_resident(const float* xre, const float* xim, int64_t x_sn, int64_t x_sb, float* y,
+                 int64_t y_sn, int64_t y_sb, int n, int64_t batch, const float* twre,
+                 const float* twim, const int* radices, const int* twoffsets, int nstages,
+                 const float* wre, const float* wim, void* stream, bool pairs_x, bool pairs_y) {
+  Plan plan;
+  int maxr, T;
+  if (n < 4 || (n & (n - 1))) return kErrArgs;
+  if (const int err = make_plan(n / 2, batch, radices, twoffsets, nstages, plan, maxr, T)) {
+    return err;
+  }
+  // o[2j], o[2j+1] = z[j]: point j of the pairs (y, y + y_sn) at stride 2 y_sn
+  if ((pairs_x && !complex_pairs(xre, xim, x_sn, x_sb)) ||
+      (pairs_y && !complex_pairs(y, y + y_sn, 2 * y_sn, y_sb))) {
+    return kErrPairs;
+  }
+  auto kernel = maxr == 2 ? irfft_c2r_resident_kernel<2>
+              : maxr == 4 ? irfft_c2r_resident_kernel<4>
+              : maxr == 8 ? irfft_c2r_resident_kernel<8>
+                          : irfft_c2r_resident_kernel<16>;
+  const int S = smem_stride(n / 2);
+  const size_t smem = 2 * ((size_t)T * S + T) * sizeof(float2);
+  if (const int err = opt_in_smem(kernel, smem)) return err;
+  unsigned grid;
+  if (const int err = tiles_grid(kernel, smem, (batch + T - 1) / T, kWalkResident, grid)) {
+    return err;
+  }
+  kernel<<<grid, kBlockThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      xre, xim, x_sn, x_sb, y, y_sn, y_sb, batch, T, S, pairs_x, pairs_y, twre, twim, wre, wim,
+      plan);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -529,17 +645,30 @@ int watfft_rfft_r2c_f64(const double* x, int64_t x_sn, int64_t x_sb,
 // b at k*x_sn + b*x_sb of xre and xim), normalized by 1/n; sample j at
 // j*y_sn + b*y_sb. The m-point inverse plan (1/m folded into its last
 // stage) is given as its radices and twiddle-pack offsets; wre/wim hold
-// w_n^-k, k = 0..m-1. y must not overlap X.
+// w_n^-k, k = 0..m-1. y must not overlap X. walk: 1 the engine's walk
+// (irfft_c2r_kernel), 2 resident blocks (irfft_c2r_resident_kernel), any
+// other refused (kErrArgs); pairs_x, pairs_y: the resident walk's
+// one-point copies of the spectrum and stores of the signal, refused
+// (kErrPairs) where the layout does not allow them or on the engine's
+// walk.
 int watfft_irfft_c2r(const float* xre, const float* xim, int64_t x_sn, int64_t x_sb,
                      float* y, int64_t y_sn, int64_t y_sb,
                      int n, int64_t batch, const float* twre, const float* twim,
                      const int* radices, const int* twoffsets, int nstages,
-                     const float* wre, const float* wim, void* stream) {
-  return c2r(xre, xim, x_sn, x_sb, y, y_sn, y_sb, n, batch, twre, twim, radices, twoffsets,
-             nstages, wre, wim, stream);
+                     const float* wre, const float* wim, void* stream, int walk, int pairs_x,
+                     int pairs_y) {
+  if (walk == kWalkEngine) {
+    if (pairs_x || pairs_y) return kErrPairs;
+    return c2r(xre, xim, x_sn, x_sb, y, y_sn, y_sb, n, batch, twre, twim, radices, twoffsets,
+               nstages, wre, wim, stream);
+  }
+  if (walk != kWalkResident) return kErrArgs;
+  return c2r_resident(xre, xim, x_sn, x_sb, y, y_sn, y_sb, n, batch, twre, twim, radices,
+                      twoffsets, nstages, wre, wim, stream, pairs_x != 0, pairs_y != 0);
 }
 
-// The same on float64 spectrum planes, signals and tables.
+// The same on float64 spectrum planes, signals and tables, on the engine's
+// walk.
 int watfft_irfft_c2r_f64(const double* xre, const double* xim, int64_t x_sn, int64_t x_sb,
                          double* y, int64_t y_sn, int64_t y_sb,
                          int n, int64_t batch, const double* twre, const double* twim,

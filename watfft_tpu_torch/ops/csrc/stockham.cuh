@@ -480,6 +480,34 @@ __device__ __forceinline__ void store_point(Real* re, Real* im, cplx<Real> z, bo
 constexpr int kWalkEngine = 1, kWalkResident = 2, kWalkBlock = 3;
 constexpr int kResidentBlocks = 2;  // 128 registers a thread: P = 16 does not spill
 
+// The tile loop of the redesigned walks (the c2c kernel's batch-major walk
+// and the c2r): the block takes tiles blockIdx.x, blockIdx.x + gridDim.x,
+// ... of `tiles`. copy(c, tile) issues a tile's cp.async copies into the
+// buffer c (tile_slots slots) and commits them; work(c, tile) runs the
+// stages and the store on it. bufs = 2: tile i + 1 lands in the other
+// buffer while work runs on tile i; bufs = 1: one buffer, copied once the
+// work is done. Every thread runs the same trip count, so the syncs are
+// uniform.
+template <typename C, typename Copy, typename Work>
+__device__ __forceinline__ void for_tiles(C* smem, int tile_slots, int64_t tiles, int bufs,
+                                          Copy copy, Work work) {
+  const int64_t step = gridDim.x;
+  int64_t tile = blockIdx.x;
+  if (tile < tiles) copy(smem, tile);
+  for (int it = 0; tile < tiles; tile += step, ++it) {
+    C* const c = smem + (it & (bufs - 1)) * tile_slots;
+    copy_wait<0>();
+    __syncthreads();  // the tile is in c, and every read of the other buffer is done
+    const int64_t next = tile + step;
+    if (bufs == 2 && next < tiles) copy(smem + ((it + 1) & 1) * tile_slots, next);
+    work(c, tile);
+    if (bufs == 1 && next < tiles) {
+      __syncthreads();  // every read of c is done
+      copy(smem, next);
+    }
+  }
+}
+
 template <typename Real, typename B>
 __device__ __forceinline__ void copy_cols(int log2n, int log2c, int count, int64_t first,
                                           int64_t sn, B bat, const Real* __restrict__ xre,

@@ -53,8 +53,9 @@ from .stockham import Tables, check_device
 
 __all__ = ["validate_fft2_shape", "validate_rfft2_shape", "ROUTES", "launches",
            "fft2_nb", "fft2_planes", "fft2_complex", "plain_fft2",
-           "fft2_cube", "plain_fft2_cube", "fft2_cols", "plain_fft2_cols",
-           "fft2_k2", "plain_fft2_k2", "fft2_rows", "plain_fft2_rows",
+           "fft2_cube", "plain_fft2_cube", "cube2_block", "cube2_launch",
+           "fft2_cols", "plain_fft2_cols", "fft2_k2", "plain_fft2_k2", "fft2_rows",
+           "plain_fft2_rows",
            "herm2_post_nb", "herm2_pre_nb", "rfft2_planes", "irfft2_planes"]
 
 # Kernel launches made by the CUDA wrappers since the counts were last set
@@ -178,14 +179,71 @@ def _rows(x, xs, y, ys, h, w, batch, inverse, table, plain) -> None:
           "fft2_k2", plain)
 
 
+# -- the cube's launch ----------------------------------------------------------------
+# The redesigned cube (csrc/fft2.cu fft2_cube_block_kernel, a block a tile):
+# the host picks each launch's walk, one-point accesses and where the row
+# pass stores, and passes them; the C entry sizes the block and refuses
+# what the layout does not allow (PERF.md has the times that chose the
+# rule).
+SECTOR_BYTES = 32
+# Native planes of at least this many points an image take the engine's
+# walk: one image fills a block (the port's plans), which reads it an image
+# stride apart in either walk, and the engine's walk measured up to 2%
+# faster there.
+CUBE2_ENGINE_NATIVE_POINTS = 4096
+# Plans with no radix-16 axis (a caller's own tables) take the engine's
+# walk from this many points: past it they may need a 512-thread block,
+# which the redesigned walk builds only for radix pairs with a radix-16
+# axis (the port's own plans wherever a block takes 512 threads).
+CUBE2_SMALL_RADIX_POINTS = 2048
+
+
+def _plan_radices(h: int, w: int) -> tuple[int, int]:
+    """The largest radix of the port's own h- and w-point plans."""
+    return tuple(max(r for r, _ in stockham.stage_plan(n)) for n in (h, w))
+
+
+def cube2_block(h: int, w: int, x, y, radix=None) -> tuple[int, int, int, int]:
+    """The redesigned walk's last arguments on h x w images: (WALK_BLOCK,
+    pairs_x, pairs_y, direct). A block a tile, copying x and storing y one
+    point at a time where `complex_pairs` (with an even row stride)
+    allows, its row pass's last stage storing y itself where y's point
+    stride is the smaller one and a row's threads span a 32-byte sector
+    (else a loop stores the tile along the smaller stride after the pass).
+    x, y: (re address, im address, row, point and image strides in
+    floats); radix: the largest radix of the two plans (default: the
+    port's own)."""
+    radix = radix or _plan_radices(h, w)
+    pairs = [int(stockham.complex_pairs(re, im, sw, sb) and sh % 2 == 0)
+             for re, im, sh, sw, sb in (x, y)]
+    y_sw, y_sb = y[3:]
+    direct = y_sw <= y_sb and (w // radix[1]) * 4 * y_sw >= SECTOR_BYTES
+    return stockham.WALK_BLOCK, *pairs, int(direct)
+
+
+def cube2_launch(h: int, w: int, x, y, radix=None) -> tuple[int, int, int, int]:
+    """The last arguments of a cube launch (walk, pairs_x, pairs_y,
+    direct): the engine's walk, which takes none of the other three, on
+    native planes (x's image stride the smaller) of at least
+    CUBE2_ENGINE_NATIVE_POINTS an image and on plans with no radix-16 axis
+    from CUBE2_SMALL_RADIX_POINTS; else `cube2_block`'s."""
+    radix = radix or _plan_radices(h, w)
+    if ((x[4] < x[3] and h * w >= CUBE2_ENGINE_NATIVE_POINTS)
+            or (max(radix) < stockham.MAX_RADIX and h * w >= CUBE2_SMALL_RADIX_POINTS)):
+        return stockham.WALK_ENGINE, 0, 0, 0
+    return cube2_block(h, w, x, y, radix)
+
+
 def _launch_cube(x, xs, y, ys, h, w, batch, inverse, th: Tables, tw: Tables) -> None:
     lib = large._library(x[0], th.twre.device)
+    ptrs = [t.data_ptr() for t in (*x, *y)]
+    launch = cube2_launch(h, w, (*ptrs[:2], *xs), (*ptrs[2:], *ys), (th.radix, tw.radix))
     with torch.cuda.device(x[0].device):
         err = lib.watfft_fft2_cube(
-            x[0].data_ptr(), x[1].data_ptr(), y[0].data_ptr(), y[1].data_ptr(), *xs, *ys,
-            h, w, batch, th.twre.data_ptr(), th.twim.data_ptr(), th.c_radices, th.c_offsets,
-            len(th.stages), tw.twre.data_ptr(), tw.twim.data_ptr(), tw.c_radices, tw.c_offsets,
-            len(tw.stages), int(inverse), torch.cuda.current_stream().cuda_stream)
+            *ptrs, *xs, *ys, h, w, batch, th.twre.data_ptr(), th.twim.data_ptr(),
+            th.c_radices, th.c_offsets, len(th.stages), tw.twre.data_ptr(), tw.twim.data_ptr(),
+            tw.c_radices, tw.c_offsets, len(tw.stages), int(inverse),
+            torch.cuda.current_stream().cuda_stream, *launch)
     large._check(lib, err, "fft2_cube", h * w, batch, launches)
 
 

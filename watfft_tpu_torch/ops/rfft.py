@@ -68,7 +68,8 @@ from .stockham import (WALK_BLOCK, WALK_ENGINE, WALK_RESIDENT, Tables, check_dev
 __all__ = ["rfft_post_twiddles", "RTables", "make_rtables", "device_rtables",
            "hermitian_post_nb", "hermitian_pre_nb", "plain_rfft", "plain_irfft",
            "rfft_nb", "irfft_nb", "rfft_nb_fused", "irfft_nb_fused",
-           "rfft_bm", "irfft_bm", "rfft", "irfft", "r2c_launch", "launches"]
+           "rfft_bm", "irfft_bm", "rfft", "irfft", "r2c_launch", "c2r_pairs", "c2r_launch",
+           "launches"]
 
 # Kernel launches made by the CUDA wrappers since the counts were last set
 # to 0: the fused kernels (f32, and their FP64 instances under `_f64`), and
@@ -312,6 +313,33 @@ def r2c_launch(n: int, x, y, size: int = 4) -> tuple[int, int, int]:
             int(complex_pairs(*y, size)))
 
 
+# The n up to which the f32 c2r runs the engine's walk (irfft_c2r_kernel, a
+# block a tile at up to eight blocks an SM): one radix-m stage where the
+# engine measured 12-25% faster than the redesigned walk; resident blocks
+# past it (1.4-1.5x faster than the engine's walk). The FP64 c2r runs the
+# engine's walk at every n and takes no walk: a redesigned FP64 walk
+# measured 0.2-4% slower at 11 of 12 n (PERF.md has the times).
+C2R_ENGINE_MAX_N = 16
+
+
+def c2r_pairs(x, y) -> tuple[int, int]:
+    """Whether the f32 c2r's resident walk copies each bin and stores
+    o[2j], o[2j+1] = z[j] one point at a time (`complex_pairs`). x: (re
+    address, im address, bin stride, batch stride), y: (address, element
+    stride, batch stride), strides in floats."""
+    ya, y_sn, y_sb = y
+    return int(complex_pairs(*x)), int(complex_pairs(ya, ya + 4 * y_sn, 2 * y_sn, y_sb))
+
+
+def c2r_launch(n: int, x, y) -> tuple[int, int, int]:
+    """The last arguments of the f32 c2r launch on spectra of n/2 + 1 bins:
+    its walk (WALK_ENGINE up to C2R_ENGINE_MAX_N, without pairs; else
+    WALK_RESIDENT with `c2r_pairs`)."""
+    if n <= C2R_ENGINE_MAX_N:
+        return WALK_ENGINE, 0, 0
+    return (WALK_RESIDENT, *c2r_pairs(x, y))
+
+
 def _use_kernel(t: torch.Tensor) -> bool:
     """The fused kernels run on CUDA tensors; CPU tensors take the plain
     version."""
@@ -338,9 +366,10 @@ def _launch_c2r(x, xre, xim, x_sn, x_sb, y, y_sn, y_sb, n, batch, rt: RTables) -
     lib, targs = _kernel_args(rt, x, "irfft_c2r_fused")
     f64 = rt.dtype == torch.float64
     entry = lib.watfft_irfft_c2r_f64 if f64 else lib.watfft_irfft_c2r
+    launch = () if f64 else c2r_launch(n, (xre, xim, x_sn, x_sb), (y.data_ptr(), y_sn, y_sb))
     with torch.cuda.device(x.device):
         err = entry(xre, xim, x_sn, x_sb, y.data_ptr(), y_sn, y_sb, n, batch,
-                    *targs, torch.cuda.current_stream().cuda_stream)
+                    *targs, torch.cuda.current_stream().cuda_stream, *launch)
     _check(lib, err, "irfft_c2r_fused" + ("_f64" if f64 else ""), n, batch)
 
 

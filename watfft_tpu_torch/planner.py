@@ -144,12 +144,15 @@ def bluestein_kernel(n: int, batch: int | None = None) -> str:
 
 # The least batch at which the 2D cube beats the 2-pass route, per h*w, in
 # the batch-major and complex layouts. Measured on an H100 80GB HBM3 at a
-# 700 W limit (chip_smoke.py's fft2_crossover phase; PERF.md): at 2^12
-# (64x64) the cube won at every batch from 1 to 1024 (14.7 us against 25.2
-# at 1); at 2^14 (128x128, 16x1024, 1024x16: one 139 KB block of 512
-# threads per SM) the 2-pass route won at batch 1..16 (26.9-27.5 us against
-# 30.8-33.2) and the cube from 64 up (31.8-33.7 against 34.0-36.8).
-FFT2_CUBE_MIN_BATCH = {1 << 14: 64}
+# 700 W limit (chip_smoke.py's fft2_crossover phase, complex64; PERF.md):
+# at 2^12 (64x64) the cube won at every batch from 1 to 1024 (11.4 us
+# against 22.8 at 1); at 2^14 (128x128, 16x1024, 1024x16, 64x256, 32x512:
+# one 139 KB block of 512 threads per SM), once both routes were
+# redesigned, the 2-pass route won at batch 1..64 (21.6-24.4 us against
+# 24.1-30.3) and the cube from 96 up (25.4-30.4 against 35.0-38.0 at 96;
+# 1024x16 alone lost by 3-4% at 160 and 192: 58.8 / 60.0 against 56.5 /
+# 58.1).
+FFT2_CUBE_MIN_BATCH = {1 << 14: 96}
 # Native [h, w, B] planes: a cube block that holds one image (h*w >= 4096)
 # reads it B floats apart, uncoalesced; measured at 2^24 points (the same
 # card, chip_smoke.py's fft2_times phase; PERF.md), the cube took 818.7 us
