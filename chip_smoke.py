@@ -147,19 +147,24 @@ Phases (any failure exits nonzero and prints no result):
    batch 1, n = 1024 (BASELINE config 1) against torch.fft.fft; then the
    three FP64 kernels held against their plain versions and timed at the
    main shapes, [4096, 1024], for the kernels line.
-25. The small-n DFT matmul (#20) against its plain version (one matmul in
-   full f32) at n = 1..128 (the powers of two, 12 and 100), forward and
-   inverse, three layouts (complex64, batch-major and time-major planes),
-   batch 3 and 2^22/n (limit 1e-6 of the largest output); at batch 3 also
-   against torch.fft in complex128 (MAX_REL), per bin (n * 5e-6) at every
-   n; then #20's own path, `dft_matmul_nb` (the JAX signature) on
-   time-major [128, 32768] and [16, 262144] forward and inverse and
-   `dft_matmul` on the complex64 layout, with its launch counts.
-26. #20's times at 2^22 points per n = 2..128 in three layouts, beside the
-   f32 c2c kernel (#1) on the same input, the plain version and
-   torch.fft.fft, and its bound: bytes over 3.35 TB/s or 8 n^2 flops a
-   transform over the FP32 rate outside the tensor cores (67 TFLOP/s); the
-   kernels line's #20 rows at n = 128 and 16.
+25. The small-n DFT matmul (#20: the 3xTF32 tensor-core kernel, the FP32
+   cores at n <= 2) against its plain version, the same product of the
+   same f32 W and x summed in float64 (`dft_plain64`; limit 1e-6 of the
+   largest output), at every n = 1..128, forward and inverse, three layouts
+   (complex64, batch-major and time-major planes), batch 3 and 2^22/n; at
+   both batches also against torch.fft in complex128 (MAX_REL), per bin
+   (n * 5e-6) at every n, and the reading against the f32 plain version
+   (one matmul in full f32, recorded: its own rounding is most of that
+   difference); then #20's own path,
+   `dft_matmul_nb` (the JAX signature) on time-major [128, 32768] and
+   [16, 262144] forward and inverse and `dft_matmul` on the complex64
+   layout, with its launch counts.
+26. #20's times at 2^22 points per n = 2..128 in three layouts and, on
+   complex64, the tensor-core kernel forced at n = 2 (`forced_mma`), beside
+   the f32 c2c kernel (#1) on the same input, the plain
+   version and torch.fft.fft, and its bound: bytes over 3.35 TB/s or the
+   3xTF32 form's 3 * 8 n^2 flops a transform over the TF32 tensor-core rate
+   (495 TFLOP/s); the kernels line's #20 rows at n = 128 and 16.
 27. #1's bf16 tiers: the interop instance (bf16 planes, f32 stages) on
    time-major, batch-major and folded [n, 8, W] planes and the compute
    instance (`config.BF16_COMPUTE`, bf16 stages) on time-major planes,
@@ -325,9 +330,9 @@ F64_POINTS = 1 << 21
 F64_FOURSTEP_N, F32_REAL_FOURSTEP_N = 1 << 16, 1 << 26
 F64_SRC = {"c2c": "watfft_tpu_torch/ops/csrc/stockham.cu",
            "real": "watfft_tpu_torch/ops/csrc/rfft.cu"}
-# #20 at n = 1..128 (the powers of two, 12 and 100), timed at 2..128; the
-# kernels line's #20 rows at these n
-DFT_SIZES = [1 << k for k in range(8)] + [12, 100]
+# #20 at every n = 1..128, timed at 2..128; the kernels line's #20 rows at
+# these n
+DFT_SIZES = list(range(1, 129))
 DFT_TIME_SIZES = [1 << k for k in range(1, 8)]
 DFT_ROWS = (128, 16)
 DFT_SRC = "watfft_tpu_torch/ops/csrc/mxu_dft.cu"
@@ -347,8 +352,10 @@ LADDER_CASES = ((1 << 16, 4, True), (256, 4, False), (256, 4096, False))
 LADDER_DEFAULT_LIMIT = 1e-2
 LADDER_TF32_GAIN = 10.0
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s, FP32 flop/s
-# outside the tensor cores, and FP64 flop/s (non-tensor)
+# outside the tensor cores, FP64 flop/s (non-tensor) and TF32 flop/s on the
+# tensor cores (dense)
 PEAK_BYTES, PEAK_FLOPS, PEAK_FLOPS_F64 = 3.35e12, 67e12, 34e12
+PEAK_FLOPS_TF32 = 495e12
 # the column tile: the c2c kernel's four instances (tier, planes, tables,
 # limit against the plain version) at these n on time-major planes; the
 # strided kernel through fft2_cols at these widths, fft2_k2 on native
@@ -2217,11 +2224,22 @@ def f64_kernel_rows(main: dict, dev, gen, name: str, limit: str) -> list:
 
 # -- #20, the small-n DFT matmul ------------------------------------------------------
 
+def dft_plain64(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """#20's plain version summed in float64: the product of the same f32 W
+    (`md.device_matrix`) and complex64 x [..., n], widened, in complex128.
+    The kernel's difference from it is its own rounding; from the f32 plain
+    version (`md.plain_dft_matmul`) it is mostly that version's."""
+    n = x.shape[-1]
+    y = torch.cat([x.real, x.imag], -1).double() @ md.device_matrix(n, inverse, x.device).double()
+    return torch.complex(y[..., :n], y[..., n:])
+
+
 def phase_dft_kernel_vs_plain(dev, gen) -> None:
-    """#20 against its plain version (one matmul in full f32) at n = 1..128
-    in three layouts, batch 3 and 2^22/n; at batch 3 also against torch.fft
-    in complex128, and per bin at every n."""
-    worst = 0.0
+    """#20 against its plain version summed in float64 (`dft_plain64`) at
+    n = 1..128 in three layouts, batch 3 and 2^22/n, and against torch.fft in
+    complex128; per bin at every n; the reading against the f32 plain
+    version recorded beside."""
+    worst = worst_f32 = 0.0
     for n in DFT_SIZES:
         line = {"phase": "dft_kernel_vs_plain", "n": n}
         for batch in (3, POINTS // n):
@@ -2229,22 +2247,23 @@ def phase_dft_kernel_vs_plain(dev, gen) -> None:
             re, im = x.real.contiguous(), x.imag.contiguous()
             tre, tim = re.T.contiguous(), im.T.contiguous()
             for inverse in (False, True):
-                p = md.plain_dft_matmul(x, None, inverse, layout="complex")
+                p = dft_plain64(x, inverse)
                 y = md.dft_matmul(x, inverse)
-                diffs = {"complex": rel_diff(y, p),
-                         "bm": rel_diff(torch.complex(*md.dft_matmul_bm(re, im, inverse)), p),
-                         "nb": rel_diff(torch.complex(*md.dft_matmul_nb(tre, tim, inverse)).T,
-                                        p)}
+                diffs = {"complex": rel_diff(y.to(p.dtype), p),
+                         "bm": rel_diff(as_c128(md.dft_matmul_bm(re, im, inverse)), p),
+                         "nb": rel_diff(as_c128(md.dft_matmul_nb(tre, tim, inverse)).T, p)}
                 worst = max(worst, *diffs.values())
                 check(max(diffs.values()) <= KERNEL_LIMIT,
                       f"dft n={n} batch={batch} inverse={inverse}: kernel vs plain {diffs}")
-                if batch == 3:
-                    e = max_rel(y, c128(x, inverse))
-                    check(e <= MAX_REL["float32"], f"dft n={n} inverse={inverse}: {e:.3e} "
-                                                   f"vs torch.fft c128")
-                    line[f"max_rel_vs_torch_fft_c128_{'inv' if inverse else 'fwd'}"] = e
-                line[f"batch_{batch}_max_rel_diff"] = max(
-                    line.get(f"batch_{batch}_max_rel_diff", 0.0), *diffs.values())
+                e = max_rel(y, c128(x, inverse))
+                check(e <= MAX_REL["float32"], f"dft n={n} batch={batch} inverse={inverse}: "
+                                               f"{e:.3e} vs torch.fft c128")
+                f32 = rel_diff(y, md.plain_dft_matmul(x, None, inverse, layout="complex"))
+                worst_f32 = max(worst_f32, f32)
+                for key, v in ((f"batch_{batch}_max_rel_diff", max(diffs.values())),
+                               (f"batch_{batch}_max_rel_vs_torch_fft_c128", e),
+                               (f"batch_{batch}_rel_diff_vs_plain_f32", f32)):
+                    line[key] = max(line.get(key, 0.0), v)
         t = torch.arange(n, device=dev, dtype=torch.float64)
         basis = torch.exp(2j * torch.pi * torch.outer(t, t) / n).to(torch.complex64)
         eye = n * torch.eye(n, device=dev, dtype=torch.complex64)
@@ -2252,7 +2271,8 @@ def phase_dft_kernel_vs_plain(dev, gen) -> None:
         check(per_bin < PER_BIN["float32"](n), f"dft n={n}: per-bin error {per_bin:.3e}")
         print(json.dumps(line), flush=True)
     print(json.dumps({"phase": "dft_kernels_vs_plain", "sizes": len(DFT_SIZES),
-                      "max_rel_diff": worst}), flush=True)
+                      "max_rel_diff": worst, "max_rel_diff_vs_plain_f32": worst_f32}),
+          flush=True)
 
 
 def phase_dft_main_path(dev, gen) -> dict:
@@ -2276,8 +2296,8 @@ def phase_dft_main_path(dev, gen) -> dict:
             {"fwd_max_rel_vs_torch_fft_c128": lambda o: max_rel(o[0], c128(x)),
              "inv_max_rel_vs_torch_fft_c128": lambda o: max_rel(o[1], c128(x, True)),
              "layouts_agree": lambda o: rel_diff(o[2], o[0]),
-             "kernel_vs_plain_rel": lambda o: rel_diff(
-                 o[2], md.plain_dft_matmul(x, None, layout="complex"))},
+             "kernel_vs_plain_rel": lambda o: rel_diff(o[2].to(torch.complex128),
+                                                       dft_plain64(x))},
             {"fwd_max_rel_vs_torch_fft_c128": MAX_REL["float32"],
              "inv_max_rel_vs_torch_fft_c128": MAX_REL["float32"],
              "layouts_agree": KERNEL_LIMIT, "kernel_vs_plain_rel": KERNEL_LIMIT},
@@ -2286,11 +2306,13 @@ def phase_dft_main_path(dev, gen) -> dict:
 
 
 def dft_bound(n: int, b: int) -> tuple[float, str]:
-    """#20's least time as a matmul: 16 bytes a point in and out against
-    8n^2 flops a transform over the FP32 rate outside the tensor cores.
-    It bounds the dense product the kernel does, not the n-point DFT,
-    whose least is the bytes alone (`dft_bytes_bound_ms`)."""
-    return bound(16 * n * b, 8 * n * n * b)
+    """#20's least time as a 3xTF32 matmul: 16 bytes a point in and out
+    against 3 * 8n^2 flops a transform (three TF32 products of the dense
+    real form) over the tensor cores' TF32 rate. It bounds the dense product
+    the kernel does, not the n-point DFT, whose least is the bytes alone
+    (`dft_bytes_bound_ms`); at n <= 2, where the FP32 cores run it, the
+    bytes bound either form."""
+    return bound(16 * n * b, 3 * 8 * n * n * b, PEAK_FLOPS_TF32)
 
 
 def dft_bytes_bound_ms(n: int, b: int) -> float:
@@ -2298,10 +2320,22 @@ def dft_bytes_bound_ms(n: int, b: int) -> float:
     return bound(16 * n * b, 0.0)[0]
 
 
+@contextlib.contextmanager
+def forced_mma():
+    """#20's launches inside the block take the tensor-core kernel at every
+    n, n <= md.SIMT_MAX_N too; the rule (`md.dft_launch`) restored after."""
+    prev, md.SIMT_MAX_N = md.SIMT_MAX_N, 0
+    try:
+        yield
+    finally:
+        md.SIMT_MAX_N = prev
+
+
 def phase_dft_times(dev, gen, name: str, limit: str) -> dict:
     """2^22 points a call at every power-of-two n = 2..128: #20 in three
-    layouts, the f32 c2c kernel (#1) on the same input, the plain version,
-    torch.fft.fft (cuFFT) and the bound."""
+    layouts and, on complex64, the tensor-core kernel forced where the rule
+    takes the FP32 cores, the f32 c2c kernel (#1) on the same input, the
+    plain version, torch.fft.fft (cuFFT) and the bound."""
     times = {}
     for n in DFT_TIME_SIZES:
         b = POINTS // n
@@ -2319,24 +2353,28 @@ def phase_dft_times(dev, gen, name: str, limit: str) -> dict:
         row = {}
         for key, fn in fns.items():
             row[key + "_ms"] = time_ms(fn)[0]
+        with forced_mma():
+            row["dft_mma_ms"] = time_ms(fns["dft_complex"])[0]
         bnd = dft_bound(n, b)
-        row.update(bound_ms=bnd[0], bound_by=bnd[1], bytes_bound_ms=dft_bytes_bound_ms(n, b))
+        row.update(bound_ms=bnd[0], bound_by=bnd[1], bytes_bound_ms=dft_bytes_bound_ms(n, b),
+                   kernel="simt" if n <= md.SIMT_MAX_N else "mma")
         times[n] = row
         print(json.dumps({"phase": "dft_times", "n": n, "batch": b, **row,
-                          "bound_peaks": "HBM 3.35 TB/s; FP32 67 TFLOP/s (no tensor cores)",
+                          "bound_peaks": "HBM 3.35 TB/s; TF32 tensor cores 495 TFLOP/s "
+                                         "(3xTF32: three passes)",
                           "card": name, "power_limit": limit}), flush=True)
     return times
 
 
 def dft_kernel_rows(main: dict, dev, gen, name: str, limit: str) -> list:
     """#20 at n = 128 and 16 on 2^22 points (complex64 layout): held against
-    its plain version there and timed, with torch.fft.fft on the same
-    tensor."""
+    its plain version summed in float64 there (`dft_plain64`) and timed, with
+    the f32 plain version and torch.fft.fft on the same tensor."""
     rows = []
     for n in DFT_ROWS:
         b = POINTS // n
         x = rand_complex((b, n), gen, dev)
-        k, p = md.dft_matmul(x), md.plain_dft_matmul(x, None, layout="complex")
+        k, p = md.dft_matmul(x).to(torch.complex128), dft_plain64(x)
         rel = rel_diff(k, p)
         check(rel <= KERNEL_LIMIT, f"mxu_dft at [{b}, {n}]: {rel:.3e} vs plain")
         bnd = dft_bound(n, b)
@@ -2344,13 +2382,14 @@ def dft_kernel_rows(main: dict, dev, gen, name: str, limit: str) -> list:
                      "source": DFT_SRC, "replaces": "watfft_tpu/ops/mxu_dft.py:59",
                      "also_replaces": [], "launches": main[n]["launches"]["mxu_dft"],
                      "max_abs_err": (k - p).abs().max().item(),
+                     "max_abs_err_of": "against the plain product summed in float64",
                      "ms": time_ms(lambda: md.dft_matmul(x))[0],
                      "plain_ms": time_ms(lambda: md.plain_dft_matmul(x, None,
                                                                      layout="complex"))[0],
                      "bound_ms": bnd[0], "bound_by": bnd[1],
-                     "bound_peak": "FP32 67 TFLOP/s outside the tensor cores; HBM 3.35 TB/s",
-                     "bound_of": "the matmul form (8n^2 flops a transform), not the "
-                                 "n-point DFT, whose least is bytes_bound_ms",
+                     "bound_peak": "TF32 tensor cores 495 TFLOP/s; HBM 3.35 TB/s",
+                     "bound_of": "the 3xTF32 matmul form (3 * 8n^2 flops a transform), "
+                                 "not the n-point DFT, whose least is bytes_bound_ms",
                      "bytes_bound_ms": dft_bytes_bound_ms(n, b),
                      "library_ms": time_ms(lambda: torch.fft.fft(x))[0],
                      "library_call": "torch.fft.fft on the same complex64 tensor",

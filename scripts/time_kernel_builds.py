@@ -20,6 +20,9 @@ comma-separated, default all):
   FP64, bf16 interop, bf16 compute), the 2D column pass and the whole fft2
   on one 4096 x 4096 complex64 image, pipe2 on [16, 2^20] complex64 and
   its stages on time-major [n2, n1, b] blocks;
+* `dft`: the small-n DFT matmul (#20) at 2^22 points for n = 1..128 (the
+  powers of two, 3, 12 and 100) in complex64, batch-major and time-major
+  planes, forward, and inverse on complex64;
 * `cube`: the cube (#12) at [2048, 8192] and [256, 16384], complex64 and
   split planes, both directions, and the real large route (rfft_large /
   irfft_large) at [2048, 2^14], whose m = 8192 core the planner sends to
@@ -38,8 +41,10 @@ from T up to what shared memory holds, in blocks of 256 and 512 threads
 (`config.COLUMN_TILE`), beside the kept tile of `tile_shape`. `--walks`
 also times this build's `main` cases in each batch-major walk, forced
 (`chip_smoke.forced_walk`: the engine's, resident blocks, a block a
-tile), in turns, and the `fft2` cases in each walk and store of the
-cube (`chip_smoke.cube2_times`). Needs one CUDA device:
+tile), in turns, the `fft2` cases in each walk and store of the cube
+(`chip_smoke.cube2_times`) and the `dft` cases on #20's tensor-core
+kernel forced (`chip_smoke.forced_mma`; the rule takes the FP32 cores at
+n <= 2). Needs one CUDA device:
 
     python3 scripts/time_kernel_builds.py [--routes R] [--sweep] [--walks] [OTHER_CHECKOUT ...]
 
@@ -69,10 +74,13 @@ from watfft_tpu_torch.ops import _build  # noqa: E402
 from watfft_tpu_torch.ops import bluestein as bl  # noqa: E402
 from watfft_tpu_torch.ops import fft2 as f2  # noqa: E402
 from watfft_tpu_torch.ops import large as lg  # noqa: E402
+from watfft_tpu_torch.ops import mxu_dft as md  # noqa: E402
 from watfft_tpu_torch.ops import rfft as rf  # noqa: E402
 from watfft_tpu_torch.ops import stockham as st  # noqa: E402
 
-ROUTES = ("bluestein", "columns", "cube", "fft2", "main")
+ROUTES = ("bluestein", "columns", "cube", "dft", "fft2", "main")
+# #20's timed n, at cs.POINTS points each
+DFT_TIME_SIZES = [1, 2, 3, 4, 8, 12, 16, 32, 64, 100, 128]
 # the real large route's shape (signals, n): its m = 8192 core on the cube
 CUBE_REAL = (cs.CUBE_B, 1 << 14)
 # batches of few columns, where a block per SM comes before a wider tile
@@ -181,6 +189,23 @@ def cube_cases(gen, dev) -> list:
     cases.append(({"route": "cube", "case": "irfft_large", "shape": [b, n],
                    "core": planner.large_mode(n // 2, b)}, lambda: lg.irfft_large(spec),
                   None))
+    return cases
+
+
+def dft_cases(gen, dev) -> list:
+    """#20 at 2^22 points for each n of DFT_TIME_SIZES: complex64,
+    batch-major and time-major planes forward, complex64 inverse."""
+    cases = []
+    for n in DFT_TIME_SIZES:
+        b = cs.POINTS // n
+        x = cs.rand_complex((b, n), gen, dev)
+        re, im = x.real.contiguous(), x.imag.contiguous()
+        tre, tim = re.T.contiguous(), im.T.contiguous()
+        cases += [({"route": "dft", "case": key, "shape": [b, n]}, fn, None) for key, fn in (
+            ("complex", lambda x=x: md.dft_matmul(x)),
+            ("complex_inv", lambda x=x: md.dft_matmul(x, True)),
+            ("bm", lambda re=re, im=im: md.dft_matmul_bm(re, im)),
+            ("nb", lambda tre=tre, tim=tim: md.dft_matmul_nb(tre, tim)))]
     return cases
 
 
@@ -313,7 +338,7 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     makers = {"bluestein": bluestein_cases, "columns": column_cases, "cube": cube_cases,
-              "fft2": fft2_cases, "main": main_cases}
+              "dft": dft_cases, "fft2": fft2_cases, "main": main_cases}
     for route in routes:
         for row, fn, tiles in makers[route](gen, dev):
             this, *other = in_turns(libs, fn)
@@ -324,6 +349,9 @@ def main() -> int:
                 row["walk_ms"] = cs.walk_times(fn)
             if args.walks and route == "fft2":
                 row["walk_ms"] = cs.cube2_times(fn)
+            if args.walks and route == "dft":
+                with cs.forced_mma():
+                    row["walk_ms"] = {"mma": cs.time_ms(fn)[0]}
             print(json.dumps({**row, "card": name, "power_limit": limit}), flush=True)
     return 0
 

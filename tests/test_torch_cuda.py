@@ -2,7 +2,8 @@
 and c2r real kernels, the hybrid real path that drives the c2c kernel
 through strides, the FP64 instances of these three, the four-step kernels
 of the large-N path, the 2D path's cube and passes, the Bluestein pair and
-one-pass kernel, the small-n DFT matmul (#20), the c2c kernel's two bf16
+one-pass kernel, the small-n DFT matmul (#20: its FP32-core and 3xTF32
+tensor-core kernels), the c2c kernel's two bf16
 instances, the redesigned batch-major walk of the c2c kernel and the FP64
 r2c, and the redesigned f32 c2r and 2D cube), against their plain torch
 versions.
@@ -631,13 +632,23 @@ def test_bluestein_kernels_refuse_what_they_do_not_take(dev):
 
 # -- #20, the small-n DFT matmul ---------------------------------------------------------
 
-DFT_SIZES = [1, 2, 3, 4, 8, 12, 16, 32, 64, 100, 128]
+def _dft_batches(n):
+    """Batch 1, 3, one tile plus one and past the resident grid by a tail. A
+    tile of the tensor-core kernel holds 256 transforms over its m-tiles,
+    ceil(n / 16) rounded up to a power of two (csrc/mxu_dft.cu `MmaTile`);
+    its grid is two blocks an SM at most."""
+    t = 256 // (1 << (-(-n // 16) - 1).bit_length())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return (1, 3, t + 1, 2 * sms * t + t // 2 + 3)
 
 
-@pytest.mark.parametrize("n", DFT_SIZES)
+@pytest.mark.parametrize("n", range(1, 129))
 def test_dft_matmul_matches_plain_all_layouts(n, dev):
+    """Either kernel (the FP32 cores at n <= SIMT_MAX_N, the tensor cores in
+    3xTF32 past it) against the plain version, three layouts, both
+    directions."""
     from watfft_tpu_torch.ops import mxu_dft as md
-    for batch in (1, 3, 257):  # ragged: not a multiple of a block's transforms
+    for batch in _dft_batches(n):
         x = _x((batch, n), seed=n + batch, dev=dev)
         re, im = x.real.contiguous(), x.imag.contiguous()
         for inverse in (False, True):
@@ -650,10 +661,30 @@ def test_dft_matmul_matches_plain_all_layouts(n, dev):
             assert _rel(torch.complex(tre, tim).T, want) <= KERNEL_LIMIT
             assert md.launches == before + 3
             ref = (torch.fft.ifft if inverse else torch.fft.fft)(x.to(torch.complex128))
-            assert _rel(md.dft_matmul(x, inverse).to(torch.complex128), ref) <= MAX_REL["float32"]
+            assert _rel(md.dft_matmul(x, inverse).to(torch.complex128), ref) \
+                <= MAX_REL["float32"]
+
+
+@pytest.mark.parametrize("n", [3, 16, 17, 64, 100, 128])
+def test_dft_matmul_on_views_one_float_off(n, dev):
+    """Interleaved points whose re sits one float off 8-byte alignment: the
+    copies (or the stores) take a plane at a time, the other side pairs."""
+    from watfft_tpu_torch.ops import mxu_dft as md
+    for batch in _dft_batches(n)[1:3]:
+        flat = torch.rand(2 * n * batch + 3, device=dev) * 2 - 1
+        for off in (0, 1):
+            got, want = torch.zeros_like(flat), torch.zeros_like(flat)
+            for run, y in ((md._launch, got), (md._plain, want)):
+                run((flat[off:], flat[off + 1:]), (2, 2 * n), (y[1 - off:], y[2 - off:]),
+                    (2, 2 * n), n, batch, False)
+            assert _rel(got, want) <= KERNEL_LIMIT
+            assert md.dft_launch(n, (flat[off:].data_ptr(), flat[off + 1:].data_ptr(), 2, 2 * n),
+                                 (got[1 - off:].data_ptr(), got[2 - off:].data_ptr(), 2, 2 * n)
+                                 )[1:] == (1 - off, off)
 
 
 def test_dft_matmul_refuses_what_it_does_not_take(dev):
+    import ctypes
     from watfft_tpu_torch.ops import _build
     from watfft_tpu_torch.ops import mxu_dft as md
     x = torch.zeros(129, 4, device=dev)
@@ -664,12 +695,28 @@ def test_dft_matmul_refuses_what_it_does_not_take(dev):
     with pytest.raises(RuntimeError, match="no gradient"):
         md.dft_matmul_nb(x[:8].requires_grad_(), x[:8])
     wt = md.device_matrix(128, False, dev)
+    frag = ctypes.c_void_p(md.device_fragments(128, False, dev).data_ptr())
     lib = _build.library()
+    y = torch.zeros(2 * 128 * 4, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def entry(xre, xim, sn, sb, n, kernel, pairs_x, pairs_y):
+        err = lib.watfft_dft_matmul(xre, xim, y.data_ptr(), y.data_ptr() + 4, sn, sb, 2,
+                                    2 * 128, n, 4, wt.data_ptr(), stream, frag, kernel,
+                                    pairs_x, pairs_y)
+        return lib.watfft_error_string(err).decode() if err else ""
+    p = x.data_ptr()
     for n in (0, 129):  # the kernel's own refusal, before any launch
-        err = lib.watfft_dft_matmul(x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
-                                    4, 1, 4, 1, n, 4, wt.data_ptr(),
-                                    torch.cuda.current_stream().cuda_stream)
-        assert "1..128" in lib.watfft_error_string(err).decode()
+        for kernel in (md.KERNEL_SIMT, md.KERNEL_MMA):
+            assert "1..128" in entry(p, p, 4, 1, n, kernel, 0, 0)
+    assert "pairs refused" in entry(p, p + 4 * 129 * 4, 1, 128, 128, md.KERNEL_MMA, 1, 0)
+    assert "pairs refused" in entry(p + 4, p + 8, 2, 256, 128, md.KERNEL_MMA, 1, 0)
+    assert "pairs refused" in entry(p, p + 4, 2, 256, 128, md.KERNEL_SIMT, 1, 1)
+    for kernel in (3, md.KERNEL_SIMT):  # an unknown kernel; no FP32-core one at n = 128
+        assert "out of range" in entry(p, p + 4, 2, 256, 128, kernel, 0, 0)
+    xs = torch.zeros(2 * 128 * 4, device=dev)
+    assert entry(xs.data_ptr(), xs.data_ptr() + 4, 2, 256, 128, md.KERNEL_MMA, 1, 1) == ""
+    torch.cuda.synchronize()
 
 
 # -- #1's bf16 tiers -------------------------------------------------------------------------

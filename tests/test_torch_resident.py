@@ -2,8 +2,9 @@
 `cube_threads`, `cube_launch`), the fused r2c kernel in f32 (#9) and FP64
 (ops/rfft.py `r2c_launch`), the batch-major walk of the c2c kernel
 (ops/stockham.py `c2c_launch`, `complex_pairs`), the fused c2r kernel in
-f32 (#10, ops/rfft.py `c2r_launch`) and the 2D cube (#15, ops/fft2.py
-`cube2_launch`). The host picks each
+f32 (#10, ops/rfft.py `c2r_launch`), the 2D cube (#15, ops/fft2.py
+`cube2_launch`) and the small-n DFT matmul (#20, ops/mxu_dft.py
+`dft_launch`). The host picks each
 launch's block, walk and one-point accesses and passes them; the kernels
 refuse what they do not take. Here: the rules, and the arguments each
 wrapper passes, recorded by a stand-in library, on the CPU. No JAX is
@@ -23,6 +24,7 @@ from watfft_tpu_torch import planner
 from watfft_tpu_torch.ops import _build
 from watfft_tpu_torch.ops import fft2 as f2
 from watfft_tpu_torch.ops import large as lg
+from watfft_tpu_torch.ops import mxu_dft as md
 from watfft_tpu_torch.ops import rfft as rf
 from watfft_tpu_torch.ops import stockham as st
 
@@ -82,6 +84,7 @@ def recorder(monkeypatch):
     monkeypatch.setattr(rf, "_use_kernel", lambda t: True)
     monkeypatch.setattr(st, "_use_kernel", lambda t, plain=False: not plain)
     monkeypatch.setattr(f2, "_use_kernel", lambda t, plain: not plain)
+    monkeypatch.setattr(md, "_use_kernel", lambda t, plain: not plain)
     return lib
 
 
@@ -531,3 +534,54 @@ def test_cube2_launch_arguments(h, w, layout, recorder):
     else:
         assert launch[:3] == (st.WALK_BLOCK, pairs_x, pairs_y)
     assert launch == f2.cube2_launch(h, w, xs, ys)
+
+
+# -- #20: the kernel and its one-point accesses ---------------------------------------
+
+def test_dft_launch_rule():
+    """The FP32-core kernel at n <= SIMT_MAX_N, with no pairs; past it the
+    tensor cores, with pairs where re and im are adjacent in aligned points
+    (the grid is the C side's, from the device)."""
+    cplx, planes, odd = (0, 4, 2, 2 * 100), (0, 1 << 20, 1, 100), (4, 8, 2, 2 * 100)
+    for n in range(1, md.SIMT_MAX_N + 1):
+        assert md.dft_launch(n, cplx, cplx) == (md.KERNEL_SIMT, 0, 0)
+    for n in (md.SIMT_MAX_N + 1, 16, 17, 32, 33, 64, 65, 100, 128):
+        assert md.dft_launch(n, cplx, planes) == (md.KERNEL_MMA, 1, 0)
+        assert md.dft_launch(n, planes, cplx) == (md.KERNEL_MMA, 0, 1)
+        assert md.dft_launch(n, odd, cplx) == (md.KERNEL_MMA, 0, 1)
+
+
+def _dft_args(lib):
+    (name, a), = [c for c in lib.calls if c[0] == "watfft_dft_matmul"][-1:]
+    return a
+
+
+@pytest.mark.parametrize("n", [2, 3, 100])
+@pytest.mark.parametrize("layout", ["complex", "bm", "nb"])
+def test_dft_launch_arguments(n, layout, recorder):
+    """W^T stays in its old place before the stream (a build without the
+    tensor-core kernel reads it); the fragments, the kernel and pairs follow
+    it."""
+    batch = 5
+    x = torch.complex(_f32((batch, n), 1), _f32((batch, n), 2))
+    if layout == "complex":
+        md.dft_matmul(x, inverse=True)
+    elif layout == "bm":
+        md.dft_matmul_bm(x.real.contiguous(), x.imag.contiguous(), True)
+    else:
+        md.dft_matmul_nb(x.real.T.contiguous(), x.imag.T.contiguous(), True)
+    a = _dft_args(recorder)
+    strides = {"complex": (2, 2 * n), "bm": (1, n), "nb": (batch, 1)}[layout]
+    assert a[4:6] == a[6:8] == strides and a[8:10] == (n, batch)
+    assert a[10] == md.device_matrix(n, True, "cpu").data_ptr() and a[11] == 0
+    assert a[12].value == md.device_fragments(n, True, "cpu").data_ptr()
+    pairs = int(layout == "complex" and n > md.SIMT_MAX_N)
+    kernel = md.KERNEL_SIMT if n <= md.SIMT_MAX_N else md.KERNEL_MMA
+    assert a[13:] == (kernel, pairs, pairs)
+
+
+def test_dft_launch_on_misaligned_views(recorder):
+    n, batch = 100, 7
+    flat, out = _f32(2 * n * batch + 3), torch.zeros(2 * n * batch + 3)
+    md._launch((flat[1:], flat[2:]), (2, 2 * n), (out, out[1:]), (2, 2 * n), n, batch, False)
+    assert _dft_args(recorder)[13:] == (md.KERNEL_MMA, 0, 1)  # the input 4 bytes off

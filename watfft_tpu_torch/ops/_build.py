@@ -115,8 +115,10 @@ def library() -> ctypes.CDLL:
         c2c.argtypes = [p, p, p, p, i64, i64, i64, i64, i32, i64, p, p, ip, ip, i32, i32, p,
                         i32, i32]
         c2c.restype = i32
-    # (xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch, W^T, stream)
-    lib.watfft_dft_matmul.argtypes = [p, p, p, p, i64, i64, i64, i64, i32, i64, p, p]
+    # (xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch, W^T, stream, the
+    #  fragments of W, kernel, pairs_x, pairs_y)
+    lib.watfft_dft_matmul.argtypes = [p, p, p, p, i64, i64, i64, i64, i32, i64, p, p,
+                                      p, i32, i32, i32]
     lib.watfft_dft_matmul.restype = i32
     # (xre, xim, yre, yim, x_sn, x_sa, x_sb, y_sn, y_sa, y_sb, pmre, pmim,
     #  m_sn, m_sa, m_sb, mul, n, inner, batch, twre, twim, radices, offsets,
