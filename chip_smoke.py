@@ -251,6 +251,25 @@ Phases (any failure exits nonzero and prints no result):
    gain the walk the rule takes and `old_walk_ms`, the FP64 c2r's the walk
    it runs; their launch counts come from the main paths of phases 8, 9,
    17 and 23, which run the rules' walks.
+33. The sharded faces (`watfft_tpu_torch/parallel`) at world 1 on NCCL
+   (an in-memory store): `fft_batch_sharded`, `rfft_batch_sharded` and
+   `irfft_batch_sharded` on [4096, 1024] (BASELINE config 4),
+   `fft2_sharded`, `rfft2_sharded` and `irfft2_sharded` on one 4096^2
+   image (config 5), `fft2_sharded` with `batch_axis` on a (1, 1) mesh on
+   [4, 1024, 1024], `fft_large_sharded` at 2^24, `rfft_large_sharded` /
+   `irfft_large_sharded` at 2^25, `stft_sharded` on phase 9's signal and
+   the `fft2_sharded` backward: each with torch.fft patched to raise,
+   its launch counts (the kernels the face names and no others), within
+   KERNEL_LIMIT of the port's single-device function, within MAX_REL of
+   torch.fft in float64, round trips within ROUNDTRIP, timed beside the
+   single-device function (the backward at the energy's cotangent, fft2's
+   backward at the same one, and within 1e-3 of 2x); the a2a of one 64 MiB plane and a pack and an
+   unpack as four ranks would lay them out, timed apart; one `sharded`
+   line. Then `dryrun.faces` at its mid sizes, world 1, for phase 34.
+34. `dryrun.faces` on four gloo ranks of the one card (CUDA tensors; NCCL
+   refuses two ranks a GPU), a (4,) and a (2, 2) mesh, the kernels built
+   before the ranks start: the ranks' outputs put together within
+   KERNEL_LIMIT of world 1's; each phase prints its wall seconds.
 
 The line before the last is a JSON object naming each kernel of the paths
 with its launch count, error, times and the least time the card could take
@@ -268,6 +287,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -3367,6 +3387,253 @@ def c2r_cube2_rows(rows: list, res: dict) -> None:
                                 old_walk_ms=res["fft2_cube_shape"]["engine"])
 
 
+# -- the sharded faces (watfft_tpu_torch/parallel) ---------------------------------
+
+SHARDED_SEED = 15
+SHARDED_RANKS = 4
+SHARDED_RANKS_TIMEOUT = 300.0
+FFT2_BATCH_AXIS_SHAPE = (4, 1024, 1024)
+SHARDED_LARGE_N, SHARDED_REAL_N = 1 << 24, 1 << 25
+
+
+@contextlib.contextmanager
+def no_library_fft():
+    """torch.fft's functions raise while the block runs: no library call
+    hides in a sharded face."""
+    saved = {k: v for k, v in vars(torch.fft).items()
+             if callable(v) and not isinstance(v, type) and not k.startswith("_")}
+
+    def refuse(*args, **kwargs):
+        raise Failed("a torch.fft call inside a sharded face")
+
+    for k in saved:
+        setattr(torch.fft, k, refuse)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(torch.fft, k, v)
+
+
+def _planes(z: torch.Tensor):
+    return z.real.contiguous(), z.imag.contiguous()
+
+
+def _sharded_face(face: str, shape, run, launched: dict, single, oracle, limit_oracle: float,
+                  roundtrip=None) -> tuple[dict, object]:
+    """One face at world 1: its launch counts (torch.fft refused), its output
+    against the port's single-device function (KERNEL_LIMIT of the largest
+    output) and the f64 oracle (max_rel), a round trip's largest error, and
+    the times of the face and of the single-device function (CUDA events,
+    median)."""
+    torch.cuda.synchronize()
+    zero_counts()
+    with no_library_fft():
+        out = run()
+        torch.cuda.synchronize()
+    launches = counts()
+    want_counts = expect(**launched)
+    check(launches == want_counts, f"sharded {face}: launches {launches}, expected {want_counts}")
+    got, ref = (torch.complex(*o) if isinstance(o, tuple) else o for o in (out, single()))
+    got, ref = got.reshape(-1), ref.reshape(-1)
+    err = rel_diff(got, ref)
+    check(err <= KERNEL_LIMIT, f"sharded {face}: {err:.3e} of the single-device function")
+    rec = {"face": face, "shape": list(shape),
+           "launches": {k: v for k, v in launches.items() if v},
+           "max_rel_vs_single": err,
+           "max_rel_vs_torch_fft_f64": max_rel(got, oracle().reshape(-1))}
+    check(rec["max_rel_vs_torch_fft_f64"] <= limit_oracle,
+          f"sharded {face}: max rel {rec['max_rel_vs_torch_fft_f64']:.3e} vs torch.fft")
+    if roundtrip is not None:
+        rec["roundtrip_err"] = roundtrip(out)
+        check(rec["roundtrip_err"] < ROUNDTRIP["float32"],
+              f"sharded {face}: roundtrip {rec['roundtrip_err']:.3e}")
+    with no_library_fft():
+        rec["ms"] = time_ms(run)[0]
+    rec["single_ms"] = time_ms(single)[0]
+    return rec, out
+
+
+def phase_sharded_one(dev, gen, name: str, limit: str) -> dict:
+    """Every sharded face at its BASELINE shape on a world-1 NCCL group (an
+    in-memory store): held against the single-device function, torch.fft
+    in float64 and the launch counts, timed beside the single-device
+    function; the exchange's pack, all-to-all and unpack timed apart; the
+    faces of `dryrun` at the mid sizes of `sharded_ranks`, world 1, for
+    that phase to hold its ranks against."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from watfft_tpu_torch.parallel import dryrun
+    from watfft_tpu_torch.parallel import large_sharded as pls
+    from watfft_tpu_torch.parallel import real_sharded as prs
+    from watfft_tpu_torch.parallel import sharded as psh
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = psh.make_mesh(1)
+        mesh2 = init_device_mesh("cuda", (1, 1), mesh_dim_names=("b", "t"))
+        group = mesh.get_group("x")
+        f32 = MAX_REL["float32"]
+        faces = []
+
+        x = rand_complex((MAIN_B, MAIN_N), gen, dev)
+        xre, xim = _planes(x)
+        faces.append(_sharded_face(
+            "fft_batch", x.shape, lambda: psh.fft_batch_sharded(xre, xim, mesh),
+            {"stockham_c2c": 1}, lambda: wtt.fft(x), lambda: c128(x), f32)[0])
+        xr = rand_real((MAIN_B, MAIN_N), gen, dev)
+        rec, spec = _sharded_face(
+            "rfft_batch", xr.shape, lambda: psh.rfft_batch_sharded(xr, mesh),
+            {"rfft_r2c_fused": 1}, lambda: wtt.rfft(xr), lambda: torch.fft.rfft(xr.double()), f32)
+        faces.append(rec)
+        sc = torch.complex(*spec)
+        faces.append(_sharded_face(
+            "irfft_batch", sc.shape, lambda: psh.irfft_batch_sharded(*spec, mesh),
+            {"irfft_c2r_fused": 1}, lambda: wtt.irfft(sc),
+            lambda: torch.fft.irfft(sc.to(torch.complex128)), f32,
+            lambda y: (y - xr).abs().max().item())[0])
+
+        img = rand_complex((FFT2_MAIN, FFT2_MAIN), gen, dev)
+        ire, iim = _planes(img)
+        rec, fwd = _sharded_face(
+            "fft2", img.shape, lambda: psh.fft2_sharded(ire, iim, mesh),
+            {"stockham_c2c": 1, "fft2_cols": 1}, lambda: wtt.fft2(img), lambda: c128_2d(img),
+            f32, lambda o: (torch.complex(*psh.fft2_sharded(*o, mesh, inverse=True)) - img)
+            .abs().max().item())
+        faces.append(rec)
+        imr = rand_real((FFT2_MAIN, FFT2_MAIN), gen, dev)
+        rec, rspec = _sharded_face(
+            "rfft2", imr.shape, lambda: prs.rfft2_sharded(imr, mesh),
+            {"rfft_r2c_fused": 1, "fft2_cols": 2}, lambda: wtt.rfft2(imr),
+            lambda: torch.fft.rfft2(imr.double()), f32)
+        faces.append(rec)
+        rsc = torch.complex(*rspec)
+        faces.append(_sharded_face(
+            "irfft2", rsc.shape, lambda: prs.irfft2_sharded(*rspec, mesh),
+            {"fft2_cols": 2, "irfft_c2r_fused": 1}, lambda: wtt.irfft2(rsc),
+            lambda: torch.fft.irfft2(rsc.to(torch.complex128)), f32,
+            lambda y: (y - imr).abs().max().item())[0])
+        xb = rand_complex(FFT2_BATCH_AXIS_SHAPE, gen, dev)
+        bre, bim = _planes(xb)
+        faces.append(_sharded_face(
+            "fft2_batch_axis", xb.shape,
+            lambda: psh.fft2_sharded(bre, bim, mesh2, axis="t", batch_axis="b"),
+            {"stockham_c2c": 1, "fft2_cols": 1}, lambda: wtt.fft2(xb), lambda: c128_2d(xb),
+            f32)[0])
+
+        n1, n2 = lg.large_split(SHARDED_LARGE_N)
+        xl = rand_complex((SHARDED_LARGE_N,), gen, dev)
+        lre, lim = (t.view(n2, n1) for t in _planes(xl))
+        faces.append(_sharded_face(
+            "fft_large", xl.shape, lambda: pls.fft_large_sharded(lre, lim, mesh),
+            {"large_postmul": 1, "large_outer": 1}, lambda: lg.fft_large(*_planes(xl)),
+            lambda: c128(xl), f32,
+            lambda o: (torch.complex(*pls.fft_large_sharded(*o, mesh, inverse=True)).reshape(-1)
+                       - xl).abs().max().item())[0])
+        m1, m2 = lg.large_split(SHARDED_REAL_N // 2)
+        xrl = rand_real((SHARDED_REAL_N,), gen, dev)
+        rec, lspec = _sharded_face(
+            "rfft_large", xrl.shape, lambda: prs.rfft_large_sharded(xrl.view(m2, 2 * m1), mesh),
+            {"large_postmul": 1, "large_outer": 1},
+            lambda: wtt.rfft_large_nb(xrl[:, None]),
+            lambda: torch.fft.rfft(xrl.double()), f32)
+        faces.append(rec)
+        faces.append(_sharded_face(
+            "irfft_large", (SHARDED_REAL_N // 2 + 1,),
+            lambda: prs.irfft_large_sharded(*lspec, mesh),
+            {"large_postmul": 1, "large_outer": 1},
+            lambda: wtt.irfft_large_nb(lspec[0][:, None], lspec[1][:, None]),
+            lambda: torch.fft.irfft(torch.complex(*lspec).to(torch.complex128)), f32,
+            lambda y: (y.reshape(-1) - xrl).abs().max().item())[0])
+        sig = rand_real((1, (MAIN_B - 1) * STFT_HOP + MAIN_N), gen, dev)
+        w = torch.as_tensor(wstft.get_window("hann", MAIN_N), device=dev, dtype=torch.float64)
+        faces.append(_sharded_face(
+            "stft", sig.shape, lambda: prs.stft_sharded(sig, mesh, n_fft=MAIN_N, hop=STFT_HOP),
+            {"rfft_r2c_fused": 1},
+            lambda: wstft.stft(sig, n_fft=MAIN_N, hop=STFT_HOP),
+            lambda: torch.fft.rfft(sig.double().unfold(-1, MAIN_N, STFT_HOP) * w), f32)[0])
+
+        # the fft2 backward at the energy's cotangent 2 X / (h w), whose
+        # gradient is 2x (Parseval); fft2's backward gets the same cotangent
+        def grad_of(fn, cot):
+            a, b = ire.clone().requires_grad_(True), iim.clone().requires_grad_(True)
+            torch.autograd.backward(fn(a, b), cot)
+            return a.grad, b.grad
+
+        cot = tuple(2 * t / img.numel() for t in psh.fft2_sharded(ire, iim, mesh))
+        torch.cuda.synchronize()
+        zero_counts()
+        with no_library_fft():
+            gre, gim = grad_of(lambda a, b: psh.fft2_sharded(a, b, mesh), cot)
+            torch.cuda.synchronize()
+        launches = counts()
+        check(launches == expect(stockham_c2c=2, fft2_cols=2),
+              f"sharded fft2 backward: launches {launches}")
+        sre, sim = grad_of(lambda a, b: _planes(wtt.fft2(torch.complex(a, b))), cot)
+        g_err = max(rel_diff(gre, sre), rel_diff(gim, sim))
+        g_2x = max((gre - 2 * ire).abs().max().item(), (gim - 2 * iim).abs().max().item())
+        check(g_err <= KERNEL_LIMIT, f"sharded fft2 backward: {g_err:.3e} of fft2's")
+        check(g_2x < 1e-3, f"sharded fft2 backward: {g_2x:.3e} from 2x")
+        faces.append({"face": "fft2_backward", "shape": list(img.shape),
+                      "launches": {k: v for k, v in launches.items() if v},
+                      "max_rel_vs_single": g_err, "max_abs_vs_2x": g_2x})
+
+        # the exchange of one 4096^2 plane apart: at world 1 the pack and the
+        # unpack are views; as four ranks would lay them out they are copies
+        rows = torch.empty(1, FFT2_MAIN, FFT2_MAIN, device=dev)
+        buf = psh.pack(rows, 1).contiguous()
+        exchange = {"shape": [FFT2_MAIN, FFT2_MAIN], "bytes_a_plane": rows.numel() * 4,
+                    "pack_is_view": buf.data_ptr() == rows.data_ptr(),
+                    "a2a_ms": time_ms(lambda: psh.exchange(buf, group))[0],
+                    "pack_d4_ms": time_ms(lambda: psh.pack(rows, 4).contiguous())[0],
+                    "unpack_d4_ms": time_ms(lambda: psh.unpack(buf, rows.shape, 4,
+                                                               reverse=True))[0],
+                    "copy_ms": time_ms(lambda: rows.clone())[0]}
+        world1 = dryrun.assemble([dryrun.faces(mesh, dryrun.inputs(dryrun.MID_SIZES,
+                                                                   SHARDED_SEED),
+                                               dryrun.MID_SIZES)])
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps({"phase": "sharded", "world": 1, "backend": "nccl", "faces": faces,
+                      "exchange": exchange, "seconds": time.perf_counter() - t0,
+                      "card": name, "power_limit": limit}), flush=True)
+    return world1
+
+
+def phase_sharded_ranks(name: str, limit: str, world1: dict) -> None:
+    """dryrun's faces on SHARDED_RANKS ranks of one card (gloo with CUDA
+    tensors: NCCL refuses two ranks on one GPU), on a (4,) mesh and a
+    (2, 2) mesh, at the mid sizes; the ranks' outputs put together held
+    against the same faces at world 1 (KERNEL_LIMIT of the largest
+    output). The kernels are built before the ranks start."""
+    import numpy as np
+
+    from watfft_tpu_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    _build.library()
+    with tempfile.TemporaryDirectory() as tmp:
+        said = dryrun.spawn(SHARDED_RANKS, "gloo", "cuda", dryrun.rank_faces, dryrun.MID_SIZES,
+                            SHARDED_SEED, tmp, "cuda", timeout=SHARDED_RANKS_TIMEOUT)
+        shards = []
+        for r in range(SHARDED_RANKS):
+            with np.load(f"{tmp}/rank{r}.npz") as f:
+                shards.append(dict(f))
+    got = dryrun.assemble(shards)
+    errs = {k: float(np.max(np.abs(got[k] - v)) / np.max(np.abs(v))) for k, v in world1.items()}
+    worst = max(errs, key=errs.get)
+    print(json.dumps({"phase": "sharded_ranks", "world": SHARDED_RANKS, "backend": "gloo",
+                      "device": "cuda", "outputs": len(errs), "worst": worst,
+                      "max_rel_vs_world1": errs[worst], "refusals": said[0],
+                      "seconds": time.perf_counter() - t0, "card": name,
+                      "power_limit": limit}), flush=True)
+    check(set(got) == set(world1), "sharded_ranks: the ranks' outputs differ from world 1's")
+    check(errs[worst] <= KERNEL_LIMIT,
+          f"sharded_ranks: {worst} {errs[worst]:.3e} of the world-1 result")
+
+
 def bound(nbytes: float, flops: float, peak: float = PEAK_FLOPS) -> tuple[float, str]:
     """The least time in ms the card could take: bytes over its memory rate
     or flops over its peak rate for their type (FP32 unless given),
@@ -3487,6 +3754,7 @@ def main() -> int:
         resident = phase_resident(dev, gen, name, limit)
         walk = phase_c2c_walk(dev, gen, name, limit)
         c2r_cube2 = phase_c2r_cube2(dev, gen, name, limit)
+        phase_sharded_ranks(name, limit, phase_sharded_one(dev, gen, name, limit))
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -1414,3 +1414,83 @@ def test_cube2_walk_refusals(dev):
         assert cube(h, w, bad, ys, st.WALK_BLOCK, 1, 0) == -8, bad
         assert cube(h, w, xs, bad, st.WALK_BLOCK, 0, 1) == -8, bad
     torch.cuda.synchronize()
+
+
+# -- the sharded faces (watfft_tpu_torch/parallel) on a world-1 NCCL group ---------------
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A 1-D mesh over a world-size-1 NCCL group (an in-memory store)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+    from watfft_tpu_torch.parallel import sharded as psh
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield psh.make_mesh(1)
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_faces():
+    """(name, sharded call, single-device call) on one input each."""
+    from watfft_tpu_torch.parallel import large_sharded as pls
+    from watfft_tpu_torch.parallel import real_sharded as prs
+    from watfft_tpu_torch.parallel import sharded as psh
+
+    def c(x):
+        return x.real.contiguous(), x.imag.contiguous()
+
+    n1, n2 = lg.large_split(1 << 20)
+    m1, m2 = lg.large_split(1 << 20)
+    return [
+        ("fft_batch", lambda m, x: psh.fft_batch_sharded(*c(x), m), lambda x: wtt.fft(x),
+         (256, 1024), True),
+        ("fft2", lambda m, x: psh.fft2_sharded(*c(x), m), lambda x: wtt.fft2(x), (1024, 1024),
+         True),
+        ("ifft2", lambda m, x: psh.fft2_sharded(*c(x), m, inverse=True), lambda x: wtt.ifft2(x),
+         (2, 512, 256), True),
+        ("rfft2", lambda m, x: prs.rfft2_sharded(x, m), lambda x: wtt.rfft2(x), (1024, 512),
+         False),
+        ("fft_large", lambda m, x: pls.fft_large_sharded(*(t.view(n2, n1) for t in c(x)), m),
+         lambda x: lg.fft_large(*c(x)), (1 << 20,), True),
+        ("rfft_large", lambda m, x: prs.rfft_large_sharded(x.view(m2, 2 * m1), m),
+         lambda x: wtt.rfft_large_nb(x[:, None]), (1 << 21,), False),
+        ("stft", lambda m, x: prs.stft_sharded(x, m, n_fft=512, hop=128),
+         lambda x: stft.stft(x, n_fft=512, hop=128), (4, 127 * 128 + 512), False),
+    ]
+
+
+@pytest.mark.parametrize("case", range(7))
+def test_sharded_world1_matches_single_device(case, nccl_mesh, dev):
+    """Each sharded face at world 1 on NCCL equals the port's single-device
+    function within KERNEL_LIMIT of its largest output (the same kernels:
+    the 2D faces run rows then columns, the large faces the "2d" mode)."""
+    name, sharded, single, shape, cplx = _sharded_faces()[case]
+    x = _x(shape, case, dev) if cplx else _x(shape, case, dev).real.contiguous()
+    got, want = sharded(nccl_mesh, x), single(x)
+    got, want = (torch.complex(*o) if isinstance(o, tuple) else o for o in (got, want))
+    assert _rel(got.reshape(-1), want.reshape(-1)) <= KERNEL_LIMIT, name
+
+
+def test_sharded_roundtrips_on_the_card(nccl_mesh, dev):
+    """The large real face and the 2D real face give the signal back."""
+    from watfft_tpu_torch.parallel import real_sharded as prs
+
+    x = _x((1 << 21,), 11, dev).real.contiguous()
+    m1, m2 = lg.large_split(1 << 20)
+    spec = prs.rfft_large_sharded(x.view(m2, 2 * m1), nccl_mesh)
+    assert (prs.irfft_large_sharded(*spec, nccl_mesh).reshape(-1) - x).abs().max() < 1e-4
+    img = _x((512, 1024), 12, dev).real.contiguous()
+    back = prs.irfft2_sharded(*prs.rfft2_sharded(img, nccl_mesh), nccl_mesh)
+    assert (back - img).abs().max() < 1e-5
+
+
+def test_sharded_refuses_a_shard_off_the_mesh(nccl_mesh, dev):
+    """A CPU shard on a CUDA mesh raises; nothing is moved."""
+    from watfft_tpu_torch.parallel import sharded as psh
+
+    x = torch.zeros(4, 64)
+    with pytest.raises(ValueError, match="move no tensor"):
+        psh.fft_batch_sharded(x, x, nccl_mesh)

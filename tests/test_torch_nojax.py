@@ -24,6 +24,8 @@ import watfft_tpu_torch.ops.large, watfft_tpu_torch.ops.fourstep, watfft_tpu_tor
 import watfft_tpu_torch.ops.fft2
 import watfft_tpu_torch.fftlib, watfft_tpu_torch.ops.bluestein
 import watfft_tpu_torch.config, watfft_tpu_torch.ops.mxu_dft
+import watfft_tpu_torch.parallel.sharded, watfft_tpu_torch.parallel.large_sharded
+import watfft_tpu_torch.parallel.real_sharded, watfft_tpu_torch.parallel.dryrun
 import chip_smoke
 import torch
 x = torch.zeros(16, 4, dtype=torch.bfloat16)   # the bf16 path and #20 on the CPU

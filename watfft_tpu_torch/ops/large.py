@@ -80,11 +80,14 @@ def large_split(n: int) -> tuple[int, int]:
     return n1, n // n1
 
 
-def pm_grid(n: int, n1: int, n2: int, inverse: bool) -> tuple[np.ndarray, np.ndarray]:
+def pm_grid(n: int, n1: int, n2: int, inverse: bool,
+            cols: slice = slice(None)) -> tuple[np.ndarray, np.ndarray]:
     """The four-step twiddle T[k2, j1] = w_N^{j1*k2} as [n2, n1] f32 planes,
-    f64 host math (the code of watfft_tpu/ops/large.py:52-66)."""
+    f64 host math (the code of watfft_tpu/ops/large.py:52-66); `cols`
+    keeps the columns j1 of one slice (a rank's block of the sharded
+    four-step, `parallel/large_sharded.py`)."""
     sign = +1.0 if inverse else -1.0
-    ang = sign * 2.0 * np.pi * np.outer(np.arange(n2), np.arange(n1)) / n
+    ang = sign * 2.0 * np.pi * np.outer(np.arange(n2), np.arange(n1)[cols]) / n
     return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
 
 

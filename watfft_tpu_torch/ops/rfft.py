@@ -66,7 +66,8 @@ from .stockham import (WALK_BLOCK, WALK_ENGINE, WALK_RESIDENT, Tables, check_dev
                        check_dtype, complex_pairs, fft_views)
 
 __all__ = ["rfft_post_twiddles", "RTables", "make_rtables", "device_rtables",
-           "hermitian_post_nb", "hermitian_pre_nb", "plain_rfft", "plain_irfft",
+           "hermitian_post_nb", "hermitian_pre_nb", "hermitian_post_pair",
+           "hermitian_pre_pair", "plain_rfft", "plain_irfft",
            "rfft_nb", "irfft_nb", "rfft_nb_fused", "irfft_nb_fused",
            "rfft_bm", "irfft_bm", "rfft", "irfft", "r2c_launch", "c2r_pairs", "c2r_launch",
            "launches"]
@@ -181,17 +182,9 @@ def hermitian_post_nb(zre, zim, n: int, wre=None, wim=None):
     if wre is None:
         wre, wim = _post(n, False, zre)
     are, aim = zre[1:], zim[1:]
-    bre = torch.flip(zre[1:], (0,))
-    bim = torch.flip(zim[1:], (0,))
-    ere = 0.5 * (are + bre)
-    eim = 0.5 * (aim - bim)
-    dre = are - bre
-    dim = aim + bim
-    ore = 0.5 * dim
-    oim = -0.5 * dre
-    wr, wi = _column(wre[1:m], are), _column(wim[1:m], are)
-    xre_core = ere + wr * ore - wi * oim
-    xim_core = eim + wr * oim + wi * ore
+    xre_core, xim_core = hermitian_post_pair(
+        are, aim, torch.flip(zre[1:], (0,)), torch.flip(zim[1:], (0,)),
+        _column(wre[1:m], are), _column(wim[1:m], are))
     z0re, z0im = zre[:1], zim[:1]
     xre = torch.cat([z0re + z0im, xre_core, z0re - z0im])
     zero = torch.zeros_like(z0re)
@@ -209,16 +202,36 @@ def hermitian_pre_nb(xre, xim, n: int, wre=None, wim=None):
     are, aim = xre[:m], xim[:m]
     bre = torch.cat([xre[m:m + 1], torch.flip(xre[1:m], (0,))])
     bim = -torch.cat([xim[m:m + 1], torch.flip(xim[1:m], (0,))])
+    return hermitian_pre_pair(are, aim, bre, bim, _column(wre, are), _column(wim, are))
+
+
+def hermitian_post_pair(are, aim, bre, bim, wr, wi):
+    """The forward post bin by bin: X[k] = E + w_n^k O with A = Z[k] (are,
+    aim), B = Z[m-k] (bre, bim) and w_n^k (wr, wi), all broadcast alike.
+    `hermitian_post_nb` runs it on the rows 1..m-1 of a core plane, the
+    sharded large real FFT on a rank's block and its mirror
+    (`parallel/real_sharded.py`)."""
+    ere = 0.5 * (are + bre)
+    eim = 0.5 * (aim - bim)
+    dre = are - bre
+    dim = aim + bim
+    ore = 0.5 * dim
+    oim = -0.5 * dre
+    return ere + wr * ore - wi * oim, eim + wr * oim + wi * ore
+
+
+def hermitian_pre_pair(are, aim, bre, bim, wr, wi):
+    """The inverse pre-process bin by bin: Z[k] = E + w_n^-k O with
+    A = X[k] (are, aim), B = conj X[m-k] (bre, bim: the conjugate already
+    taken) and w_n^-k (wr, wi); what `hermitian_pre_nb` runs on the rows
+    0..m-1."""
     ere = 0.5 * (are + bre)
     eim = 0.5 * (aim + bim)
     dre = are - bre
     dim = aim - bim
     ore = -0.5 * dim
     oim = 0.5 * dre
-    wr, wi = _column(wre, are), _column(wim, are)
-    zre = ere + wr * ore - wi * oim
-    zim = eim + wr * oim + wi * ore
-    return zre, zim
+    return ere + wr * ore - wi * oim, eim + wr * oim + wi * ore
 
 
 # -- the three implementations on [n, B] views ---------------------------------
