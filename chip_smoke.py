@@ -270,6 +270,23 @@ Phases (any failure exits nonzero and prints no result):
    refuses two ranks a GPU), a (4,) and a (2, 2) mesh, the kernels built
    before the ranks start: the ranks' outputs put together within
    KERNEL_LIMIT of world 1's; each phase prints its wall seconds.
+35. The apparatus (`watfft_tpu_torch.registry`, the tools, the CLI): (a)
+   every registry entry, the torch.fft baseline included, at n = 64 (its
+   smallest n where 64 is out of range) through `measure_accuracy` against
+   the f64 numpy oracle (max_rel to tests/test_meta.py's limits), and at
+   its max_size against torch.fft in complex128 (MAX_REL of the largest
+   output; bf16 3e-2), torch.fft patched to raise for every entry but the
+   baseline; in each of the two runs the counters the registry names for
+   the entry risen (none for the matmul surface, the baseline and a
+   `dispatch` run the planner routes to the matmul surface); (b)
+   `tools.accuracy_report` at n = 16..4096 in this process, every float32
+   and float64 row within MAX_REL / RMS_REL, no ERROR row, the bf16 rows
+   printed; (c) the self-test CLI at n = 64, 1024, 4096, three signals, both
+   dtypes, each exit code 0; (d) the native library built from source with
+   g++, its long-double DFT against the float64 dispatch entry at n = 256
+   (within n * 1e-13); (e) `analyze` on a 2 s WAV of fixed numbers, torch.fft
+   refused, the page self-contained and the r2c kernel launched; the
+   phase's seconds.
 
 The line before the last is a JSON object naming each kernel of the paths
 with its launch count, error, times and the least time the card could take
@@ -294,7 +311,7 @@ import torch
 
 import watfft_tpu_torch as wtt
 from watfft_tpu_torch import (config, create_fft, create_fft_f32, create_rfft, create_rfft_f32,
-                              fftlib, planner)
+                              fftlib, planner, registry)
 from watfft_tpu_torch import stft as wstft
 from watfft_tpu_torch.ops import _build
 from watfft_tpu_torch.ops import bluestein as bl
@@ -304,7 +321,8 @@ from watfft_tpu_torch.ops import mxu_dft as md
 from watfft_tpu_torch.ops import rfft as rf
 from watfft_tpu_torch.ops import stockham as st
 from watfft_tpu_torch.reference import dft as ref
-from watfft_tpu_torch.utils.accuracy import rel_errors
+from watfft_tpu_torch.tools import accuracy_report
+from watfft_tpu_torch.utils.accuracy import measure_accuracy, rel_errors
 from watfft_tpu_torch.utils.tolerances import MAX_REL, PER_BIN, ROUNDTRIP
 
 KERNEL_LIMIT = 1e-6      # kernel vs plain version: max |diff| / max |plain|
@@ -619,10 +637,7 @@ def zero_counts() -> None:
 
 
 def counts() -> dict:
-    return {"stockham_c2c": st.launches, "stockham_c2c_f64": st.launches_f64,
-            "stockham_c2c_bf16": st.launches_bf16, "stockham_c2c_bf16c": st.launches_bf16c,
-            "mxu_dft": md.launches, **rf.launches,
-            **{"large_" + k: v for k, v in lg.launches.items()}, **f2.launches, **bl.launches}
+    return registry.launch_counts()
 
 
 def expect(**launched) -> dict:
@@ -3634,6 +3649,213 @@ def phase_sharded_ranks(name: str, limit: str, world1: dict) -> None:
           f"sharded_ranks: {worst} {errs[worst]:.3e} of the world-1 result")
 
 
+# -- phase 35: the apparatus ---------------------------------------------------------
+# (a) every registry entry at n = 64 (its smallest n where 64 is out of its
+# range) through measure_accuracy, max_rel to tests/test_meta.py's limits,
+# and at its max_size against torch.fft in complex128 on the card (MAX_REL
+# of its dtype of the largest output, 3e-2 for bf16), the counters set to 0
+# before each of the two runs and read after it; (b) the accuracy report;
+# (c) the self-test CLI; (d) the native oracle; (e) analyze
+APP_SMALL_N = 64
+APP_SMALL_TOL = {"float32": 1e-4, "float64": 1e-9, "bfloat16": 3e-2}
+APP_MAX_TOL = {"float32": MAX_REL["float32"], "float64": MAX_REL["float64"], "bfloat16": 3e-2}
+APP_REPORT_SIZES = "16,64,256,1024,4096"
+APP_CLI = [(n, sig, dt) for dt in ("float32", "float64") for n in (64, 1024, 4096)
+           for sig in ("random", "impulse", "cosine")]
+APP_NATIVE_N = 256
+
+
+def _entry_at_max(e, dev, seed: int):
+    """The entry's seeded host input at its max_size and torch.fft's answer
+    on the card in double precision."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = e.max_size
+    if e.surface.startswith("complex"):
+        x = rng.uniform(-1, 1, n) + 1j * rng.uniform(-1, 1, n)
+        z = torch.as_tensor(x, device=dev)
+        return x, torch.fft.ifft(z) if e.surface == "complex-inverse" else torch.fft.fft(z)
+    sig = torch.as_tensor(rng.uniform(-1, 1, n), device=dev)
+    spec = torch.fft.rfft(sig)
+    return (sig.cpu().numpy(), spec) if e.surface == "real-forward" else (spec.cpu().numpy(), sig)
+
+
+def _entry_route(e, n: int) -> str | None:
+    """The planner's route of a `dispatch` run (None for the other entries)."""
+    if e.name != "dispatch":
+        return None
+    if e.surface.startswith("complex"):
+        return planner.c2c_kernel(n, e.dtype, 1)
+    return planner.r2c_kernel(n, e.dtype)
+
+
+def _entry_run(e, n: int, run) -> dict:
+    """One run of the entry, the counters set to 0 just before it and read
+    just after, torch.fft refused but for the baseline. `run` returns the
+    run's record and the error held to its `limit`. The entry's own counters
+    must have risen; the matmul surface and the baseline launch nothing, and
+    neither does `dispatch` where the planner routes to the matmul surface."""
+    route = _entry_route(e, n)
+    zero_counts()
+    with contextlib.nullcontext() if e.baseline else no_library_fft():
+        rec, err = run()
+        torch.cuda.synchronize()
+    rec.update(n=n, route=route, launches={k: v for k, v in counts().items() if v},
+               own_launches=registry.launches(e.name))
+    what = f"apparatus {e.name}/{e.surface}/{e.dtype} n={n}"
+    check(err < rec["limit"], f"{what}: {err:.3e} (limit {rec['limit']})")
+    if registry.COUNTERS[e.name] and route != "fourstep":
+        check(rec["own_launches"] > 0, f"{what}: its kernels never launched ({rec['launches']})")
+    else:
+        check(not rec["launches"], f"{what}: launched {rec['launches']}")
+    return rec
+
+
+def _apparatus_registry(dev) -> list:
+    """(a): each entry at its small n (`measure_accuracy` against the f64
+    numpy oracle, max_rel to tests/test_meta.py's limits) and at its
+    max_size (against torch.fft, of the largest output), each run with its
+    own launch counts."""
+    recs = []
+    for i, e in enumerate(registry.REGISTRY):
+        small = APP_SMALL_N if e.min_size <= APP_SMALL_N <= e.max_size else e.min_size
+        kind, inverse = {s: (k, inv) for s, k, inv in accuracy_report.SURFACES}[e.surface]
+        x, want = _entry_at_max(e, dev, seed=i)
+
+        def run_small():
+            r = measure_accuracy(e.make(small, dev), small, e.dtype, kind, inverse, seed=i,
+                                 surface=e.surface)
+            return {"max_rel": r.max_rel, "rms_rel": r.rms_rel, "limit": APP_SMALL_TOL[e.dtype],
+                    "oracle": "numpy f64"}, r.max_rel
+
+        def run_max():
+            got = e.make(e.max_size, dev)(x)
+            err = rel_diff(got, want)
+            return {"err_of_max": err, "max_rel": max_rel(got, want),
+                    "limit": APP_MAX_TOL[e.dtype], "oracle": "torch.fft c128"}, err
+        rec = {"entry": e.name, "surface": e.surface, "dtype": e.dtype,
+               "runs": [_entry_run(e, small, run_small), _entry_run(e, e.max_size, run_max)]}
+        del x, want
+        print(json.dumps({"phase": "apparatus_entry", **rec}), flush=True)
+        recs.append(rec)
+    return recs
+
+
+def _apparatus_report() -> list:
+    """(b): the accuracy report in this process on the card; every float32
+    and float64 row within MAX_REL / RMS_REL, no ERROR row."""
+    from watfft_tpu_torch.utils.tolerances import RMS_REL
+
+    rows = accuracy_report.main(["--sizes", APP_REPORT_SIZES])
+    print(json.dumps({"phase": "apparatus_report", "rows": rows}), flush=True)
+    errors = [r for r in rows if r["error"]]
+    check(not errors, f"apparatus report: ERROR rows {errors}")
+    for r in rows:
+        if r["dtype"] in MAX_REL:
+            check(r["max_rel"] < MAX_REL[r["dtype"]] and r["rms_rel"] < RMS_REL[r["dtype"]],
+                  f"apparatus report: {r}")
+    return rows
+
+
+def _apparatus_cli() -> list:
+    """(c): the self-test CLI at each (n, signal, dtype), exit code 0."""
+    import io
+
+    from watfft_tpu_torch import __main__ as cli
+
+    calls = []
+    for n, sig, dt in APP_CLI:
+        out = io.StringIO()
+        code = None
+        with contextlib.redirect_stdout(out):
+            try:
+                cli.main([str(n), sig, "--dtype", dt])
+            except SystemExit as exc:
+                code = exc.code
+        rows = {ln.split()[1]: ln.split()[2] for ln in out.getvalue().splitlines()
+                if ln.startswith("  complex-forward")}
+        calls.append({"n": n, "signal": sig, "dtype": dt, "code": code, "rows": rows})
+        check(code == 0, f"apparatus cli {n} {sig} {dt}: exit {code}\n{out.getvalue()}")
+    print(json.dumps({"phase": "apparatus_cli", "calls": calls}), flush=True)
+    return calls
+
+
+def _apparatus_native(dev) -> dict:
+    """(d): the native library built from source, its long-double DFT
+    against the float64 dispatch entry on the card."""
+    import numpy as np
+
+    from watfft_tpu_torch import native
+
+    check(native.build(force=True), "apparatus native: the g++ build failed")
+    rng = np.random.default_rng(APP_NATIVE_N)
+    x = rng.uniform(-1, 1, APP_NATIVE_N) + 1j * rng.uniform(-1, 1, APP_NATIVE_N)
+    entry = registry.flagship("complex-forward", "float64")
+    zero_counts()
+    got = entry.make(APP_NATIVE_N, dev)(x)
+    torch.cuda.synchronize()
+    err = float(np.max(np.abs(got.cpu().numpy() - native.dft(x))))
+    rec = {"n": APP_NATIVE_N, "library": str(native.library_path()), "max_abs": err,
+           "limit": APP_NATIVE_N * 1e-13, "launches": {k: v for k, v in counts().items() if v}}
+    check(err < rec["limit"], f"apparatus native: {err:.3e} from the long-double DFT")
+    check(rec["launches"].get("stockham_c2c_f64", 0) > 0, f"apparatus native: {rec}")
+    return rec
+
+
+def _apparatus_analyze(tmp: str) -> dict:
+    """(e): `analyze` on a 2 s WAV of the playground's synthesized signal
+    (fixed numbers), torch.fft refused; the page self-contained, the r2c
+    kernel launched."""
+    import os
+    import wave
+
+    import numpy as np
+
+    from watfft_tpu_torch import __main__ as cli
+    from watfft_tpu_torch.tools import playground_report as pr
+
+    wav, page = os.path.join(tmp, "synth.wav"), os.path.join(tmp, "synth.html")
+    with wave.open(wav, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes((np.clip(pr.synth_signal(16000), -1, 1) * 32767).astype("<i2").tobytes())
+    zero_counts()
+    with no_library_fft():
+        cli.main(["analyze", wav, "--html", page])
+        torch.cuda.synchronize()
+    with open(page) as f:
+        text = f.read()
+    rec = {"bytes": len(text), "launches": {k: v for k, v in counts().items() if v},
+           "device_named": torch.cuda.get_device_name(0) in text}
+    check("http" not in text and "fetch(" not in text, "apparatus analyze: the page loads")
+    check(rec["launches"].get("rfft_r2c_fused", 0) > 0, f"apparatus analyze: {rec}")
+    return rec
+
+
+def phase_apparatus(dev, name: str, limit: str) -> dict:
+    """Phase 35: the registry, the accuracy report, the self-test CLI, the
+    native oracle and `analyze`, all on the card."""
+    t0 = time.perf_counter()
+    entries = _apparatus_registry(dev)
+    t_reg = time.perf_counter() - t0
+    rows = _apparatus_report()
+    t_rep = time.perf_counter() - t0 - t_reg
+    calls = _apparatus_cli()
+    native_rec = _apparatus_native(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        page = _apparatus_analyze(tmp)
+    out = {"phase": "apparatus", "entries": len(entries), "report_rows": len(rows),
+           "report_worst": {dt: max(r["max_rel"] for r in rows if r["dtype"] == dt)
+                            for dt in ("float32", "float64", "bfloat16")},
+           "cli_calls": len(calls), "native": native_rec, "analyze": page,
+           "registry_seconds": t_reg, "report_seconds": t_rep,
+           "seconds": time.perf_counter() - t0, "card": name, "power_limit": limit}
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def bound(nbytes: float, flops: float, peak: float = PEAK_FLOPS) -> tuple[float, str]:
     """The least time in ms the card could take: bytes over its memory rate
     or flops over its peak rate for their type (FP32 unless given),
@@ -3755,6 +3977,7 @@ def main() -> int:
         walk = phase_c2c_walk(dev, gen, name, limit)
         c2r_cube2 = phase_c2r_cube2(dev, gen, name, limit)
         phase_sharded_ranks(name, limit, phase_sharded_one(dev, gen, name, limit))
+        phase_apparatus(dev, name, limit)
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

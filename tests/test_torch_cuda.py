@@ -1494,3 +1494,51 @@ def test_sharded_refuses_a_shard_off_the_mesh(nccl_mesh, dev):
     x = torch.zeros(4, 64)
     with pytest.raises(ValueError, match="move no tensor"):
         psh.fft_batch_sharded(x, x, nccl_mesh)
+
+
+# -- the apparatus on the card: the registry and the self-test CLI ---------------------
+
+def _registry_ids():
+    from watfft_tpu_torch import registry
+    return [f"{e.name}/{e.surface}/{e.dtype}" for e in registry.REGISTRY]
+
+
+@pytest.mark.parametrize("index", range(len(_registry_ids())), ids=_registry_ids())
+def test_registry_entry_on_the_card(index, dev):
+    """Every entry at n = 64 (the large paths at their smallest n) against
+    numpy's FFT in float64 (tests/test_meta.py's limits), launching the
+    kernels its counters name, and nothing of the port for the matmul
+    surface and the torch.fft baseline."""
+    from watfft_tpu_torch import registry
+    from watfft_tpu_torch.utils.accuracy import to_host
+
+    e = registry.REGISTRY[index]
+    n = 64 if e.min_size <= 64 <= e.max_size else e.min_size
+    rng = np.random.default_rng(64)
+    if e.surface.startswith("complex"):
+        x = rng.uniform(-1, 1, (3, n)) + 1j * rng.uniform(-1, 1, (3, n))
+        want = np.fft.fft(x) if e.surface == "complex-forward" else np.fft.ifft(x)
+    else:
+        sig = rng.uniform(-1, 1, (3, n))
+        x, want = (sig, np.fft.rfft(sig)) if e.surface == "real-forward" else (
+            np.fft.rfft(sig), sig)
+    own, every = registry.launches(e.name), registry.launches("dispatch")
+    got = to_host(e.make(n, dev)(x))
+    torch.cuda.synchronize()
+    err = np.max(np.abs(got - want)) / np.max(np.abs(want))
+    assert err < {"float32": 1e-4, "float64": 1e-9, "bfloat16": 3e-2}[e.dtype]
+    if registry.COUNTERS[e.name]:
+        assert registry.launches(e.name) > own
+    else:
+        assert registry.launches("dispatch") == every
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_self_test_cli_on_the_card(dtype, dev, capsys):
+    from watfft_tpu_torch import __main__ as cli
+
+    for n in (64, 4096):
+        with pytest.raises(SystemExit) as exc:
+            cli.main([str(n), "random", "--dtype", dtype])
+        assert exc.value.code == 0, capsys.readouterr().out
+    assert "device=cuda" in capsys.readouterr().out

@@ -2,7 +2,9 @@
 
 A CUDA host need not have JAX, so `watfft_tpu_torch` must never import it
 (nor `watfft_tpu`, whose __init__ imports JAX). Checked in a fresh
-interpreter in which both imports are made to fail.
+interpreter in which both imports are made to fail, for every module of
+the port (the registry, the native loader, the CLI and the tools
+included), and no import launches a kernel.
 """
 
 import json
@@ -26,6 +28,10 @@ import watfft_tpu_torch.fftlib, watfft_tpu_torch.ops.bluestein
 import watfft_tpu_torch.config, watfft_tpu_torch.ops.mxu_dft
 import watfft_tpu_torch.parallel.sharded, watfft_tpu_torch.parallel.large_sharded
 import watfft_tpu_torch.parallel.real_sharded, watfft_tpu_torch.parallel.dryrun
+import watfft_tpu_torch.registry, watfft_tpu_torch.native, watfft_tpu_torch.__main__
+import watfft_tpu_torch.utils.accuracy, watfft_tpu_torch.tools
+import watfft_tpu_torch.tools.accuracy_report, watfft_tpu_torch.tools.permutation_validator
+import watfft_tpu_torch.tools.butterfly_tester, watfft_tpu_torch.tools.playground_report
 import chip_smoke
 import torch
 x = torch.zeros(16, 4, dtype=torch.bfloat16)   # the bf16 path and #20 on the CPU

@@ -374,18 +374,18 @@ def _transform(a, b, inverse, lin, lout, route, tables):
     return _apply(a, b, bool(inverse), lin, lout, route, tables)
 
 
-def fft2_planes(re, im, inverse: bool = False, tables=None):
+def fft2_planes(xre, xim, inverse: bool = False, tables=None):
     """2D FFT of [..., h, w] split planes (f32 on CUDA). h, w powers of two
     >= 2; any leading shape. tables: the (h-point, w-point) `stockham.Tables`
     of the direction, default the port's own. The planner picks the route."""
-    return _planes_route(re, im, inverse, None, tables)
+    return _planes_route(xre, xim, inverse, None, tables)
 
 
-def fft2_nb(re, im, inverse: bool = False, tables=None):
+def fft2_nb(xre, xim, inverse: bool = False, tables=None):
     """2D FFT on native-layout planes [h, w, ...] (the image batch trailing,
     the JAX package's [h, w, B] lane layout; any batch). Output keeps the
     [h, w, ...] orientation."""
-    return _nb_route(re, im, inverse, None, tables)
+    return _nb_route(xre, xim, inverse, None, tables)
 
 
 def fft2_complex(x, inverse: bool = False, tables=None):

@@ -37,6 +37,7 @@ import torch
 
 from .. import config
 from ..plan import PlanNode, build_tree
+from .stockham import np_dtype
 
 __all__ = ["fft_tables", "shape_info", "apply_tables", "fft_planes", "full_f32",
            "rfft_post_twiddles", "rfft_planes", "irfft_planes"]
@@ -106,12 +107,12 @@ def shape_info(node: PlanNode) -> list[tuple]:
     return [(lv.n, lv.n1, lv.n2) for lv in node.leaves()]
 
 
-def apply_tables(xre, xim, tables, info):
+def apply_tables(xre, xim, tables, shape_info):
     """The recursive four-step transform of x [..., n] (split planes) with
     the tables of `fft_tables` and the levels of `shape_info`, at the
     precision `_precision` gives."""
     with _precision():
-        return _apply(xre, xim, tables, info, 0)
+        return _apply(xre, xim, tables, shape_info, 0)
 
 
 def _apply(xre, xim, tables, info, lvl):
@@ -132,13 +133,17 @@ def _apply(xre, xim, tables, info, lvl):
     return dre.reshape(*batch, n), dim.reshape(*batch, n)
 
 
-def fft_planes(xre, xim, inverse: bool = False):
+def fft_planes(xre, xim, inverse: bool = False, dtype=None):
     """One-shot batched FFT on split planes [..., n] (builds the tables for
-    the call, in the planes' dtype, on their device)."""
+    the call on their device). dtype: the tables' numpy dtype, the planes'
+    by default; as in the JAX package the transform runs in the promotion
+    of the two (f32 planes on float64 tables give float64)."""
     n = xre.shape[-1]
-    dtype = {torch.float32: np.float32, torch.float64: np.float64}[xre.dtype]
-    tree = build_tree(n, inverse=inverse, dtype=dtype)
-    return apply_tables(xre, xim, fft_tables(tree, xre.device), shape_info(tree))
+    tree = build_tree(n, inverse=inverse, dtype=np.dtype(dtype or np_dtype(xre.dtype)))
+    tables = fft_tables(tree, xre.device)
+    common = torch.promote_types(xre.dtype, tables[0]["w_re"].dtype)
+    tables = [{k: v.to(common) for k, v in t.items()} for t in tables]
+    return apply_tables(xre.to(common), xim.to(common), tables, shape_info(tree))
 
 
 # -- the real matmul surface (watfft_tpu/ops/rfft.py:31-81) ----------------------
@@ -153,14 +158,14 @@ def rfft_post_twiddles(n: int, inverse: bool, dtype=np.float32):
     return np.cos(ang).astype(dtype), np.sin(ang).astype(dtype)
 
 
-def rfft_planes(x, tables, info, wre, wim):
+def rfft_planes(x, tables, shape_info, wre, wim):
     """Real x [..., n] -> spectrum planes (Xre, Xim) [..., n//2+1]: the
     m-point transform of z[j] = x[2j] + i x[2j+1] on the tables of
     `fft_tables` / `shape_info` (the forward m-point tree), then the
     Hermitian post X = E + w O with E = (A + conj B)/2, O = -i (A - conj B)/2,
     A = Z[k], B = Z[(m-k) mod m], k = 0..m. wre/wim: the forward post
     twiddles (m+1 values)."""
-    zre, zim = apply_tables(x[..., 0::2], x[..., 1::2], tables, info)
+    zre, zim = apply_tables(x[..., 0::2], x[..., 1::2], tables, shape_info)
     first_re, first_im = zre[..., :1], zim[..., :1]
     are = torch.cat([zre, first_re], dim=-1)
     aim = torch.cat([zim, first_im], dim=-1)
@@ -173,7 +178,7 @@ def rfft_planes(x, tables, info, wre, wim):
     return ere + wre * ore - wim * oim, eim + wre * oim + wim * ore
 
 
-def irfft_planes(xre, xim, inv_tables, inv_info, wre, wim):
+def irfft_planes(xre, xim, inv_tables, inv_shape_info, wre, wim):
     """Spectrum planes [..., m+1] -> real [..., 2m], normalized: the
     pre-process Z = E + w O with E = (A + B)/2, O = i (A - B)/2, A = X[k],
     B = conj X[m-k], k = 0..m-1, the m-point inverse on the tables of the
@@ -189,5 +194,5 @@ def irfft_planes(xre, xim, inv_tables, inv_info, wre, wim):
     oim = 0.5 * (are - bre)
     zre = ere + wre * ore - wim * oim
     zim = eim + wre * oim + wim * ore
-    zre, zim = apply_tables(zre, zim, inv_tables, inv_info)
+    zre, zim = apply_tables(zre, zim, inv_tables, inv_shape_info)
     return torch.stack([zre, zim], dim=-1).reshape(*zre.shape[:-1], 2 * m)

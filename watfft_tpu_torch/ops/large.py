@@ -411,12 +411,12 @@ def _transform(a, b, inverse, layout, split, mode, tables):
     return out if layout == "complex" else tuple(out)
 
 
-def fft_large_nb(re, im, inverse: bool = False, split=None, mode=None,
+def fft_large_nb(xre, xim, inverse: bool = False, split=None, mode=None,
                  tables: LargeTables | None = None):
     """Batched large-N FFT on time-major planes [N, ...] (f32). Any batch,
     no padding. split: (n1, n2), default `large_split(N)`; mode: "cube",
     "pipe2" or "2d", default the planner's rule (`planner.large_mode`)."""
-    return _transform(re, im, inverse, "nb", split, mode, tables)
+    return _transform(xre, xim, inverse, "nb", split, mode, tables)
 
 
 def fft_large_bm(re, im, inverse: bool = False, split=None, mode=None,
@@ -432,13 +432,13 @@ def fft_large_complex(x, inverse: bool = False, split=None, mode=None,
     return _transform(x, None, inverse, "complex", split, mode, tables)
 
 
-def fft_large(re, im, inverse: bool = False):
+def fft_large(xre, xim, inverse: bool = False):
     """FFT of one large sequence on flat planes [N] (f32): the "2d" mode, as
     the JAX package's fft_large runs the post-multiplying kernel and then
     the c2c kernel."""
-    if re.dim() != 1:
-        raise ValueError(f"fft_large takes flat planes [N], got shape {tuple(re.shape)}")
-    return _transform(re, im, inverse, "nb", None, "2d", None)
+    if xre.dim() != 1:
+        raise ValueError(f"fft_large takes flat planes [N], got shape {tuple(xre.shape)}")
+    return _transform(xre, xim, inverse, "nb", None, "2d", None)
 
 
 def plain_fft_large(x, inverse: bool = False, split=None, mode: str = "pipe2",

@@ -760,23 +760,23 @@ def _wants_grad(*ts) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
-def stockham_fft_nb(re, im, inverse: bool = False, tables: Tables | None = None):
+def stockham_fft_nb(xre, xim, inverse: bool = False, tables: Tables | None = None):
     """Batched FFT on time-major planes [n, ...] (the transform runs along
     axis 0; `[n, b]` and the `[n, 8, W]` view alike). Returns new planes of
     the same shape and dtype: float32, float64, or bfloat16 (the bf16
     tiers; the compute tier on 2-D planes under `config.BF16_COMPUTE`).
     Any batch size; no padding."""
-    if _wants_grad(re, im):
-        return _PlanesFFT.apply(re, im, bool(inverse), True, tables)
-    return _planes(re, im, bool(inverse), True, tables)
+    if _wants_grad(xre, xim):
+        return _PlanesFFT.apply(xre, xim, bool(inverse), True, tables)
+    return _planes(xre, xim, bool(inverse), True, tables)
 
 
-def stockham_fft_bm(re, im, inverse: bool = False, tables: Tables | None = None):
+def stockham_fft_bm(xre, xim, inverse: bool = False, tables: Tables | None = None):
     """Batched FFT on batch-major planes [..., n] (bfloat16 planes: the
     interop tier)."""
-    if _wants_grad(re, im):
-        return _PlanesFFT.apply(re, im, bool(inverse), False, tables)
-    return _planes(re, im, bool(inverse), False, tables)
+    if _wants_grad(xre, xim):
+        return _PlanesFFT.apply(xre, xim, bool(inverse), False, tables)
+    return _planes(xre, xim, bool(inverse), False, tables)
 
 
 def stockham_fft(x, inverse: bool = False, tables: Tables | None = None):

@@ -1,7 +1,8 @@
 """O(N^2) reference DFT ground truth + deterministic signal generators.
 
 numpy-only copy of `watfft_tpu/reference/dft.py` (`dft`, `idft`,
-`real_dft`, `real_idft`, `dft2`, `seeded_rng`, `make_signal`). The real pair is
+`real_dft`, `real_idft`, `dft2`, `seeded_rng`, `make_signal`,
+`make_real_signal`). The real pair is
 computed in blocks of bins, so n = 8192 needs ~100 MB, not the full n x n
 matrix. The port cannot import that module:
 importing anything under `watfft_tpu` imports JAX, and a CUDA host need not
@@ -14,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["dft", "idft", "real_dft", "real_idft", "dft2", "SIGNALS", "make_signal",
-           "seeded_rng"]
+           "REAL_SIGNALS", "make_real_signal", "seeded_rng"]
 
 
 def dft(x: np.ndarray, axis: int = -1) -> np.ndarray:
@@ -147,3 +148,23 @@ SIGNALS = {
 
 def make_signal(name: str, n: int, **kw) -> np.ndarray:
     return SIGNALS[name](n, **kw)
+
+
+def _real_random(n: int, seed: int = 12345) -> np.ndarray:
+    rng = seeded_rng(seed)
+    return rng.uniform(-1, 1, n).astype(np.float64)
+
+
+REAL_SIGNALS = {
+    "impulse": lambda n: _impulse(n).real,
+    "shifted_impulse": lambda n: _shifted_impulse(n).real,
+    "constant": lambda n: _constant(n).real,
+    "cosine": lambda n: _cosine(n).real,
+    "sine": lambda n: _sine(n).real,
+    "alternating": lambda n: _alternating(n).real,
+    "random": _real_random,
+}
+
+
+def make_real_signal(name: str, n: int, **kw) -> np.ndarray:
+    return REAL_SIGNALS[name](n, **kw)
