@@ -287,6 +287,21 @@ Phases (any failure exits nonzero and prints no result):
    (within n * 1e-13); (e) `analyze` on a 2 s WAV of fixed numbers, torch.fft
    refused, the page self-contained and the r2c kernel launched; the
    phase's seconds.
+36. The last tools (`watfft_tpu_torch.tools` `stockham_reference`,
+   `index_visualizer`, `single_case`, `lint_dead_surfaces`) and the two
+   examples: (a) the stage-logging reference at every n = 2..4096, both
+   directions: against np.fft (1e-6), the plain stages one at a time
+   against it (MAX_REL), and the c2c kernel's batch-major walk (#1/#4),
+   its time-major column tile (#2; from n = 16, at a batch that gives the
+   widest tile, each record naming its tile) and the FP64 instance (#19)
+   in two layouts within MAX_REL of it, each having launched its kernel; (b) the
+   index visualizer's four invariants at n = 2..8192; (c) `single_case`
+   on every registry entry at n = 64 and at its max_size, the counters set
+   to 0 before each run and its own kernels launched; (d) the lint
+   `--strict`; (e) `examples/torch_basic_usage.py` and
+   `examples/torch_spectrogram_demo.py` in a temporary directory, errors
+   within 1e-5 and a 247 x 80 PNG; one `tools` line with the worst errors,
+   launches and seconds.
 
 The line before the last is a JSON object naming each kernel of the paths
 with its launch count, error, times and the least time the card could take
@@ -3856,6 +3871,159 @@ def phase_apparatus(dev, name: str, limit: str) -> dict:
     return out
 
 
+TOOLS_KERNEL_SIZES = [1 << k for k in range(1, 13)]
+TOOLS_INDEX_SIZES = [1 << k for k in range(1, 14)]
+TOOLS_CASE_N = 64
+TOOLS_PNG = (247, 80)   # the demo's frames x mel bins
+TOOLS_ROUNDTRIP = 1e-5  # the basic example's round trips and errors
+
+
+def _printed(fn, *args):
+    """fn(*args) (its SystemExit code where it exits) and what it printed."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        try:
+            res = fn(*args)
+        except SystemExit as exc:
+            res = exc.code
+    return res, out.getvalue()
+
+
+def _tools_reference(dev) -> list:
+    """(a): `stockham_reference` on the card at every n = 2..4096, both
+    directions: the reference against np.fft, the plain stages one at a time
+    against it, and every kernel instance (#1/#4, #2, #19) within MAX_REL of
+    it, each having launched its kernel; the time-major instances on their
+    column tile from n = 16 (`check_kernels`)."""
+    from watfft_tpu_torch.tools import stockham_reference as sref
+
+    (code, recs), text = _printed(sref.run, [str(n) for n in TOOLS_KERNEL_SIZES])
+    bad = [r for r in recs if not r["ok"]]
+    check(code == 0 and not bad, f"tools stockham_reference: exit {code}, {bad}\n{text}")
+    kernels = [r for r in recs if "instance" in r]
+    check(len(kernels) == len(TOOLS_KERNEL_SIZES) * 2 * len(sref.INSTANCES),
+          f"tools stockham_reference: {len(kernels)} kernel checks")
+    tiled = [r for r in kernels if r["tile"] != [0, 0]]
+    check(len(tiled) == 2 * 2 * sum(n >= 16 for n in TOOLS_KERNEL_SIZES)
+          and all(r["instance"].endswith("-nb") for r in tiled),
+          f"tools stockham_reference: {len(tiled)} checks on a column tile")
+    for r in kernels:
+        print(json.dumps({"phase": "tools_kernel", **r}), flush=True)
+    stages = [{k: r[k] for k in ("n", "inverse", "ref_err", "stage_diffs")}
+              for r in recs if "stage_diffs" in r]
+    print(json.dumps({"phase": "tools_stages", "runs": stages}), flush=True)
+    return kernels
+
+
+def _tools_cases(dev) -> list:
+    """(c): `single_case` on every registry entry, the baseline included, at
+    n = 64 (its smallest n where 64 is out of range) and at its max_size on
+    the random signal, each through `_entry_run` (its counters and
+    torch.fft's refusal); exit 0, the error under single_case's tolerance
+    (4x the dtype's limit)."""
+    from watfft_tpu_torch.tools import single_case
+
+    recs = []
+    for e in registry.REGISTRY:
+        small = TOOLS_CASE_N if e.min_size <= TOOLS_CASE_N <= e.max_size else e.min_size
+        for n in (small, e.max_size):
+            argv = [str(n), "random", "--surface", e.surface, "--dtype", e.dtype,
+                    "--impl", e.name, "--bins", "4"]
+
+            def run(argv=argv):
+                (code, rows), text = _printed(single_case.run, argv)
+                check(code == 0 and len(rows) == 1,
+                      f"tools single_case {' '.join(argv)}: exit {code}\n{text}")
+                return {**rows[0], "limit": rows[0]["tolerance"]}, rows[0]["max_rel"]
+            recs.append(_entry_run(e, n, run))
+    print(json.dumps({"phase": "tools_single_case", "runs": recs}), flush=True)
+    return recs
+
+
+def _tools_examples(tmp: str) -> dict:
+    """(e): both examples as scripts (`runpy`, `__main__`), in a temporary
+    directory: exit 0; the basic tour's errors within TOOLS_ROUNDTRIP and
+    its kernels launched; the demo's PNG well formed and 247 x 80."""
+    import os
+    import runpy
+    import struct
+    from pathlib import Path
+
+    examples = Path(__file__).resolve().parent / "examples"
+    png = os.path.join(tmp, "spectrogram.png")
+    out, here, argv0 = {}, os.getcwd(), sys.argv
+    for name, args in (("torch_basic_usage.py", []), ("torch_spectrogram_demo.py", [png])):
+        path = str(examples / name)
+        zero_counts()
+        os.chdir(tmp)
+        sys.argv = [path, *args]
+        try:
+            code, text = _printed(runpy.run_path, path, None, "__main__")
+        finally:
+            sys.argv = argv0
+            os.chdir(here)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in counts().items() if v}
+        check(code in (0, None), f"tools example {name}: exit {code}\n{text}")
+        check(bool(launched), f"tools example {name}: no kernel launched\n{text}")
+        out[name] = {"launched": launched, "printed": text.strip().splitlines()}
+    errs = {ln.split(":")[0]: float(ln.rsplit(" ", 1)[1])
+            for ln in out["torch_basic_usage.py"]["printed"] if " err" in ln}
+    check(len(errs) == 6 and max(errs.values()) < TOOLS_ROUNDTRIP,
+          f"tools example torch_basic_usage.py: {errs}")
+    with open(png, "rb") as f:
+        head = f.read(24)
+    size = struct.unpack(">II", head[16:24])
+    check(head[:8] == b"\x89PNG\r\n\x1a\n" and head[12:16] == b"IHDR" and size == TOOLS_PNG,
+          f"tools example torch_spectrogram_demo.py: {head!r}")
+    check(out["torch_spectrogram_demo.py"]["launched"].get("rfft_r2c_fused", 0) > 0,
+          f"tools example torch_spectrogram_demo.py: {out['torch_spectrogram_demo.py']}")
+    out["basic_errors"], out["png_size"] = errs, list(size)
+    print(json.dumps({"phase": "tools_examples", **out}), flush=True)
+    return out
+
+
+def phase_tools(dev, name: str, limit: str) -> dict:
+    """Phase 36: the stage-logging reference and the kernel checks, the index
+    visualizer, the single-case runner, the dead-surface lint and the two
+    examples, all on the card."""
+    from watfft_tpu_torch.tools import index_visualizer, lint_dead_surfaces
+
+    t0 = time.perf_counter()
+    zero_counts()
+    kernels = _tools_reference(dev)
+    launches = {k: v for k, v in counts().items() if v}
+    t_ref = time.perf_counter() - t0
+    code, text = _printed(index_visualizer.main,
+                          ["--quiet", *(str(n) for n in TOOLS_INDEX_SIZES)])
+    check(code == 0, f"tools index_visualizer: exit {code}\n{text}")
+    cases = _tools_cases(dev)
+    t_cases = time.perf_counter() - t0 - t_ref
+    code, lint = _printed(lint_dead_surfaces.main, ["--strict"])
+    check(code == 0, f"tools lint_dead_surfaces: exit {code}\n{lint}")
+    with tempfile.TemporaryDirectory() as tmp:
+        examples = _tools_examples(tmp)
+    worst = {dt: max(r["max_rel"] for r in kernels if r["dtype"] == dt)
+             for dt in ("float32", "float64")}
+    out = {"phase": "tools", "kernel_checks": len(kernels),
+           "kernel_worst": worst,
+           "instance_worst": {i: max(r["max_rel"] for r in kernels if r["instance"] == i)
+                              for i in dict.fromkeys(r["instance"] for r in kernels)},
+           "tiled_checks": sum(r["tile"] != [0, 0] for r in kernels),
+           "reference_launches": launches,
+           "index_sizes": len(TOOLS_INDEX_SIZES), "single_case_runs": len(cases),
+           "single_case_worst": {dt: max(r["max_rel"] for r in cases if r["dtype"] == dt)
+                                 for dt in ("float32", "float64", "bfloat16")},
+           "lint": lint.strip(), "examples": {k: v["launched"] for k, v in examples.items()
+                                             if k.endswith(".py")},
+           "reference_seconds": t_ref, "single_case_seconds": t_cases,
+           "seconds": time.perf_counter() - t0, "card": name, "power_limit": limit}
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def bound(nbytes: float, flops: float, peak: float = PEAK_FLOPS) -> tuple[float, str]:
     """The least time in ms the card could take: bytes over its memory rate
     or flops over its peak rate for their type (FP32 unless given),
@@ -3978,6 +4146,7 @@ def main() -> int:
         c2r_cube2 = phase_c2r_cube2(dev, gen, name, limit)
         phase_sharded_ranks(name, limit, phase_sharded_one(dev, gen, name, limit))
         phase_apparatus(dev, name, limit)
+        phase_tools(dev, name, limit)
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -301,6 +301,23 @@ def test_planner_routes():
         f2._complex_route(torch.zeros(8192, 4, dtype=torch.complex64), False, "fft2-2pass")
 
 
+def test_planner_native_layout_bounds():
+    """FFT2_NATIVE_MAX_AXIS and FFT2_NATIVE_MIN_BATCH on both sides: native
+    [h, w, B] planes of 4096 points an image take the 2-pass route from a
+    batch of FFT2_NATIVE_MIN_BATCH with both axes at most
+    FFT2_NATIVE_MAX_AXIS, the cube one step past either bound and in the
+    batch-major layout."""
+    route = planner.fft2_kernel
+    axis, least = planner.FFT2_NATIVE_MAX_AXIS, planner.FFT2_NATIVE_MIN_BATCH
+    assert (axis, least) == (1024, 17)
+    assert route(axis, 4, least, "nb") == route(4, axis, least, "nb") == "fft2-2pass"
+    assert route(64, 64, least, "nb") == "fft2-2pass"
+    assert route(axis, 4, least - 1, "nb") == route(64, 64, least - 1, "nb") == "fft2-cube"
+    assert route(2 * axis, 2, least, "nb") == route(2, 2 * axis, least, "nb") == "fft2-cube"
+    assert route(2 * axis, 2, 4096, "nb") == "fft2-cube"
+    assert route(axis, 4, least, "bm") == route(axis, 4, 4096) == "fft2-cube"
+
+
 @pytest.mark.parametrize("shape,match", [((8, 12), "power of two"), ((8, 1), "power of two"),
                                          ((8,), "2 trailing axes"), ((0, 8), "power of two")])
 def test_validation_messages(shape, match):

@@ -4,7 +4,9 @@ A CUDA host need not have JAX, so `watfft_tpu_torch` must never import it
 (nor `watfft_tpu`, whose __init__ imports JAX). Checked in a fresh
 interpreter in which both imports are made to fail, for every module of
 the port (the registry, the native loader, the CLI and the tools
-included), and no import launches a kernel.
+included: the stage-logging reference, the index visualizer, the
+single-case runner and the dead-surface lint), and no import launches a
+kernel.
 """
 
 import json
@@ -32,6 +34,8 @@ import watfft_tpu_torch.registry, watfft_tpu_torch.native, watfft_tpu_torch.__ma
 import watfft_tpu_torch.utils.accuracy, watfft_tpu_torch.tools
 import watfft_tpu_torch.tools.accuracy_report, watfft_tpu_torch.tools.permutation_validator
 import watfft_tpu_torch.tools.butterfly_tester, watfft_tpu_torch.tools.playground_report
+import watfft_tpu_torch.tools.stockham_reference, watfft_tpu_torch.tools.index_visualizer
+import watfft_tpu_torch.tools.single_case, watfft_tpu_torch.tools.lint_dead_surfaces
 import chip_smoke
 import torch
 x = torch.zeros(16, 4, dtype=torch.bfloat16)   # the bf16 path and #20 on the CPU

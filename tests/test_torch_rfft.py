@@ -364,3 +364,24 @@ def test_planner_routes_the_real_path_to_the_fused_kernel():
     for n in (0, 2, 3, 12):
         with pytest.raises(ValueError, match="power of two"):
             wtt.create_rfft_f32(n, device="cpu")
+
+
+@pytest.mark.parametrize("shape", [(5,), (8, 3)])
+@pytest.mark.parametrize("n", [1 << k for k in range(3, 14)])
+def test_hermitian_passes_match_jax(n, shape):
+    """The torch Hermitian post and pre of the hybrid and large real routes
+    (`hermitian_post_nb` / `hermitian_pre_nb`) against the JAX package's
+    (pallas_rfft.py:390, :802) on the same seeded time-major planes, 2-D and
+    the [m, 8, W] view."""
+    m = n // 2
+    rng = np.random.default_rng(n)
+    zre, zim = (rng.uniform(-1, 1, (m, *shape)).astype(np.float32) for _ in range(2))
+    got = rf.hermitian_post_nb(torch.from_numpy(zre), torch.from_numpy(zim), n)
+    want = jpr.hermitian_post_nb(jnp.asarray(zre), jnp.asarray(zim), n)
+    assert tuple(got[0].shape) == (m + 1, *shape)
+    assert _rel_to_max(_c(*got), _c(*want)) <= JAX_LIMIT
+    xre, xim = (rng.uniform(-1, 1, (m + 1, *shape)).astype(np.float32) for _ in range(2))
+    got = rf.hermitian_pre_nb(torch.from_numpy(xre), torch.from_numpy(xim), n)
+    want = jpr.hermitian_pre_nb(jnp.asarray(xre), jnp.asarray(xim), n)
+    assert tuple(got[0].shape) == (m, *shape)
+    assert _rel_to_max(_c(*got), _c(*want)) <= JAX_LIMIT

@@ -1,9 +1,10 @@
 """The port's command-line tools, counterparts of the JAX package's
 `tools/*.py` that import it: `accuracy_report`, `permutation_validator`,
-`butterfly_tester` and `playground_report` (behind
-`python -m watfft_tpu_torch analyze`). Run each as
-`python -m watfft_tpu_torch.tools.<name>`; they run on the CUDA device
-unless asked for the CPU.
+`butterfly_tester`, `playground_report` (behind
+`python -m watfft_tpu_torch analyze`), `stockham_reference`,
+`index_visualizer`, `single_case` and `lint_dead_surfaces`. Run each as
+`python -m watfft_tpu_torch.tools.<name>`; those that touch a device run
+on the CUDA device unless asked for the CPU.
 """
 
 from __future__ import annotations
