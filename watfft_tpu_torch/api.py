@@ -52,8 +52,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.autograd import profiler
 
-from . import planner
+from . import planner, trace
 from .ops import fft2 as f2
 from .ops import fourstep, large
 from .ops import rfft as rf
@@ -90,7 +91,7 @@ class _Context:
         x = torch.as_tensor(x)
         if x.is_complex() and not dtype.is_complex:
             raise TypeError(f"expected a real input, got {x.dtype}")
-        x = x.to(device=self.device, dtype=dtype)
+        x = trace.to(x, self.device, dtype)
         if x.dim() == 0 or x.shape[axis] != length:
             raise ValueError(
                 f"context is planned for size {self.size}, got input of shape "
@@ -109,13 +110,16 @@ class FFTContext(_Context):
         self._fourstep = {}
 
     def _kind(self, x, axis: int) -> str:
-        return planner.c2c_kernel(self.size, self.dtype, x.numel() // x.shape[axis],
+        kind = planner.c2c_kernel(self.size, self.dtype, x.numel() // x.shape[axis],
                                   time_major=axis == 0)
+        trace.routes[kind] += 1
+        return kind
 
     def _fourstep_tables(self, inverse: bool):
         """The matmul surface's tables, in the context's dtype, built at
         first use."""
         if inverse not in self._fourstep:
+            trace.counts["tables_built"] += 1
             tree = build_tree(self.size, inverse=inverse, dtype=stockham.np_dtype(self._real))
             self._fourstep[inverse] = (fourstep.fft_tables(tree, self.device),
                                        fourstep.shape_info(tree))
@@ -154,35 +158,56 @@ class FFTContext(_Context):
             return ore.movedim(-1, 0), oim.movedim(-1, 0)
         return large.fft_large_nb(re, im, inverse, mode=kind[len("large-"):])
 
+    def _fourstep_planes(self, xre, xim, inverse: bool):
+        return self._fourstep_bm(self._prep(xre, self._real, -1, self.size),
+                                 self._prep(xim, self._real, -1, self.size), inverse)
+
+    # Each public method runs inside its root span while tracing (`trace`).
     # -- complex tensors [..., n] ----------------------------------------------
     def forward(self, x):
-        return self._complex(x, inverse=False)
+        if profiler._is_profiler_enabled:
+            return trace.call("api.forward", self._complex, x, False)
+        return self._complex(x, False)
 
     def inverse(self, x):
-        return self._complex(x, inverse=True)
+        if profiler._is_profiler_enabled:
+            return trace.call("api.inverse", self._complex, x, True)
+        return self._complex(x, True)
 
     # -- batch-major planes [..., n] -------------------------------------------
     def forward_planes(self, xre, xim):
-        return self._bm(xre, xim, inverse=False)
+        if profiler._is_profiler_enabled:
+            return trace.call("api.forward_planes", self._bm, xre, xim, False)
+        return self._bm(xre, xim, False)
 
     def inverse_planes(self, xre, xim):
-        return self._bm(xre, xim, inverse=True)
+        if profiler._is_profiler_enabled:
+            return trace.call("api.inverse_planes", self._bm, xre, xim, True)
+        return self._bm(xre, xim, True)
 
     # -- time-major planes [n, ...] (the JAX package's kernel layout) ----------
     def forward_planes_nb(self, xre, xim):
-        return self._nb(xre, xim, inverse=False)
+        if profiler._is_profiler_enabled:
+            return trace.call("api.forward_planes_nb", self._nb, xre, xim, False)
+        return self._nb(xre, xim, False)
 
     def inverse_planes_nb(self, xre, xim):
-        return self._nb(xre, xim, inverse=True)
+        if profiler._is_profiler_enabled:
+            return trace.call("api.inverse_planes_nb", self._nb, xre, xim, True)
+        return self._nb(xre, xim, True)
 
     # -- the matmul surface, at any n (watfft_tpu/api.py:237-241) ---------------
     def forward_planes_fourstep(self, xre, xim):
-        return self._fourstep_bm(self._prep(xre, self._real, -1, self.size),
-                                 self._prep(xim, self._real, -1, self.size), False)
+        if profiler._is_profiler_enabled:
+            return trace.call("api.forward_planes_fourstep", self._fourstep_planes, xre, xim,
+                              False)
+        return self._fourstep_planes(xre, xim, False)
 
     def inverse_planes_fourstep(self, xre, xim):
-        return self._fourstep_bm(self._prep(xre, self._real, -1, self.size),
-                                 self._prep(xim, self._real, -1, self.size), True)
+        if profiler._is_profiler_enabled:
+            return trace.call("api.inverse_planes_fourstep", self._fourstep_planes, xre, xim,
+                              True)
+        return self._fourstep_planes(xre, xim, True)
 
 
 class RFFTContext(_Context):
@@ -210,9 +235,10 @@ class RFFTContext(_Context):
         """The real matmul surface's m-point tree tables and post twiddles,
         in the context's dtype, built at first use."""
         if inverse not in self._fourstep:
+            trace.counts["tables_built"] += 1
             npd = stockham.np_dtype(self._real)
             tree = build_tree(self.size // 2, inverse=inverse, dtype=npd)
-            w = (torch.as_tensor(a, device=self.device)
+            w = (trace.h2d(a, self.device)
                  for a in fourstep.rfft_post_twiddles(self.size, inverse, npd))
             self._fourstep[inverse] = (fourstep.fft_tables(tree, self.device),
                                        fourstep.shape_info(tree), *w)
@@ -224,8 +250,14 @@ class RFFTContext(_Context):
     def _fs_inverse(self, xre, xim):
         return fourstep.irfft_planes(xre, xim, *self._fourstep_tables(True))
 
+    # Each public method runs inside its root span while tracing (`trace`).
     # -- complex spectra [..., n//2+1] ------------------------------------------
     def forward(self, x):
+        if profiler._is_profiler_enabled:
+            return trace.call("api.forward", self._forward, x)
+        return self._forward(x)
+
+    def _forward(self, x):
         x = self._prep(x, self._real, -1, self.size)
         if self._route == "fourstep":
             return torch.complex(*self._fs_forward(x))
@@ -234,6 +266,11 @@ class RFFTContext(_Context):
         return rf.rfft(x, self._fused)
 
     def inverse(self, x):
+        if profiler._is_profiler_enabled:
+            return trace.call("api.inverse", self._inverse, x)
+        return self._inverse(x)
+
+    def _inverse(self, x):
         x = self._prep(x, self._cdtype, -1, self.bins)
         if self._route == "fourstep":
             return self._fs_inverse(x.real, x.imag)
@@ -243,6 +280,11 @@ class RFFTContext(_Context):
 
     # -- batch-major planes [..., n//2+1] ---------------------------------------
     def forward_planes(self, x):
+        if profiler._is_profiler_enabled:
+            return trace.call("api.forward_planes", self._forward_planes, x)
+        return self._forward_planes(x)
+
+    def _forward_planes(self, x):
         x = self._prep(x, self._real, -1, self.size)
         if self._route == "fourstep":
             return self._fs_forward(x)
@@ -251,6 +293,11 @@ class RFFTContext(_Context):
         return rf.rfft_bm(x, self._fused)
 
     def inverse_planes(self, xre, xim):
+        if profiler._is_profiler_enabled:
+            return trace.call("api.inverse_planes", self._inverse_planes, xre, xim)
+        return self._inverse_planes(xre, xim)
+
+    def _inverse_planes(self, xre, xim):
         xre = self._prep(xre, self._real, -1, self.bins)
         xim = self._prep(xim, self._real, -1, self.bins)
         if self._route == "fourstep":
@@ -261,6 +308,11 @@ class RFFTContext(_Context):
 
     # -- time-major planes [n, ...] <-> [n//2+1, ...] ----------------------------
     def forward_planes_nb(self, x):
+        if profiler._is_profiler_enabled:
+            return trace.call("api.forward_planes_nb", self._forward_planes_nb, x)
+        return self._forward_planes_nb(x)
+
+    def _forward_planes_nb(self, x):
         x = self._prep(x, self._real, 0, self.size)
         if self._route == "fourstep":  # the matmul surface runs along the last axis
             ore, oim = self._fs_forward(x.movedim(0, -1))
@@ -272,6 +324,11 @@ class RFFTContext(_Context):
         return rf.rfft_nb_fused(x)
 
     def inverse_planes_nb(self, xre, xim):
+        if profiler._is_profiler_enabled:
+            return trace.call("api.inverse_planes_nb", self._inverse_planes_nb, xre, xim)
+        return self._inverse_planes_nb(xre, xim)
+
+    def _inverse_planes_nb(self, xre, xim):
         xre = self._prep(xre, self._real, 0, self.bins)
         xim = self._prep(xim, self._real, 0, self.bins)
         if self._route == "fourstep":
@@ -284,9 +341,20 @@ class RFFTContext(_Context):
 
     # -- the real matmul surface, at any n (watfft_tpu/api.py:483-489) ----------
     def forward_planes_fourstep(self, x):
+        if profiler._is_profiler_enabled:
+            return trace.call("api.forward_planes_fourstep", self._forward_planes_fourstep, x)
+        return self._forward_planes_fourstep(x)
+
+    def _forward_planes_fourstep(self, x):
         return self._fs_forward(self._prep(x, self._real, -1, self.size))
 
     def inverse_planes_fourstep(self, xre, xim):
+        if profiler._is_profiler_enabled:
+            return trace.call("api.inverse_planes_fourstep", self._inverse_planes_fourstep,
+                              xre, xim)
+        return self._inverse_planes_fourstep(xre, xim)
+
+    def _inverse_planes_fourstep(self, xre, xim):
         return self._fs_inverse(self._prep(xre, self._real, -1, self.bins),
                                 self._prep(xim, self._real, -1, self.bins))
 
@@ -325,35 +393,49 @@ _ctx_cache: dict = {}
 def _ctx(cls, n: int, device, dtype: str = "float32"):
     key = (cls, n, dtype, str(device))
     if key not in _ctx_cache:
+        trace.counts["tables_built"] += 1
         _ctx_cache[key] = cls(n, dtype, device)
     return _ctx_cache[key]
+
+
+# Each functional entry runs inside its root span while tracing (`trace`).
+
+def _entry(cls, inverse: bool, x, dtype: str, device):
+    x = torch.as_tensor(x)
+    n = 2 * (x.shape[-1] - 1) if cls is RFFTContext and inverse else x.shape[-1]
+    ctx = _ctx(cls, n, device, dtype)
+    return ctx.inverse(x) if inverse else ctx.forward(x)
 
 
 def fft(x, dtype: str = "float32", device="cuda"):
     """Forward FFT over the last axis of x in `dtype` ("float32" or
     "float64"), on `device`."""
-    x = torch.as_tensor(x)
-    return _ctx(FFTContext, x.shape[-1], device, dtype).forward(x)
+    if profiler._is_profiler_enabled:
+        return trace.call("api.fft", _entry, FFTContext, False, x, dtype, device)
+    return _entry(FFTContext, False, x, dtype, device)
 
 
 def ifft(x, dtype: str = "float32", device="cuda"):
     """Normalized inverse FFT over the last axis of x, on `device`."""
-    x = torch.as_tensor(x)
-    return _ctx(FFTContext, x.shape[-1], device, dtype).inverse(x)
+    if profiler._is_profiler_enabled:
+        return trace.call("api.ifft", _entry, FFTContext, True, x, dtype, device)
+    return _entry(FFTContext, True, x, dtype, device)
 
 
 def rfft(x, dtype: str = "float32", device="cuda"):
     """Real FFT over the last axis of x: [..., n] -> complex [..., n//2+1],
     in `dtype`, on `device`."""
-    x = torch.as_tensor(x)
-    return _ctx(RFFTContext, x.shape[-1], device, dtype).forward(x)
+    if profiler._is_profiler_enabled:
+        return trace.call("api.rfft", _entry, RFFTContext, False, x, dtype, device)
+    return _entry(RFFTContext, False, x, dtype, device)
 
 
 def irfft(x, dtype: str = "float32", device="cuda"):
     """Normalized inverse of `rfft`: complex [..., m+1] -> real [..., 2m],
     on `device`."""
-    x = torch.as_tensor(x)
-    return _ctx(RFFTContext, 2 * (x.shape[-1] - 1), device, dtype).inverse(x)
+    if profiler._is_profiler_enabled:
+        return trace.call("api.irfft", _entry, RFFTContext, True, x, dtype, device)
+    return _entry(RFFTContext, True, x, dtype, device)
 
 
 # -- 2D (watfft_tpu/api.py:586-631) --------------------------------------------
@@ -364,27 +446,47 @@ def _on(x, device, dtype: torch.dtype) -> torch.Tensor:
     x = torch.as_tensor(x)
     if x.is_complex() and not dtype.is_complex:
         raise TypeError(f"expected a real input, got {x.dtype}")
-    return x.to(device=device, dtype=dtype)
+    return trace.to(x, device, dtype)
+
+
+def _fft2(x, device, inverse: bool):
+    return f2.fft2_complex(_on(x, device, torch.complex64), inverse=inverse)
+
+
+def _rfft2(x, device):
+    return torch.complex(*f2.rfft2_planes(_on(x, device, torch.float32)))
+
+
+def _irfft2(x, device):
+    x = _on(x, device, torch.complex64)
+    return f2.irfft2_planes(x.real, x.imag)
 
 
 def fft2(x, device="cuda"):
     """2D f32 FFT over the trailing [h, w] axes of a complex x, on `device`."""
-    return f2.fft2_complex(_on(x, device, torch.complex64))
+    if profiler._is_profiler_enabled:
+        return trace.call("api.fft2", _fft2, x, device, False)
+    return _fft2(x, device, False)
 
 
 def ifft2(x, device="cuda"):
     """Normalized inverse 2D FFT over the trailing [h, w] axes."""
-    return f2.fft2_complex(_on(x, device, torch.complex64), inverse=True)
+    if profiler._is_profiler_enabled:
+        return trace.call("api.ifft2", _fft2, x, device, True)
+    return _fft2(x, device, True)
 
 
 def rfft2(x, device="cuda"):
     """2D real FFT over the trailing [h, w] axes of a real x -> complex
     [..., h, w//2+1] (numpy.fft.rfft2 semantics; f32): one half-width 2D
     FFT and the 2D Hermitian recombination."""
-    return torch.complex(*f2.rfft2_planes(_on(x, device, torch.float32)))
+    if profiler._is_profiler_enabled:
+        return trace.call("api.rfft2", _rfft2, x, device)
+    return _rfft2(x, device)
 
 
 def irfft2(x, device="cuda"):
     """Inverse of `rfft2`: complex [..., h, m+1] -> real [..., h, 2m]."""
-    x = _on(x, device, torch.complex64)
-    return f2.irfft2_planes(x.real, x.imag)
+    if profiler._is_profiler_enabled:
+        return trace.call("api.irfft2", _irfft2, x, device)
+    return _irfft2(x, device)

@@ -58,8 +58,9 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+from torch.autograd import profiler
 
-from .. import api, planner
+from .. import api, planner, trace
 from ..planner import bluestein_m
 from . import large, stockham
 from .stockham import Tables, check_device, run_stages
@@ -147,13 +148,14 @@ def make_bluestein_tables(n: int, cre, cim, bre, bim, fwd: Tables | None, inv: T
         fre, fim = cre32 * s, cim32 * s
 
     def put(a):
-        return torch.from_numpy(np.array(a, np.float32).reshape(-1)).to(device)
+        return trace.h2d(np.array(a, np.float32).reshape(-1), device)
     return BluesteinTables(int(n), bool(inverse), put(cre32), put(cim32), put(fre), put(fim),
                            put(bre), put(bim), fwd, inv)
 
 
 @functools.cache
 def _cached(n: int, inverse: bool, device: torch.device) -> BluesteinTables:
+    trace.counts["tables_built"] += 1
     m, cre, cim, bre, bim = chirp_tables(n, inverse)
     fwd = inv = None
     if planner.bluestein_kernel(n) == "bluestein-fused":
@@ -236,6 +238,7 @@ def _launch(key: str, x, xs, y, ys, n: int, batch: int, bt: BluesteinTables) -> 
             n, bt.m, batch)
     with torch.cuda.device(x[0].device):
         stream = torch.cuda.current_stream().cuda_stream
+        span = trace.begin("launch." + key) if profiler._is_profiler_enabled else None
         if key == "bluestein_fwd":
             err = lib.watfft_bluestein_fwd(*args, bt.cre.data_ptr(), bt.cim.data_ptr(),
                                            bt.bre.data_ptr(), bt.bim.data_ptr(), *_plan(bt.fwd),
@@ -248,6 +251,8 @@ def _launch(key: str, x, xs, y, ys, n: int, batch: int, bt: BluesteinTables) -> 
                 *args, bt.cre.data_ptr(), bt.cim.data_ptr(), bt.bre.data_ptr(),
                 bt.bim.data_ptr(), bt.fre.data_ptr(), bt.fim.data_ptr(), *_plan(bt.fwd),
                 *_plan(bt.inv), stream)
+        if span is not None:
+            trace.end(span)
     if err:
         raise RuntimeError(f"{key} kernel launch failed (n={n}, m={bt.m}, batch={batch}): "
                            f"{lib.watfft_error_string(err).decode()}")

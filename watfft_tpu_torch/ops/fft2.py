@@ -43,8 +43,9 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.autograd import profiler
 
-from .. import planner
+from .. import planner, trace
 from ..plan import build_tree, is_power_of_two
 from . import fourstep, large
 from . import rfft as rf
@@ -117,6 +118,7 @@ def _merge(axes):
 
 @functools.cache
 def _fourstep_tables(n: int, inverse: bool, device: torch.device):
+    trace.counts["tables_built"] += 1
     tree = build_tree(n, inverse=inverse)
     return fourstep.fft_tables(tree, device), fourstep.shape_info(tree)
 
@@ -239,11 +241,14 @@ def _launch_cube(x, xs, y, ys, h, w, batch, inverse, th: Tables, tw: Tables) -> 
     ptrs = [t.data_ptr() for t in (*x, *y)]
     launch = cube2_launch(h, w, (*ptrs[:2], *xs), (*ptrs[2:], *ys), (th.radix, tw.radix))
     with torch.cuda.device(x[0].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        span = trace.begin("launch.fft2_cube") if profiler._is_profiler_enabled else None
         err = lib.watfft_fft2_cube(
             *ptrs, *xs, *ys, h, w, batch, th.twre.data_ptr(), th.twim.data_ptr(),
             th.c_radices, th.c_offsets, len(th.stages), tw.twre.data_ptr(), tw.twim.data_ptr(),
-            tw.c_radices, tw.c_offsets, len(tw.stages), int(inverse),
-            torch.cuda.current_stream().cuda_stream, *launch)
+            tw.c_radices, tw.c_offsets, len(tw.stages), int(inverse), stream, *launch)
+        if span is not None:
+            trace.end(span)
     large._check(lib, err, "fft2_cube", h * w, batch, launches)
 
 

@@ -35,7 +35,7 @@ import contextlib
 import numpy as np
 import torch
 
-from .. import config
+from .. import config, trace
 from ..plan import PlanNode, build_tree
 from .stockham import np_dtype
 
@@ -91,7 +91,7 @@ def _cmatmul_outer(cre, cim, wre, wim):
 def fft_tables(node: PlanNode, device="cpu") -> list[dict]:
     """The tree's tables as tensors on `device`, one dict per level."""
     def put(a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+        return trace.h2d(np.ascontiguousarray(a), device)
     out = []
     for level in node.leaves():
         d = {"w_re": put(level.w_re), "w_im": put(level.w_im)}

@@ -47,8 +47,9 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.autograd import profiler
 
-from .. import planner
+from .. import planner, trace
 from . import stockham
 from .stockham import Tables, check_device, complex_pairs, run_stages
 
@@ -123,12 +124,13 @@ def make_large_tables(n1, n2, pmre, pmim, t1: Tables, t2: Tables, inverse: bool)
     """LargeTables from a host twiddle grid (numpy, [n2, n1]) and the two
     passes' Stockham tables, on the tables' device."""
     def put(a):
-        return torch.as_tensor(np.asarray(a, np.float32).reshape(-1), device=t1.twre.device)
+        return trace.h2d(np.asarray(a, np.float32).reshape(-1), t1.twre.device)
     return LargeTables(int(n1), int(n2), bool(inverse), put(pmre), put(pmim), t1, t2)
 
 
 @functools.cache
 def _cached_large(n1: int, n2: int, inverse: bool, device: torch.device) -> LargeTables:
+    trace.counts["tables_built"] += 1
     return make_large_tables(n1, n2, *pm_grid(n1 * n2, n1, n2, inverse),
                              stockham.device_tables(n2, inverse, device),
                              stockham.device_tables(n1, inverse, device), inverse)
@@ -241,12 +243,21 @@ def _launch(x, y, n, xs, ys, pm, ms, mul, inner, batch, inverse, tables, key, co
     lib = _library(x[0], tables.twre.device)
     pmp = (pm[0].data_ptr(), pm[1].data_ptr()) if mul else (None, None)
     with torch.cuda.device(x[0].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        span = trace.begin(_span(key, counts)) if profiler._is_profiler_enabled else None
         err = lib.watfft_strided_c2c(
             x[0].data_ptr(), x[1].data_ptr(), y[0].data_ptr(), y[1].data_ptr(), *xs, *ys,
             *pmp, *ms, mul, n, inner, batch, tables.twre.data_ptr(), tables.twim.data_ptr(),
-            tables.c_radices, tables.c_offsets, len(tables.stages), int(inverse),
-            torch.cuda.current_stream().cuda_stream, *cols)
+            tables.c_radices, tables.c_offsets, len(tables.stages), int(inverse), stream, *cols)
+        if span is not None:
+            trace.end(span)
     _check(lib, err, key, n, batch, counts)
+
+
+def _span(key: str, counts: dict) -> str:
+    """The launch span of the counter counts[key], named as
+    `registry.launch_counts()` names it (this module's with `large_`)."""
+    return ("launch.large_" if counts is launches else "launch.") + key
 
 
 def _launch_cube(x, y, xs, ys, batch, lt: LargeTables) -> None:
@@ -255,12 +266,16 @@ def _launch_cube(x, y, xs, ys, batch, lt: LargeTables) -> None:
     ptrs = [t.data_ptr() for t in (*x, *y)]
     launch = cube_launch(lt.n, (*ptrs[:2], *xs), (*ptrs[2:], *ys))
     with torch.cuda.device(x[0].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        span = trace.begin("launch.large_cube") if profiler._is_profiler_enabled else None
         err = lib.watfft_large_cube(
             *ptrs, *xs, *ys,
             lt.n1, lt.n2, batch, lt.pmre.data_ptr(), lt.pmim.data_ptr(),
             t1.twre.data_ptr(), t1.twim.data_ptr(), t1.c_radices, t1.c_offsets, len(t1.stages),
             t2.twre.data_ptr(), t2.twim.data_ptr(), t2.c_radices, t2.c_offsets, len(t2.stages),
-            int(lt.inverse), torch.cuda.current_stream().cuda_stream, *launch)
+            int(lt.inverse), stream, *launch)
+        if span is not None:
+            trace.end(span)
     _check(lib, err, "cube", lt.n, batch)
 
 

@@ -45,8 +45,9 @@ import functools
 
 import numpy as np
 import torch
+from torch.autograd import profiler
 
-from .. import config
+from .. import config, trace
 from . import stockham
 from .fourstep import full_f32
 from .stockham import check_device
@@ -129,12 +130,14 @@ def mma_fragments(n: int, inverse: bool) -> np.ndarray:
 
 @functools.cache
 def _cached(n: int, inverse: bool, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(dft_matrix_real(n, inverse).T)).to(device)
+    trace.counts["tables_built"] += 1
+    return trace.h2d(np.ascontiguousarray(dft_matrix_real(n, inverse).T), device)
 
 
 @functools.cache
 def _cached_fragments(n: int, inverse: bool, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(mma_fragments(n, inverse)).to(device)
+    trace.counts["tables_built"] += 1
+    return trace.h2d(mma_fragments(n, inverse), device)
 
 
 def device_matrix(n: int, inverse: bool, device) -> torch.Tensor:
@@ -192,11 +195,14 @@ def _launch(x, xs, y, ys, n: int, batch: int, inverse: bool) -> None:
     last = dft_launch(n, (addr[0], addr[1], *xs), (addr[2], addr[3], *ys))
     lib = library()
     with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        span = trace.begin("launch.mxu_dft") if profiler._is_profiler_enabled else None
         # W^T stays in its old place (a build without the tensor-core kernel
         # reads it and ignores the arguments after the stream)
-        err = lib.watfft_dft_matmul(*addr, *xs, *ys, n, batch, wt.data_ptr(),
-                                    torch.cuda.current_stream().cuda_stream,
+        err = lib.watfft_dft_matmul(*addr, *xs, *ys, n, batch, wt.data_ptr(), stream,
                                     ctypes.c_void_p(frag.data_ptr()), *last)
+        if span is not None:
+            trace.end(span)
     if err:
         raise RuntimeError(f"DFT matmul kernel launch failed (n={n}, batch={batch}): "
                            f"{lib.watfft_error_string(err).decode()}")

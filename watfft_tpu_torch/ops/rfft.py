@@ -58,7 +58,9 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+from torch.autograd import profiler
 
+from .. import trace
 from . import stockham
 from .fourstep import rfft_post_twiddles
 from .large import fft_large_views
@@ -118,13 +120,13 @@ def make_rtables(stages, offsets, twre, twim, wre, wim, inverse: bool, device,
     core = stockham.make_tables(stages, offsets, twre, twim, device, dtype)
 
     def put(a):
-        return torch.as_tensor(np.asarray(a, np.float64).reshape(-1), device=core.twre.device,
-                               dtype=dtype)
+        return trace.h2d(np.asarray(a, np.float64).reshape(-1), core.twre.device, dtype)
     return RTables(core, put(wre), put(wim), bool(inverse))
 
 
 @functools.cache
 def _cached_rtables(n: int, inverse: bool, device: torch.device, dtype: torch.dtype) -> RTables:
+    trace.counts["tables_built"] += 1
     m = n // 2
     npd = stockham.np_dtype(dtype)
     re, im, offsets = stockham.make_twiddle_pack(m, inverse, npd)
@@ -140,7 +142,8 @@ def device_rtables(n: int, inverse: bool, device, dtype=torch.float32) -> RTable
 
 @functools.cache
 def _cached_post(n: int, inverse: bool, device: torch.device):
-    return tuple(torch.as_tensor(a, device=device) for a in rfft_post_twiddles(n, inverse))
+    trace.counts["tables_built"] += 1
+    return tuple(trace.h2d(a, device) for a in rfft_post_twiddles(n, inverse))
 
 
 def _resolve(tables, n: int, inverse: bool, device, dtype: torch.dtype) -> RTables:
@@ -164,7 +167,7 @@ def _resolve(tables, n: int, inverse: bool, device, dtype: torch.dtype) -> RTabl
 def _post(n: int, inverse: bool, like):
     """The post twiddles in like's dtype, on its device."""
     npd = stockham.np_dtype(like.dtype)
-    return (torch.as_tensor(a, device=like.device) for a in rfft_post_twiddles(n, inverse, npd))
+    return (trace.h2d(a, like.device) for a in rfft_post_twiddles(n, inverse, npd))
 
 
 def _column(w, like):
@@ -367,10 +370,15 @@ def _launch_r2c(x, x_sn, x_sb, yre, yim, y_sn, y_sb, n, batch, rt: RTables) -> N
     f64 = rt.dtype == torch.float64
     entry = lib.watfft_rfft_r2c_f64 if f64 else lib.watfft_rfft_r2c
     launch = r2c_launch(n, (x.data_ptr(), x_sn, x_sb), (yre, yim, y_sn, y_sb), 8 if f64 else 4)
+    name = "rfft_r2c_fused_f64" if f64 else "rfft_r2c_fused"
     with torch.cuda.device(x.device):
-        err = entry(x.data_ptr(), x_sn, x_sb, yre, yim, y_sn, y_sb, n, batch,
-                    *targs, torch.cuda.current_stream().cuda_stream, *launch)
-    _check(lib, err, "rfft_r2c_fused" + ("_f64" if f64 else ""), n, batch)
+        stream = torch.cuda.current_stream().cuda_stream
+        span = trace.begin("launch." + name) if profiler._is_profiler_enabled else None
+        err = entry(x.data_ptr(), x_sn, x_sb, yre, yim, y_sn, y_sb, n, batch, *targs, stream,
+                    *launch)
+        if span is not None:
+            trace.end(span)
+    _check(lib, err, name, n, batch)
 
 
 def _launch_c2r(x, xre, xim, x_sn, x_sb, y, y_sn, y_sb, n, batch, rt: RTables) -> None:
@@ -380,10 +388,15 @@ def _launch_c2r(x, xre, xim, x_sn, x_sb, y, y_sn, y_sb, n, batch, rt: RTables) -
     f64 = rt.dtype == torch.float64
     entry = lib.watfft_irfft_c2r_f64 if f64 else lib.watfft_irfft_c2r
     launch = () if f64 else c2r_launch(n, (xre, xim, x_sn, x_sb), (y.data_ptr(), y_sn, y_sb))
+    name = "irfft_c2r_fused_f64" if f64 else "irfft_c2r_fused"
     with torch.cuda.device(x.device):
-        err = entry(xre, xim, x_sn, x_sb, y.data_ptr(), y_sn, y_sb, n, batch,
-                    *targs, torch.cuda.current_stream().cuda_stream, *launch)
-    _check(lib, err, "irfft_c2r_fused" + ("_f64" if f64 else ""), n, batch)
+        stream = torch.cuda.current_stream().cuda_stream
+        span = trace.begin("launch." + name) if profiler._is_profiler_enabled else None
+        err = entry(xre, xim, x_sn, x_sb, y.data_ptr(), y_sn, y_sb, n, batch, *targs, stream,
+                    *launch)
+        if span is not None:
+            trace.end(span)
+    _check(lib, err, name, n, batch)
 
 
 def _kernel_args(rt: RTables, t, name):

@@ -79,8 +79,9 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+from torch.autograd import profiler
 
-from .. import config
+from .. import config, trace
 
 __all__ = ["stage_plan", "make_twiddle_pack", "run_stages", "plain_fft",
            "Tables", "make_tables", "device_tables", "fft_views", "stockham_fft_nb",
@@ -460,8 +461,7 @@ def make_tables(stages, offsets, twre, twim, device, dtype=torch.float32) -> Tab
         raise ValueError(f"{len(stages)} stages but {len(offsets)} offsets")
 
     def put(a):
-        return torch.as_tensor(np.asarray(a, np.float64).reshape(-1), device=device,
-                               dtype=dtype)
+        return trace.h2d(np.asarray(a, np.float64).reshape(-1), device, dtype)
     return Tables(stages, offsets, put(twre), put(twim))
 
 
@@ -472,6 +472,7 @@ def np_dtype(dtype: torch.dtype):
 
 @functools.cache
 def _cached_tables(n: int, inverse: bool, device: torch.device, dtype: torch.dtype) -> Tables:
+    trace.counts["tables_built"] += 1
     # the bf16 pack is the f32 one rounded, as pallas_stockham.py:409-411 casts it
     pack = np.float32 if dtype == torch.bfloat16 else np_dtype(dtype)
     re, im, offsets = make_twiddle_pack(n, inverse, pack)
@@ -510,6 +511,10 @@ _ENTRIES = {(torch.float32, torch.float32): ("watfft_stockham_c2c", "launches"),
             (torch.float64, torch.float64): ("watfft_stockham_c2c_f64", "launches_f64"),
             (torch.bfloat16, torch.float32): ("watfft_stockham_c2c_bf16", "launches_bf16"),
             (torch.bfloat16, torch.bfloat16): ("watfft_stockham_c2c_bf16c", "launches_bf16c")}
+# The launch span of each counter, named as `registry.launch_counts()` names it.
+_SPANS = {"launches": "launch.stockham_c2c", "launches_f64": "launch.stockham_c2c_f64",
+          "launches_bf16": "launch.stockham_c2c_bf16",
+          "launches_bf16c": "launch.stockham_c2c_bf16c"}
 
 
 def _cols(dtype, x_sn, x_sb, y_sn, y_sb, n, batch, tables) -> tuple[int, int]:
@@ -587,10 +592,13 @@ def _launch(device, dtype, xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch,
     name, counter = _ENTRIES[(dtype, tables.dtype)]
     entry = getattr(lib, name)
     with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        span = trace.begin(_SPANS[counter]) if profiler._is_profiler_enabled else None
         err = entry(xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch,
                     tables.twre.data_ptr(), tables.twim.data_ptr(), tables.c_radices,
-                    tables.c_offsets, len(tables.stages), int(inverse),
-                    torch.cuda.current_stream().cuda_stream, *cols, *walk)
+                    tables.c_offsets, len(tables.stages), int(inverse), stream, *cols, *walk)
+        if span is not None:
+            trace.end(span)
     if err:
         raise RuntimeError(
             f"Stockham kernel launch failed (n={n}, batch={batch}, {dtype} data, "

@@ -13,7 +13,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.autograd import profiler
 
+from . import trace
 from .api import RFFTContext, _ctx as _api_ctx
 from .plan import is_power_of_two
 
@@ -63,16 +65,34 @@ def frame(x, frame_length: int, hop: int) -> torch.Tensor:
 
 
 def _window(window: str, n_fft: int, device) -> torch.Tensor:
-    return torch.as_tensor(get_window(window, n_fft), device=device)
+    trace.counts["tables_built"] += 1
+    return trace.h2d(get_window(window, n_fft), device)
 
+
+# stft and istft run inside their root spans while tracing (`trace`), each
+# step inside a span of its own where `on`.
 
 def stft(x, n_fft: int = 1024, hop: int = 256, window: str = "hann", device="cuda"):
     """Batched STFT: real [..., t] -> (re, im) planes [..., frames, n_fft//2+1]."""
+    if profiler._is_profiler_enabled:
+        return trace.call("stft.stft", _stft, x, n_fft, hop, window, device, True)
+    return _stft(x, n_fft, hop, window, device, False)
+
+
+def _stft(x, n_fft: int, hop: int, window: str, device, on: bool):
     x = torch.as_tensor(x)
     _check_stft_args(n_fft, hop, x.shape[-1])
     ctx = _ctx(n_fft, device)
-    x = x.to(device=ctx.device, dtype=torch.float32)
-    frames = frame(x, n_fft, hop) * _window(window, n_fft, ctx.device)
+    x = trace.to(x, ctx.device, torch.float32)
+    if on:
+        span = trace.begin("stft.window")
+    w = _window(window, n_fft, ctx.device)
+    if on:
+        trace.end(span)
+        span = trace.begin("stft.frame")
+    frames = frame(x, n_fft, hop) * w
+    if on:
+        trace.end(span)
     return ctx.forward_planes(frames)
 
 
@@ -81,10 +101,27 @@ def istft(sre, sim, n_fft: int = 1024, hop: int = 256, window: str = "hann",
     """Inverse STFT with windowed overlap-add (COLA normalization): planes
     [..., frames, n_fft//2+1] -> real [..., (frames-1)*hop + n_fft], cut to
     `length` if given."""
+    if profiler._is_profiler_enabled:
+        return trace.call("stft.istft", _istft, sre, sim, n_fft, hop, window, length, device,
+                          True)
+    return _istft(sre, sim, n_fft, hop, window, length, device, False)
+
+
+def _istft(sre, sim, n_fft: int, hop: int, window: str, length, device, on: bool):
     _check_stft_args(n_fft, hop)
     ctx = _ctx(n_fft, device)
+    if on:
+        span = trace.begin("istft.window")
     w = _window(window, n_fft, ctx.device)
-    frames = ctx.inverse_planes(sre, sim) * w  # [..., num, n_fft]
+    if on:
+        trace.end(span)
+    frames = ctx.inverse_planes(sre, sim)
+    if on:
+        span = trace.begin("istft.frame_window")
+    frames = frames * w  # [..., num, n_fft]
+    if on:
+        trace.end(span)
+        span = trace.begin("istft.overlap_add")
     num = frames.shape[-2]
     t = (num - 1) * hop + n_fft
     batch = frames.shape[:-2]
@@ -92,10 +129,18 @@ def istft(sre, sim, n_fft: int = 1024, hop: int = 256, window: str = "hann",
            + torch.arange(n_fft, device=ctx.device)[None, :]).reshape(-1)
     out = frames.new_zeros(batch + (t,)).index_add_(
         -1, idx, frames.reshape(batch + (num * n_fft,)))
+    if on:
+        trace.end(span)
+        span = trace.begin("istft.norm")
     norm = frames.new_zeros(t).index_add_(0, idx, (w * w).repeat(num))
+    if on:
+        trace.end(span)
+        span = trace.begin("istft.divide")
     out = out / torch.clamp_min(norm, 1e-8)
     if length is not None:
         out = out[..., :length]
+    if on:
+        trace.end(span)
     return out
 
 
