@@ -45,7 +45,10 @@ Phases (any failure exits nonzero and prints no result):
    count for that run.
 9. STFT at the same scale: `stft(x, n_fft=1024, hop=256)` on 4095*256 +
    1024 samples (4096 frames) against framing x window -> torch.fft.rfft in
-   float64, and `istft` back, with the launch counts of that run.
+   float64, and `istft` back (its overlap-add on `csrc/ola.cu`), with the
+   launch counts of that run; then the overlap-add kernel alone at the
+   `stft_n1024.batch` cell's shape against its plain version on the same
+   frames, for the kernels line's `istft_ola` row.
 10. Real times at 2^22 real points per n (at n = 1024 that is the main
    path's shape): fused r2c and c2r, the hybrid forward and inverse and
    their c2c core launches alone, the plain versions, torch.fft.rfft /
@@ -333,6 +336,7 @@ from watfft_tpu_torch.ops import bluestein as bl
 from watfft_tpu_torch.ops import fft2 as f2
 from watfft_tpu_torch.ops import large as lg
 from watfft_tpu_torch.ops import mxu_dft as md
+from watfft_tpu_torch.ops import ola
 from watfft_tpu_torch.ops import rfft as rf
 from watfft_tpu_torch.ops import stockham as st
 from watfft_tpu_torch.reference import dft as ref
@@ -346,6 +350,7 @@ MAIN_N, MAIN_B = 1024, 4096
 SIZES = [1 << k for k in range(1, 13)]
 REAL_SIZES = [1 << k for k in range(2, 14)]
 STFT_HOP = 256
+OLA_CLIPS, OLA_FRAMES = 256, 256  # the stft_n1024.batch cell's request: 256 clips of 256 frames
 LARGE_POINTS = 1 << 24   # 128 MiB of complex64 per buffer at every large n
 LARGE_SIZES = [1 << k for k in range(13, 25)]
 LARGE_N, LARGE_B = 1 << 20, 16
@@ -649,6 +654,7 @@ def zero_counts() -> None:
         f2.launches[key] = 0
     for key in bl.launches:
         bl.launches[key] = 0
+    ola.launches["istft_ola"] = 0
 
 
 def counts() -> dict:
@@ -807,7 +813,7 @@ def phase_stft(dev, gen) -> dict:
     back = wstft.istft(re, im, n_fft=n_fft, hop=hop, length=sig.shape[-1])
     torch.cuda.synchronize()
     launches = counts()
-    want_counts = expect(rfft_r2c_fused=1, irfft_c2r_fused=1)
+    want_counts = expect(rfft_r2c_fused=1, irfft_c2r_fused=1, istft_ola=1)
     check(launches == want_counts, f"stft: launches {launches}, expected {want_counts}")
     w = torch.as_tensor(wstft.get_window("hann", n_fft), device=dev, dtype=torch.float64)
     want = torch.fft.rfft(sig.double().unfold(-1, n_fft, hop) * w)
@@ -820,6 +826,53 @@ def phase_stft(dev, gen) -> dict:
     check(err <= MAX_REL["float32"], f"stft: max rel {err:.3e} vs torch.fft in float64")
     check(rt < ROUNDTRIP["float32"], f"istft roundtrip: {rt:.3e}")
     return launches
+
+
+def ola_kernel_row(dev, gen, name: str, limit: str) -> dict:
+    """The kernels line's `istft_ola` row: the overlap-add kernel at the
+    `stft_n1024.batch` cell's shape, the c2r's frames [256, 256, 1024] at
+    hop 256 into [256, 66304], beside its plain version on the same frames:
+    where the window power is at least 1e-2 of its largest, within
+    KERNEL_LIMIT of the largest sample there; two runs the same bits; one
+    launch a call.
+    Bytes: the frames read once and the signal written once; flops: a
+    multiply and an add for the sum and for the window power a frame value,
+    a divide a sample."""
+    n, hop, num, clips = MAIN_N, STFT_HOP, OLA_FRAMES, OLA_CLIPS
+    t = (num - 1) * hop + n
+    spec = (rand_real((clips, num, n // 2 + 1), gen, dev) for _ in range(2))
+    frames = wstft._ctx(n, dev).inverse_planes(*spec)
+    w = torch.as_tensor(wstft.get_window("hann", n), device=dev)
+    torch.cuda.synchronize()
+    zero_counts()
+    got = ola.istft_ola(frames, w, hop)
+    torch.cuda.synchronize()
+    launches = counts()
+    check(launches == expect(istft_ola=1), f"istft_ola: launches {launches}")
+    again = ola.istft_ola(frames, w, hop)
+    want = ola.plain_ola(frames, w, hop)
+    power = ola._norm(w.double(), ola._index(num, n, hop, dev), t)
+    well = power >= 1e-2 * power.max()
+    diff = (got.double() - want.double())[..., well].abs().max().item()
+    err = diff / want[..., well].abs().max().item()
+    same = torch.equal(got, again)
+    print(json.dumps({"phase": "ola_kernel_at_cell_shape", "frames": list(frames.shape),
+                      "samples": t, "hop": hop, "vec": ola.ola_launch(t, hop)[0],
+                      "launches": launches, "max_rel_vs_plain_well": err,
+                      "same_bits": same}), flush=True)
+    check(got.shape == (clips, t), f"istft_ola output shape {tuple(got.shape)}")
+    check(err <= KERNEL_LIMIT, f"istft_ola at the cell's shape: {err:.3e} vs plain")
+    check(same, "istft_ola: two runs on the same frames differ")
+    bnd = bound(4 * (frames.numel() + clips * t), 4 * frames.numel() + clips * t)
+    return {"name": "istft_ola", "shape": f"[{clips}, {num}, {n}] -> [{clips}, {t}], hop {hop}",
+            "route": "cuda", "source": "watfft_tpu_torch/ops/csrc/ola.cu", "replaces": None,
+            "replaces_of": "no TPU kernel: the JAX package leaves the overlap-add to XLA",
+            "also_replaces": [], "launches": launches["istft_ola"], "max_abs_err": diff,
+            "max_abs_err_of": "where the window power is at least 1e-2 of its largest",
+            "ms": time_ms(lambda: ola.istft_ola(frames, w, hop))[0],
+            "plain_ms": time_ms(lambda: ola.plain_ola(frames, w, hop), reps=3, warmup=1)[0],
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+            "card": name, "power_limit": limit}
 
 
 def phase_real_times(dev, gen, name: str, limit: str) -> dict:
@@ -3374,7 +3427,7 @@ def phase_c2r_cube2(dev, gen, name: str, limit: str) -> dict:
     out["istft"] = walk_times(lambda: wstft.istft(sre, sim, n_fft=n, hop=STFT_HOP), C2R_WALKS,
                               rounds=5)
     # the STFT inverse's own transform (its frames' batch-major planes), the
-    # rest of it being torch's overlap-add
+    # rest of it being the overlap-add kernel (csrc/ola.cu)
     out["istft_frames"] = walk_times(lambda: ctx32.inverse_planes(sre, sim), C2R_WALKS,
                                      rounds=5)
     out["irfft_f64"] = {"engine": time_ms(lambda: ctx64.inverse(spec64))[0]}
@@ -4110,6 +4163,7 @@ def main() -> int:
         phase_real_kernel_vs_plain(dev, gen)
         real_launches, real_errs = phase_real_main_path(dev, gen)
         phase_stft(dev, gen)
+        ola_row = ola_kernel_row(dev, gen, name, limit)
         real_times = phase_real_times(dev, gen, name, limit)
         phase_large_kernel_vs_plain(dev, gen)
         main, cube = phase_large_main_path(dev, gen)
@@ -4160,6 +4214,7 @@ def main() -> int:
     resident_rows(line["kernels"], resident)
     walk_rows(line["kernels"], walk)
     c2r_cube2_rows(line["kernels"], c2r_cube2)
+    line["kernels"].append(ola_row)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

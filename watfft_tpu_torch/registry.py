@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from . import api, planner
-from .ops import bluestein, fft2, large, mxu_dft, rfft, stockham
+from .ops import bluestein, fft2, large, mxu_dft, ola, rfft, stockham
 from .ops.stockham import check_device
 
 __all__ = ["SurfaceEntry", "REGISTRY", "SURFACES", "JAX_NAME", "COUNTERS", "entries",
@@ -81,7 +81,7 @@ COUNTERS = {
 
 
 _OPS = {"stockham": stockham, "rfft": rfft, "large": large, "fft2": fft2,
-        "bluestein": bluestein, "mxu_dft": mxu_dft}
+        "bluestein": bluestein, "mxu_dft": mxu_dft, "ola": ola}
 
 
 def _counter(module: str, attr: str, key) -> int:

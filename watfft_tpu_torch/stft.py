@@ -4,9 +4,12 @@ Counterpart of `watfft_tpu/stft.py`, with the same signatures and outputs
 as the JAX package off the TPU (watfft_tpu/stft.py:69-82): `stft` returns
 re and im planes [..., frames, n_fft//2+1]. Every transform goes through
 `RFFTContext` and so through the port's real-FFT kernels. Framing
-(`Tensor.unfold`), windowing and the overlap-add of `istft` (`index_add_`)
-are plain torch, as the JAX package leaves them to XLA. `device` is "cuda"
-by default; the kernels' plain versions run only for `device="cpu"`.
+(`Tensor.unfold`) and the analysis window are plain torch, as the JAX
+package leaves them to XLA. The synthesis window, overlap-add and COLA
+division of `istft` are one CUDA kernel (`ops/ola.py`, `csrc/ola.cu`) on
+CUDA frames, differentiable in them, and its plain version (`index_add_`)
+on CPU frames. `device` is "cuda" by default; the kernels' plain versions run
+only for `device="cpu"`.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from torch.autograd import profiler
 
 from . import trace
 from .api import RFFTContext, _ctx as _api_ctx
+from .ops import ola
 from .plan import is_power_of_two
 
 __all__ = ["get_window", "frame", "stft", "istft", "spectrogram",
@@ -116,32 +120,7 @@ def _istft(sre, sim, n_fft: int, hop: int, window: str, length, device, on: bool
     if on:
         trace.end(span)
     frames = ctx.inverse_planes(sre, sim)
-    if on:
-        span = trace.begin("istft.frame_window")
-    frames = frames * w  # [..., num, n_fft]
-    if on:
-        trace.end(span)
-        span = trace.begin("istft.overlap_add")
-    num = frames.shape[-2]
-    t = (num - 1) * hop + n_fft
-    batch = frames.shape[:-2]
-    idx = (torch.arange(num, device=ctx.device)[:, None] * hop
-           + torch.arange(n_fft, device=ctx.device)[None, :]).reshape(-1)
-    out = frames.new_zeros(batch + (t,)).index_add_(
-        -1, idx, frames.reshape(batch + (num * n_fft,)))
-    if on:
-        trace.end(span)
-        span = trace.begin("istft.norm")
-    norm = frames.new_zeros(t).index_add_(0, idx, (w * w).repeat(num))
-    if on:
-        trace.end(span)
-        span = trace.begin("istft.divide")
-    out = out / torch.clamp_min(norm, 1e-8)
-    if length is not None:
-        out = out[..., :length]
-    if on:
-        trace.end(span)
-    return out
+    return ola.overlap_add(frames, w, hop, length, on)
 
 
 def spectrogram(x, n_fft: int = 1024, hop: int = 256, window: str = "hann",

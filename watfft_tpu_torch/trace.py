@@ -11,8 +11,8 @@ layers:
   api.<entry>     a public method of FFTContext / RFFTContext or a
                   functional entry (api.fft, api.rfft2, ...); a root
   stft.stft, stft.istft, and the STFT's steps (stft.window, stft.frame,
-                  istft.window, istft.frame_window, istft.overlap_add,
-                  istft.norm, istft.divide)
+                  istft.window; the plain overlap-add's istft.frame_window,
+                  istft.overlap_add, istft.norm, istft.divide)
   launch.<name>   one call into the CUDA library, which launches one
                   kernel; <name> is the kernel's launch counter, as
                   `registry.launch_counts()` names it
