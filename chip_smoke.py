@@ -80,7 +80,18 @@ Phases (any failure exits nonzero and prints no result):
    of the same bytes; then cube against pipe2 over batches at 2^13 and
    2^14 in complex64 and time-major planes, the planner's crossovers; and
    the large real path at its main shape (each direction, its core alone,
-   torch.fft.rfft / irfft).
+   torch.fft.rfft / irfft). Then pipe2 at the rawspec_n1048576.batch
+   cell's shape [128, 2^20] (2^27 points a launch): one forward with the
+   counts set to 0 (one launch of each stage), forward and inverse against
+   the plain version on the same input (limit 1e-6), timed whole beside the
+   plain version and torch.fft.fft, and each stage alone as the path
+   launches it (interleaved complex64) and on [n2, n1, b] plane blocks, at
+   128 and 16 sequences, for the kernels line's `large_pipe2_b128_n1048576`
+   row; and
+   `spectrometer.integrate(volts, 2**20, 3)` on int8 [64, 3 * 2^20, 2, 2]:
+   the route large-pipe2 and one launch of each stage a spectrum, the
+   spectra counted, each channel's power within MAX_REL of its largest bin
+   against the same mathematics in torch complex128, and timed.
 16. 2D kernels against their plain versions: the 2D cube at every
    power-of-two h, w >= 2 with h*w <= 2^14, forward and inverse, at batch 3
    in three layouts (batch-major planes, interleaved complex64, native
@@ -329,7 +340,7 @@ import torch
 
 import watfft_tpu_torch as wtt
 from watfft_tpu_torch import (config, create_fft, create_fft_f32, create_rfft, create_rfft_f32,
-                              fftlib, planner, registry)
+                              fftlib, planner, registry, spectrometer, trace)
 from watfft_tpu_torch import stft as wstft
 from watfft_tpu_torch.ops import _build
 from watfft_tpu_torch.ops import bluestein as bl
@@ -355,6 +366,9 @@ LARGE_POINTS = 1 << 24   # 128 MiB of complex64 per buffer at every large n
 LARGE_SIZES = [1 << k for k in range(13, 25)]
 LARGE_N, LARGE_B = 1 << 20, 16
 CUBE_N, CUBE_B = 1 << 13, 2048
+# the rawspec_n1048576.batch cell: 64 coarse channels x 2 pols of 2^20-point
+# spectra, 128 transforms a launch; the spectrometer on 3 spectra of each
+RAWSPEC_CHANS, RAWSPEC_POLS, RAWSPEC_NINT = 64, 2, 3
 SINGLE_SIZES = (1 << 20, 1 << 24)        # fft_large, one flat sequence
 FOURSTEP_N, PLANNER_FOURSTEP_N = 1 << 16, 1 << 25
 CROSSOVER_BATCHES = (1, 2, 4, 8, 16, 32, 64, 132, 264, 1024)
@@ -1270,6 +1284,97 @@ def large_kernel_rows(main: dict, cube: dict, single: dict, times: dict, dev, ge
                  single["launches"]["large_outer"], erro, ms_o, plain_o,
                  bound(16 * n, 5 * (n1.bit_length() - 1) * n), None))
     return [(name, LARGE_SRC, *rest) for name, *rest in rows]
+
+
+def phase_rawspec_cell(dev, gen, name: str, limit: str) -> dict:
+    """pipe2 at the rawspec cell's [128, 2^20] and the spectrometer at its
+    channels (docstring item 15); returns the kernels line's pipe2 row."""
+    n, b = LARGE_N, RAWSPEC_CHANS * RAWSPEC_POLS
+    n1, n2 = lg.large_split(n)
+    x = rand_complex((b, n), gen, dev)
+    torch.cuda.synchronize()
+    zero_counts()
+    y = lg.fft_large_complex(x, mode="pipe2")
+    torch.cuda.synchronize()
+    launches = counts()
+    check(launches == expect(large_stage1=1, large_stage2=1),
+          f"pipe2 [{b}, {n}]: launches {launches}")
+    p = lg.plain_fft_large(x)
+    err, rel = (y - p).abs().max().item(), rel_diff(y, p)
+    del y, p
+    rel_inv = rel_diff(lg.fft_large_complex(x, True, mode="pipe2"), lg.plain_fft_large(x, True))
+    check(max(rel, rel_inv) <= KERNEL_LIMIT,
+          f"pipe2 [{b}, {n}]: kernel vs plain {rel:.3e}, inverse {rel_inv:.3e}")
+    row = {"ms": time_ms(lambda: lg.fft_large_complex(x, mode="pipe2"))[0],
+           "plain_ms": time_ms(lambda: lg.plain_fft_large(x), reps=3, warmup=1)[0],
+           "library_ms": time_ms(lambda: torch.fft.fft(x))[0]}
+    # each stage as the path launches it (interleaved complex64 in and out,
+    # batch-major planes between) and on the [n2, n1, b] plane blocks the
+    # [16, 2^20] rows time, at the cell's batch and at LARGE_B
+    lt = lg.device_large_tables(n, False, dev)
+    stages = {}
+    for bb in (b, LARGE_B):
+        xb = x[:bb]
+        fx, fy = torch.view_as_real(xb).reshape(-1), torch.empty(2 * bb * n, device=dev)
+        c = (torch.empty(bb, n, device=dev), torch.empty(bb, n, device=dev))
+        x3 = (xb.real.T.contiguous().view(n2, n1, bb), xb.imag.T.contiguous().view(n2, n1, bb))
+        tail = "" if bb == b else f"_b{bb}"
+        stages.update({
+            f"stage1{tail}_ms": time_ms(lambda: lg._pass1(
+                (fx, fx[1:]), (2, 2 * n), c, (1, n), bb, lt, False, False))[0],
+            f"stage2{tail}_ms": time_ms(lambda: lg._pass2(
+                c, (1, n), (fy, fy[1:]), (2, 2 * n), bb, lt, False, True))[0],
+            f"stage1_planes{tail}_ms": time_ms(lambda: lg.stage1(*x3))[0],
+            f"stage2_planes{tail}_ms": time_ms(lambda: lg.stage2(*x3))[0]})
+        del fy, c, x3
+    row.update({k: stages[k] for k in ("stage1_ms", "stage2_ms", "stage1_planes_ms",
+                                       "stage2_planes_ms")})
+    del x
+    # each pass reads and writes every point's complex64 once
+    bnd = bound(32 * n * b, (5 * (n.bit_length() - 1) + 6) * n * b)
+    print(json.dumps({"phase": "rawspec_pipe2", "shape": [b, n], "split": [n1, n2],
+                      "launches": launches, "max_rel_diff": rel, "inv_max_rel_diff": rel_inv,
+                      **row, **stages, "bound_ms": bnd[0], "card": name, "power_limit": limit}),
+          flush=True)
+
+    chans, nint = RAWSPEC_CHANS, RAWSPEC_NINT
+    volts = torch.randint(-127, 128, (chans, nint * n, RAWSPEC_POLS, 2), generator=gen,
+                          device=dev, dtype=torch.int8)
+    torch.cuda.synchronize()
+    routes, spectra = dict(trace.routes), trace.counts["spec.spectra"]
+    zero_counts()
+    got = spectrometer.integrate(volts, n, nint)
+    torch.cuda.synchronize()
+    launched = counts()
+    took = {k: trace.routes[k] - routes[k] for k in routes}
+    check(took == {**dict.fromkeys(routes, 0), "large-pipe2": nint},
+          f"spectrometer: routes {took}")
+    check(launched == expect(large_stage1=nint, large_stage2=nint),
+          f"spectrometer: launches {launched}")
+    check(trace.counts["spec.spectra"] - spectra == chans * RAWSPEC_POLS * nint,
+          "spectrometer: spectra counted")
+    check(got.shape == (chans, 1, n) and got.dtype == torch.float32,
+          f"spectrometer: output {tuple(got.shape)} {got.dtype}")
+    worst = 0.0
+    for c in range(chans):
+        v = volts[c].double()  # [nint * n, pols, 2]
+        z = torch.complex(v[..., 0], v[..., 1]).T.reshape(RAWSPEC_POLS, nint, n)
+        want = torch.fft.fftshift(torch.view_as_real(torch.fft.fft(z)).square().sum((0, 1, 3)))
+        worst = max(worst, ((got[c, 0].double() - want).abs().max() / want.max()).item())
+    check(worst <= MAX_REL["float32"], f"spectrometer: power {worst:.3e} off its largest bin")
+    ms = time_ms(lambda: spectrometer.integrate(volts, n, nint), reps=5, warmup=1)[0]
+    points = chans * RAWSPEC_POLS * nint * n
+    print(json.dumps({"phase": "rawspec_spectrometer", "shape": list(volts.shape), "nint": nint,
+                      "routes": took, "launches": launched, "power_max_rel": worst,
+                      "integrate_ms": ms, "ms_a_spectrum": ms / nint,
+                      "pipe2_share": nint * row["ms"] / ms, "gpoints_per_s": points / ms / 1e6,
+                      "card": name, "power_limit": limit}), flush=True)
+    return {"name": f"large_pipe2_b{b}_n{n}", "route": "cuda", "source": LARGE_SRC,
+            "replaces": "watfft_tpu/ops/large.py:136",
+            "also_replaces": ["watfft_tpu/ops/large.py:250"],
+            "launches": launches["large_stage1"] + launches["large_stage2"],
+            "max_abs_err": err, **row, "bound_ms": bnd[0], "bound_by": bnd[1], "card": name,
+            "power_limit": limit}
 
 
 # -- the 2D path ------------------------------------------------------------------
@@ -4173,6 +4278,7 @@ def main() -> int:
         phase_large_crossover(dev, gen, name, limit)
         phase_large_real_times(dev, gen, name, limit)
         large_rows = large_kernel_rows(main, cube, single, large_times, dev, gen)
+        rawspec_row = phase_rawspec_cell(dev, gen, name, limit)
         phase_fft2_kernel_vs_plain(dev, gen)
         fft2_main = phase_fft2_main_path(dev, gen)
         fft2_times = phase_fft2_times(dev, gen, name, limit)
@@ -4206,6 +4312,7 @@ def main() -> int:
         return 1
     line = kernels_line({"launches": launches, "max_abs_err": max_abs_err}, real_launches,
                         real_errs, times, real_times, large_rows, fft2_rows, name, limit)
+    line["kernels"].append(rawspec_row)
     line["kernels"].extend(bl_rows)
     line["kernels"].extend(f64_rows)
     line["kernels"].extend(dft_rows)

@@ -13,6 +13,8 @@ layers:
   stft.stft, stft.istft, and the STFT's steps (stft.window, stft.frame,
                   istft.window; the plain overlap-add's istft.frame_window,
                   istft.overlap_add, istft.norm, istft.divide)
+  spectrometer.integrate, and its steps (spec.unpack, spec.detect,
+                  spec.shift); a root
   launch.<name>   one call into the CUDA library, which launches one
                   kernel; <name> is the kernel's launch counter, as
                   `registry.launch_counts()` names it
@@ -29,9 +31,11 @@ and `merge_into()`.
 Counters are always on, plain integer adds beside the kernels' launch
 counters (`counts`, `routes`): `h2d_copies` and `h2d_bytes` (copies from
 host memory to a device), `tables_built` (misses of the port's table and
-context caches, and each STFT window built) and each route FFTContext
-took (the route of a call is not a span: the launch spans name its
-kernels). `counters()` returns them with every launch counter.
+context caches, and each STFT window built), `spec.spectra` (the spectra
+the spectrometer detected and integrated, one a channel, polarisation and
+nfft samples) and each route FFTContext took (the route of a call is not
+a span: the launch spans name its kernels). `counters()` returns them with
+every launch counter.
 
 `align()` lays the spans on a device trace's clock. With CUDA activity
 alone `torch.profiler` still records the host's CUDA runtime calls
@@ -67,7 +71,7 @@ __all__ = ["CAPACITY", "Span", "begin", "end", "call", "h2d", "to", "counts", "r
 
 CAPACITY = 1 << 20
 
-counts = {"h2d_copies": 0, "h2d_bytes": 0, "tables_built": 0}
+counts = {"h2d_copies": 0, "h2d_bytes": 0, "tables_built": 0, "spec.spectra": 0}
 # FFTContext's routes (`planner.c2c_kernel`), each counted as it is taken: a
 # plain dict with every key in place, the cheapest count on the hot path
 routes = dict.fromkeys(("stockham", "large-cube", "large-pipe2", "fourstep"), 0)
