@@ -82,15 +82,18 @@ Phases (any failure exits nonzero and prints no result):
    the large real path at its main shape (each direction, its core alone,
    torch.fft.rfft / irfft). Then pipe2 at the rawspec_n1048576.batch
    cell's shape [128, 2^20] (2^27 points a launch): one forward with the
-   counts set to 0 (one launch of each stage), forward and inverse against
+   counts set to 0 (one launch of each stage, stage 2's storing 8 bytes a
+   point: `strided.pairs_store` 1, on the kernels line's row as
+   `pairs_stores`), forward and inverse against
    the plain version on the same input (limit 1e-6), timed whole beside the
    plain version and torch.fft.fft, and each stage alone as the path
    launches it (interleaved complex64) and on [n2, n1, b] plane blocks, at
    128 and 16 sequences, for the kernels line's `large_pipe2_b128_n1048576`
    row; and
    `spectrometer.integrate(volts, 2**20, 3)` on int8 [64, 3 * 2^20, 2, 2]:
-   the route large-pipe2 and one launch of each stage a spectrum, the
-   spectra counted, each channel's power within MAX_REL of its largest bin
+   the route large-pipe2 and one launch of each stage a spectrum (one
+   `strided.pairs_store` a chunk), the spectra counted, each channel's
+   power within MAX_REL of its largest bin
    against the same mathematics in torch complex128, and timed.
 16. 2D kernels against their plain versions: the 2D cube at every
    power-of-two h, w >= 2 with h*w <= 2^14, forward and inverse, at batch 3
@@ -1294,11 +1297,14 @@ def phase_rawspec_cell(dev, gen, name: str, limit: str) -> dict:
     x = rand_complex((b, n), gen, dev)
     torch.cuda.synchronize()
     zero_counts()
+    pairs0 = trace.counts["strided.pairs_store"]
     y = lg.fft_large_complex(x, mode="pipe2")
     torch.cuda.synchronize()
     launches = counts()
+    pairs = trace.counts["strided.pairs_store"] - pairs0
     check(launches == expect(large_stage1=1, large_stage2=1),
           f"pipe2 [{b}, {n}]: launches {launches}")
+    check(pairs == 1, f"pipe2 [{b}, {n}]: {pairs} launches storing 8 bytes a point, not 1")
     p = lg.plain_fft_large(x)
     err, rel = (y - p).abs().max().item(), rel_diff(y, p)
     del y, p
@@ -1333,7 +1339,8 @@ def phase_rawspec_cell(dev, gen, name: str, limit: str) -> dict:
     # each pass reads and writes every point's complex64 once
     bnd = bound(32 * n * b, (5 * (n.bit_length() - 1) + 6) * n * b)
     print(json.dumps({"phase": "rawspec_pipe2", "shape": [b, n], "split": [n1, n2],
-                      "launches": launches, "max_rel_diff": rel, "inv_max_rel_diff": rel_inv,
+                      "launches": launches, "pairs_stores": pairs, "max_rel_diff": rel,
+                      "inv_max_rel_diff": rel_inv,
                       **row, **stages, "bound_ms": bnd[0], "card": name, "power_limit": limit}),
           flush=True)
 
@@ -1343,9 +1350,12 @@ def phase_rawspec_cell(dev, gen, name: str, limit: str) -> dict:
     torch.cuda.synchronize()
     routes, spectra = dict(trace.routes), trace.counts["spec.spectra"]
     zero_counts()
+    pairs0 = trace.counts["strided.pairs_store"]
     got = spectrometer.integrate(volts, n, nint)
     torch.cuda.synchronize()
     launched = counts()
+    spec_pairs = trace.counts["strided.pairs_store"] - pairs0
+    check(spec_pairs == nint, f"spectrometer: {spec_pairs} launches storing 8 bytes a point")
     took = {k: trace.routes[k] - routes[k] for k in routes}
     check(took == {**dict.fromkeys(routes, 0), "large-pipe2": nint},
           f"spectrometer: routes {took}")
@@ -1365,7 +1375,8 @@ def phase_rawspec_cell(dev, gen, name: str, limit: str) -> dict:
     ms = time_ms(lambda: spectrometer.integrate(volts, n, nint), reps=5, warmup=1)[0]
     points = chans * RAWSPEC_POLS * nint * n
     print(json.dumps({"phase": "rawspec_spectrometer", "shape": list(volts.shape), "nint": nint,
-                      "routes": took, "launches": launched, "power_max_rel": worst,
+                      "routes": took, "launches": launched, "pairs_stores": spec_pairs,
+                      "power_max_rel": worst,
                       "integrate_ms": ms, "ms_a_spectrum": ms / nint,
                       "pipe2_share": nint * row["ms"] / ms, "gpoints_per_s": points / ms / 1e6,
                       "card": name, "power_limit": limit}), flush=True)
@@ -1373,7 +1384,8 @@ def phase_rawspec_cell(dev, gen, name: str, limit: str) -> dict:
             "replaces": "watfft_tpu/ops/large.py:136",
             "also_replaces": ["watfft_tpu/ops/large.py:250"],
             "launches": launches["large_stage1"] + launches["large_stage2"],
-            "max_abs_err": err, **row, "bound_ms": bnd[0], "bound_by": bnd[1], "card": name,
+            "pairs_stores": pairs, "max_abs_err": err, **row, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "card": name,
             "power_limit": limit}
 
 

@@ -54,13 +54,19 @@ library `_build.library` returns:
   a batch tail (C * 132 + 3 columns), and the strided kernel through
   `fft2_cols` (native [h, w, B], h = 1024..4096, w = 2 and 16), `fft2_k2`
   on native [2, 4096, B] and the pipe2 stages on [n2, n1, b] blocks, with
-  odd batches,
+  odd batches;
+
+* the strided kernel's 8-byte stores into complex64, where this build
+  takes them (`large.store_pairs`): pipe2 and the 2d mode at [16, 2^20],
+  [64, 2^16] and [5, 2^18], and the 2D column pass from and into
+  complex64 on [3, 1024, 1024] and [5, 512, 2048],
 
 at batch 3 and at 2^20 points per call (2^19 in FP64), or at the listed
 shapes, forward and inverse, with this checkout's tables for both. The
 outputs are compared with torch.equal (#20 past SIMT_MAX_N: within
 KERNEL_LIMIT). A build without the column tile
-ignores the C the wrappers pass it. Where both builds were compiled in this
+ignores the C the wrappers pass it, and one without the strided kernel's
+8-byte stores the flag that asks for them. Where both builds were compiled in this
 run, each kernel instance of the other build is also held to the same
 registers, spills and stack in this one (ptxas -v; instances only this
 build has are listed as new). Needs one CUDA device:
@@ -142,10 +148,23 @@ def ptxas_resources(log: str) -> dict:
 # patterns): the other build's instances of these may be missing here
 # (listed as retired), while every other instance must keep its resources.
 RETIRED = (r"11cube_kernelILb[01]EEE?v", r"17dft_matmul_kernelILi\d+ELi8ELi\d+EEEv")
+# Instances this build keeps under more template arguments (the other
+# build's mangled-name pattern and its name here): the strided column
+# tile's took PAIRS, whose false instance is the one the other build has.
+# Their resources are held like every other instance's.
+RENAMED = ((r"(19strided_cols_kernelILb[01]ELi\d)EE", r"\1ELb0EE"),)
+
+
+def renamed(name: str) -> str:
+    """An instance of the other build under this build's name for it."""
+    for pat, repl in RENAMED:
+        name = re.sub(pat, repl, name)
+    return name
 
 
 def compare_ptxas(this_log: str, other_log: str) -> dict:
-    this, other = ptxas_resources(this_log), ptxas_resources(other_log)
+    this = ptxas_resources(this_log)
+    other = {renamed(k): v for k, v in ptxas_resources(other_log).items()}
     if not this or not other:
         return {"ptxas": "not compared (a library was loaded, not built, in this run)"}
     retired = sorted(k for k in other if k not in this
@@ -370,6 +389,26 @@ def main() -> int:
             x2re, x2im = rand((n1, n2, b)), rand((n1, n2, b))
             same("column_tile_strided", ("stage2", (n1, n2, b), inverse),
                  lambda: lg.stage2(x2re, x2im, inverse))
+    # the strided kernel's 8-byte stores (this build's launches count them)
+    from watfft_tpu_torch import trace
+    for batch, n in ((16, 1 << 20), (64, 1 << 16), (5, 1 << 18)):
+        x = crand((batch, n))
+        for inverse in (False, True):
+            for mode in ("pipe2", "2d"):
+                same("strided_pairs", (n, batch, mode, inverse),
+                     lambda: lg.fft_large_complex(x, inverse, mode=mode))
+    for b, h, w in ((3, 1024, 1024), (5, 512, 2048)):
+        # the 2D column pass from complex64 into complex64
+        fx, xs = torch.view_as_real(crand((b, h, w))).reshape(-1), (2 * w, 2, 2 * h * w)
+        for inverse in (False, True):
+            th = st.device_tables(h, inverse, dev)
+
+            def cols():
+                fy = torch.empty(2 * b * h * w, device=dev)
+                f2._cols((fx, fx[1:]), xs, (fy, fy[1:]), xs, h, w, b, inverse, th, False)
+                return fy
+            same("strided_pairs", ((b, h, w), "fft2_cols", inverse), cols)
+    cases["strided_pairs_stores"] = trace.counts["strided.pairs_store"]
     # the redesigned cube: three layouts, batch 1, a few sequences, more
     # than the SMs hold at once by a tail, and 2^20 points; views 4 bytes
     # off 8-byte alignment (4-byte copies and stores); the real route's

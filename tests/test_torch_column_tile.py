@@ -131,7 +131,7 @@ class _Recorder:
     tile C and its block's threads, and returns 0 (the outputs are left as
     allocated). They are the last two arguments, but for the f32 and FP64
     c2c entries, which take the batch-major walk and its pairs after
-    them."""
+    them, and the strided entry, which takes its 8-byte stores after them."""
 
     def __init__(self):
         self.cols = []
@@ -139,7 +139,8 @@ class _Recorder:
 
     def __getattr__(self, name):
         def entry(*args):
-            at = 17 if name in ("watfft_stockham_c2c", "watfft_stockham_c2c_f64") else -2
+            at = 17 if name in ("watfft_stockham_c2c", "watfft_stockham_c2c_f64") else (
+                -3 if name == "watfft_strided_c2c" else -2)
             self.cols.append((name, args[at]))
             self.threads.append(args[at + 1])
             return 0

@@ -5,8 +5,8 @@ of the large-N path, the 2D path's cube and passes, the Bluestein pair and
 one-pass kernel, the small-n DFT matmul (#20: its FP32-core and 3xTF32
 tensor-core kernels), the c2c kernel's two bf16
 instances, the redesigned batch-major walk of the c2c kernel and the FP64
-r2c, and the redesigned f32 c2r and 2D cube), against their plain torch
-versions.
+r2c, the redesigned f32 c2r and 2D cube, and the strided kernel's 8-byte
+stores), against their plain torch versions.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no JAX, so it runs on a GPU host that has none; tests/conftest.py imports
@@ -906,6 +906,136 @@ def test_column_tile_refusals(dev, monkeypatch):
                                           st.WALK_ENGINE, 0, 0)
         assert err == -6, (cols, threads, err)
     assert "column tile" in lib.watfft_error_string(-6).decode()
+
+
+# -- the strided kernel's 8-byte stores (#13, the outer pass, the 2D column pass) ---------
+
+def _pairs_stores():
+    from watfft_tpu_torch import trace
+    return trace.counts["strided.pairs_store"]
+
+
+@pytest.mark.parametrize("b,n", [(16, 1 << 20), (5, 1 << 18)])
+def test_pairs_store_stage2_matches_planes_and_plain(b, n, dev):
+    """pipe2's stage 2 (#13) as the path launches it, from batch-major C
+    planes into interleaved complex64 (the PAIRS instance, counted), equal
+    to the same launch into planes (the instance before it) and within
+    KERNEL_LIMIT of plain_stage2."""
+    n1, n2 = lg.large_split(n)
+    c = (_r((b, n), n + b, dev), _r((b, n), n + b + 1, dev))
+    c3 = tuple(t.T.contiguous().view(n2, n1, b) for t in c)
+    for inverse in (False, True):
+        lt = lg.device_large_tables(n, inverse, dev)
+        fy = torch.empty(2 * b * n, device=dev)
+        before = _pairs_stores()
+        lg._pass2(c, (1, n), (fy, fy[1:]), (2, 2 * n), b, lt, False, True)
+        assert _pairs_stores() - before == 1
+        planes = (torch.empty(b, n, device=dev), torch.empty(b, n, device=dev))
+        lg._pass2(c, (1, n), planes, (1, n), b, lt, False, True)
+        assert _pairs_stores() - before == 1
+        got = torch.view_as_complex(fy.view(b, n, 2))
+        assert torch.equal(got, torch.complex(*planes)), inverse
+        want = torch.complex(*lg.plain_stage2(*c3, inverse, lt)).reshape(n, b).T
+        assert _rel(got, want) <= KERNEL_LIMIT
+
+
+@pytest.mark.parametrize("b,h,w", [(3, 1024, 1024), (5, 512, 2048)])
+def test_pairs_store_2d_column_pass_matches_planes_and_plain(b, h, w, dev):
+    """The 2D column pass (#11 as fft2's column pass) on complex64 into
+    interleaved complex64, equal to the same pass into planes and within
+    KERNEL_LIMIT of its plain version."""
+    x = _x((b, h, w), seed=h + w, dev=dev)
+    fx = torch.view_as_real(x).reshape(-1)
+    xs = (2 * w, 2, 2 * h * w)
+
+    def cols(y, ys, inverse, plain=False):
+        f2._cols((fx, fx[1:]), xs, y, ys, h, w, b, inverse,
+                 st.device_tables(h, inverse, dev), plain)
+    for inverse in (False, True):
+        fy, fp = torch.empty(2 * b * h * w, device=dev), torch.empty(2 * b * h * w, device=dev)
+        before = _pairs_stores()
+        cols((fy, fy[1:]), xs, inverse)
+        assert _pairs_stores() - before == 1
+        planes = (torch.empty(b * h * w, device=dev), torch.empty(b * h * w, device=dev))
+        cols(planes, (w, 1, h * w), inverse)
+        got = torch.view_as_complex(fy.view(b, h, w, 2))
+        assert torch.equal(got, torch.complex(*planes).view(b, h, w)), inverse
+        cols((fp, fp[1:]), xs, inverse, plain=True)
+        assert _rel(got, torch.view_as_complex(fp.view(b, h, w, 2))) <= KERNEL_LIMIT
+
+
+def test_pairs_store_pipe2_paths_match_plain(dev):
+    """pipe2 and the 2d mode on complex64 at 2^20 (stage 2 and the outer
+    pass store pairs), both directions, within KERNEL_LIMIT of the plain
+    version; into views one scalar off alignment (no pairs) equal to the
+    aligned output."""
+    n, b = 1 << 20, 4
+    x = _x((b, n), seed=20, dev=dev)
+    for inverse in (False, True):
+        want = lg.plain_fft_large(x, inverse)
+        for mode in ("pipe2", "2d"):
+            before = _pairs_stores()
+            got = lg.fft_large_complex(x, inverse, mode=mode)
+            assert _pairs_stores() - before == 1
+            assert _rel(got, want) <= KERNEL_LIMIT
+        flat = torch.view_as_real(x).reshape(-1)
+        out = torch.zeros(2 * b * n + 1, device=dev)
+        views = [torch.as_strided(t, (n, b), (2, 2 * n), o)
+                 for t, o in ((flat, 0), (flat, 1), (out, 1), (out, 2))]
+        before = _pairs_stores()
+        lg.fft_large_views(*views, inverse, mode="pipe2")
+        assert _pairs_stores() == before
+        aligned = lg.fft_large_complex(x, inverse, mode="pipe2")
+        assert torch.equal(torch.complex(views[2], views[3]).T, aligned)
+
+
+def test_pairs_store_counts_a_chunk_of_the_spectrometer(dev, monkeypatch):
+    """spectrometer.integrate at nfft = 2^20 on one channel: one
+    `strided.pairs_store` a chunk (#13 of its transform), and each
+    integrated spectrum within MAX_REL of its largest bin against the same
+    mathematics in complex128."""
+    from watfft_tpu_torch import spectrometer
+    nfft, nint = 1 << 20, 4
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    volts = torch.randint(-127, 128, (1, nfft * nint, 2, 2), generator=gen, device=dev,
+                          dtype=torch.int8)
+    monkeypatch.setattr(spectrometer, "CHUNK_POINTS", 2 * 2 * nfft)  # two spectra a chunk
+    before = _pairs_stores()
+    got = spectrometer.integrate(volts, nfft, nint)
+    assert _pairs_stores() - before == 2
+    z = volts.view(1, nint, nfft, 2, 2).permute(0, 3, 1, 2, 4).double()
+    spectra = torch.fft.fft(torch.complex(z[..., 0], z[..., 1]))
+    want = torch.roll(spectra.abs().square().sum(dim=(1, 2)), nfft // 2, -1)
+    err = (got[:, 0].double() - want).abs().max() / want.abs().max()
+    assert err.item() <= MAX_REL["float32"]
+
+
+def test_pairs_store_refusals(dev):
+    """The kernel refuses 8-byte stores (kErrPairs = -8) without a column
+    tile, with a tile of 512 threads, into planes, into points one scalar
+    off 8-byte alignment and where the store walks along rows."""
+    from watfft_tpu_torch.ops import _build
+    lib = _build.library()
+    n, b = 1024, 16
+    tabs = st.device_tables(n, False, dev)
+    x, buf = torch.zeros(2 * n * b, device=dev), torch.zeros(2 * n * b + 2, device=dev)
+    q, p = x.data_ptr(), buf.data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(y, cols, threads):
+        # x: batch-major complex64 [b, n]; y: (re, im, point stride, inner
+        # stride) of b columns
+        return lib.watfft_strided_c2c(
+            q, q + 4, *y[:2], 2, 2 * n, 0, y[2], y[3], 0, None, None, 0, 0, 0, 0,
+            n, b, b, tabs.twre.data_ptr(), tabs.twim.data_ptr(), tabs.c_radices,
+            tabs.c_offsets, len(tabs.stages), 0, stream, cols, threads, 1)
+    ok = (p, p + 4, 2 * b, 2)
+    assert launch(ok, 8, 256) == 0
+    torch.cuda.synchronize()
+    for y, cols, threads in ((ok, 0, 0), (ok, 8, 512), ((p, p + 4 * n * b, b, 1), 8, 256),
+                             ((p + 4, p + 8, 2 * b, 2), 8, 256), ((p, p + 4, 2, 2 * n), 8, 256)):
+        assert launch(y, cols, threads) == -8, (y, cols, threads)
 
 
 # -- the redesigned kernels: the cube (#12) and the fused f32 r2c (#9) -------------------

@@ -1,5 +1,6 @@
 """The host side of the redesigned kernels: the cube (#12, ops/large.py
-`cube_threads`, `cube_launch`), the fused r2c kernel in f32 (#9) and FP64
+`cube_threads`, `cube_launch`), the strided kernel's 8-byte stores (#13,
+ops/large.py `store_pairs`), the fused r2c kernel in f32 (#9) and FP64
 (ops/rfft.py `r2c_launch`), the batch-major walk of the c2c kernel
 (ops/stockham.py `c2c_launch`, `complex_pairs`), the fused c2r kernel in
 f32 (#10, ops/rfft.py `c2r_launch`), the 2D cube (#15, ops/fft2.py
@@ -140,6 +141,99 @@ def test_real_large_route_runs_the_cube_on_pairs(recorder):
     xs, _, b, launch = _cube_args(recorder)
     assert b == 5 and xs[1] == xs[0] + 4 and xs[2:] == (2, 1 << 14)
     assert launch[:2] == (256, 1)
+
+
+# -- the strided kernel's 8-byte stores (#13 and the passes that share it) ------------
+
+N20, N1_20 = 1 << 20, 1 << 10      # pipe2 at 2^20: n1 = n2 = 1024
+
+
+@pytest.mark.parametrize("cols,y,outer,pairs", [
+    ((8, 256), (0, 4, 2 * N1_20, 2, 2 * N20), 128, 1),   # pipe2's stage 2 into complex64
+    ((8, 256), (8, 12, 2 * N1_20, 2, 2 * N20), 3, 1),
+    ((8, 256), (0, 4, 2 * 1024, 2, 2 * 1024 * 1024), 3, 1),  # the 2D column pass, 1024^2
+    ((16, 256), (0, 4, 2 * 2048, 2, 2 * 512 * 2048), 5, 1),  # the same, 512 x 2048
+    ((8, 256), (4, 8, 2 * N1_20, 2, 2 * N20), 3, 0),     # one scalar off 8-byte alignment
+    ((8, 256), (0, 4, 2 * N1_20, 2, 2 * N20 + 1), 3, 0),  # an odd outer stride
+    ((8, 256), (0, 4, 2 * N1_20, 2, 2 * N20 + 1), 1, 1),  # ... of one outer entry
+    ((8, 256), (0, 4, 2 * N1_20 + 1, 2, 2 * N20), 3, 0),  # an odd point stride
+    ((8, 256), (0, 4 * N20 * 3, N1_20, 1, N20), 3, 0),   # f32 planes, batch-major
+    ((8, 256), (0, 4 * N20 * 3, N1_20 * 3, 1, 3), N1_20, 0),  # time-major planes
+    ((0, 0), (0, 4, 2 * N1_20, 2, 2 * N20), 3, 0),       # no column tile
+    ((4, 512), (0, 4, 2 * 4096, 2, 2 << 24), 3, 0),      # a tile of 512 threads (n = 4096)
+    ((8, 256), (0, 4, 2, 2 * N1_20, 2 * N20), 3, 0),     # the store walks along rows
+])
+def test_store_pairs_rule(cols, y, outer, pairs):
+    """8-byte stores where a column tile of 256 threads stores down
+    columns into re and im adjacent in aligned points."""
+    assert lg.store_pairs(cols, y, outer) == pairs
+
+
+def _strided_args(lib):
+    """(y side, (cols, threads, pairs)) of each strided launch; a side is
+    (re address, im address, point stride, inner stride, outer stride)."""
+    out = []
+    for name, a in lib.calls:
+        if name == "watfft_strided_c2c":
+            out.append(((*a[2:4], *a[7:10]), a[-3:]))
+    return out
+
+
+@pytest.mark.parametrize("layout", ["complex", "bm", "nb", "misaligned"])
+def test_pipe2_stage2_stores_pairs_into_complex64(layout, recorder):
+    """pipe2 at 2^20: stage 1 stores planes (no pairs); stage 2 stores 8
+    bytes a point into interleaved complex64 only, and counts the launch in
+    `strided.pairs_store`."""
+    from watfft_tpu_torch import trace
+    batch = 2
+    x = torch.complex(_f32((batch, N20), 1), _f32((batch, N20), 2))
+    before = trace.counts["strided.pairs_store"]
+    if layout == "complex":
+        lg.fft_large_complex(x, mode="pipe2")
+    elif layout == "bm":
+        lg.fft_large_bm(x.real.contiguous(), x.imag.contiguous(), mode="pipe2")
+    elif layout == "nb":
+        lg.fft_large_nb(x.real.T.contiguous(), x.imag.T.contiguous(), mode="pipe2")
+    else:
+        flat, out = _f32(2 * N20 * batch + 3), torch.zeros(2 * N20 * batch + 3)
+        views = [torch.as_strided(t, (N20, batch), (2, 2 * N20), o)
+                 for t, o in ((flat, 0), (flat, 1), (out, 1), (out, 2))]
+        lg.fft_large_views(*views, mode="pipe2")
+    (y1, l1), (y2, l2) = _strided_args(recorder)
+    pairs = int(layout == "complex")
+    assert l1[-1] == 0 and l2[-1] == pairs
+    assert trace.counts["strided.pairs_store"] - before == pairs
+    if pairs:
+        assert l2[:2] == (8, 256)
+        assert y2[1] == y2[0] + 4 and y2[2:] == (2 * N1_20, 2, 2 * N20)
+
+
+def test_2d_outer_pass_stores_pairs(recorder):
+    """The "2d" mode's outer pass into complex64 takes the 8-byte stores;
+    its post-multiplying pass stores planes."""
+    x = torch.complex(_f32((2, N20), 3), _f32((2, N20), 4))
+    lg.fft_large_complex(x, mode="2d")
+    (_, l1), (_, l2) = _strided_args(recorder)
+    assert l1[-1] == 0 and l2 == (8, 256, 1)
+
+
+@pytest.mark.parametrize("out", ["complex", "planes"])
+def test_2d_column_pass_stores_pairs_into_complex64(out, recorder):
+    """The 2D column pass (#11 as fft2's column pass) launched into
+    interleaved complex64 takes the 8-byte stores; into planes it does not."""
+    b, h, w = 3, 1024, 1024
+    x = torch.complex(_f32((b, h, w), 5), _f32((b, h, w), 6))
+    fx = torch.view_as_real(x).reshape(-1)
+    strides = (2 * w, 2, 2 * h * w)
+    if out == "complex":
+        fy = torch.empty(2 * b * h * w)
+        y, ys = (fy, fy[1:]), strides
+    else:
+        y, ys = (torch.empty(b * h * w), torch.empty(b * h * w)), (w, 1, h * w)
+    f2._cols((fx, fx[1:]), strides, y, ys, h, w, b, False, st.device_tables(h, False, "cpu"),
+             False)
+    (ya, launch), = _strided_args(recorder)
+    assert launch == (8, 256, int(out == "complex"))
 
 
 # -- the r2c kernel's walk and accesses ----------------------------------------------

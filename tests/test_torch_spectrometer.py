@@ -212,6 +212,18 @@ def test_span_tree_and_counter(stand_in, monkeypatch):
     assert trace.counts["spec.spectra"] - spectra == 2 * nint
 
 
+def test_pairs_store_counts_a_launch_a_chunk(stand_in, monkeypatch):
+    """At nfft = 2^20 each chunk's stage 2 (#13) stores 8 bytes a point
+    into the transform's complex64 output: one `strided.pairs_store` a
+    chunk, none for stage 1."""
+    nfft, nint = 1 << 20, 2
+    volts = _volts(1, nfft * nint)
+    monkeypatch.setattr(spectrometer, "CHUNK_POINTS", 2 * nfft)  # one spectrum a chunk
+    before = trace.counts["strided.pairs_store"]
+    spectrometer.integrate(volts, nfft, nint, device="cpu")
+    assert trace.counts["strided.pairs_store"] - before == nint
+
+
 def test_no_profiler_records_no_span(monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("a span was opened with no profiler session")

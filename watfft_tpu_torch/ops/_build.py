@@ -122,10 +122,10 @@ def library() -> ctypes.CDLL:
     lib.watfft_dft_matmul.restype = i32
     # (xre, xim, yre, yim, x_sn, x_sa, x_sb, y_sn, y_sa, y_sb, pmre, pmim,
     #  m_sn, m_sa, m_sb, mul, n, inner, batch, twre, twim, radices, offsets,
-    #  nstages, inverse, stream, cols, threads)
+    #  nstages, inverse, stream, cols, threads, pairs)
     lib.watfft_strided_c2c.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, i64, p, p,
                                        i64, i64, i64, i32, i32, i64, i64,
-                                       p, p, ip, ip, i32, i32, p, i32, i32]
+                                       p, p, ip, ip, i32, i32, p, i32, i32, i32]
     lib.watfft_strided_c2c.restype = i32
     # (xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n1, n2, batch, pmre, pmim,
     #  the n2-point twre, twim, radices, offsets, nstages, the n1-point ones,

@@ -36,7 +36,9 @@
 // outer continues the inner) and reads or writes each row's run of C whole
 // (the load by cp.async unless it multiplies); a side whose rows are
 // contiguous (stage 2's load) keeps the engine's walk over the same C
-// transforms. The tile opts in past 48 KB of shared memory.
+// transforms, its reads batched in the PAIRS instances, which store
+// interleaved complex64 8 bytes a point. The tile opts in past 48 KB of
+// shared memory.
 //
 // The cube holds one whole N <= 2^14 transform in dynamic shared memory
 // (N + N/16 float2: 68 KB at 2^13, 136 KB at 2^14, over the 48 KB a launch
@@ -75,9 +77,10 @@
 // C interface (loaded with ctypes): each entry launches on the given
 // stream, allocates nothing, and returns cudaGetLastError() after the
 // launch, or a negative code (stockham.cuh) for arguments it refuses.
-// watfft_strided_c2c's last two arguments are the column tile C (0: none)
-// and its block's threads; watfft_large_cube's last three are the cube's
-// threads and whether it copies and stores 8 bytes a point.
+// watfft_strided_c2c's last three arguments are the column tile C (0:
+// none), its block's threads and whether it stores 8 bytes a point;
+// watfft_large_cube's last three are the cube's threads and whether it
+// copies and stores 8 bytes a point.
 
 #include "stockham.cuh"
 
@@ -129,8 +132,35 @@ strided_c2c_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
 // The column-tile instances (P = 16): T = C columns a block of 256 or 512
 // threads, the stages on its groups in turn (see stockham.cu's
 // stockham_cols_kernel).
-template <bool INV, int MUL>
-__global__ void __launch_bounds__(kColsThreads, 1)
+//
+// PAIRS: the instances the host takes where the store walks down columns
+// into interleaved points (`complex_pairs`) from a block of 256 threads:
+// pipe2's stage 2 (#13) and the "2d" mode's outer pass into complex64, or
+// a 2D column pass launched into it. Each point is one 8-byte store, not
+// a store a plane 4 bytes apart; a load that walks along rows (stage 2's,
+// the outer pass's) issues kColsLoads reads a thread before their writes
+// (load_rows), the twiddle's with the point's; and the register bound of
+// the engine's P = 16 (min_blocks: 80 registers) lets three blocks share
+// an SM, as the tile's shared memory does (ops/stockham.py `tile_shape`).
+// On the H100 at pipe2's [128, 2^20] (PERF.md), #13 took 2.27 ms, 2.21
+// with the 8-byte store alone, 1.44 with the batched load besides and
+// 1.28 at three blocks: its load, one read a thread in flight, was what
+// bounded it. A tile of 16 columns (512 threads, whole 128-byte lines a
+// row) and 16-byte stores of two adjacent points measured slower or no
+// faster. The arithmetic is the other instances': the load's product is
+// theirs written out (cmul_fma), so the outputs are bit for bit the same.
+
+// cmul(a, w) with the contraction nvcc gives it in the load's product of
+// the other instances (re: fma(a.x, w.x, -a.y*w.y), im: fma(a.y, w.x,
+// a.x*w.y)), fixed, where a batched load takes the product apart from
+// the reads.
+__device__ __forceinline__ float2 cmul_fma(float2 a, float2 w) {
+  return make_float2(__fmaf_rn(a.x, w.x, -__fmul_rn(a.y, w.y)),
+                     __fmaf_rn(a.y, w.x, __fmul_rn(a.x, w.y)));
+}
+
+template <bool INV, int MUL, bool PAIRS>
+__global__ void __launch_bounds__(PAIRS ? kBlockThreads : kColsThreads, PAIRS ? min_blocks(16) : 1)
 strided_cols_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
                     float* __restrict__ yre, float* __restrict__ yim,
                     int64_t x_sn, Batch2 xb, int64_t y_sn, Batch2 yb,
@@ -159,6 +189,22 @@ strided_cols_kernel(const float* __restrict__ xre, const float* __restrict__ xim
       }
       return v;
     }, put);
+  } else if constexpr (PAIRS) {
+    // the point and its multiplier read as they are, the product taken
+    // where the point is written to the tile
+    load_rows(plan.log2n, T, count, first, x_sn, xb, [&](int t, int k, int64_t g) {
+      float4 v = make_float4(xre[g], xim[g], 0.f, 0.f);
+      if constexpr (MUL == kMulLoad) {
+        const int64_t w = mb(first + t) + (int64_t)k * m_sn;
+        v.z = __ldg(pmre + w);
+        v.w = __ldg(pmim + w);
+      }
+      return v;
+    }, [&](int t, int k, float4 v) {
+      float2 z = make_float2(v.x, v.y);
+      if constexpr (MUL == kMulLoad) z = cmul_fma(z, make_float2(v.z, v.w));
+      put(t, k, z);
+    });
   } else {
     for_tile_b(plan.log2n, T, count, first, x_sn, xb, [&](int t, int k, int64_t g) {
       float2 v = make_float2(xre[g], xim[g]);
@@ -183,8 +229,7 @@ strided_cols_kernel(const float* __restrict__ xre, const float* __restrict__ xim
       w += (int64_t)k * m_sn;
       z = cmul(z, make_float2(__ldg(pmre + w), __ldg(pmim + w)));
     }
-    yre[g] = z.x;
-    yim[g] = z.y;
+    store_point(yre + g, yim + g, z, PAIRS);
   };
   if (y_sn > yb.sb) {
     for_cols(plan.log2n, log2c, count, first, y_sn, yb,
@@ -196,7 +241,7 @@ strided_cols_kernel(const float* __restrict__ xre, const float* __restrict__ xim
   }
 }
 
-template <int P, bool INV, int MUL, bool COLS>
+template <int P, bool INV, int MUL, bool COLS, bool PAIRS = false>
 int launch_strided(const float* xre, const float* xim, float* yre, float* yim,
                    int64_t x_sn, Batch2 xb, int64_t y_sn, Batch2 yb,
                    const float* pmre, const float* pmim, int64_t m_sn, Batch2 mb,
@@ -206,7 +251,7 @@ int launch_strided(const float* xre, const float* xim, float* yre, float* yim,
   const size_t smem = (size_t)T * S * sizeof(float2);
   const int64_t blocks = (batch + T - 1) / T;
   auto kernel = strided_c2c_kernel<P, INV, MUL>;
-  if constexpr (COLS) kernel = strided_cols_kernel<INV, MUL>;
+  if constexpr (COLS) kernel = strided_cols_kernel<INV, MUL, PAIRS>;
   if (const int err = opt_in_smem(kernel, smem)) return err;
   kernel<<<(unsigned)blocks, threads, smem, stream>>>(
       xre, xim, yre, yim, x_sn, xb, y_sn, yb, pmre, pmim, m_sn, mb, batch, T, S, twre, twim,
@@ -214,16 +259,16 @@ int launch_strided(const float* xre, const float* xim, float* yre, float* yim,
   return 0;
 }
 
-template <int P, bool INV, bool COLS = false>
+template <int P, bool INV, bool COLS = false, bool PAIRS = false>
 int launch_mul(int mul, const float* xre, const float* xim, float* yre, float* yim,
                int64_t x_sn, Batch2 xb, int64_t y_sn, Batch2 yb,
                const float* pmre, const float* pmim, int64_t m_sn, Batch2 mb,
                int64_t batch, const float* twre, const float* twim,
                const Plan& plan, int T, cudaStream_t st, int threads = kBlockThreads) {
-#define WATFFT_LAUNCH(MUL)                                                                  \
-  return launch_strided<P, INV, MUL, COLS>(xre, xim, yre, yim, x_sn, xb, y_sn, yb, pmre,   \
-                                           pmim, m_sn, mb, batch, twre, twim, plan, T, st, \
-                                           threads)
+#define WATFFT_LAUNCH(MUL)                                                                 \
+  return launch_strided<P, INV, MUL, COLS, PAIRS>(xre, xim, yre, yim, x_sn, xb, y_sn, yb, \
+                                                  pmre, pmim, m_sn, mb, batch, twre, twim, \
+                                                  plan, T, st, threads)
   switch (mul) {
     case kMulLoad:  WATFFT_LAUNCH(kMulLoad);
     case kMulStore: WATFFT_LAUNCH(kMulStore);
@@ -357,7 +402,11 @@ extern "C" {
 // must not overlap x. The plan is given as its radices and twiddle-pack
 // offsets, stage by stage. cols: the column tile C over the inner axis, a
 // power of two >= T (0: the engine's T); threads: its block, 256 or 512
-// (0: 256).
+// (0: 256). pairs: the PAIRS instances (8-byte stores of y), refused
+// (kErrPairs) unless the launch takes a column tile of 256 threads whose
+// store walks down columns (y_sn over y_sa) into re and im adjacent in
+// aligned points (`complex_pairs` on y_sn and y_sa; y_sb even where the
+// batch spans more than one outer entry).
 int watfft_strided_c2c(const float* xre, const float* xim, float* yre, float* yim,
                        int64_t x_sn, int64_t x_sa, int64_t x_sb,
                        int64_t y_sn, int64_t y_sa, int64_t y_sb,
@@ -366,7 +415,7 @@ int watfft_strided_c2c(const float* xre, const float* xim, float* yre, float* yi
                        int n, int64_t inner, int64_t batch,
                        const float* twre, const float* twim,
                        const int* radices, const int* twoffsets, int nstages,
-                       int inverse, void* stream, int cols, int threads) {
+                       int inverse, void* stream, int cols, int threads, int pairs) {
   Plan plan;
   int maxr, T, C, NT;
   bool tiled;
@@ -381,17 +430,25 @@ int watfft_strided_c2c(const float* xre, const float* xim, float* yre, float* yi
                                  tiled)) {
     return err;
   }
+  if (pairs && (!tiled || NT != kBlockThreads || y_sn <= y_sa ||
+                !complex_pairs(yre, yim, y_sn, y_sa) || (batch > inner && y_sb % 2))) {
+    return kErrPairs;
+  }
   const uint32_t in = (uint32_t)inner;
   const Batch2 xb{x_sa, x_sb, in}, yb{y_sa, y_sb, in}, mb{m_sa, m_sb, in};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int err;
   if (tiled) {  // the column-tile instances: P = 16 (tile_shape checked)
-    err = inverse ? launch_mul<16, true, true>(mul, xre, xim, yre, yim, x_sn, xb, y_sn, yb,
-                                               pmre, pmim, m_sn, mb, batch, twre, twim, plan,
-                                               C, st, NT)
-                  : launch_mul<16, false, true>(mul, xre, xim, yre, yim, x_sn, xb, y_sn, yb,
-                                                pmre, pmim, m_sn, mb, batch, twre, twim, plan,
-                                                C, st, NT);
+#define WATFFT_LAUNCH(INV, PAIRS)                                                         \
+  err = launch_mul<16, INV, true, PAIRS>(mul, xre, xim, yre, yim, x_sn, xb, y_sn, yb, pmre, \
+                                         pmim, m_sn, mb, batch, twre, twim, plan, C, st, NT)
+    switch ((pairs ? 2 : 0) + (inverse ? 1 : 0)) {
+      case 0:  WATFFT_LAUNCH(false, false); break;
+      case 1:  WATFFT_LAUNCH(true, false); break;
+      case 2:  WATFFT_LAUNCH(false, true); break;
+      default: WATFFT_LAUNCH(true, true); break;
+    }
+#undef WATFFT_LAUNCH
     return err ? err : (int)cudaGetLastError();
   }
 #define WATFFT_LAUNCH(P, INV)                                                                 \

@@ -419,6 +419,32 @@ __device__ __forceinline__ void load_cols(int log2n, int log2c, int count, int64
   }
 }
 
+// The row walk of for_tile_b (rows contiguous, sn <= bat.sb: a warp reads
+// 32 adjacent points of one transform), its reads batched as load_cols
+// batches its: each thread issues kColsLoads reads before their writes, so
+// that a block's load keeps enough reads in flight. ld(t, k, g) reads point
+// k of transform t at element offset g; put(t, k, v) writes it to the tile.
+// T << log2n must be a multiple of kColsLoads * blockDim (every column
+// tile's is: C * n >= blockDim * 16).
+template <typename B, typename Ld, typename Put>
+__device__ __forceinline__ void load_rows(int log2n, int T, int count, int64_t first,
+                                          int64_t sn, B bat, Ld ld, Put put) {
+  const int n = 1 << log2n, tile = T << log2n, step = blockDim.x;
+  for (int e0 = threadIdx.x; e0 < tile; e0 += kColsLoads * step) {
+    decltype(ld(0, 0, (int64_t)0)) v[kColsLoads];
+#pragma unroll
+    for (int u = 0; u < kColsLoads; ++u) {
+      const int e = e0 + u * step, t = e >> log2n, k = e & (n - 1);
+      if (t < count) v[u] = ld(t, k, bat(first + t) + (int64_t)k * sn);
+    }
+#pragma unroll
+    for (int u = 0; u < kColsLoads; ++u) {
+      const int e = e0 + u * step, t = e >> log2n, k = e & (n - 1);
+      if (t < count) put(t, k, v[u]);
+    }
+  }
+}
+
 // The same load by cp.async, where the planes hold the tile's own scalar
 // (Real == Store, 4 or 8 bytes): each re and im value is copied from device
 // memory straight into its complex slot, every copy of the thread in flight

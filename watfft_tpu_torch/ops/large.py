@@ -59,7 +59,7 @@ __all__ = ["large_split", "pm_grid", "LargeTables", "make_large_tables",
            "fft_large_bm", "fft_large_complex", "fft_large", "plain_fft_large",
            "rfft_large", "irfft_large", "rfft_large_bm", "irfft_large_bm",
            "rfft_large_nb", "irfft_large_nb", "cube_threads", "complex_pairs", "cube_launch",
-           "launches", "MODES"]
+           "store_pairs", "launches", "MODES"]
 
 # Kernel launches made by the CUDA wrappers since the counts were last set
 # to 0: stage 1 (#11), stage 2 (#13), the cube (#12), the post-multiplying
@@ -207,7 +207,7 @@ def strided_c2c(x, y, n: int, sn, axes, inverse: bool, tables: Tables, key: str,
                                 None if runs_on else na)
     if _use_kernel(x[0], plain):
         _launch(x, y, n, (x_sn, xa, xb), (y_sn, ya, yb), pm, (m_sn, ma, mb), mul,
-                na, na * nb, inverse, tables, key, launches if counts is None else counts, cols)
+                na, nb, inverse, tables, key, launches if counts is None else counts, cols)
         return
     size = (n, na, nb)
     xre, xim = (_as(t, size, (x_sn, xa, xb)) for t in x)
@@ -238,20 +238,25 @@ def _check(lib, err: int, key: str, n: int, batch: int, counts=launches) -> None
     counts[key] += 1
 
 
-def _launch(x, y, n, xs, ys, pm, ms, mul, inner, batch, inverse, tables, key, counts,
+def _launch(x, y, n, xs, ys, pm, ms, mul, inner, outer, inverse, tables, key, counts,
             cols) -> None:
     lib = _library(x[0], tables.twre.device)
     pmp = (pm[0].data_ptr(), pm[1].data_ptr()) if mul else (None, None)
+    ptrs = [t.data_ptr() for t in (*x, *y)]
+    pairs = store_pairs(cols, (*ptrs[2:], *ys), outer)
+    batch = inner * outer
     with torch.cuda.device(x[0].device):
         stream = torch.cuda.current_stream().cuda_stream
         span = trace.begin(_span(key, counts)) if profiler._is_profiler_enabled else None
         err = lib.watfft_strided_c2c(
-            x[0].data_ptr(), x[1].data_ptr(), y[0].data_ptr(), y[1].data_ptr(), *xs, *ys,
-            *pmp, *ms, mul, n, inner, batch, tables.twre.data_ptr(), tables.twim.data_ptr(),
-            tables.c_radices, tables.c_offsets, len(tables.stages), int(inverse), stream, *cols)
+            *ptrs, *xs, *ys, *pmp, *ms, mul, n, inner, batch, tables.twre.data_ptr(),
+            tables.twim.data_ptr(), tables.c_radices, tables.c_offsets, len(tables.stages),
+            int(inverse), stream, *cols, pairs)
         if span is not None:
             trace.end(span)
     _check(lib, err, key, n, batch, counts)
+    if pairs:
+        trace.counts["strided.pairs_store"] += 1
 
 
 def _span(key: str, counts: dict) -> str:
@@ -304,6 +309,27 @@ def cube_launch(n: int, x, y) -> tuple[int, int, int]:
     8 bytes a point (`complex_pairs`). x, y: (re address, im address, point
     stride, batch stride), strides in floats."""
     return cube_threads(n), int(complex_pairs(*x)), int(complex_pairs(*y))
+
+
+# -- the strided kernel's store -------------------------------------------------------
+
+def store_pairs(cols: tuple[int, int], y, outer: int) -> int:
+    """The last argument of a strided launch: 1 where it takes the kernel's
+    PAIRS instances, which store each point of y as one 8-byte store (and
+    batch the reads of a load along rows, three blocks an SM), else 0.
+    That is where the launch takes a column tile of 256 threads (`cols`,
+    as `stockham.column_tile` gives it: every tile but n = 4096's), its
+    store walks down columns (the point stride over the inner batch
+    stride) and y holds interleaved points (`complex_pairs` on the point
+    and inner strides, and an even outer stride where the outer axis has
+    more than one entry): pipe2's stage 2 and the "2d" mode's outer pass
+    into complex64 (the spectrometer's transform among them), and any
+    strided pass, the 2D column pass too, launched into such an output.
+    y: (re address, im address, point stride, inner stride, outer stride),
+    strides in floats; outer: the outer axis's count."""
+    yre, yim, sn, sa, sb = y
+    return int(cols[1] == stockham.BLOCK_THREADS and sn > sa
+               and complex_pairs(yre, yim, sn, sa) and (outer == 1 or sb % 2 == 0))
 
 
 # -- the modes on [N, B] operands ------------------------------------------------

@@ -33,8 +33,10 @@ counters (`counts`, `routes`): `h2d_copies` and `h2d_bytes` (copies from
 host memory to a device), `tables_built` (misses of the port's table and
 context caches, and each STFT window built), `spec.spectra` (the spectra
 the spectrometer detected and integrated, one a channel, polarisation and
-nfft samples) and each route FFTContext took (the route of a call is not
-a span: the launch spans name its kernels). `counters()` returns them with
+nfft samples), `strided.pairs_store` (launches of the strided kernel that
+store 8 bytes a point, `ops/large.py` `store_pairs`) and each route
+FFTContext took (the route of a call is not a span: the launch spans name
+its kernels). `counters()` returns them with
 every launch counter.
 
 `align()` lays the spans on a device trace's clock. With CUDA activity
@@ -71,7 +73,8 @@ __all__ = ["CAPACITY", "Span", "begin", "end", "call", "h2d", "to", "counts", "r
 
 CAPACITY = 1 << 20
 
-counts = {"h2d_copies": 0, "h2d_bytes": 0, "tables_built": 0, "spec.spectra": 0}
+counts = {"h2d_copies": 0, "h2d_bytes": 0, "tables_built": 0, "spec.spectra": 0,
+          "strided.pairs_store": 0}
 # FFTContext's routes (`planner.c2c_kernel`), each counted as it is taken: a
 # plain dict with every key in place, the cheapest count on the hot path
 routes = dict.fromkeys(("stockham", "large-cube", "large-pipe2", "fourstep"), 0)
