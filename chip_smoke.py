@@ -565,7 +565,7 @@ def phase_main_path(dev, gen) -> tuple[int, float]:
     nre, nim = ctx.forward_planes_nb(re_t, im_t)
     ctx.forward(xg).backward(g)
     torch.cuda.synchronize()
-    launches = st.launches
+    launches = trace.launches["stockham_c2c"]
     check(counts() == expect(stockham_c2c=7), f"main path: launches {counts()} for 7 calls")
 
     x128 = x.to(torch.complex128)
@@ -658,24 +658,12 @@ def phase_host(dev, gen, name: str, limit: str) -> None:
 
 
 def zero_counts() -> None:
-    st.launches = 0
-    st.launches_f64 = 0
-    st.launches_bf16 = 0
-    st.launches_bf16c = 0
-    md.launches = 0
-    for key in rf.launches:
-        rf.launches[key] = 0
-    for key in lg.launches:
-        lg.launches[key] = 0
-    for key in f2.launches:
-        f2.launches[key] = 0
-    for key in bl.launches:
-        bl.launches[key] = 0
-    ola.launches["istft_ola"] = 0
+    for key in trace.launches:
+        trace.launches[key] = 0
 
 
 def counts() -> dict:
-    return registry.launch_counts()
+    return dict(trace.launches)
 
 
 def expect(**launched) -> dict:
@@ -1273,7 +1261,7 @@ def large_kernel_rows(main: dict, cube: dict, single: dict, times: dict, dev, ge
     def outer(plain=False):
         # C [n2, n1] -> D[k1, k2] at row k1*n2 + k2, as fft_large's second pass
         lg.strided_c2c((post[0].view(-1), post[1].view(-1)), outer_out, n1, (1, n2, 1),
-                       [(n2, n1, 1, n1), (1, n, n, 0)], False, lt.t2, "outer", plain=plain)
+                       [(n2, n1, 1, n1), (1, n, n, 0)], False, lt.t2, "large_outer", plain=plain)
         return torch.complex(*outer_out)
     erro = (outer() - outer(plain=True)).abs().max().item()
     ms_p = time_ms(lambda: st.stockham_fft_nb_postmul(sre, sim, *pm))[0]

@@ -28,12 +28,12 @@ def main(argv=None) -> int:
     import torch
 
     import watfft_tpu_torch as wt
-    from watfft_tpu_torch import registry, stft
+    from watfft_tpu_torch import stft, trace
     from watfft_tpu_torch.ops.large import fft_large
     from watfft_tpu_torch.tools import device_or_exit
 
     dev = device_or_exit("--cpu" in argv, "torch_basic_usage")
-    before = registry.launch_counts()
+    before = dict(trace.launches)
     rng = np.random.default_rng(0)
 
     # 1. context API, complex f32, batch-major planes [batch, n]
@@ -72,7 +72,7 @@ def main(argv=None) -> int:
 
     if dev == "cuda":
         torch.cuda.synchronize()
-    after = registry.launch_counts()
+    after = dict(trace.launches)
     launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     print("kernels launched: "
           + (", ".join(f"{k} {v}" for k, v in launched.items()) or "none (the plain versions)"))

@@ -154,7 +154,7 @@ def recorder(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: types.SimpleNamespace(cuda_stream=0))
-    monkeypatch.setattr(lg, "_use_kernel", lambda t, plain: not plain)
+    monkeypatch.setattr(_build, "use_kernel", lambda t, plain=False: not plain)
     return lib
 
 
@@ -164,7 +164,8 @@ def _c2c_tile(dtype, tables_dtype, n, time_major=True, batch=1 << 16):
     tables = st.device_tables(n, False, "cpu", tables_dtype)
     sn, sb = (batch, 1) if time_major else (1, n)
     # the stand-in reads no memory: the addresses need no planes behind them
-    st._launch(torch.device("cpu"), dtype, 0, 0, 0, 0, sn, sb, sn, sb, n, batch, False, tables)
+    st.fft_addresses(torch.device("cpu"), dtype, 0, 0, 0, 0, sn, sb, sn, sb, n, batch, False,
+                     tables)
     return lib.cols[-1][1], lib.threads[-1]
 
 
@@ -197,10 +198,13 @@ def test_strided_launches_ask_for_the_tile(recorder):
     assert last(f2.fft2_cols, *_planes((1024, 2, 528))) == [(8, 256)]
     assert last(f2.fft2_cols, *_planes((4096, 2, 3))) == [0]      # 6 columns
     assert last(f2.fft2_k2, *_planes((2, 4096, 264))) == [(4, 512)]
-    # batch-major [B, h, w] at w = 2: the tile stays within the 2 columns;
-    # the row pass (contiguous rows) keeps the engine's walk
-    assert last(f2.fft2_planes, *_planes((264, 4096, 2))) == [(2, 512), 0]
-    assert last(f2.fft2_planes, *_planes((528, 1024, 2))) == [0, 0]
+    # batch-major [B, h, w] at w = 2, in two passes (the planner takes the
+    # cube at these sizes): the tile stays within the 2 columns; the row pass
+    # (contiguous rows) keeps the engine's walk
+    def two_pass(re, im):
+        return f2._planes_route(re, im, False, "fft2-2pass")
+    assert last(two_pass, *_planes((264, 4096, 2))) == [(2, 512), 0]
+    assert last(two_pass, *_planes((528, 1024, 2))) == [0, 0]
     # the pipe2 stages on time-major [n2, n1, b] blocks
     assert last(lg.stage1, *_planes((1024, 16, 66))) == [(8, 256)]
     assert last(lg.stage2, *_planes((1024, 4096, 1))) == [(4, 512)]    # the transposed store

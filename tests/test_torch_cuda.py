@@ -20,7 +20,8 @@ import pytest
 import torch
 
 import watfft_tpu_torch as wtt
-from watfft_tpu_torch import convert
+from watfft_tpu_torch import convert, trace
+from watfft_tpu_torch.ops import _build
 from watfft_tpu_torch.ops import fft2 as f2
 from watfft_tpu_torch.ops import large as lg
 from watfft_tpu_torch.ops import rfft as rf
@@ -72,11 +73,11 @@ def test_kernel_matches_plain_all_layouts(n, inverse, dev):
 def test_each_call_launches_once(dev):
     ctx = wtt.create_fft_f32(64, device=dev)
     x = _x((5, 64), seed=1, dev=dev)
-    before = st.launches
+    before = trace.launches["stockham_c2c"]
     ctx.forward(x)
     ctx.inverse_planes(x.real, x.imag)
     ctx.forward_planes_nb(x.real.T, x.imag.T)  # strided inputs: made contiguous once
-    assert st.launches == before + 3
+    assert trace.launches["stockham_c2c"] == before + 3
 
 
 def test_non_contiguous_input(dev):
@@ -164,16 +165,16 @@ def test_real_kernels_match_plain_all_layouts(n, dev):
 def test_real_calls_launch_their_kernels(dev):
     ctx = wtt.create_rfft_f32(256, device=dev)
     x = _r((64, 256), seed=3, dev=dev)
-    before, c2c = dict(rf.launches), st.launches
+    before, c2c = dict(trace.launches), trace.launches["stockham_c2c"]
     spec = ctx.forward(x)
     ctx.inverse(spec)
     re, im = ctx.forward_planes_nb(x.T.reshape(256, 8, 8))  # the folded view: hybrid
     ctx.inverse_planes_nb(re, im)
-    assert rf.launches["rfft_r2c_fused"] == before["rfft_r2c_fused"] + 1
-    assert rf.launches["irfft_c2r_fused"] == before["irfft_c2r_fused"] + 1
-    assert rf.launches["real_core_fwd"] == before["real_core_fwd"] + 1
-    assert rf.launches["real_core_inv"] == before["real_core_inv"] + 1
-    assert st.launches == c2c + 2
+    assert trace.launches["rfft_r2c_fused"] == before["rfft_r2c_fused"] + 1
+    assert trace.launches["irfft_c2r_fused"] == before["irfft_c2r_fused"] + 1
+    assert trace.launches["real_core_fwd"] == before["real_core_fwd"] + 1
+    assert trace.launches["real_core_inv"] == before["real_core_inv"] + 1
+    assert trace.launches["stockham_c2c"] == c2c + 2
 
 
 def test_real_backward_runs_the_other_direction(dev):
@@ -228,14 +229,14 @@ def test_f64_kernel_matches_plain_all_layouts(n, inverse, dev):
     for batch in (1, 3, 257):
         x = _x64((batch, n), seed=n + batch, dev=dev)
         want = st.plain_fft(x, inverse)
-        before = st.launches_f64
+        before = trace.launches["stockham_c2c_f64"]
         assert _rel(st.stockham_fft(x, inverse), want) <= F64_KERNEL_LIMIT
         re, im = x.real.contiguous(), x.imag.contiguous()
         assert re.dtype == torch.float64
         assert _rel(torch.complex(*st.stockham_fft_bm(re, im, inverse)), want) <= F64_KERNEL_LIMIT
         tre, tim = st.stockham_fft_nb(re.T.contiguous(), im.T.contiguous(), inverse)
         assert _rel(torch.complex(tre, tim).T, want) <= F64_KERNEL_LIMIT
-        assert st.launches_f64 == before + 3
+        assert trace.launches["stockham_c2c_f64"] == before + 3
         ref64 = torch.fft.ifft(x) if inverse else torch.fft.fft(x)
         assert _rel(want, ref64) <= MAX_REL["float64"]
 
@@ -267,7 +268,7 @@ def test_f64_real_kernels_match_plain_all_layouts(n, dev):
         spec = _x64((batch, m + 1), seed=n + 1, dev=dev)
         want, want_inv = rf.plain_rfft(x), rf.plain_irfft(spec)
         sre, sim = spec.real.contiguous(), spec.imag.contiguous()
-        before = rf.launches["rfft_r2c_fused_f64"]
+        before = trace.launches["rfft_r2c_fused_f64"]
         for fused in (True, False):
             fwd_nb = rf.rfft_nb_fused if fused else rf.rfft_nb
             inv_nb = rf.irfft_nb_fused if fused else rf.irfft_nb
@@ -278,14 +279,15 @@ def test_f64_real_kernels_match_plain_all_layouts(n, dev):
             assert _rel(rf.irfft_bm(sre, sim, fused), want_inv) <= F64_KERNEL_LIMIT
             assert _rel(inv_nb(sre.T.contiguous(), sim.T.contiguous()).T,
                         want_inv) <= F64_KERNEL_LIMIT
-        assert rf.launches["rfft_r2c_fused_f64"] == before + 3
+        assert trace.launches["rfft_r2c_fused_f64"] == before + 3
         assert _rel(want, torch.fft.rfft(x)) <= MAX_REL["float64"]
 
 
 def test_f64_contexts_launch_the_fp64_kernels(dev):
     ctx, rctx = wtt.create_fft(1024, device=dev), wtt.create_rfft(1024, device=dev)
     x = _x64((8, 1024), seed=9, dev=dev)
-    c2c, c2c32, real = st.launches_f64, st.launches, dict(rf.launches)
+    real = dict(trace.launches)
+    c2c, c2c32 = real["stockham_c2c_f64"], real["stockham_c2c"]
     y = ctx.forward(x)
     assert y.dtype == torch.complex128
     assert _rel(y, torch.fft.fft(x)) <= MAX_REL["float64"]
@@ -293,15 +295,15 @@ def test_f64_contexts_launch_the_fp64_kernels(dev):
     s = rctx.forward(x.real)
     assert _rel(s, torch.fft.rfft(x.real)) <= MAX_REL["float64"]
     assert (rctx.inverse(s) - x.real).abs().max().item() < 1.5e-10
-    assert st.launches_f64 == c2c + 2 and st.launches == c2c32
-    assert rf.launches["rfft_r2c_fused_f64"] == real["rfft_r2c_fused_f64"] + 1
-    assert rf.launches["irfft_c2r_fused_f64"] == real["irfft_c2r_fused_f64"] + 1
+    assert trace.launches["stockham_c2c_f64"] == c2c + 2 and trace.launches["stockham_c2c"] == c2c32
+    assert trace.launches["rfft_r2c_fused_f64"] == real["rfft_r2c_fused_f64"] + 1
+    assert trace.launches["irfft_c2r_fused_f64"] == real["irfft_c2r_fused_f64"] + 1
     # past the kernels: the float64 matmul surface, no FFT kernel
     big = wtt.create_fft(8192, device=dev)
     xb = _x64((2, 8192), seed=10, dev=dev)
-    before = (st.launches_f64, dict(rf.launches))
+    before = dict(trace.launches)
     assert _rel(big.forward(xb), torch.fft.fft(xb)) <= MAX_REL["float64"]
-    assert (st.launches_f64, rf.launches) == before
+    assert trace.launches == before
 
 
 def test_f64_gradcheck_on_the_card(dev):
@@ -364,10 +366,10 @@ def test_large_context_launches_and_oracle(dev):
     CUBE_NB_MAX_BATCH[2^14] = 2 sequences."""
     n = 1 << 14
     ctx = wtt.create_fft_f32(n, device=dev)
-    for batch, layout, kernel in ((200, "complex", "cube"), (4, "complex", "cube"),
-                                  (4, "nb", "stage1")):
+    for batch, layout, kernel in ((200, "complex", "large_cube"), (4, "complex", "large_cube"),
+                                  (4, "nb", "large_stage1")):
         x = _x((batch, n), seed=batch, dev=dev)
-        before = dict(lg.launches)
+        before = dict(trace.launches)
         if layout == "complex":
             y = ctx.forward(x)
             back = ctx.inverse(y)
@@ -376,7 +378,7 @@ def test_large_context_launches_and_oracle(dev):
                                                       x.imag.T.contiguous())).T
             back = torch.complex(*ctx.inverse_planes_nb(y.real.T.contiguous(),
                                                         y.imag.T.contiguous())).T
-        assert lg.launches[kernel] == before[kernel] + 2
+        assert trace.launches[kernel] == before[kernel] + 2
         want = torch.fft.fft(x.to(torch.complex128))
         assert _rel(y.to(torch.complex128), want) <= MAX_REL["float32"]
         assert (back - x).abs().max().item() < 1e-4
@@ -398,9 +400,9 @@ def test_large_real_path_on_the_card(dev):
     n = 1 << 16
     ctx = wtt.create_rfft_f32(n, device=dev)
     x = _r((5, n), seed=11, dev=dev)
-    before = dict(lg.launches)
+    before = dict(trace.launches)
     y = ctx.forward(x)
-    assert lg.launches["stage2"] == before["stage2"] + 1
+    assert trace.launches["large_stage2"] == before["large_stage2"] + 1
     want = torch.fft.rfft(x.double())
     assert _rel(y.to(torch.complex128), want) <= MAX_REL["float32"]
     assert _rel(y.cpu(), lg.rfft_large(x.cpu())) <= KERNEL_LIMIT
@@ -431,13 +433,13 @@ def test_fft2_cube_matches_plain_all_layouts(h, w, dev):
         nre, nim = xn.real.contiguous(), xn.imag.contiguous()
         for inverse in (False, True):
             want = f2.plain_fft2(x, inverse)
-            before = f2.launches["fft2_cube"]
+            before = trace.launches["fft2_cube"]
             assert _rel(f2._complex_route(x, inverse, "fft2-cube"), want) <= KERNEL_LIMIT
             bre, bim = f2._planes_route(re, im, inverse, "fft2-cube")
             assert _rel(torch.complex(bre, bim), want) <= KERNEL_LIMIT
             yre, yim = f2._nb_route(nre, nim, inverse, "fft2-cube")
             assert _rel(torch.complex(yre, yim).permute(2, 0, 1), want) <= KERNEL_LIMIT
-            assert f2.launches["fft2_cube"] == before + 3
+            assert trace.launches["fft2_cube"] == before + 3
 
 
 @pytest.mark.parametrize("h,w", [(16, 256), (256, 16), (4096, 16), (16, 4096)])
@@ -454,11 +456,11 @@ def test_fft2_passes_match_plain(h, w, dev):
         assert _rel(torch.complex(*f2.fft2_rows(rre, rim, inverse)),
                     torch.complex(*f2.plain_fft2_rows(rre, rim, inverse))) <= KERNEL_LIMIT
         x = _x((b, h, w), seed=h * w, dev=dev)
-        before = dict(f2.launches)
+        before = dict(trace.launches)
         y = f2._complex_route(x, inverse, "fft2-2pass")
         assert _rel(y, f2.plain_fft2(x, inverse)) <= KERNEL_LIMIT
-        assert f2.launches["fft2_cols"] == before["fft2_cols"] + 1
-        assert f2.launches["fft2_rows"] == before["fft2_rows"] + 1
+        assert trace.launches["fft2_cols"] == before["fft2_cols"] + 1
+        assert trace.launches["fft2_rows"] == before["fft2_rows"] + 1
 
 
 def test_fft2_api_on_the_card(dev):
@@ -512,9 +514,9 @@ def test_fft2_cube_takes_plans_of_small_radix(h, w, dev):
         tables = tuple(_radix_tables(n, 8, inverse, dev) if n == 4096
                        else st.device_tables(n, inverse, dev) for n in (h, w))
         x = _x((3, h, w), seed=h, dev=dev)
-        before = f2.launches["fft2_cube"]
+        before = trace.launches["fft2_cube"]
         y = f2._complex_route(x, inverse, "fft2-cube", tables)
-        assert f2.launches["fft2_cube"] == before + 1
+        assert trace.launches["fft2_cube"] == before + 1
         assert _rel(y, f2.plain_fft2(x, inverse, tables)) <= KERNEL_LIMIT
         want = (torch.fft.ifft2 if inverse else torch.fft.fft2)(x.to(torch.complex128))
         assert _rel(y.to(torch.complex128), want) <= MAX_REL["float32"]
@@ -531,6 +533,16 @@ def test_fft2_kernels_refuse_what_they_do_not_take(dev):
 
 
 # -- the any-n path ---------------------------------------------------------------------
+
+def _launched(*keys) -> tuple:
+    """The launch counters of these keys."""
+    return tuple(trace.launches[k] for k in keys)
+
+
+def _bluestein_counts() -> dict:
+    """The launches of #17, #18 and the one-pass kernel."""
+    return {k: trace.launches[k] for k in ("bluestein_fwd", "bluestein_inv", "bluestein_onepass")}
+
 
 BLUESTEIN_SIZES = [2, 3, 5, 7, 12, 17, 97, 360, 1000, 1009, 2047, 2048]
 
@@ -552,13 +564,13 @@ def test_bluestein_kernels_match_plain_all_layouts(n, dev):
             g = torch.complex(*bl.bluestein_inv(*pf, n, inverse))
             assert _rel(g, torch.complex(*bl.plain_bluestein_inv(*pf, n, inverse))) <= KERNEL_LIMIT
             want = bl.plain_bluestein_fft(x, inverse)
-            before = dict(bl.launches)
+            before = _bluestein_counts()
             assert _rel(bl.bluestein_fft(x, inverse), want) <= KERNEL_LIMIT
             assert _rel(torch.complex(*bl.bluestein_fft_bm(re, im, inverse)), want) <= KERNEL_LIMIT
             assert _rel(torch.complex(*bl.bluestein_fft_nb(tre, tim, inverse)).T, want) \
                 <= KERNEL_LIMIT
-            assert bl.launches == {**before,
-                                   "bluestein_onepass": before["bluestein_onepass"] + 3}
+            assert _bluestein_counts() == {**before,
+                                           "bluestein_onepass": before["bluestein_onepass"] + 3}
             ref = (torch.fft.ifft if inverse else torch.fft.fft)(x.to(torch.complex128))
             got = bl.bluestein_fft(x, inverse).to(torch.complex128)
             assert _rel(got, ref) <= MAX_REL["float32"]
@@ -591,19 +603,20 @@ def test_fftlib_any_n_on_the_card(dev):
     from watfft_tpu_torch.ops import bluestein as bl
     x = _x((4, 1000), seed=11, dev=dev)
     want = torch.fft.fft(x.to(torch.complex128))
-    before, c2c = dict(bl.launches), st.launches
+    before, c2c = _bluestein_counts(), trace.launches["stockham_c2c"]
     y = fftlib.fft(x)
     onepass = before["bluestein_onepass"]
-    assert bl.launches == {**before, "bluestein_onepass": onepass + 1} and st.launches == c2c
+    assert _bluestein_counts() == {**before, "bluestein_onepass": onepass + 1}
+    assert trace.launches["stockham_c2c"] == c2c
     assert _rel(y.to(torch.complex128), want) <= MAX_REL["float32"]
     assert (fftlib.ifft(y) - x).abs().max().item() < 1e-4
     fftlib.fft(x, n=1024)
-    assert st.launches == c2c + 1
-    assert bl.launches == {**before, "bluestein_onepass": onepass + 2}
+    assert trace.launches["stockham_c2c"] == c2c + 1
+    assert _bluestein_counts() == {**before, "bluestein_onepass": onepass + 2}
     xu = _x((2, 4099), seed=12, dev=dev)
-    stage1 = lg.launches["stage1"] + lg.launches["cube"]
+    stage1 = trace.launches["large_stage1"] + trace.launches["large_cube"]
     yu = fftlib.fft(xu)
-    assert lg.launches["stage1"] + lg.launches["cube"] == stage1 + 2
+    assert trace.launches["large_stage1"] + trace.launches["large_cube"] == stage1 + 2
     want = torch.fft.fft(xu.to(torch.complex128))
     assert _rel(yu.to(torch.complex128), want) <= MAX_REL["float32"]
     for n in (400, 401):
@@ -652,14 +665,14 @@ def test_dft_matmul_matches_plain_all_layouts(n, dev):
         x = _x((batch, n), seed=n + batch, dev=dev)
         re, im = x.real.contiguous(), x.imag.contiguous()
         for inverse in (False, True):
-            before = md.launches
+            before = trace.launches["mxu_dft"]
             want = md.plain_dft_matmul(x, None, inverse, layout="complex")
-            assert md.launches == before
+            assert trace.launches["mxu_dft"] == before
             assert _rel(md.dft_matmul(x, inverse), want) <= KERNEL_LIMIT
             assert _rel(torch.complex(*md.dft_matmul_bm(re, im, inverse)), want) <= KERNEL_LIMIT
             tre, tim = md.dft_matmul_nb(re.T.contiguous(), im.T.contiguous(), inverse)
             assert _rel(torch.complex(tre, tim).T, want) <= KERNEL_LIMIT
-            assert md.launches == before + 3
+            assert trace.launches["mxu_dft"] == before + 3
             ref = (torch.fft.ifft if inverse else torch.fft.fft)(x.to(torch.complex128))
             assert _rel(md.dft_matmul(x, inverse).to(torch.complex128), ref) \
                 <= MAX_REL["float32"]
@@ -750,12 +763,12 @@ def test_bf16_tiers_match_plain(n, dev, monkeypatch):
         for inverse in (False, True):
             for compute in (False, True):
                 monkeypatch.setattr(config, "BF16_COMPUTE", compute)
-                counts = (st.launches, st.launches_bf16, st.launches_bf16c)
+                counts = _launched("stockham_c2c", "stockham_c2c_bf16", "stockham_c2c_bf16c")
                 got = st.stockham_fft_nb(re, im, inverse)
                 assert got[0].dtype == torch.bfloat16
                 want = st.stockham_fft_nb(*cpu, inverse)  # the plain version, on the CPU
                 assert _rel_bf16(got, want) <= BF16_KERNEL_LIMIT
-                assert (st.launches, st.launches_bf16, st.launches_bf16c) == (
+                assert _launched("stockham_c2c", "stockham_c2c_bf16", "stockham_c2c_bf16c") == (
                     counts[0], counts[1] + (not compute), counts[2] + compute)
             # batch-major planes take the interop tier whatever the switch says
             bre, bim = st.stockham_fft_bm(re.T.contiguous(), im.T.contiguous(), inverse)
@@ -768,10 +781,10 @@ def test_bf16_folded_view_and_backward(dev, monkeypatch):
     monkeypatch.setattr(config, "BF16_COMPUTE", True)
     n, b = 64, 1024
     re, im = _bf16((n, b), seed=5, dev=dev)
-    before = (st.launches_bf16, st.launches_bf16c)
+    before = _launched("stockham_c2c_bf16", "stockham_c2c_bf16c")
     f3 = st.stockham_fft_nb(re.view(n, 8, b // 8), im.view(n, 8, b // 8))  # interop
     f2 = st.stockham_fft_nb(re, im)                                          # compute
-    assert (st.launches_bf16, st.launches_bf16c) == (before[0] + 1, before[1] + 1)
+    assert _launched("stockham_c2c_bf16", "stockham_c2c_bf16c") == (before[0] + 1, before[1] + 1)
     assert f3[0].shape == (n, 8, b // 8) and f3[0].dtype == torch.bfloat16
     x = torch.complex(re.double(), im.double())
     ref = torch.fft.fft(x, dim=0)
@@ -1148,7 +1161,7 @@ def test_resident_r2c_refusals(dev):
     rt = rf.device_rtables(n, False, dev)
     x = torch.zeros(batch * n + 2, device=dev)
     y = torch.zeros(2 * batch * (n // 2 + 1) + 2, device=dev)
-    lib, targs = rf._kernel_args(rt, x, "rfft_r2c_fused")
+    lib, targs = _build.library(), rf._kernel_args(rt, x)
     stream = torch.cuda.current_stream().cuda_stream
     xp, yp = x.data_ptr(), y.data_ptr()
     m1 = n // 2 + 1
@@ -1325,7 +1338,7 @@ def test_r2c_f64_walk_refusals(dev):
     rt = rf.device_rtables(n, False, dev, torch.float64)
     x = torch.zeros(batch * n + 2, dtype=torch.float64, device=dev)
     y = torch.zeros(2 * batch * (n // 2 + 1) + 2, dtype=torch.float64, device=dev)
-    lib, targs = rf._kernel_args(rt, x, "rfft_r2c_fused")
+    lib, targs = _build.library(), rf._kernel_args(rt, x)
     stream = torch.cuda.current_stream().cuda_stream
     xp, yp = x.data_ptr(), y.data_ptr()
     m1 = n // 2 + 1
@@ -1419,7 +1432,7 @@ def test_c2r_walk_refusals(dev):
     rt = rf.device_rtables(n, True, dev)
     x = torch.zeros(2 * batch * m1 + 2, device=dev)
     y = torch.zeros(batch * n + 2, device=dev)
-    lib, targs = rf._kernel_args(rt, x, "irfft_c2r_fused")
+    lib, targs = _build.library(), rf._kernel_args(rt, x)
     xp, yp = x.data_ptr(), y.data_ptr()
 
     def c2r(xa, x_sb, ya, y_sn, y_sb, walk, px, py):

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from watfft_tpu.ops import mxu_dft as jmd
-from watfft_tpu_torch import config, convert
+from watfft_tpu_torch import config, convert, trace
 from watfft_tpu_torch.ops import mxu_dft as md
 from watfft_tpu_torch.ops.fourstep import full_f32
 from watfft_tpu_torch.reference import dft as ref
@@ -159,9 +159,9 @@ def test_planes_that_require_grad_raise():
 
 
 def test_cpu_runs_the_plain_version_without_launch():
-    before = md.launches
+    before = trace.launches["mxu_dft"]
     md.dft_matmul_nb(*_t(*_planes((16, 4), seed=6)))
-    assert md.launches == before
+    assert trace.launches["mxu_dft"] == before
 
 
 # -- the tensor-core kernel's host side: TF32 split, fragment order, 3xTF32 ------------------

@@ -125,19 +125,20 @@ def _f32(shape, seed=0):
 
 @pytest.fixture
 def stand_in(monkeypatch):
-    """The overlap-add launches on CPU frames into a library that records
-    its arguments, returns 0 and writes nothing."""
+    """The wrappers launch on CPU tensors into a library whose overlap-add
+    records its arguments; every entry returns 0 and writes nothing."""
     calls = []
 
     def istft_ola(*args):
         calls.append(args)
         return 0
-    lib = types.SimpleNamespace(watfft_istft_ola=istft_ola)
+    lib = types.SimpleNamespace(watfft_istft_ola=istft_ola, watfft_rfft_r2c=lambda *a: 0,
+                                watfft_irfft_c2r=lambda *a: 0)
     monkeypatch.setattr(_build, "library", lambda: lib)
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: types.SimpleNamespace(cuda_stream=0))
-    monkeypatch.setattr(ola, "_use_kernel", lambda t: True)
+    monkeypatch.setattr(_build, "use_kernel", lambda t, plain=False: not plain)
     return calls
 
 
@@ -174,11 +175,11 @@ def test_cpu_frames_take_the_plain_version():
 @pytest.mark.parametrize("length", [T - 3, None])
 def test_frames_without_grad_take_the_kernel(stand_in, length):
     re, im = stft.stft(_f32((2, 3, T)), N_FFT, HOP, device="cpu")
-    before = ola.launches["istft_ola"]
+    before = trace.launches["istft_ola"]
     out, kids, roots = _istft_tree(re, im, length)
     assert roots == ["stft.istft"]
     assert kids["stft.istft"] == ["istft.window", "api.inverse_planes", "launch.istft_ola"]
-    assert ola.launches["istft_ola"] == before + 1
+    assert trace.launches["istft_ola"] == before + 1
     num = re.shape[-2]
     t = (num - 1) * HOP + N_FFT
     want = t if length is None else length
@@ -190,22 +191,22 @@ def test_frames_without_grad_take_the_kernel(stand_in, length):
 
 def test_frames_that_require_grad_take_the_plain_version():
     re, im = stft.stft(_f32((2, T)), N_FFT, HOP, device="cpu")
-    before = ola.launches["istft_ola"]
+    before = trace.launches["istft_ola"]
     sre = re.clone().requires_grad_()
     out, kids, _ = _istft_tree(sre, im, T)  # CPU frames: the plain version
     assert kids["stft.istft"] == PLAIN
-    assert ola.launches["istft_ola"] == before
+    assert trace.launches["istft_ola"] == before
     out.sum().backward()
     assert sre.grad is not None and sre.grad.shape == re.shape
 
 
 def test_cuda_frames_that_require_grad_take_the_kernel(stand_in):
     re, im = stft.stft(_f32((2, T)), N_FFT, HOP, device="cpu")
-    before = ola.launches["istft_ola"]
+    before = trace.launches["istft_ola"]
     sre = re.clone().requires_grad_()
     out, kids, _ = _istft_tree(sre, im, T)
     assert kids["stft.istft"] == ["istft.window", "api.inverse_planes", "launch.istft_ola"]
-    assert len(stand_in) == 1 and ola.launches["istft_ola"] == before + 1
+    assert len(stand_in) == 1 and trace.launches["istft_ola"] == before + 1
     out.sum().backward()
     assert sre.grad is not None and sre.grad.shape == re.shape
 
@@ -284,10 +285,10 @@ def test_kernel_matches_plain_on_the_card(n_fft, hop, length, dev):
         t = (num - 1) * hop + n_fft
         L = _length(t, length)
         w = torch.as_tensor(stft.get_window("hann", n_fft), device=dev)
-        before = ola.launches["istft_ola"]
+        before = trace.launches["istft_ola"]
         got = ola.istft_ola(frames, w, hop, L)
         again = ola.istft_ola(frames, w, hop, L)
-        assert ola.launches["istft_ola"] == before + 2
+        assert trace.launches["istft_ola"] == before + 2
         want = ola.plain_ola(frames, w, hop, L)
         assert got.shape == want.shape == tuple(batch) + (min(L, t),)
         assert torch.equal(got, again)  # no atomics: the same bits
@@ -310,9 +311,9 @@ def test_kernel_gradient_matches_plain_on_the_card(n_fft, hop, length, dev):
     L = _length(t, length)
     frames = _card_frames(n_fft, hop, num, (2, 3), dev, seed=n_fft + hop).requires_grad_()
     w = torch.as_tensor(stft.get_window("hann", n_fft), device=dev)
-    before = ola.launches["istft_ola"]
+    before = trace.launches["istft_ola"]
     out = ola.istft_ola(frames, w, hop, L)
-    assert ola.launches["istft_ola"] == before + 1
+    assert trace.launches["istft_ola"] == before + 1
     g = _f32(out.shape, seed=n_fft + hop).to(dev)
     got, = torch.autograd.grad(out, frames, g)
     want, = torch.autograd.grad(ola.plain_ola(frames, w, hop, L), frames, g)

@@ -81,11 +81,7 @@ def recorder(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: types.SimpleNamespace(cuda_stream=0))
-    monkeypatch.setattr(lg, "_use_kernel", lambda t, plain: not plain)
-    monkeypatch.setattr(rf, "_use_kernel", lambda t: True)
-    monkeypatch.setattr(st, "_use_kernel", lambda t, plain=False: not plain)
-    monkeypatch.setattr(f2, "_use_kernel", lambda t, plain: not plain)
-    monkeypatch.setattr(md, "_use_kernel", lambda t, plain: not plain)
+    monkeypatch.setattr(_build, "use_kernel", lambda t, plain=False: not plain)
     return lib
 
 

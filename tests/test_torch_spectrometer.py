@@ -21,7 +21,6 @@ from torch.profiler import ProfilerActivity, profile
 
 from watfft_tpu_torch import registry, spectrometer, trace
 from watfft_tpu_torch.ops import _build
-from watfft_tpu_torch.ops import large as lg
 from watfft_tpu_torch.utils.tolerances import MAX_REL
 
 # max |P - P_ref| / max P_ref of each integrated spectrum (a channel's
@@ -181,7 +180,7 @@ def stand_in(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: types.SimpleNamespace(cuda_stream=0))
-    monkeypatch.setattr(lg, "_use_kernel", lambda t, plain=False: not plain)
+    monkeypatch.setattr(_build, "use_kernel", lambda t, plain=False: not plain)
 
 
 def test_span_tree_and_counter(stand_in, monkeypatch):

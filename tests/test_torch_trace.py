@@ -22,7 +22,6 @@ from torch.profiler import ProfilerActivity, profile
 
 from watfft_tpu_torch import api, planner, registry, stft, trace
 from watfft_tpu_torch.ops import _build
-from watfft_tpu_torch.ops import rfft as rf
 from watfft_tpu_torch.ops import stockham as st
 
 N_FFT, HOP, T = 64, 16, 400
@@ -51,13 +50,13 @@ def stand_in(monkeypatch):
     """The wrappers launch on CPU tensors into a library that does nothing
     and returns 0 (the outputs stay as allocated)."""
     lib = types.SimpleNamespace(watfft_stockham_c2c=lambda *a: 0,
-                                watfft_rfft_r2c=lambda *a: 0, watfft_irfft_c2r=lambda *a: 0)
+                                watfft_rfft_r2c=lambda *a: 0, watfft_irfft_c2r=lambda *a: 0,
+                                watfft_istft_ola=lambda *a: 0)
     monkeypatch.setattr(_build, "library", lambda: lib)
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: types.SimpleNamespace(cuda_stream=0))
-    monkeypatch.setattr(st, "_use_kernel", lambda t, plain=False: not plain)
-    monkeypatch.setattr(rf, "_use_kernel", lambda t: True)
+    monkeypatch.setattr(_build, "use_kernel", lambda t, plain=False: not plain)
 
 
 def _tree(recorded):
@@ -122,8 +121,7 @@ def test_span_tree_of_stft_and_istft(traced, stand_in):
     assert roots == ["stft.stft", "stft.istft"]
     assert kids["stft.stft"] == ["stft.window", "stft.frame", "api.forward_planes"]
     assert kids["api.forward_planes"] == ["launch.rfft_r2c_fused"]
-    assert kids["stft.istft"] == ["istft.window", "api.inverse_planes", "istft.frame_window",
-                                  "istft.overlap_add", "istft.norm", "istft.divide"]
+    assert kids["stft.istft"] == ["istft.window", "api.inverse_planes", "launch.istft_ola"]
     assert kids["api.inverse_planes"] == ["launch.irfft_c2r_fused"]
     by_id = {s.id: s for s in recorded}
     for s in recorded:  # each span carries the call id of its root

@@ -7,6 +7,12 @@ objects into one shared library with a plain C interface, under
 name carries a hash of the sources and the shared headers (`.cuh`), so an
 edited kernel or header is rebuilt and an unchanged one is loaded as it is.
 A failed build raises with the compiler's output; nothing falls back.
+
+`launch` is the one seam every wrapper launches a kernel through: the
+device and its current stream, the C entry, the span `launch.<key>` while
+a profiler session is active, the error of a nonzero code and the count
+in `trace.launches[key]`. `use_kernel`, `same_device` and `kernel_dtype` are
+the decisions the wrappers make before a launch.
 """
 
 from __future__ import annotations
@@ -19,7 +25,12 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["library", "build_info"]
+import torch
+from torch.autograd import profiler
+
+from .. import trace
+
+__all__ = ["library", "build_info", "use_kernel", "same_device", "kernel_dtype", "launch"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "watfft_tpu_torch"
@@ -163,3 +174,47 @@ def library() -> ctypes.CDLL:
     lib.watfft_error_string.restype = ctypes.c_char_p
     build_info.update(path=str(out), log=log)
     return lib
+
+
+def use_kernel(t: torch.Tensor, plain: bool = False) -> bool:
+    """CUDA tensors launch the kernels; CPU tensors (or plain=True) take the
+    plain versions."""
+    return t.device.type == "cuda" and not plain
+
+
+def same_device(tables: torch.device, data: torch.device) -> None:
+    """Raises unless the tables are on the data's device."""
+    if tables != data:
+        raise ValueError(f"tables on {tables}, data on {data}")
+
+
+def kernel_dtype(t: torch.Tensor, want: torch.dtype) -> None:
+    """Raises unless t is of the dtype the kernel takes."""
+    if t.dtype != want:
+        raise TypeError(f"the CUDA kernel takes {want}, got {t.dtype}")
+
+
+def launch(key: str, device, entry: str, args: tuple, tail: tuple, what) -> None:
+    """One kernel launch: err = lib.<entry>(*args, stream, *tail) on the
+    library and the current stream of `device` (every C entry takes the
+    stream after its operands and tables, its launch's options after it),
+    inside the span `launch.<key>` while a profiler session is active. A
+    nonzero err raises RuntimeError with what() (the launch's fields) and
+    the library's message, and counts nothing; a launch that succeeds adds
+    1 to `trace.launches[key]`. The arguments come as tuples, not as a
+    closure: a closure over a wrapper's locals cost the H100's host ~1 µs a
+    launch (PERF.md)."""
+    lib = library()
+    fn = getattr(lib, entry)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if profiler._is_profiler_enabled:
+            span = trace.begin("launch." + key)
+            err = fn(*args, stream, *tail)
+            trace.end(span)
+        else:
+            err = fn(*args, stream, *tail)
+    if err:
+        raise RuntimeError(f"{key} kernel launch failed ({what()}): "
+                           f"{lib.watfft_error_string(err).decode()}")
+    trace.launches[key] += 1

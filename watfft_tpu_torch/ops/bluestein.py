@@ -58,22 +58,16 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
-from torch.autograd import profiler
 
 from .. import api, planner, trace
 from ..planner import bluestein_m
-from . import large, stockham
+from . import _build, large, stockham
 from .stockham import Tables, check_device, run_stages
 
 __all__ = ["bluestein_m", "chirp_tables", "BluesteinTables", "make_bluestein_tables",
            "device_bluestein_tables", "plain_bluestein_fwd", "plain_bluestein_inv",
            "plain_bluestein_onepass", "bluestein_fwd", "bluestein_inv", "bluestein_fft_nb",
-           "bluestein_fft_bm", "bluestein_fft", "plain_bluestein_fft", "launches"]
-
-# Kernel launches made by the CUDA wrappers since the counts were last set
-# to 0: #17, #18 and the one-pass kernel (the fused route). The unfused
-# route counts in `large.launches`.
-launches = {"bluestein_fwd": 0, "bluestein_inv": 0, "bluestein_onepass": 0}
+           "bluestein_fft_bm", "bluestein_fft", "plain_bluestein_fft"]
 
 
 @functools.cache
@@ -219,49 +213,32 @@ def _plain_onepass(xre, xim, bt: BluesteinTables):
     return _plain_inv(*_plain_fwd(xre, xim, bt), bt)
 
 
-def _use_kernel(t: torch.Tensor, plain: bool) -> bool:
-    return t.device.type == "cuda" and not plain
-
-
 def _plan(t: Tables) -> tuple:
     return t.twre.data_ptr(), t.twim.data_ptr(), t.c_radices, t.c_offsets, len(t.stages)
 
 
 def _launch(key: str, x, xs, y, ys, n: int, batch: int, bt: BluesteinTables) -> None:
     """Launches the kernel `key` ("bluestein_fwd", "bluestein_inv" or
-    "bluestein_onepass") on the operands' raw addresses."""
-    from ._build import library
-
-    stockham._kernel_dtype(x[0], torch.float32)
-    lib = library()
+    "bluestein_onepass", counted under it in `trace.launches`; the unfused
+    route counts as the four-step kernels) on the operands' raw addresses."""
+    _build.kernel_dtype(x[0], torch.float32)
     args = (x[0].data_ptr(), x[1].data_ptr(), y[0].data_ptr(), y[1].data_ptr(), *xs, *ys,
             n, bt.m, batch)
-    with torch.cuda.device(x[0].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        span = trace.begin("launch." + key) if profiler._is_profiler_enabled else None
-        if key == "bluestein_fwd":
-            err = lib.watfft_bluestein_fwd(*args, bt.cre.data_ptr(), bt.cim.data_ptr(),
-                                           bt.bre.data_ptr(), bt.bim.data_ptr(), *_plan(bt.fwd),
-                                           stream)
-        elif key == "bluestein_inv":
-            err = lib.watfft_bluestein_inv(*args, bt.fre.data_ptr(), bt.fim.data_ptr(),
-                                           *_plan(bt.inv), stream)
-        else:
-            err = lib.watfft_bluestein_onepass(
-                *args, bt.cre.data_ptr(), bt.cim.data_ptr(), bt.bre.data_ptr(),
-                bt.bim.data_ptr(), bt.fre.data_ptr(), bt.fim.data_ptr(), *_plan(bt.fwd),
-                *_plan(bt.inv), stream)
-        if span is not None:
-            trace.end(span)
-    if err:
-        raise RuntimeError(f"{key} kernel launch failed (n={n}, m={bt.m}, batch={batch}): "
-                           f"{lib.watfft_error_string(err).decode()}")
-    launches[key] += 1
+    if key == "bluestein_fwd":
+        args += (bt.cre.data_ptr(), bt.cim.data_ptr(), bt.bre.data_ptr(), bt.bim.data_ptr(),
+                 *_plan(bt.fwd))
+    elif key == "bluestein_inv":
+        args += (bt.fre.data_ptr(), bt.fim.data_ptr(), *_plan(bt.inv))
+    else:
+        args += (bt.cre.data_ptr(), bt.cim.data_ptr(), bt.bre.data_ptr(), bt.bim.data_ptr(),
+                 bt.fre.data_ptr(), bt.fim.data_ptr(), *_plan(bt.fwd), *_plan(bt.inv))
+    _build.launch(key, x[0].device, "watfft_" + key, args, (),
+                  lambda: f"n={n}, m={bt.m}, batch={batch}")
 
 
 def _fwd(x, xs, y, ys, batch: int, bt: BluesteinTables, plain: bool) -> None:
     """#17: y [m points] = FFT_m(c . x zero-extended) . B, per sequence."""
-    if _use_kernel(x[0], plain):
+    if _build.use_kernel(x[0], plain):
         _launch("bluestein_fwd", x, xs, y, ys, bt.n, batch, bt)
         return
     ore, oim = _plain_fwd(*(_as(t, (bt.n, batch), xs) for t in x), bt)
@@ -271,7 +248,7 @@ def _fwd(x, xs, y, ys, batch: int, bt: BluesteinTables, plain: bool) -> None:
 
 def _inv(x, xs, y, ys, batch: int, bt: BluesteinTables, plain: bool) -> None:
     """#18: y [n points] = IFFT_m(x)[0..n) . final chirp, per sequence."""
-    if _use_kernel(x[0], plain):
+    if _build.use_kernel(x[0], plain):
         _launch("bluestein_inv", x, xs, y, ys, bt.n, batch, bt)
         return
     ore, oim = _plain_inv(*(_as(t, (bt.m, batch), xs) for t in x), bt)
@@ -281,7 +258,7 @@ def _inv(x, xs, y, ys, batch: int, bt: BluesteinTables, plain: bool) -> None:
 
 def _onepass(x, xs, y, ys, batch: int, bt: BluesteinTables, plain: bool) -> None:
     """The fused route: y [n points] = DFT_n(x), per sequence, in one launch."""
-    if _use_kernel(x[0], plain):
+    if _build.use_kernel(x[0], plain):
         _launch("bluestein_onepass", x, xs, y, ys, bt.n, batch, bt)
         return
     ore, oim = _plain_onepass(*(_as(t, (bt.n, batch), xs) for t in x), bt)
@@ -411,8 +388,8 @@ def _run(x, xs, y, batch: int, bt: BluesteinTables, plain: bool) -> None:
 # [..., n] (interleaved storage: re and im 4 bytes apart, stride 2).
 
 def _forms(a, b, inverse: bool, layout: str, plain: bool = False):
-    if _use_kernel(a, plain):  # the unfused route would run any dtype; the kernels take f32
-        stockham._kernel_dtype(a, torch.complex64 if layout == "complex" else torch.float32)
+    if _build.use_kernel(a, plain):  # the unfused route would run any dtype; the kernels take f32
+        _build.kernel_dtype(a, torch.complex64 if layout == "complex" else torch.float32)
     if layout == "complex":
         n = a.shape[-1]
         x = stockham._dense(a)

@@ -43,27 +43,25 @@ from __future__ import annotations
 import functools
 
 import torch
-from torch.autograd import profiler
 
 from .. import planner, trace
 from ..plan import build_tree, is_power_of_two
-from . import fourstep, large
+from . import _build, fourstep, large
 from . import rfft as rf
 from . import stockham
 from .stockham import Tables, check_device
 
-__all__ = ["validate_fft2_shape", "validate_rfft2_shape", "ROUTES", "launches",
+__all__ = ["validate_fft2_shape", "validate_rfft2_shape", "ROUTES",
            "fft2_nb", "fft2_planes", "fft2_complex", "plain_fft2",
            "fft2_cube", "plain_fft2_cube", "cube2_block", "cube2_launch",
            "fft2_cols", "plain_fft2_cols", "fft2_k2", "plain_fft2_k2", "fft2_rows",
            "plain_fft2_rows",
            "herm2_post_nb", "herm2_pre_nb", "rfft2_planes", "irfft2_planes"]
 
-# Kernel launches made by the CUDA wrappers since the counts were last set
-# to 0: the cube (#15), the column pass (the strided c2c kernel), the
-# native-layout row pass (#14, the same kernel) and the row pass on the
-# c2c kernel (#16; those also count in `stockham.launches`).
-launches = {"fft2_cube": 0, "fft2_cols": 0, "fft2_k2": 0, "fft2_rows": 0}
+# The wrappers' launches count in `trace.launches`: the cube (#15,
+# `fft2_cube`), the column pass (the strided c2c kernel, `fft2_cols`), the
+# native-layout row pass (#14, the same kernel, `fft2_k2`) and the row pass
+# on the c2c kernel (#16, `fft2_rows`; those also count as `stockham_c2c`).
 
 ROUTES = ("fft2-cube", "fft2-2pass", "fft2-axes")
 
@@ -96,10 +94,6 @@ def validate_rfft2_shape(shape) -> None:
 # interleaved complex64), plus its strides in floats along h, w and the
 # images. CUDA: their addresses go to the kernels; CPU (or plain=True):
 # strided views of their storage go to the plain versions.
-
-def _use_kernel(t: torch.Tensor, plain: bool) -> bool:
-    return t.device.type == "cuda" and not plain
-
 
 def _merge(axes):
     """Two batch axes (count, x stride, y stride) as one, where their
@@ -146,7 +140,7 @@ def _pass(x, y, n, sn, axes, inverse, table, key, plain) -> None:
     too); without one, an axis over 4096 on the 1D route of its n."""
     if table is not None:
         large.strided_c2c(x, y, n, (*sn, 0), [(*a, 0) for a in axes], inverse, table, key,
-                          plain=plain, counts=launches)
+                          plain=plain)
         return
     merged = _merge(axes)
     if merged is not None:
@@ -169,13 +163,13 @@ def _rows(x, xs, y, ys, h, w, batch, inverse, table, plain) -> None:
     where the rows of all images lie on one stride, else the strided c2c
     kernel over (row, image) (#14)."""
     rows = _merge([(h, xs[0], ys[0]), (batch, xs[2], ys[2])])
-    if rows is not None and w <= planner.STOCKHAM_MAX_N and _use_kernel(x[0], plain):
+    if rows is not None and w <= planner.STOCKHAM_MAX_N and _build.use_kernel(x[0], plain):
         count, x_sr, y_sr = rows
-        stockham._kernel_dtype(x[0], torch.float32)
-        stockham._launch(x[0].device, torch.float32, x[0].data_ptr(), x[1].data_ptr(),
-                         y[0].data_ptr(), y[1].data_ptr(), xs[1], x_sr, ys[1], y_sr, w, count,
-                         inverse, table)
-        launches["fft2_rows"] += 1
+        _build.kernel_dtype(x[0], torch.float32)
+        stockham.fft_addresses(x[0].device, torch.float32, x[0].data_ptr(), x[1].data_ptr(),
+                               y[0].data_ptr(), y[1].data_ptr(), xs[1], x_sr, ys[1], y_sr, w,
+                               count, inverse, table)
+        trace.launches["fft2_rows"] += 1
         return
     _pass(x, y, w, (xs[1], ys[1]), [(h, xs[0], ys[0]), (batch, xs[2], ys[2])], inverse, table,
           "fft2_k2", plain)
@@ -237,19 +231,16 @@ def cube2_launch(h: int, w: int, x, y, radix=None) -> tuple[int, int, int, int]:
 
 
 def _launch_cube(x, xs, y, ys, h, w, batch, inverse, th: Tables, tw: Tables) -> None:
-    lib = large._library(x[0], th.twre.device)
+    _build.kernel_dtype(x[0], torch.float32)
+    _build.same_device(th.twre.device, x[0].device)
     ptrs = [t.data_ptr() for t in (*x, *y)]
     launch = cube2_launch(h, w, (*ptrs[:2], *xs), (*ptrs[2:], *ys), (th.radix, tw.radix))
-    with torch.cuda.device(x[0].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        span = trace.begin("launch.fft2_cube") if profiler._is_profiler_enabled else None
-        err = lib.watfft_fft2_cube(
-            *ptrs, *xs, *ys, h, w, batch, th.twre.data_ptr(), th.twim.data_ptr(),
-            th.c_radices, th.c_offsets, len(th.stages), tw.twre.data_ptr(), tw.twim.data_ptr(),
-            tw.c_radices, tw.c_offsets, len(tw.stages), int(inverse), stream, *launch)
-        if span is not None:
-            trace.end(span)
-    large._check(lib, err, "fft2_cube", h * w, batch, launches)
+    _build.launch(
+        "fft2_cube", x[0].device, "watfft_fft2_cube",
+        (*ptrs, *xs, *ys, h, w, batch, th.twre.data_ptr(), th.twim.data_ptr(), th.c_radices,
+         th.c_offsets, len(th.stages), tw.twre.data_ptr(), tw.twim.data_ptr(), tw.c_radices,
+         tw.c_offsets, len(tw.stages), int(inverse)), launch,
+        lambda: f"n={h * w}, batch={batch}")
 
 
 def _tables(tables, h, w, inverse, device, route):
@@ -290,7 +281,7 @@ def _run(x, xs, y, ys, h, w, batch, inverse, route, tables, plain=False) -> None
     if batch == 0:
         return
     th, tw = _tables(tables, h, w, inverse, x[0].device, route)
-    if route == "fft2-cube" and _use_kernel(x[0], plain):
+    if route == "fft2-cube" and _build.use_kernel(x[0], plain):
         _launch_cube(x, xs, y, ys, h, w, batch, inverse, th, tw)
         return
     # one intermediate buffer, in x's order of axes (batch-major or native)

@@ -27,7 +27,8 @@ kernel (`csrc/large.cu`, `strided_c2c_kernel`) driven through strides: a
 batch over two axes and an optional complex multiply by a table with its
 own strides (0 over the sequences, so the [n2, n1] twiddle is never tiled
 across the batch). The cube is a kernel of its own in the same file. Each
-keeps its own launch count in `launches`.
+counts its launches in `trace.launches` under its own key (`large_stage1`,
+`large_stage2`, `large_cube`, `large_postmul`, `large_outer`).
 
 The wrappers take any strides, so one code path serves time-major planes
 [N, ...] (`fft_large_nb`), batch-major planes [..., N] (`fft_large_bm`),
@@ -47,10 +48,9 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.autograd import profiler
 
 from .. import planner, trace
-from . import stockham
+from . import _build, stockham
 from .stockham import Tables, check_device, complex_pairs, run_stages
 
 __all__ = ["large_split", "pm_grid", "LargeTables", "make_large_tables",
@@ -59,12 +59,7 @@ __all__ = ["large_split", "pm_grid", "LargeTables", "make_large_tables",
            "fft_large_bm", "fft_large_complex", "fft_large", "plain_fft_large",
            "rfft_large", "irfft_large", "rfft_large_bm", "irfft_large_bm",
            "rfft_large_nb", "irfft_large_nb", "cube_threads", "complex_pairs", "cube_launch",
-           "store_pairs", "launches", "MODES"]
-
-# Kernel launches made by the CUDA wrappers since the counts were last set
-# to 0: stage 1 (#11), stage 2 (#13), the cube (#12), the post-multiplying
-# c2c pass (#3) and the "2d" mode's outer c2c pass.
-launches = {"stage1": 0, "stage2": 0, "cube": 0, "postmul": 0, "outer": 0}
+           "store_pairs", "MODES"]
 
 MODES = ("cube", "pipe2", "2d")
 MUL_NONE, MUL_LOAD, MUL_STORE = 0, 1, 2
@@ -173,10 +168,6 @@ def _resolve(tables, n: int, inverse: bool, device, split) -> LargeTables:
 # their addresses go to the kernel; CPU (or plain=True): views of their
 # storage go to the plain version.
 
-def _use_kernel(t: torch.Tensor, plain: bool) -> bool:
-    return t.device.type == "cuda" and not plain
-
-
 def _as(t: torch.Tensor, size, stride) -> torch.Tensor:
     return t.as_strided(size, stride, t.storage_offset())
 
@@ -186,13 +177,13 @@ def _cmul(are, aim, bre, bim):
 
 
 def strided_c2c(x, y, n: int, sn, axes, inverse: bool, tables: Tables, key: str,
-                pm=None, mul: int = MUL_NONE, plain: bool = False, counts=None) -> None:
+                pm=None, mul: int = MUL_NONE, plain: bool = False) -> None:
     """y = DFT_n(x) (times pm in the store for mul=MUL_STORE; of x times pm
     for mul=MUL_LOAD) over a batch of two axes. sn: the element strides
     (x, y, pm); axes: two (count, x stride, y stride, pm stride) tuples.
     The axis whose x or y stride is smallest becomes the kernel's inner
-    batch axis, so its tiles coalesce. A launch adds one to counts[key]
-    (default: this module's `launches`)."""
+    batch axis, so its tiles coalesce. A launch counts under `key` in
+    `trace.launches` ("large_stage1", "fft2_cols", ...)."""
     (na, xa, ya, ma), (nb, xb, yb, mb) = sorted(
         axes, key=lambda a: (a[0] == 1, min(abs(a[1]), abs(a[2]))))
     if na * nb == 0:
@@ -205,9 +196,9 @@ def strided_c2c(x, y, n: int, sn, axes, inverse: bool, tables: Tables, key: str,
     runs_on = nb == 1 or (xb == na * xa and yb == na * ya)
     cols = stockham.column_tile(n, ((x_sn, xa), (y_sn, ya)), 4, 8, tables.radix, na * nb,
                                 None if runs_on else na)
-    if _use_kernel(x[0], plain):
+    if _build.use_kernel(x[0], plain):
         _launch(x, y, n, (x_sn, xa, xb), (y_sn, ya, yb), pm, (m_sn, ma, mb), mul,
-                na, nb, inverse, tables, key, launches if counts is None else counts, cols)
+                na, nb, inverse, tables, key, cols)
         return
     size = (n, na, nb)
     xre, xim = (_as(t, size, (x_sn, xa, xb)) for t in x)
@@ -221,67 +212,34 @@ def strided_c2c(x, y, n: int, sn, axes, inverse: bool, tables: Tables, key: str,
     _as(y[1], size, (y_sn, ya, yb)).copy_(oim)
 
 
-def _library(x: torch.Tensor, tables_dev: torch.device):
-    from ._build import library
-
-    if x.dtype != torch.float32:
-        raise TypeError(f"the CUDA kernel takes torch.float32, got {x.dtype}")
-    if tables_dev != x.device:
-        raise ValueError(f"tables on {tables_dev}, data on {x.device}")
-    return library()
-
-
-def _check(lib, err: int, key: str, n: int, batch: int, counts=launches) -> None:
-    if err:
-        raise RuntimeError(f"{key} kernel launch failed (n={n}, batch={batch}): "
-                           f"{lib.watfft_error_string(err).decode()}")
-    counts[key] += 1
-
-
-def _launch(x, y, n, xs, ys, pm, ms, mul, inner, outer, inverse, tables, key, counts,
-            cols) -> None:
-    lib = _library(x[0], tables.twre.device)
+def _launch(x, y, n, xs, ys, pm, ms, mul, inner, outer, inverse, tables, key, cols) -> None:
+    _build.kernel_dtype(x[0], torch.float32)
+    _build.same_device(tables.twre.device, x[0].device)
     pmp = (pm[0].data_ptr(), pm[1].data_ptr()) if mul else (None, None)
     ptrs = [t.data_ptr() for t in (*x, *y)]
     pairs = store_pairs(cols, (*ptrs[2:], *ys), outer)
     batch = inner * outer
-    with torch.cuda.device(x[0].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        span = trace.begin(_span(key, counts)) if profiler._is_profiler_enabled else None
-        err = lib.watfft_strided_c2c(
-            *ptrs, *xs, *ys, *pmp, *ms, mul, n, inner, batch, tables.twre.data_ptr(),
-            tables.twim.data_ptr(), tables.c_radices, tables.c_offsets, len(tables.stages),
-            int(inverse), stream, *cols, pairs)
-        if span is not None:
-            trace.end(span)
-    _check(lib, err, key, n, batch, counts)
+    _build.launch(key, x[0].device, "watfft_strided_c2c",
+                  (*ptrs, *xs, *ys, *pmp, *ms, mul, n, inner, batch, tables.twre.data_ptr(),
+                   tables.twim.data_ptr(), tables.c_radices, tables.c_offsets,
+                   len(tables.stages), int(inverse)), (*cols, pairs),
+                  lambda: f"n={n}, batch={batch}")
     if pairs:
         trace.counts["strided.pairs_store"] += 1
 
 
-def _span(key: str, counts: dict) -> str:
-    """The launch span of the counter counts[key], named as
-    `registry.launch_counts()` names it (this module's with `large_`)."""
-    return ("launch.large_" if counts is launches else "launch.") + key
-
-
 def _launch_cube(x, y, xs, ys, batch, lt: LargeTables) -> None:
-    lib = _library(x[0], lt.pmre.device)
+    _build.kernel_dtype(x[0], torch.float32)
+    _build.same_device(lt.pmre.device, x[0].device)
     t1, t2 = lt.t1, lt.t2
     ptrs = [t.data_ptr() for t in (*x, *y)]
     launch = cube_launch(lt.n, (*ptrs[:2], *xs), (*ptrs[2:], *ys))
-    with torch.cuda.device(x[0].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        span = trace.begin("launch.large_cube") if profiler._is_profiler_enabled else None
-        err = lib.watfft_large_cube(
-            *ptrs, *xs, *ys,
-            lt.n1, lt.n2, batch, lt.pmre.data_ptr(), lt.pmim.data_ptr(),
-            t1.twre.data_ptr(), t1.twim.data_ptr(), t1.c_radices, t1.c_offsets, len(t1.stages),
-            t2.twre.data_ptr(), t2.twim.data_ptr(), t2.c_radices, t2.c_offsets, len(t2.stages),
-            int(lt.inverse), stream, *launch)
-        if span is not None:
-            trace.end(span)
-    _check(lib, err, "cube", lt.n, batch)
+    _build.launch(
+        "large_cube", x[0].device, "watfft_large_cube",
+        (*ptrs, *xs, *ys, lt.n1, lt.n2, batch, lt.pmre.data_ptr(), lt.pmim.data_ptr(),
+         t1.twre.data_ptr(), t1.twim.data_ptr(), t1.c_radices, t1.c_offsets, len(t1.stages),
+         t2.twre.data_ptr(), t2.twim.data_ptr(), t2.c_radices, t2.c_offsets, len(t2.stages),
+         int(lt.inverse)), launch, lambda: f"n={lt.n}, batch={batch}")
 
 
 # -- the cube's launch ---------------------------------------------------------------
@@ -340,7 +298,7 @@ def _pass1(x, xs, c, cs, batch, lt: LargeTables, plain: bool, postmul: bool) -> 
     n1, n2 = lt.n1, lt.n2
     (sn, sb), (csn, csb) = xs, cs
     strided_c2c(x, c, n2, (n1 * sn, n1 * csn, n1), [(n1, sn, csn, 1), (batch, sb, csb, 0)],
-                lt.inverse, lt.t1, "postmul" if postmul else "stage1",
+                lt.inverse, lt.t1, "large_postmul" if postmul else "large_stage1",
                 pm=(lt.pmre, lt.pmim), mul=MUL_STORE if postmul else MUL_NONE, plain=plain)
 
 
@@ -351,7 +309,7 @@ def _pass2(c, cs, y, ys, batch, lt: LargeTables, plain: bool, premul: bool) -> N
     n1, n2 = lt.n1, lt.n2
     (csn, csb), (ysn, ysb) = cs, ys
     strided_c2c(c, y, n1, (csn, n2 * ysn, 1), [(n2, n1 * csn, ysn, n1), (batch, csb, ysb, 0)],
-                lt.inverse, lt.t2, "stage2" if premul else "outer",
+                lt.inverse, lt.t2, "large_stage2" if premul else "large_outer",
                 pm=(lt.pmre, lt.pmim), mul=MUL_LOAD if premul else MUL_NONE, plain=plain)
 
 
@@ -360,7 +318,7 @@ def _run(x, xs, y, ys, batch: int, lt: LargeTables, mode: str, plain: bool = Fal
     j*xs[0] + s*xs[1] floats past x's first elements (y likewise)."""
     if batch == 0:
         return
-    if mode == "cube" and _use_kernel(x[0], plain):
+    if mode == "cube" and _build.use_kernel(x[0], plain):
         _launch_cube(x, y, xs, ys, batch, lt)
         return
     n = lt.n
@@ -403,8 +361,8 @@ def fft_large_views(xre, xim, yre, yim, inverse: bool = False, split=None, mode=
 
 def _forms(a, b, inverse: bool, layout: str, split, mode, tables, plain: bool = False):
     if layout == "complex":
-        if _use_kernel(a, plain):
-            stockham._kernel_dtype(a, torch.complex64)
+        if _build.use_kernel(a, plain):
+            _build.kernel_dtype(a, torch.complex64)
         n = a.shape[-1]
         x = stockham._dense(a)
         out = torch.empty_like(x)

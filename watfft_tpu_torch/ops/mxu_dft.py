@@ -45,19 +45,15 @@ import functools
 
 import numpy as np
 import torch
-from torch.autograd import profiler
 
 from .. import config, trace
-from . import stockham
+from . import _build, stockham
 from .fourstep import full_f32
 from .stockham import check_device
 
 __all__ = ["dft_matrix_real", "device_matrix", "tf32_rna", "fragment_index", "mma_fragments",
            "device_fragments", "dft_launch", "plain_dft_matmul", "dft_matmul_nb",
-           "dft_matmul_bm", "dft_matmul", "launches"]
-
-# Kernel launches made by the CUDA wrapper since the count was last set to 0.
-launches = 0
+           "dft_matmul_bm", "dft_matmul"]
 
 # The C entry's kernels (its `kernel` argument): the register-tiled product
 # on the FP32 cores, and the 3xTF32 product on the tensor cores. The FP32
@@ -178,35 +174,17 @@ def _check(a, b, n: int) -> None:
                            "torch.no_grad()")
 
 
-def _use_kernel(t: torch.Tensor, plain: bool) -> bool:
-    """CUDA tensors launch the kernel; CPU tensors (or plain=True) take the
-    plain version."""
-    return t.device.type == "cuda" and not plain
-
-
 def _launch(x, xs, y, ys, n: int, batch: int, inverse: bool) -> None:
-    global launches
-    from ._build import library
-
     device = x[0].device
     wt = device_matrix(n, inverse, device)
     frag = device_fragments(n, inverse, device)
     addr = [t.data_ptr() for t in (*x, *y)]
     last = dft_launch(n, (addr[0], addr[1], *xs), (addr[2], addr[3], *ys))
-    lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        span = trace.begin("launch.mxu_dft") if profiler._is_profiler_enabled else None
-        # W^T stays in its old place (a build without the tensor-core kernel
-        # reads it and ignores the arguments after the stream)
-        err = lib.watfft_dft_matmul(*addr, *xs, *ys, n, batch, wt.data_ptr(), stream,
-                                    ctypes.c_void_p(frag.data_ptr()), *last)
-        if span is not None:
-            trace.end(span)
-    if err:
-        raise RuntimeError(f"DFT matmul kernel launch failed (n={n}, batch={batch}): "
-                           f"{lib.watfft_error_string(err).decode()}")
-    launches += 1
+    # W^T stays in its old place (a build without the tensor-core kernel
+    # reads it and ignores the arguments after the stream)
+    _build.launch("mxu_dft", device, "watfft_dft_matmul",
+                  (*addr, *xs, *ys, n, batch, wt.data_ptr()),
+                  (ctypes.c_void_p(frag.data_ptr()), *last), lambda: f"n={n}, batch={batch}")
 
 
 def _plain(x, xs, y, ys, n: int, batch: int, inverse: bool) -> None:
@@ -243,7 +221,7 @@ def _forms(a, b, inverse: bool, layout: str, plain: bool = False):
     batch = a.numel() // n
     if batch:
         strides = {"nb": (batch, 1), "bm": (1, n), "complex": (2, 2 * n)}[layout]
-        run = _launch if _use_kernel(a, plain) else _plain
+        run = _launch if _build.use_kernel(a, plain) else _plain
         run(xo, strides, yo, strides, n, batch, bool(inverse))
     return out
 

@@ -21,15 +21,12 @@ TPU kernel is replaced.
 from __future__ import annotations
 
 import torch
-from torch.autograd import profiler
 
 from .. import trace
+from . import _build
 from .stockham import _wants_grad, check_device
 
-__all__ = ["ola_launch", "overlap_add", "plain_ola", "istft_ola", "launches"]
-
-# Kernel launches made by `istft_ola` since the count was last set to 0.
-launches = {"istft_ola": 0}
+__all__ = ["ola_launch", "overlap_add", "plain_ola", "istft_ola"]
 
 
 def ola_launch(length: int, hop: int) -> tuple[int, int]:
@@ -43,16 +40,11 @@ def ola_launch(length: int, hop: int) -> tuple[int, int]:
     return vec, -(-length // vec) * vec
 
 
-def _use_kernel(t: torch.Tensor) -> bool:
-    """The kernel runs on CUDA tensors; CPU tensors take the plain version."""
-    return t.device.type == "cuda"
-
-
 def overlap_add(frames: torch.Tensor, w: torch.Tensor, hop: int, length=None,
                 on: bool = False) -> torch.Tensor:
     """`stft.istft`'s tail: the kernel on CUDA frames, the plain version
     (each step in its span where `on`) on CPU frames."""
-    if _use_kernel(frames):
+    if _build.use_kernel(frames):
         return istft_ola(frames, w, hop, length)
     return plain_ola(frames, w, hop, length, on)
 
@@ -135,8 +127,6 @@ def istft_ola(frames: torch.Tensor, w: torch.Tensor, hop: int, length=None) -> t
 
 
 def _ola(frames: torch.Tensor, w: torch.Tensor, hop: int, length) -> torch.Tensor:
-    from ._build import library
-
     if frames.dtype != torch.float32 or w.dtype != torch.float32:
         raise TypeError(f"the overlap-add kernel takes float32, got {frames.dtype}, {w.dtype}")
     num, n_fft = frames.shape[-2:]
@@ -153,17 +143,8 @@ def _ola(frames: torch.Tensor, w: torch.Tensor, hop: int, length) -> torch.Tenso
         return out.zero_()[..., :length]
     clips = frames.numel() // (num * n_fft)
     frames, w = frames.contiguous(), w.contiguous()
-    lib = library()
-    with torch.cuda.device(frames.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        span = trace.begin("launch.istft_ola") if profiler._is_profiler_enabled else None
-        err = lib.watfft_istft_ola(frames.data_ptr(), w.data_ptr(), out.data_ptr(), clips, num,
-                                   n_fft, hop, row, vec, stream)
-        if span is not None:
-            trace.end(span)
-    if err:
-        raise RuntimeError(f"istft_ola kernel launch failed (n_fft={n_fft}, hop={hop}, "
-                           f"frames={num}, clips={clips}, row={row}): "
-                           f"{lib.watfft_error_string(err).decode()}")
-    launches["istft_ola"] += 1
+    _build.launch("istft_ola", frames.device, "watfft_istft_ola",
+                  (frames.data_ptr(), w.data_ptr(), out.data_ptr(), clips, num, n_fft, hop, row,
+                   vec), (),
+                  lambda: f"n_fft={n_fft}, hop={hop}, frames={num}, clips={clips}, row={row}")
     return out if row == length else out[..., :length]

@@ -58,10 +58,9 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
-from torch.autograd import profiler
 
 from .. import trace
-from . import stockham
+from . import _build, stockham
 from .fourstep import rfft_post_twiddles
 from .large import fft_large_views
 from .stockham import (WALK_BLOCK, WALK_ENGINE, WALK_RESIDENT, Tables, check_device,
@@ -71,16 +70,7 @@ __all__ = ["rfft_post_twiddles", "RTables", "make_rtables", "device_rtables",
            "hermitian_post_nb", "hermitian_pre_nb", "hermitian_post_pair",
            "hermitian_pre_pair", "plain_rfft", "plain_irfft",
            "rfft_nb", "irfft_nb", "rfft_nb_fused", "irfft_nb_fused",
-           "rfft_bm", "irfft_bm", "rfft", "irfft", "r2c_launch", "c2r_pairs", "c2r_launch",
-           "launches"]
-
-# Kernel launches made by the CUDA wrappers since the counts were last set
-# to 0: the fused kernels (f32, and their FP64 instances under `_f64`), and
-# the hybrid's forward and inverse uses of the c2c kernel in either dtype
-# (those also count in `stockham.launches` or `stockham.launches_f64`).
-launches = {"rfft_r2c_fused": 0, "irfft_c2r_fused": 0,
-            "real_core_fwd": 0, "real_core_inv": 0,
-            "rfft_r2c_fused_f64": 0, "irfft_c2r_fused_f64": 0}
+           "rfft_bm", "irfft_bm", "rfft", "irfft", "r2c_launch", "c2r_pairs", "c2r_launch"]
 
 
 # -- tables --------------------------------------------------------------------
@@ -267,7 +257,7 @@ def _hybrid_r2c(xv, ore, oim, rt: RTables) -> None:
         zre, zim = (xv.new_empty(m, batch) for _ in range(2))
     fft_views(xv[0::2], xv[1::2], zre, zim, False, rt.core)
     if xv.device.type == "cuda":
-        launches["real_core_fwd"] += 1
+        trace.launches["real_core_fwd"] += 1
     re, im = hermitian_post_nb(zre, zim, n, rt.wre, rt.wim)
     ore.copy_(re)
     oim.copy_(im)
@@ -279,7 +269,7 @@ def _hybrid_c2r(xre, xim, out, rt: RTables) -> None:
     zre, zim = hermitian_pre_nb(xre, xim, rt.n, rt.wre, rt.wim)
     fft_views(zre, zim, out[0::2], out[1::2], True, rt.core)
     if out.device.type == "cuda":
-        launches["real_core_inv"] += 1
+        trace.launches["real_core_inv"] += 1
 
 
 def _large_r2c(xv, ore, oim, w) -> None:
@@ -356,67 +346,39 @@ def c2r_launch(n: int, x, y) -> tuple[int, int, int]:
     return (WALK_RESIDENT, *c2r_pairs(x, y))
 
 
-def _use_kernel(t: torch.Tensor) -> bool:
-    """The fused kernels run on CUDA tensors; CPU tensors take the plain
-    version."""
-    return t.device.type == "cuda"
-
-
 def _launch_r2c(x, x_sn, x_sb, yre, yim, y_sn, y_sb, n, batch, rt: RTables) -> None:
     """The r2c kernel on real sequences of x (element j of sequence b at
     j*x_sn + b*x_sb floats) into spectrum planes at the addresses yre, yim
     (bin k of b at k*y_sn + b*y_sb floats)."""
-    lib, targs = _kernel_args(rt, x, "rfft_r2c_fused")
+    targs = _kernel_args(rt, x)
     f64 = rt.dtype == torch.float64
-    entry = lib.watfft_rfft_r2c_f64 if f64 else lib.watfft_rfft_r2c
     launch = r2c_launch(n, (x.data_ptr(), x_sn, x_sb), (yre, yim, y_sn, y_sb), 8 if f64 else 4)
-    name = "rfft_r2c_fused_f64" if f64 else "rfft_r2c_fused"
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        span = trace.begin("launch." + name) if profiler._is_profiler_enabled else None
-        err = entry(x.data_ptr(), x_sn, x_sb, yre, yim, y_sn, y_sb, n, batch, *targs, stream,
-                    *launch)
-        if span is not None:
-            trace.end(span)
-    _check(lib, err, name, n, batch)
+    key = "rfft_r2c_fused_f64" if f64 else "rfft_r2c_fused"
+    _build.launch(key, x.device, "watfft_rfft_r2c_f64" if f64 else "watfft_rfft_r2c",
+                  (x.data_ptr(), x_sn, x_sb, yre, yim, y_sn, y_sb, n, batch, *targs), launch,
+                  lambda: f"n={n}, batch={batch}")
 
 
 def _launch_c2r(x, xre, xim, x_sn, x_sb, y, y_sn, y_sb, n, batch, rt: RTables) -> None:
     """The c2r kernel on spectrum planes at the addresses xre, xim (of the
     tensor x) into the real sequences of y."""
-    lib, targs = _kernel_args(rt, x, "irfft_c2r_fused")
+    targs = _kernel_args(rt, x)
     f64 = rt.dtype == torch.float64
-    entry = lib.watfft_irfft_c2r_f64 if f64 else lib.watfft_irfft_c2r
     launch = () if f64 else c2r_launch(n, (xre, xim, x_sn, x_sb), (y.data_ptr(), y_sn, y_sb))
-    name = "irfft_c2r_fused_f64" if f64 else "irfft_c2r_fused"
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        span = trace.begin("launch." + name) if profiler._is_profiler_enabled else None
-        err = entry(xre, xim, x_sn, x_sb, y.data_ptr(), y_sn, y_sb, n, batch, *targs, stream,
-                    *launch)
-        if span is not None:
-            trace.end(span)
-    _check(lib, err, name, n, batch)
+    key = "irfft_c2r_fused_f64" if f64 else "irfft_c2r_fused"
+    _build.launch(key, x.device, "watfft_irfft_c2r_f64" if f64 else "watfft_irfft_c2r",
+                  (xre, xim, x_sn, x_sb, y.data_ptr(), y_sn, y_sb, n, batch, *targs), launch,
+                  lambda: f"n={n}, batch={batch}")
 
 
-def _kernel_args(rt: RTables, t, name):
-    """The library and the table arguments of a fused launch on t's device
-    (twre, twim, radices, offsets, stage count, wre, wim); the caller has
-    checked t's dtype against the tables'."""
-    from ._build import library
-
-    if rt.wre.device != t.device:
-        raise ValueError(f"tables on {rt.wre.device}, data on {t.device}")
+def _kernel_args(rt: RTables, t):
+    """The table arguments of a fused launch on t's device (twre, twim,
+    radices, offsets, stage count, wre, wim); the caller has checked t's
+    dtype against the tables'."""
+    _build.same_device(rt.wre.device, t.device)
     c = rt.core
-    return library(), (c.twre.data_ptr(), c.twim.data_ptr(), c.c_radices, c.c_offsets,
-                       len(c.stages), rt.wre.data_ptr(), rt.wim.data_ptr())
-
-
-def _check(lib, err: int, name: str, n: int, batch: int) -> None:
-    if err:
-        raise RuntimeError(f"{name} kernel launch failed (n={n}, batch={batch}): "
-                           f"{lib.watfft_error_string(err).decode()}")
-    launches[name] += 1
+    return (c.twre.data_ptr(), c.twim.data_ptr(), c.c_radices, c.c_offsets, len(c.stages),
+            rt.wre.data_ptr(), rt.wim.data_ptr())
 
 
 # -- forms: tensors <-> [n, B] planes ------------------------------------------
@@ -480,7 +442,7 @@ def _r2c(x, route: str, layout: str, tables):
         out = (x.new_empty(x.shape[:-1] + (m1,)), x.new_empty(x.shape[:-1] + (m1,)))
     else:
         out = (x.new_empty(x.shape[:-1] + (m1,), dtype=x.dtype.to_complex()),)
-    if batch and route == "fused" and _use_kernel(x):
+    if batch and route == "fused" and _build.use_kernel(x):
         _launch_r2c(x, *_strides(layout if layout == "nb" else "bm", n, batch),
                     *_spectrum(layout, batch, m1, *out), n, batch, rt)
     elif batch:
@@ -514,7 +476,7 @@ def _c2r(re, im, route: str, layout: str, tables):
         out = re.new_empty((n,) + re.shape[1:])
     else:
         out = re.new_empty(re.shape[:-1] + (n,), dtype=re.real.dtype)
-    if batch and route == "fused" and _use_kernel(out):
+    if batch and route == "fused" and _build.use_kernel(out):
         _launch_c2r(re, *_spectrum(layout, batch, m1, re, im), out,
                     *_strides(layout if layout == "nb" else "bm", n, batch), n, batch, rt)
     elif batch:

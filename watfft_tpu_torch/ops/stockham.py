@@ -79,25 +79,16 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
-from torch.autograd import profiler
 
 from .. import config, trace
+from . import _build
 
 __all__ = ["stage_plan", "make_twiddle_pack", "run_stages", "plain_fft",
            "Tables", "make_tables", "device_tables", "fft_views", "stockham_fft_nb",
            "plain_fft_nb", "plain_fft_bm",
            "stockham_fft_bm", "stockham_fft", "stockham_fft_nb_postmul", "plain_postmul",
            "engine_transforms", "tile_shape", "check_tile", "column_tile", "c2c_walk",
-           "c2c_launch", "complex_pairs",
-           "launches", "launches_f64", "launches_bf16", "launches_bf16c"]
-
-# Kernel launches made by the CUDA wrapper since the counts were last reset:
-# the float32 kernel, its FP64 instance and its bf16 interop and compute
-# instances.
-launches = 0
-launches_f64 = 0
-launches_bf16 = 0
-launches_bf16c = 0
+           "c2c_launch", "complex_pairs", "fft_addresses"]
 
 _REAL = {torch.float32: torch.float32, torch.float64: torch.float64,
          torch.complex64: torch.float32, torch.complex128: torch.float64}
@@ -506,15 +497,12 @@ def _plain_into(xre, xim, yre, yim, inverse: bool, tables: Tables) -> None:
 
 _ITEMSIZE = {torch.float32: 4, torch.float64: 8, torch.bfloat16: 2}
 
-# The kernel instance for (data dtype, tables dtype) and its counter.
-_ENTRIES = {(torch.float32, torch.float32): ("watfft_stockham_c2c", "launches"),
-            (torch.float64, torch.float64): ("watfft_stockham_c2c_f64", "launches_f64"),
-            (torch.bfloat16, torch.float32): ("watfft_stockham_c2c_bf16", "launches_bf16"),
-            (torch.bfloat16, torch.bfloat16): ("watfft_stockham_c2c_bf16c", "launches_bf16c")}
-# The launch span of each counter, named as `registry.launch_counts()` names it.
-_SPANS = {"launches": "launch.stockham_c2c", "launches_f64": "launch.stockham_c2c_f64",
-          "launches_bf16": "launch.stockham_c2c_bf16",
-          "launches_bf16c": "launch.stockham_c2c_bf16c"}
+# The kernel instance for (data dtype, tables dtype): its launch key, and
+# its C entry `watfft_<key>`.
+_KEYS = {(torch.float32, torch.float32): "stockham_c2c",
+         (torch.float64, torch.float64): "stockham_c2c_f64",
+         (torch.bfloat16, torch.float32): "stockham_c2c_bf16",
+         (torch.bfloat16, torch.bfloat16): "stockham_c2c_bf16c"}
 
 
 def _cols(dtype, x_sn, x_sb, y_sn, y_sb, n, batch, tables) -> tuple[int, int]:
@@ -568,43 +556,24 @@ def c2c_launch(n: int, dtype: torch.dtype, cols: tuple[int, int], x, y) -> tuple
     return c2c_walk(n, dtype), int(complex_pairs(*x, size)), int(complex_pairs(*y, size))
 
 
-def _use_kernel(t: torch.Tensor, plain: bool = False) -> bool:
-    """CUDA tensors launch the kernel; CPU tensors (or plain=True) take the
-    plain version."""
-    return t.device.type == "cuda" and not plain
-
-
-def _launch(device, dtype, xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch,
-            inverse, tables) -> None:
-    """Kernel on the [n, batch] planes of `dtype` (their real dtype) whose
-    element (k, b) sits k*x_sn + b*x_sb elements past the addresses xre,
-    xim (input) and k*y_sn + b*y_sb elements past yre, yim (output); the
-    instance of the data's dtype and the tables' (the caller has checked
-    the pair), with the column tile `_cols` gives and the walk `c2c_launch`
-    gives."""
-    from ._build import library
-
-    if tables.twre.device != device:
-        raise ValueError(f"tables on {tables.twre.device}, data on {device}")
+def fft_addresses(device, dtype, xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch,
+                  inverse, tables) -> None:
+    """The kernel on the [n, batch] planes of `dtype` (their real dtype)
+    on `device` whose element (k, b) sits k*x_sn + b*x_sb elements past the
+    addresses xre, xim (input) and k*y_sn + b*y_sb elements past yre, yim
+    (output); the instance of the data's dtype and the tables' (the caller
+    has checked the pair), with the column tile `_cols` gives and the walk
+    `c2c_launch` gives."""
+    _build.same_device(tables.twre.device, device)
     cols = _cols(dtype, x_sn, x_sb, y_sn, y_sb, n, batch, tables)
     walk = c2c_launch(n, dtype, cols, (xre, xim, x_sn, x_sb), (yre, yim, y_sn, y_sb))
-    lib = library()
-    name, counter = _ENTRIES[(dtype, tables.dtype)]
-    entry = getattr(lib, name)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        span = trace.begin(_SPANS[counter]) if profiler._is_profiler_enabled else None
-        err = entry(xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch,
-                    tables.twre.data_ptr(), tables.twim.data_ptr(), tables.c_radices,
-                    tables.c_offsets, len(tables.stages), int(inverse), stream, *cols, *walk)
-        if span is not None:
-            trace.end(span)
-    if err:
-        raise RuntimeError(
-            f"Stockham kernel launch failed (n={n}, batch={batch}, {dtype} data, "
-            f"{tables.dtype} tables, column tile {cols}, walk {walk}): "
-            f"{lib.watfft_error_string(err).decode()}")
-    globals()[counter] += 1
+    key = _KEYS[(dtype, tables.dtype)]
+    _build.launch(key, device, "watfft_" + key,
+                  (xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n, batch, tables.twre.data_ptr(),
+                   tables.twim.data_ptr(), tables.c_radices, tables.c_offsets,
+                   len(tables.stages), int(inverse)), (*cols, *walk),
+                  lambda: f"n={n}, batch={batch}, {dtype} data, {tables.dtype} tables, "
+                          f"column tile {cols}, walk {walk}")
 
 
 def fft_views(xre, xim, yre, yim, inverse: bool, tables: Tables) -> None:
@@ -617,17 +586,12 @@ def fft_views(xre, xim, yre, yim, inverse: bool, tables: Tables) -> None:
         raise ValueError("the re and im views of a side must share their strides")
     check_dtype(tables.dtype, xre.dtype)
     n, batch = xre.shape
-    if _use_kernel(xre):
-        _launch(xre.device, xre.dtype, xre.data_ptr(), xim.data_ptr(), yre.data_ptr(),
-                yim.data_ptr(), *xre.stride(), *yre.stride(), n, batch, inverse, tables)
+    if _build.use_kernel(xre):
+        fft_addresses(xre.device, xre.dtype, xre.data_ptr(), xim.data_ptr(), yre.data_ptr(),
+                      yim.data_ptr(), *xre.stride(), *yre.stride(), n, batch, inverse, tables)
     else:
         _cols(xre.dtype, *xre.stride(), *yre.stride(), n, batch, tables)
         _plain_into(xre, xim, yre, yim, inverse, tables)
-
-
-def _kernel_dtype(t: torch.Tensor, want: torch.dtype) -> None:
-    if t.dtype != want:
-        raise TypeError(f"the CUDA kernel takes {want}, got {t.dtype}")
 
 
 def _dense(t: torch.Tensor) -> torch.Tensor:
@@ -678,9 +642,9 @@ def _planes(re, im, inverse, time_major, tables, plain=False):
     if batch == 0:
         return ore, oim
     sn, sb = (batch, 1) if time_major else (1, n)
-    if _use_kernel(re, plain):
-        _launch(re.device, re.dtype, re.data_ptr(), im.data_ptr(), ore.data_ptr(),
-                oim.data_ptr(), sn, sb, sn, sb, n, batch, inverse, tables)
+    if _build.use_kernel(re, plain):
+        fft_addresses(re.device, re.dtype, re.data_ptr(), im.data_ptr(), ore.data_ptr(),
+                      oim.data_ptr(), sn, sb, sn, sb, n, batch, inverse, tables)
         return ore, oim
     _cols(re.dtype, sn, sb, sn, sb, n, batch, tables)
     if time_major:
@@ -718,7 +682,7 @@ def _complex(x, inverse, tables):
     tables = _resolve(tables, n, inverse, x.device, x.dtype)
     if not x.is_complex():
         raise TypeError(f"the complex entry point takes a complex tensor, got {x.dtype}")
-    if not _use_kernel(x):
+    if not _build.use_kernel(x):
         return plain_fft(x, inverse, tables)
     x = _dense(x)
     out = torch.empty_like(x)
@@ -726,8 +690,8 @@ def _complex(x, inverse, tables):
     if batch:
         # interleaved complex: re at the base, im one real on, stride 2
         xp, yp, step = x.data_ptr(), out.data_ptr(), x.element_size() // 2
-        _launch(x.device, real_dtype(x.dtype), xp, xp + step, yp, yp + step, 2, 2 * n, 2,
-                2 * n, n, batch, inverse, tables)
+        fft_addresses(x.device, real_dtype(x.dtype), xp, xp + step, yp, yp + step, 2, 2 * n,
+                      2, 2 * n, n, batch, inverse, tables)
     return out
 
 
@@ -812,7 +776,7 @@ def _postmul(xre, xim, pmre, pmim, inverse, tables, plain):
     out = (torch.empty_like(x[0]), torch.empty_like(x[1]))
     # [n, b] time-major planes: one batch axis, the other of count 1
     strided_c2c(x, out, n, (b, b, b), [(b, 1, 1, 1), (1, 0, 0, 0)], bool(inverse), tables,
-                "postmul", pm=pm, mul=MUL_STORE, plain=plain)
+                "large_postmul", pm=pm, mul=MUL_STORE, plain=plain)
     return out
 
 
@@ -821,7 +785,7 @@ def stockham_fft_nb_postmul(xre, xim, pmre, pmim, inverse: bool = False,
     """Batched FFT on time-major planes [n, b] followed by the elementwise
     complex multiply with (pmre, pmim) [n, b], fused into the kernel's store
     (#3 `_kernel_postmul`; the CUDA kernel is csrc/large.cu's strided c2c
-    kernel, counted in `large.launches["postmul"]`). Any batch."""
+    kernel, counted in `trace.launches["large_postmul"]`). Any batch."""
     return _postmul(xre, xim, pmre, pmim, inverse, tables, plain=False)
 
 

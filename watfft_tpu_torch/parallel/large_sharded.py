@@ -77,14 +77,14 @@ def _core(xre, xim, group, d: int, rank: int, inverse: bool, out=None):
     c = (xre.new_empty(n2, c1), xre.new_empty(n2, c1))
     # stage 1 (#3): x -> C[k2, j1l] = T * DFT_n2, C contiguous (the send order)
     strided_c2c((xre, xim), c, n2, (xre.stride(0), c1, c1),
-                [(c1, xre.stride(1), 1, 1), (1, 0, 0, 0)], inverse, t1, "postmul",
+                [(c1, xre.stride(1), 1, 1), (1, 0, 0, 0)], inverse, t1, "large_postmul",
                 pm=pm, mul=MUL_STORE)
     # the exchange: row block i to rank i; [D, n2/D, n1/D] -> C_r[k2l, j1] [n2/D, n1]
     c = tuple(exchange(t, group).view(d, c2, c1).permute(1, 0, 2).reshape(c2, n1) for t in c)
     y = out if out is not None else (xre.new_empty(n1, c2), xre.new_empty(n1, c2))
     # stage 2 (the outer pass): DFT_n1 along j1, stored transposed into [n1, n2/D]
     strided_c2c(c, y, n1, (c[0].stride(1), y[0].stride(0), 0),
-                [(c2, c[0].stride(0), y[0].stride(1), 0), (1, 0, 0, 0)], inverse, t2, "outer")
+                [(c2, c[0].stride(0), y[0].stride(1), 0), (1, 0, 0, 0)], inverse, t2, "large_outer")
     return y
 
 

@@ -31,8 +31,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from . import api, planner
-from .ops import bluestein, fft2, large, mxu_dft, ola, rfft, stockham
+from . import api, planner, trace
+from .ops import bluestein, large, mxu_dft, rfft, stockham
 from .ops.stockham import check_device
 
 __all__ = ["SurfaceEntry", "REGISTRY", "SURFACES", "JAX_NAME", "COUNTERS", "entries",
@@ -57,62 +57,41 @@ JAX_NAME = {
     "torch-fft": "jnp-fft",
 }
 
-# The launch counters each entry's kernels raise on the card: (module under
-# ops/, attribute, key of a dict counter or None). `dispatch` may take any
-# route; the matmul surface and the baseline launch no kernel of the port.
-_C2C = (("stockham", "launches", None),)
-_BF16 = (("stockham", "launches_bf16", None), ("stockham", "launches_bf16c", None))
-_F64 = (("stockham", "launches_f64", None),)
-_HYBRID = (("rfft", "launches", "real_core_fwd"), ("rfft", "launches", "real_core_inv"))
-_FUSED = (("rfft", "launches", "rfft_r2c_fused"), ("rfft", "launches", "irfft_c2r_fused"))
-_FUSED_F64 = (("rfft", "launches", "rfft_r2c_fused_f64"),
-              ("rfft", "launches", "irfft_c2r_fused_f64"))
-_LARGE = (("large", "launches", None),)
-_BLUESTEIN = (("bluestein", "launches", None),) + _LARGE
-_DFT = (("mxu_dft", "launches", None),)
+# The launch counters each entry's kernels raise on the card, by their
+# names in `trace.launches`. `dispatch` may take any route; the matmul
+# surface and the baseline launch no kernel of the port.
+_C2C = ("stockham_c2c",)
+_BF16 = ("stockham_c2c_bf16", "stockham_c2c_bf16c")
+_F64 = ("stockham_c2c_f64",)
+_HYBRID = ("real_core_fwd", "real_core_inv")
+_FUSED = ("rfft_r2c_fused", "irfft_c2r_fused")
+_FUSED_F64 = ("rfft_r2c_fused_f64", "irfft_c2r_fused_f64")
+_LARGE = ("large_stage1", "large_stage2", "large_cube", "large_postmul", "large_outer")
+_BLUESTEIN = ("bluestein_fwd", "bluestein_inv", "bluestein_onepass") + _LARGE
+_DFT = ("mxu_dft",)
 COUNTERS = {
     "stockham-cuda": _C2C, "stockham-bf16": _BF16, "rfft-hybrid": _HYBRID, "fp64-cuda": _F64,
     "fp64-rfft": _FUSED_F64, "rfft-fused": _FUSED, "bluestein": _BLUESTEIN,
     "rfft-large": _LARGE, "dft-mma": _DFT, "large-nb": _LARGE,
     "dispatch": _C2C + _BF16 + _F64 + _HYBRID + _FUSED + _FUSED_F64 + _BLUESTEIN + _DFT
-    + (("fft2", "launches", None),),
+    + ("fft2_cube", "fft2_cols", "fft2_k2", "fft2_rows"),
     "fourstep-matmul": (), "torch-fft": (),
 }
-
-
-_OPS = {"stockham": stockham, "rfft": rfft, "large": large, "fft2": fft2,
-        "bluestein": bluestein, "mxu_dft": mxu_dft, "ola": ola}
-
-
-def _counter(module: str, attr: str, key) -> int:
-    value = getattr(_OPS[module], attr)
-    if isinstance(value, dict):
-        return sum(value.values()) if key is None else value[key]
-    return value
 
 
 def launches(name: str) -> int:
     """The launches so far of the counters of entry `name` (`COUNTERS`):
     read before and after a call, their difference is what the call
     launched."""
-    return sum(_counter(*c) for c in COUNTERS[name])
+    return sum(trace.launches[k] for k in COUNTERS[name])
 
 
 def launch_counts() -> dict:
     """Every kernel launch counter of the port by name ("stockham_c2c",
-    "rfft_r2c_fused", "large_cube", "fft2_cols", ...): read before and
-    after a call, the differences say which kernels it launched."""
-    out = {}
-    for module, mod in _OPS.items():
-        for attr in ("launches", "launches_f64", "launches_bf16", "launches_bf16c"):
-            value = getattr(mod, attr, None)
-            if isinstance(value, dict):
-                prefix = "large_" if module == "large" else ""
-                out.update({prefix + k: v for k, v in value.items()})
-            elif value is not None:
-                name = "mxu_dft" if module == "mxu_dft" else "stockham_c2c" + attr[8:]
-                out[name] = value
-    return out
+    "rfft_r2c_fused", "large_cube", "fft2_cols", ...; `trace.launches`):
+    read before and after a call, the differences say which kernels it
+    launched."""
+    return dict(trace.launches)
 
 
 @dataclass(frozen=True)

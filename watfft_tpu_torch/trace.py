@@ -16,8 +16,8 @@ layers:
   spectrometer.integrate, and its steps (spec.unpack, spec.detect,
                   spec.shift); a root
   launch.<name>   one call into the CUDA library, which launches one
-                  kernel; <name> is the kernel's launch counter, as
-                  `registry.launch_counts()` names it
+                  kernel (`ops/_build.launch`); <name> is the kernel's key
+                  in `launches`
   h2d             one copy from host memory to a device (`h2d`, `to`)
 
 Spans record only while a `torch.profiler` session is active (torch's
@@ -28,16 +28,18 @@ and creates nothing. Spans are kept in a bounded buffer of plain tuples
 (the oldest dropped past `CAPACITY`), read by `spans()`, `chrome_events()`
 and `merge_into()`.
 
-Counters are always on, plain integer adds beside the kernels' launch
-counters (`counts`, `routes`): `h2d_copies` and `h2d_bytes` (copies from
-host memory to a device), `tables_built` (misses of the port's table and
-context caches, and each STFT window built), `spec.spectra` (the spectra
-the spectrometer detected and integrated, one a channel, polarisation and
-nfft samples), `strided.pairs_store` (launches of the strided kernel that
-store 8 bytes a point, `ops/large.py` `store_pairs`) and each route
-FFTContext took (the route of a call is not a span: the launch spans name
-its kernels). `counters()` returns them with
-every launch counter.
+Counters are always on, plain integer adds in three tables. `launches`:
+the kernels' launches by key (each `ops/_build.launch` that succeeded),
+and three routes that run the c2c kernel, `real_core_fwd`, `real_core_inv`
+and `fft2_rows`, whose launches count under `stockham_c2c` or
+`stockham_c2c_f64` too. `routes`: each route FFTContext took (the route of
+a call is not a span: the launch spans name its kernels). `counts`:
+`h2d_copies` and `h2d_bytes` (copies from host memory to a device),
+`tables_built` (misses of the port's table and context caches, and each
+STFT window built), `spec.spectra` (the spectra the spectrometer detected
+and integrated, one a channel, polarisation and nfft samples) and
+`strided.pairs_store` (launches of the strided kernel that store 8 bytes a
+point, `ops/large.py` `store_pairs`). `counters()` returns all three.
 
 `align()` lays the spans on a device trace's clock. With CUDA activity
 alone `torch.profiler` still records the host's CUDA runtime calls
@@ -68,7 +70,7 @@ import torch
 from torch.autograd import profiler as _profiler
 
 __all__ = ["CAPACITY", "Span", "begin", "end", "call", "h2d", "to", "counts", "routes",
-           "counters", "spans", "clear", "chrome_events", "kernel_names", "Alignment",
+           "launches", "counters", "spans", "clear", "chrome_events", "kernel_names", "Alignment",
            "clock_guess", "align", "attribute", "summary", "merge_into"]
 
 CAPACITY = 1 << 20
@@ -78,6 +80,16 @@ counts = {"h2d_copies": 0, "h2d_bytes": 0, "tables_built": 0, "spec.spectra": 0,
 # FFTContext's routes (`planner.c2c_kernel`), each counted as it is taken: a
 # plain dict with every key in place, the cheapest count on the hot path
 routes = dict.fromkeys(("stockham", "large-cube", "large-pipe2", "fourstep"), 0)
+# The kernels' launches by key, the name of each launch's span past
+# `launch.`: the c2c kernel's four instances, the real kernels, the four-step
+# kernels, the 2D passes, Bluestein, #20 and the overlap-add
+launches = dict.fromkeys((
+    "stockham_c2c", "stockham_c2c_f64", "stockham_c2c_bf16", "stockham_c2c_bf16c",
+    "rfft_r2c_fused", "irfft_c2r_fused", "real_core_fwd", "real_core_inv",
+    "rfft_r2c_fused_f64", "irfft_c2r_fused_f64",
+    "large_stage1", "large_stage2", "large_cube", "large_postmul", "large_outer",
+    "fft2_cube", "fft2_cols", "fft2_k2", "fft2_rows",
+    "bluestein_fwd", "bluestein_inv", "bluestein_onepass", "mxu_dft", "istft_ola"), 0)
 
 
 class Span(NamedTuple):
@@ -144,13 +156,11 @@ def to(x: torch.Tensor, device, dtype=None) -> torch.Tensor:
 
 def counters() -> dict:
     """Every counter of the port: `counts`, `route.<route>` and
-    `launch.<kernel>` (`registry.launch_counts()`). Read before and after
-    a step, their differences are what the step did."""
-    from .registry import launch_counts
-
+    `launch.<kernel>` (`launches`). Read before and after a step, their
+    differences are what the step did."""
     out = dict(counts)
     out.update(("route." + k, v) for k, v in sorted(routes.items()))
-    out.update(("launch." + k, v) for k, v in launch_counts().items())
+    out.update(("launch." + k, v) for k, v in launches.items())
     return out
 
 
