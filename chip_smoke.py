@@ -91,10 +91,15 @@ Phases (any failure exits nonzero and prints no result):
    128 and 16 sequences, for the kernels line's `large_pipe2_b128_n1048576`
    row; and
    `spectrometer.integrate(volts, 2**20, 3)` on int8 [64, 3 * 2^20, 2, 2]:
-   the route large-pipe2 and one launch of each stage a spectrum (one
-   `strided.pairs_store` a chunk), the spectra counted, each channel's
-   power within MAX_REL of its largest bin
-   against the same mathematics in torch complex128, and timed.
+   the route large-pipe2 and one launch of each stage and of the detection
+   kernel a spectrum (one `strided.pairs_store` a chunk), the spectra
+   counted, each channel's power within MAX_REL of its largest bin
+   against the same mathematics in torch complex128, and timed; then the
+   detection kernel alone at the cell's chunk, [64, 2, 1, 2^20] complex64
+   into one integration's row of a [64, 2, 2^20] accumulator, within 1e-6
+   of each channel's largest bin against its plain version (torch's four
+   passes) on the same spectra, both timed, for the kernels line's
+   `spec_detect` row.
 16. 2D kernels against their plain versions: the 2D cube at every
    power-of-two h, w >= 2 with h*w <= 2^14, forward and inverse, at batch 3
    in three layouts (batch-major planes, interleaved complex64, native
@@ -347,6 +352,7 @@ from watfft_tpu_torch import (config, create_fft, create_fft_f32, create_rfft, c
 from watfft_tpu_torch import stft as wstft
 from watfft_tpu_torch.ops import _build
 from watfft_tpu_torch.ops import bluestein as bl
+from watfft_tpu_torch.ops import detect as dt
 from watfft_tpu_torch.ops import fft2 as f2
 from watfft_tpu_torch.ops import large as lg
 from watfft_tpu_torch.ops import mxu_dft as md
@@ -1347,7 +1353,7 @@ def phase_rawspec_cell(dev, gen, name: str, limit: str) -> dict:
     took = {k: trace.routes[k] - routes[k] for k in routes}
     check(took == {**dict.fromkeys(routes, 0), "large-pipe2": nint},
           f"spectrometer: routes {took}")
-    check(launched == expect(large_stage1=nint, large_stage2=nint),
+    check(launched == expect(large_stage1=nint, large_stage2=nint, spec_detect=nint),
           f"spectrometer: launches {launched}")
     check(trace.counts["spec.spectra"] - spectra == chans * RAWSPEC_POLS * nint,
           "spectrometer: spectra counted")
@@ -1375,6 +1381,56 @@ def phase_rawspec_cell(dev, gen, name: str, limit: str) -> dict:
             "pairs_stores": pairs, "max_abs_err": err, **row, "bound_ms": bnd[0],
             "bound_by": bnd[1], "card": name,
             "power_limit": limit}
+
+
+def detect_kernel_row(dev, gen, name: str, limit: str) -> dict:
+    """The kernels line's `spec_detect` row: the detection kernel at the
+    rawspec cell's chunk, spectra [64, 2, 1, 2^20] complex64 into the row
+    acc[:, 1] of an accumulator [64, 2, 2^20] (channels 2^21 floats apart),
+    beside its plain version on the same spectra and row: each channel
+    within KERNEL_LIMIT of its largest bin, the other row untouched, two runs
+    the same bits, one launch a call.
+    Bytes: the spectra read once (8 B a point, two streams a bin) and the
+    row read and written once, 24 B a bin; flops: 3 a point and 2 a bin."""
+    chans, pols, n = RAWSPEC_CHANS, RAWSPEC_POLS, LARGE_N
+    x = rand_complex((chans, pols, 1, n), gen, dev) * 1024.0  # a transform's magnitudes
+    acc = torch.rand((chans, 2, n), generator=gen, device=dev) * 1e6
+    want = acc.clone()
+    dt.plain_detect(x, want[:, 1])
+    again = acc.clone()
+    torch.cuda.synchronize()
+    zero_counts()
+    dt.power_add(x, acc[:, 1])
+    torch.cuda.synchronize()
+    launches = counts()
+    check(launches == expect(spec_detect=1), f"spec_detect: launches {launches}")
+    dt.power_add(x, again[:, 1])
+    got, ref = acc[:, 1].double(), want[:, 1].double()
+    err = ((got - ref).abs().amax(-1) / ref.abs().amax(-1)).max().item()
+    diff = (got - ref).abs().max().item()
+    same = torch.equal(acc, again)
+    untouched = torch.equal(acc[:, 0], want[:, 0])
+    vec = dt.detect_launch(x.shape, acc.stride(0), x.data_ptr(), acc[:, 1].data_ptr())[-1]
+    print(json.dumps({"phase": "detect_kernel_at_cell_shape", "spectra": list(x.shape),
+                      "row_stride": acc.stride(0), "vec": vec, "launches": launches,
+                      "max_rel_vs_plain_a_channel": err, "same_bits": same,
+                      "other_row_untouched": untouched}), flush=True)
+    check(err <= KERNEL_LIMIT, f"spec_detect at the cell's chunk: {err:.3e} vs plain")
+    check(same and untouched, f"spec_detect: same bits {same}, other row untouched {untouched}")
+    del again, want
+    row = acc[:, 1]
+    ms = time_ms(lambda: dt.power_add(x, row))[0]
+    bins = chans * n
+    bnd = bound(24 * bins, 3 * pols * bins + 2 * bins)
+    return {"name": "spec_detect", "shape": f"[{chans}, {pols}, 1, {n}] -> acc[:, 1] of "
+                                            f"[{chans}, 2, {n}]",
+            "route": "cuda", "source": "watfft_tpu_torch/ops/csrc/detect.cu", "replaces": None,
+            "replaces_of": "no TPU kernel: the JAX package has no spectrometer",
+            "also_replaces": [], "launches": launches["spec_detect"], "max_abs_err": diff,
+            "ms": ms, "tb_per_s": 24 * bins / ms / 1e9,
+            "plain_ms": time_ms(lambda: dt.plain_detect(x, row), reps=5, warmup=1)[0],
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+            "card": name, "power_limit": limit}
 
 
 # -- the 2D path ------------------------------------------------------------------
@@ -4279,6 +4335,7 @@ def main() -> int:
         phase_large_real_times(dev, gen, name, limit)
         large_rows = large_kernel_rows(main, cube, single, large_times, dev, gen)
         rawspec_row = phase_rawspec_cell(dev, gen, name, limit)
+        detect_row = detect_kernel_row(dev, gen, name, limit)
         phase_fft2_kernel_vs_plain(dev, gen)
         fft2_main = phase_fft2_main_path(dev, gen)
         fft2_times = phase_fft2_times(dev, gen, name, limit)
@@ -4313,6 +4370,7 @@ def main() -> int:
     line = kernels_line({"launches": launches, "max_abs_err": max_abs_err}, real_launches,
                         real_errs, times, real_times, large_rows, fft2_rows, name, limit)
     line["kernels"].append(rawspec_row)
+    line["kernels"].append(detect_row)
     line["kernels"].extend(bl_rows)
     line["kernels"].extend(f64_rows)
     line["kernels"].extend(dft_rows)

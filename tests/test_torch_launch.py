@@ -5,8 +5,8 @@ A launch that returns 0 counts 1 under its key and, inside a profiler
 session alone, records one `launch.<key>` span; a nonzero code raises with
 the key, the launch's fields and the library's message, and counts
 nothing. The table holds the 24 names `registry.launch_counts()` has
-always given, and every wrapper launches under a key of it. No JAX is
-needed.
+always given and the spectrometer's detection, and every wrapper launches
+under a key of it. No JAX is needed.
 """
 
 import contextlib
@@ -20,6 +20,7 @@ from torch.profiler import ProfilerActivity, profile
 from watfft_tpu_torch import config, registry, trace
 from watfft_tpu_torch.ops import _build
 from watfft_tpu_torch.ops import bluestein as bl
+from watfft_tpu_torch.ops import detect as dt
 from watfft_tpu_torch.ops import fft2 as f2
 from watfft_tpu_torch.ops import large as lg
 from watfft_tpu_torch.ops import mxu_dft as md
@@ -31,7 +32,8 @@ NAMES = {"bluestein_fwd", "bluestein_inv", "bluestein_onepass", "fft2_cols", "ff
          "fft2_k2", "fft2_rows", "irfft_c2r_fused", "irfft_c2r_fused_f64", "istft_ola",
          "large_cube", "large_outer", "large_postmul", "large_stage1", "large_stage2",
          "mxu_dft", "real_core_fwd", "real_core_inv", "rfft_r2c_fused", "rfft_r2c_fused_f64",
-         "stockham_c2c", "stockham_c2c_bf16", "stockham_c2c_bf16c", "stockham_c2c_f64"}
+         "stockham_c2c", "stockham_c2c_bf16", "stockham_c2c_bf16c", "stockham_c2c_f64",
+         "spec_detect"}
 # the routes counted beside the kernels: their launches count as the c2c kernel's
 ROUTES = {"real_core_fwd", "real_core_inv", "fft2_rows"}
 
@@ -132,7 +134,9 @@ def test_the_refusals_before_a_launch():
 # -- the table ---------------------------------------------------------------------------
 
 def test_the_table_has_the_24_names():
-    assert set(trace.launches) == NAMES and len(trace.launches) == 24
+    """The 24 names the table has always had, and the detection's: 25."""
+    assert set(trace.launches) == NAMES and len(trace.launches) == 25
+    assert len(NAMES - {"spec_detect"}) == 24
     assert registry.launch_counts() == trace.launches
     assert registry.launch_counts() is not trace.launches  # a copy to diff against
     counters = trace.counters()
@@ -145,7 +149,7 @@ def test_registry_counters_name_table_keys():
         assert set(keys) <= NAMES, name
         assert registry.launches(name) == sum(trace.launches[k] for k in keys)
         named.update(keys)
-    assert named == NAMES - {"istft_ola"}  # the overlap-add is no FFT surface
+    assert named == NAMES - {"istft_ola", "spec_detect"}  # no FFT surface launches these
 
 
 def _f(shape, dtype=torch.float32, seed=0):
@@ -180,6 +184,7 @@ DRIVES = {
     "bluestein_onepass": lambda: bl.bluestein_fft_nb(*_pair((5, 3))),
     "mxu_dft": lambda: md.dft_matmul_nb(*_pair((8, 3))),
     "istft_ola": lambda: ola.istft_ola(_f((2, 5, 16)), _f(16), 4),
+    "spec_detect": lambda: dt.power_add(torch.complex(*_pair((2, 2, 1, 8))), _f((2, 8))),
 }
 
 

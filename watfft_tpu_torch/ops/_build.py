@@ -170,6 +170,9 @@ def library() -> ctypes.CDLL:
     # (frames, w, out, batch, num, n_fft, hop, len, vec, stream)
     lib.watfft_istft_ola.argtypes = [p, p, p, i64, i64, i32, i64, i64, i32, p]
     lib.watfft_istft_ola.restype = i32
+    # (x, row, chans, streams, nfft, row_stride, vec, stream)
+    lib.watfft_spec_detect.argtypes = [p, p, i64, i64, i64, i64, i32, p]
+    lib.watfft_spec_detect.restype = i32
     lib.watfft_error_string.argtypes = [i32]
     lib.watfft_error_string.restype = ctypes.c_char_p
     build_info.update(path=str(out), log=log)

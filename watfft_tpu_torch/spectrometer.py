@@ -12,12 +12,13 @@ frequency (`numpy.fft.fftshift`'s order: the DC bin at nfft / 2).
 
 Every transform goes through the cached f32 `FFTContext` of `nfft`, so the
 planner picks the route (the four-step pipe2 kernels at nfft = 2^20). The
-steps around it are torch ops: unpacking the int8 pairs into complex64
-(`spec.unpack`), detecting the power and summing it into a float32
-accumulator (`spec.detect`) and the shift (`spec.shift`). `device` is
-"cuda" by default; `device="cpu"` runs the kernels' plain versions. Input
-on the host moves to the device a chunk at a time. The input is integer,
-so nothing here is differentiable.
+power is detected and summed into a float32 accumulator by one kernel a
+chunk (`spec.detect`, `ops/detect.py`); the other steps around the
+transform are torch ops: unpacking the int8 pairs into complex64
+(`spec.unpack`), the accumulator's zeroing and the shift (`spec.shift`).
+`device` is "cuda" by default; `device="cpu"` runs the kernels' plain
+versions. Input on the host moves to the device a chunk at a time. The
+input is integer, so nothing here is differentiable.
 
 Chunks: the spectra run in chunks of consecutive spectra of every channel
 and polarisation (`spectra_per_chunk`): the largest divisor of `nint` whose
@@ -36,6 +37,7 @@ from torch.autograd import profiler
 
 from . import trace
 from .api import FFTContext, _ctx as _api_ctx
+from .ops.detect import detect
 from .plan import is_power_of_two
 
 __all__ = ["CHUNK_POINTS", "spectra_per_chunk", "integrate"]
@@ -96,7 +98,7 @@ def _integrate(volts, nfft: int, nint: int, device, on: bool):
         z = _step(on, "spec.unpack", _unpack, volts, j0, per, nfft, ctx.device)
         x = ctx.forward(z)
         del z
-        _step(on, "spec.detect", _detect, x, acc[:, j0 // nint])
+        _step(on, "spec.detect", detect, x, acc[:, j0 // nint])
         del x
         trace.counts["spec.spectra"] += chans * pols * per
     return _step(on, "spec.shift", torch.roll, acc, nfft // 2, -1)
@@ -115,12 +117,3 @@ def _unpack(volts, j0: int, per: int, nfft: int, device) -> torch.Tensor:
     z.copy_(v.view(chans, per, nfft, pols, 2).permute(0, 3, 1, 2, 4))
     return torch.view_as_complex(z)
 
-
-def _detect(x: torch.Tensor, row: torch.Tensor) -> None:
-    """Adds the power of the spectra x [chans, pols, per, nfft], summed over
-    the polarisations and the spectra, into one integration's row
-    [chans, nfft] of the accumulator."""
-    power = x.real.square().addcmul_(x.imag, x.imag)  # [chans, pols, per, nfft]
-    # a sum over the outer axes, along contiguous bins (over the (re, im)
-    # pairs' axis, torch's reduction ran 5x slower on the card)
-    row.add_(power.sum(dim=(1, 2)))

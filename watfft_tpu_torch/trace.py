@@ -82,14 +82,16 @@ counts = {"h2d_copies": 0, "h2d_bytes": 0, "tables_built": 0, "spec.spectra": 0,
 routes = dict.fromkeys(("stockham", "large-cube", "large-pipe2", "fourstep"), 0)
 # The kernels' launches by key, the name of each launch's span past
 # `launch.`: the c2c kernel's four instances, the real kernels, the four-step
-# kernels, the 2D passes, Bluestein, #20 and the overlap-add
+# kernels, the 2D passes, Bluestein, #20, the overlap-add and the
+# spectrometer's detection
 launches = dict.fromkeys((
     "stockham_c2c", "stockham_c2c_f64", "stockham_c2c_bf16", "stockham_c2c_bf16c",
     "rfft_r2c_fused", "irfft_c2r_fused", "real_core_fwd", "real_core_inv",
     "rfft_r2c_fused_f64", "irfft_c2r_fused_f64",
     "large_stage1", "large_stage2", "large_cube", "large_postmul", "large_outer",
     "fft2_cube", "fft2_cols", "fft2_k2", "fft2_rows",
-    "bluestein_fwd", "bluestein_inv", "bluestein_onepass", "mxu_dft", "istft_ola"), 0)
+    "bluestein_fwd", "bluestein_inv", "bluestein_onepass", "mxu_dft", "istft_ola",
+    "spec_detect"), 0)
 
 
 class Span(NamedTuple):
