@@ -99,7 +99,17 @@ Phases (any failure exits nonzero and prints no result):
    into one integration's row of a [64, 2, 2^20] accumulator, within 1e-6
    of each channel's largest bin against its plain version (torch's four
    passes) on the same spectra, both timed, for the kernels line's
-   `spec_detect` row.
+   `spec_detect` row. Then the wstack_n4096.batch cell's chunk: the
+   w-stacking accumulation kernel alone on [8, 4096, 4096] complex64 planes
+   into a 4096^2 image, as the first chunk, a middle one and the last (its
+   n / taper^2 epilogue), within 2^-21 of each pixel's magnitude of its
+   plain version on the same planes (its sincospif is within 1 ulp of the
+   plain version's rounded float64 cosine and sine), two runs the same
+   bits, timed beside the plain version
+   (the kernels line's `wstack_accum` row); and `ifft2` on [8, 4096, 4096]
+   through the public entry (one launch of each pass, the first image
+   within MAX_REL of torch.fft.ifft2 in complex128), each pass timed alone
+   beside torch.fft.ifft2 (the `fft2_b8_n4096` row).
 16. 2D kernels against their plain versions: the 2D cube at every
    power-of-two h, w >= 2 with h*w <= 2^14, forward and inverse, at batch 3
    in three layouts (batch-major planes, interleaved complex64, native
@@ -338,6 +348,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -359,6 +370,7 @@ from watfft_tpu_torch.ops import mxu_dft as md
 from watfft_tpu_torch.ops import ola
 from watfft_tpu_torch.ops import rfft as rf
 from watfft_tpu_torch.ops import stockham as st
+from watfft_tpu_torch.ops import wstack as ws
 from watfft_tpu_torch.reference import dft as ref
 from watfft_tpu_torch.tools import accuracy_report
 from watfft_tpu_torch.utils.accuracy import measure_accuracy, rel_errors
@@ -388,6 +400,11 @@ FFT2_WIDE = [(1 << k, 1 << k) for k in range(1, 8)] + [(2, 1 << 13), (1 << 13, 2
 FFT2_PASS_SIZES = (16, 256, 4096)
 FFT2_POINTS, FFT2_TIME_POINTS = 1 << 20, 1 << 24
 FFT2_MAIN = 4096                           # one 4096 x 4096 image (BASELINE config 5)
+# the wstack_n4096.batch cell's chunk: 8 planes of 4096^2 (its pixel scale
+# is 20 arcsec, its |w| up to 2000 wavelengths)
+WSTACK_PLANES, WSTACK_N = 8, 4096
+WSTACK_PIXEL = 20 * math.pi / (180 * 3600)
+WSTACK_W_MAX = 2000.0
 FFT2_CUBE_SHAPE, FFT2_2PASS_SHAPE = (1024, 128, 128), (64, 512, 512)
 FFT2_TIME_SHAPES = [(1 << k, 1 << k) for k in range(4, 13)] + [(128, 8192), (8192, 128),
                                                                   (2, 4096)]
@@ -1431,6 +1448,118 @@ def detect_kernel_row(dev, gen, name: str, limit: str) -> dict:
             "plain_ms": time_ms(lambda: dt.plain_detect(x, row), reps=5, warmup=1)[0],
             "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
             "card": name, "power_limit": limit}
+
+
+def wstack_off_by(got, want, planes, image, pixel_scale, taper, first, last) -> float:
+    """max |got - want| over each pixel's magnitude M = scale (|image| +
+    sum_k |re_k| + |im_k|) of the folded planes, scale = n / taper^2 where
+    last (else 1): the kernel's sincospif is within 1 ulp of the plain
+    version's float64 cosine and sine rounded to float32 and every other
+    rounding is the same, so 2^-21 M bounds the difference (a share of the
+    largest pixel does not: the terms cancel)."""
+    folded = ws.fold(planes)
+    mag = (folded.real.abs() + folded.imag.abs()).sum(0).double()
+    if not first:
+        mag = mag + image.abs()
+    if last:
+        n = image.shape[-1]
+        lm = (torch.arange(n, dtype=torch.float64, device=image.device) - n // 2) * pixel_scale
+        t = taper.double()
+        mag = mag * torch.sqrt(1 - lm[:, None] ** 2 - lm[None, :] ** 2) / (t[:, None] * t[None, :])
+    return ((got.double() - want.double()).abs() / mag).max().item()
+
+
+def wstack_kernel_row(dev, gen, name: str, limit: str) -> dict:
+    """The kernels line's `wstack_accum` row: the w-stacking accumulation
+    kernel at the wstack_n4096.batch cell's chunk, planes [8, 4096, 4096]
+    complex64 (a transform's magnitudes) summed into a 4096^2 image as the
+    first chunk (the image not read), a middle one and the last (the n /
+    taper^2 epilogue), beside its plain version on the same planes: within
+    2^-21 of each pixel's magnitude (`wstack_off_by`; the difference in
+    ulps of the largest pixel is reported beside it), two runs the same
+    bits, one launch a call. Bytes: the planes read once (8 B a pixel a
+    plane) and the image read and written once (8 B a pixel); flops: ~20 a
+    pixel a plane (the screen's sincospif, two products, a difference and
+    the sum)."""
+    p, n = WSTACK_PLANES, WSTACK_N
+    planes = rand_complex((p, n, n), gen, dev) * 1e-4
+    w = torch.linspace(-WSTACK_W_MAX, WSTACK_W_MAX, p, dtype=torch.float64, device=dev)
+    taper = 0.5 + torch.rand(n, generator=gen, device=dev)
+    start = torch.rand((n, n), generator=gen, device=dev) * 1e-3
+    off_by, ulps, same, launches = {}, {}, True, {}
+    for first, last in ((True, False), (False, False), (False, True)):
+        want = start.clone()
+        ws.plain_accum(planes, want, w, WSTACK_PIXEL, taper, first, last)
+        got, again = start.clone(), start.clone()
+        torch.cuda.synchronize()
+        zero_counts()
+        ws.accum_kernel(planes, got, w, WSTACK_PIXEL, taper, first, last)
+        torch.cuda.synchronize()
+        launches = counts()
+        check(launches == expect(wstack_accum=1), f"wstack_accum: launches {launches}")
+        ws.accum_kernel(planes, again, w, WSTACK_PIXEL, taper, first, last)
+        key = f"first={first},last={last}"
+        off_by[key] = wstack_off_by(got, want, planes, start, WSTACK_PIXEL, taper, first, last)
+        big = want.abs().max()
+        ulp = (torch.nextafter(big, torch.tensor(math.inf, device=dev)) - big).item()
+        ulps[key] = (got - want).abs().max().item() / ulp
+        same = same and torch.equal(got, again)
+    vec = ws.accum_launch(n, planes.data_ptr(), start.data_ptr())
+    print(json.dumps({"phase": "wstack_kernel_at_cell_chunk", "planes": list(planes.shape),
+                      "vec": vec, "launches": launches, "off_by_of_magnitude": off_by,
+                      "max_diff_ulps_of_largest": ulps, "same_bits": same}), flush=True)
+    check(max(off_by.values()) <= 2.0 ** -21,
+          f"wstack_accum at the cell's chunk: {off_by} of the magnitude vs plain")
+    check(same, "wstack_accum: two runs differ")
+    image = start.clone()
+    ms = time_ms(lambda: ws.accum_kernel(planes, image, w, WSTACK_PIXEL, taper, False, False))[0]
+    nbytes = (8 * p + 8) * n * n
+    bnd = bound(nbytes, 20 * p * n * n)
+    return {"name": "wstack_accum", "shape": f"[{p}, {n}, {n}] -> [{n}, {n}]",
+            "route": "cuda", "source": "watfft_tpu_torch/ops/csrc/wstack.cu", "replaces": None,
+            "replaces_of": "no TPU kernel: the JAX package has no imager",
+            "also_replaces": [], "launches": launches["wstack_accum"],
+            "off_by_of_magnitude": max(off_by.values()), "max_diff_ulps": max(ulps.values()),
+            "ms": ms, "tb_per_s": nbytes / ms / 1e9,
+            "plain_ms": time_ms(lambda: ws.plain_accum(planes, image, w, WSTACK_PIXEL, taper,
+                                                       False, False), reps=3, warmup=1)[0],
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+            "card": name, "power_limit": limit}
+
+
+def fft2_b8_row(dev, gen, name: str, limit: str) -> dict:
+    """The kernels line's `fft2_b8_n4096` row: `ifft2` on [8, 4096, 4096]
+    complex64, the wstack_n4096.batch cell's chunk, through the public
+    entry (the planner's fft2-2pass: one launch of each pass), the first
+    image within MAX_REL of torch.fft.ifft2 in complex128; each pass timed
+    alone as the route launches it, beside torch.fft.ifft2 (the library
+    call the port never makes). Bound: 32 B a point (each pass reads and
+    writes every point's complex64 once)."""
+    p, n = WSTACK_PLANES, WSTACK_N
+    x = rand_complex((p, n, n), gen, dev)
+    zero_counts()
+    y = wtt.ifft2(x)
+    torch.cuda.synchronize()
+    launches = counts()
+    check(launches == expect(fft2_cols=1, fft2_rows=1, stockham_c2c=1),
+          f"ifft2 [{p}, {n}, {n}]: launches {launches}")
+    err = rel_diff(y[0].to(torch.complex128), torch.fft.ifft2(x[0].to(torch.complex128)))
+    check(err <= MAX_REL["float32"], f"ifft2 [{p}, {n}, {n}]: {err:.3e} vs complex128")
+    del y
+    cols, rows, _, _ = _passes(x, n, n, p, inverse=True)
+    times = {"ms": time_ms(lambda: wtt.ifft2(x))[0], "cols_ms": time_ms(cols)[0],
+             "rows_ms": time_ms(rows)[0], "library_ms": time_ms(lambda: torch.fft.ifft2(x))[0]}
+    points = p * n * n
+    bnd = bound(32 * points, 2 * 5 * points * (n.bit_length() - 1))
+    row = {"name": "fft2_b8_n4096", "shape": f"ifft2 [{p}, {n}, {n}]", "route": "cuda",
+           "source": LARGE_SRC + " + watfft_tpu_torch/ops/csrc/stockham.cu",
+           "replaces": "watfft_tpu/ops/large.py:136", "also_replaces": ["watfft_tpu/ops/fft2.py:241"],
+           "launches": launches["fft2_cols"] + launches["fft2_rows"], "max_rel_err": err,
+           **times, "cols_us_a_plane": times["cols_ms"] * 1e3 / p,
+           "rows_us_a_plane": times["rows_ms"] * 1e3 / p, "plain_ms": None,
+           "bound_ms": bnd[0], "bound_by": bnd[1], "card": name, "power_limit": limit}
+    print(json.dumps({"phase": "fft2_b8_n4096", **row}), flush=True)
+    return row
 
 
 # -- the 2D path ------------------------------------------------------------------
@@ -4336,6 +4465,8 @@ def main() -> int:
         large_rows = large_kernel_rows(main, cube, single, large_times, dev, gen)
         rawspec_row = phase_rawspec_cell(dev, gen, name, limit)
         detect_row = detect_kernel_row(dev, gen, name, limit)
+        wstack_row = wstack_kernel_row(dev, gen, name, limit)
+        fft2_b8 = fft2_b8_row(dev, gen, name, limit)
         phase_fft2_kernel_vs_plain(dev, gen)
         fft2_main = phase_fft2_main_path(dev, gen)
         fft2_times = phase_fft2_times(dev, gen, name, limit)
@@ -4371,6 +4502,7 @@ def main() -> int:
                         real_errs, times, real_times, large_rows, fft2_rows, name, limit)
     line["kernels"].append(rawspec_row)
     line["kernels"].append(detect_row)
+    line["kernels"].extend([wstack_row, fft2_b8])
     line["kernels"].extend(bl_rows)
     line["kernels"].extend(f64_rows)
     line["kernels"].extend(dft_rows)

@@ -5,8 +5,8 @@ A launch that returns 0 counts 1 under its key and, inside a profiler
 session alone, records one `launch.<key>` span; a nonzero code raises with
 the key, the launch's fields and the library's message, and counts
 nothing. The table holds the 24 names `registry.launch_counts()` has
-always given and the spectrometer's detection, and every wrapper launches
-under a key of it. No JAX is needed.
+always given, the spectrometer's detection and the imager's accumulation,
+and every wrapper launches under a key of it. No JAX is needed.
 """
 
 import contextlib
@@ -27,13 +27,14 @@ from watfft_tpu_torch.ops import mxu_dft as md
 from watfft_tpu_torch.ops import ola
 from watfft_tpu_torch.ops import rfft as rf
 from watfft_tpu_torch.ops import stockham as st
+from watfft_tpu_torch.ops import wstack as ws
 
 NAMES = {"bluestein_fwd", "bluestein_inv", "bluestein_onepass", "fft2_cols", "fft2_cube",
          "fft2_k2", "fft2_rows", "irfft_c2r_fused", "irfft_c2r_fused_f64", "istft_ola",
          "large_cube", "large_outer", "large_postmul", "large_stage1", "large_stage2",
          "mxu_dft", "real_core_fwd", "real_core_inv", "rfft_r2c_fused", "rfft_r2c_fused_f64",
          "stockham_c2c", "stockham_c2c_bf16", "stockham_c2c_bf16c", "stockham_c2c_f64",
-         "spec_detect"}
+         "spec_detect", "wstack_accum"}
 # the routes counted beside the kernels: their launches count as the c2c kernel's
 ROUTES = {"real_core_fwd", "real_core_inv", "fft2_rows"}
 
@@ -134,9 +135,10 @@ def test_the_refusals_before_a_launch():
 # -- the table ---------------------------------------------------------------------------
 
 def test_the_table_has_the_24_names():
-    """The 24 names the table has always had, and the detection's: 25."""
-    assert set(trace.launches) == NAMES and len(trace.launches) == 25
-    assert len(NAMES - {"spec_detect"}) == 24
+    """The 24 names the table has always had, the detection's and the
+    accumulation's: 26."""
+    assert set(trace.launches) == NAMES and len(trace.launches) == 26
+    assert len(NAMES - {"spec_detect", "wstack_accum"}) == 24
     assert registry.launch_counts() == trace.launches
     assert registry.launch_counts() is not trace.launches  # a copy to diff against
     counters = trace.counters()
@@ -149,7 +151,8 @@ def test_registry_counters_name_table_keys():
         assert set(keys) <= NAMES, name
         assert registry.launches(name) == sum(trace.launches[k] for k in keys)
         named.update(keys)
-    assert named == NAMES - {"istft_ola", "spec_detect"}  # no FFT surface launches these
+    # no FFT surface launches these
+    assert named == NAMES - {"istft_ola", "spec_detect", "wstack_accum"}
 
 
 def _f(shape, dtype=torch.float32, seed=0):
@@ -185,6 +188,8 @@ DRIVES = {
     "mxu_dft": lambda: md.dft_matmul_nb(*_pair((8, 3))),
     "istft_ola": lambda: ola.istft_ola(_f((2, 5, 16)), _f(16), 4),
     "spec_detect": lambda: dt.power_add(torch.complex(*_pair((2, 2, 1, 8))), _f((2, 8))),
+    "wstack_accum": lambda: ws.accum_kernel(torch.complex(*_pair((2, 8, 8))), _f((8, 8)),
+                                            _f(2, torch.float64), 1e-3, _f(8), True, True),
 }
 
 

@@ -13,8 +13,10 @@ length n by the Bluestein chirp-z transform (`bluestein_fft_nb`), the
 numpy.fft-style namespace on all of these (`watfft_tpu_torch.fftlib`: any
 n, `axis`/`axes`/`s`/`n`/`norm`), the STFT pipeline on the real FFT
 (`watfft_tpu_torch.stft`), a fine-channel spectrometer of 8-bit voltages
-on the complex FFT (`watfft_tpu_torch.spectrometer`), the small-n FFT as
-one DFT matrix product (`dft_matmul_nb`, n <= 128) and the bf16 tiers of the plane transforms
+on the complex FFT (`watfft_tpu_torch.spectrometer`), a wide-field radio
+imager's w-stacking inversion on the 2D FFT (`watfft_tpu_torch.imaging`),
+the small-n FFT as one DFT matrix product (`dft_matmul_nb`, n <= 128) and
+the bf16 tiers of the plane transforms
 (`ops.stockham.stockham_fft_nb` / `stockham_fft_bm` on bfloat16 planes;
 `config.BF16_COMPUTE`, `config.MXU_PRECISION`). Entry points run on the
 CUDA device by default, where every call launches kernels written for
@@ -23,7 +25,7 @@ built with nvcc at first use); with `device="cpu"` they run the kernels'
 plain torch versions. Needs torch and numpy, never JAX.
 """
 
-from . import spectrometer, stft
+from . import imaging, spectrometer, stft
 from .api import (FFTContext, RFFTContext, create_fft, create_fft_f32, create_rfft,
                   create_rfft_f32, fft, fft2, ifft, ifft2, irfft, irfft2, rfft, rfft2)
 from . import fftlib
@@ -36,4 +38,4 @@ __all__ = ["FFTContext", "RFFTContext", "create_fft", "create_fft_f32", "create_
            "create_rfft_f32",
            "fft", "ifft", "rfft", "irfft", "fft2", "ifft2", "rfft2", "irfft2", "fft2_nb",
            "fft_large", "fft_large_nb", "rfft_large_nb", "irfft_large_nb", "large_split",
-           "bluestein_fft_nb", "dft_matmul_nb", "fftlib", "spectrometer", "stft"]
+           "bluestein_fft_nb", "dft_matmul_nb", "fftlib", "imaging", "spectrometer", "stft"]

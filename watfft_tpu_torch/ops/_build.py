@@ -173,6 +173,9 @@ def library() -> ctypes.CDLL:
     # (x, row, chans, streams, nfft, row_stride, vec, stream)
     lib.watfft_spec_detect.argtypes = [p, p, i64, i64, i64, i64, i32, p]
     lib.watfft_spec_detect.restype = i32
+    # (planes, image, w, taper, layers, n, pixel_scale, first, last, vec, stream)
+    lib.watfft_wstack_accum.argtypes = [p, p, p, p, i64, i64, ctypes.c_double, i32, i32, i32, p]
+    lib.watfft_wstack_accum.restype = i32
     lib.watfft_error_string.argtypes = [i32]
     lib.watfft_error_string.restype = ctypes.c_char_p
     build_info.update(path=str(out), log=log)

@@ -15,6 +15,9 @@ layers:
                   istft.overlap_add, istft.norm, istft.divide)
   spectrometer.integrate, and its steps (spec.unpack, spec.detect,
                   spec.shift); a root
+  imaging.wstack, and its steps (wstack.accum, wstack.finalise: each
+                  holds a chunk's launch of the accumulation, the last
+                  chunk's in finalise); a root
   launch.<name>   one call into the CUDA library, which launches one
                   kernel (`ops/_build.launch`); <name> is the kernel's key
                   in `launches`
@@ -37,9 +40,10 @@ a call is not a span: the launch spans name its kernels). `counts`:
 `h2d_copies` and `h2d_bytes` (copies from host memory to a device),
 `tables_built` (misses of the port's table and context caches, and each
 STFT window built), `spec.spectra` (the spectra the spectrometer detected
-and integrated, one a channel, polarisation and nfft samples) and
+and integrated, one a channel, polarisation and nfft samples),
 `strided.pairs_store` (launches of the strided kernel that store 8 bytes a
-point, `ops/large.py` `store_pairs`). `counters()` returns all three.
+point, `ops/large.py` `store_pairs`) and `wstack.layers` (the w-planes the
+imager summed). `counters()` returns all three.
 
 `align()` lays the spans on a device trace's clock. With CUDA activity
 alone `torch.profiler` still records the host's CUDA runtime calls
@@ -76,14 +80,14 @@ __all__ = ["CAPACITY", "Span", "begin", "end", "call", "h2d", "to", "counts", "r
 CAPACITY = 1 << 20
 
 counts = {"h2d_copies": 0, "h2d_bytes": 0, "tables_built": 0, "spec.spectra": 0,
-          "strided.pairs_store": 0}
+          "strided.pairs_store": 0, "wstack.layers": 0}
 # FFTContext's routes (`planner.c2c_kernel`), each counted as it is taken: a
 # plain dict with every key in place, the cheapest count on the hot path
 routes = dict.fromkeys(("stockham", "large-cube", "large-pipe2", "fourstep"), 0)
 # The kernels' launches by key, the name of each launch's span past
 # `launch.`: the c2c kernel's four instances, the real kernels, the four-step
-# kernels, the 2D passes, Bluestein, #20, the overlap-add and the
-# spectrometer's detection
+# kernels, the 2D passes, Bluestein, #20, the overlap-add, the
+# spectrometer's detection and the imager's accumulation
 launches = dict.fromkeys((
     "stockham_c2c", "stockham_c2c_f64", "stockham_c2c_bf16", "stockham_c2c_bf16c",
     "rfft_r2c_fused", "irfft_c2r_fused", "real_core_fwd", "real_core_inv",
@@ -91,7 +95,7 @@ launches = dict.fromkeys((
     "large_stage1", "large_stage2", "large_cube", "large_postmul", "large_outer",
     "fft2_cube", "fft2_cols", "fft2_k2", "fft2_rows",
     "bluestein_fwd", "bluestein_inv", "bluestein_onepass", "mxu_dft", "istft_ola",
-    "spec_detect"), 0)
+    "spec_detect", "wstack_accum"), 0)
 
 
 class Span(NamedTuple):
