@@ -107,9 +107,11 @@ Phases (any failure exits nonzero and prints no result):
    plain version's rounded float64 cosine and sine), two runs the same
    bits, timed beside the plain version
    (the kernels line's `wstack_accum` row); and `ifft2` on [8, 4096, 4096]
-   through the public entry (one launch of each pass, the first image
-   within MAX_REL of torch.fft.ifft2 in complex128), each pass timed alone
-   beside torch.fft.ifft2 (the `fft2_b8_n4096` row).
+   through the public entry (one launch of each pass, the column pass on
+   the cluster tile, the first image within MAX_REL of torch.fft.ifft2 in
+   complex128), each pass timed alone, the column pass in turns with the
+   one-SM tile it replaces, beside torch.fft.ifft2 (the `fft2_b8_n4096`
+   row).
 16. 2D kernels against their plain versions: the 2D cube at every
    power-of-two h, w >= 2 with h*w <= 2^14, forward and inverse, at batch 3
    in three layouts (batch-major planes, interleaved complex64, native
@@ -224,9 +226,12 @@ Phases (any failure exits nonzero and prints no result):
    w = 2, 16, 4096), fft2_k2 on native [2, 4096, 2048], the pipe2 stages on
    the [n2, n1, b] blocks of [16, 2^20] and [1, 2^24], pipe2 at [16, 2^20]
    and fft2 on one 4096^2 image, forward and inverse: each against the
-   same launch at C = T (`config.COLUMN_TILE = 0`, torch.equal) and its
-   plain version (1e-6, 1e-12, 2^-7 of the largest output); each timed at
-   C = T and at the kept C. Then a path run with its launch counts:
+   same launch at C = T (`config.COLUMN_TILE = 0`, torch.equal; where the
+   strided kernel takes the cluster tile, h = 2048 and 4096, within 1e-6,
+   and the one-SM tile it replaces, forced, torch.equal) and its plain
+   version (1e-6, 1e-12, 2^-7 of the largest output); each timed at C = T
+   and at the kept C (and at the one-SM tile where the cluster tile is
+   kept). Then a path run with its launch counts:
    `create_fft_f32(n).forward_planes_nb` on time-major [n, 2^22/n] at each
    n and fft2 on a 4096^2 image (against torch.fft in complex128).
 30. The redesigned kernels at their main shapes: the cube (#12) on
@@ -1530,31 +1535,46 @@ def wstack_kernel_row(dev, gen, name: str, limit: str) -> dict:
 def fft2_b8_row(dev, gen, name: str, limit: str) -> dict:
     """The kernels line's `fft2_b8_n4096` row: `ifft2` on [8, 4096, 4096]
     complex64, the wstack_n4096.batch cell's chunk, through the public
-    entry (the planner's fft2-2pass: one launch of each pass), the first
-    image within MAX_REL of torch.fft.ifft2 in complex128; each pass timed
-    alone as the route launches it, beside torch.fft.ifft2 (the library
-    call the port never makes). Bound: 32 B a point (each pass reads and
-    writes every point's complex64 once)."""
+    entry (the planner's fft2-2pass: one launch of each pass, the column
+    pass on the cluster tile, `strided.cluster_tile` 1), the first image
+    within MAX_REL of torch.fft.ifft2 in complex128; each pass timed alone
+    as the route launches it, the column pass in turns with the one-SM
+    tile the cluster tile replaces (`cols_one_sm_ms`), beside
+    torch.fft.ifft2 (the library call the port never makes). Bound: 32 B a
+    point (each pass reads and writes every point's complex64 once)."""
     p, n = WSTACK_PLANES, WSTACK_N
     x = rand_complex((p, n, n), gen, dev)
     zero_counts()
+    before = clusters()
     y = wtt.ifft2(x)
     torch.cuda.synchronize()
-    launches = counts()
-    check(launches == expect(fft2_cols=1, fft2_rows=1, stockham_c2c=1),
+    launches = {**counts(), "strided.cluster_tile": clusters() - before}
+    check(launches == {**expect(fft2_cols=1, fft2_rows=1, stockham_c2c=1),
+                       "strided.cluster_tile": 1},
           f"ifft2 [{p}, {n}, {n}]: launches {launches}")
     err = rel_diff(y[0].to(torch.complex128), torch.fft.ifft2(x[0].to(torch.complex128)))
     check(err <= MAX_REL["float32"], f"ifft2 [{p}, {n}, {n}]: {err:.3e} vs complex128")
     del y
     cols, rows, _, _ = _passes(x, n, n, p, inverse=True)
-    times = {"ms": time_ms(lambda: wtt.ifft2(x))[0], "cols_ms": time_ms(cols)[0],
+    # the column pass on the cluster tile and on the one-SM tile it
+    # replaces (4 columns, 512 threads), in turns: one-SM, cluster, cluster,
+    # one-SM
+    one_sm = st.tile_shape(n, 4, 8, batch=n * p)
+    turns = {"cluster": [], "one_sm": []}
+    for key in ("one_sm", "cluster", "cluster", "one_sm"):
+        with column_tile(one_sm if key == "one_sm" else None):
+            turns[key].append(time_ms(cols)[0])
+    times = {"ms": time_ms(lambda: wtt.ifft2(x))[0],
+             "cols_ms": statistics.mean(turns["cluster"]),
+             "cols_one_sm_ms": statistics.mean(turns["one_sm"]), "cols_turns_ms": turns,
              "rows_ms": time_ms(rows)[0], "library_ms": time_ms(lambda: torch.fft.ifft2(x))[0]}
     points = p * n * n
     bnd = bound(32 * points, 2 * 5 * points * (n.bit_length() - 1))
     row = {"name": "fft2_b8_n4096", "shape": f"ifft2 [{p}, {n}, {n}]", "route": "cuda",
            "source": LARGE_SRC + " + watfft_tpu_torch/ops/csrc/stockham.cu",
            "replaces": "watfft_tpu/ops/large.py:136", "also_replaces": ["watfft_tpu/ops/fft2.py:241"],
-           "launches": launches["fft2_cols"] + launches["fft2_rows"], "max_rel_err": err,
+           "launches": launches["fft2_cols"] + launches["fft2_rows"],
+           "cluster_tile": launches["strided.cluster_tile"], "max_rel_err": err,
            **times, "cols_us_a_plane": times["cols_ms"] * 1e3 / p,
            "rows_us_a_plane": times["rows_ms"] * 1e3 / p, "plain_ms": None,
            "bound_ms": bnd[0], "bound_by": bnd[1], "card": name, "power_limit": limit}
@@ -3073,11 +3093,28 @@ def planes_rel(got, want) -> float:
             / max(wide(w).abs().max().item() for w in want))
 
 
-def held_tile(what: str, kernel, plain, limit: float, checks: dict) -> float:
+def clusters() -> int:
+    """The launches on the strided kernel's cluster tile so far."""
+    return trace.counts["strided.cluster_tile"]
+
+
+def held_tile(what: str, kernel, plain, limit: float, checks: dict,
+              one_sm=None) -> float:
     """The kept tile's launch against the same launch at C = T (torch.equal)
-    and against the plain version (relative to its largest output)."""
+    and against the plain version (relative to its largest output). Where
+    the launch takes the cluster tile (columns of 2048 and 4096 points, the
+    K x 512 split), it is held within `limit` of the launch at C = T, and
+    the one-SM tile it replaces (`one_sm`, forced) equal to it."""
+    before = clusters()
     got = kernel()
-    same = all(torch.equal(a, b) for a, b in zip(got, at_t(kernel)))
+    at_T = at_t(kernel)
+    if clusters() > before:
+        rel_t = planes_rel(got, at_T)
+        check(rel_t <= limit, f"column tile {what}: the cluster tile {rel_t:.3e} vs C = T")
+        with column_tile(one_sm):
+            same = all(torch.equal(a, b) for a, b in zip(kernel(), at_T))
+    else:
+        same = all(torch.equal(a, b) for a, b in zip(got, at_T))
     rel = planes_rel(got, plain())
     check(same, f"column tile {what}: differs from the launch at C = T")
     check(rel <= limit, f"column tile {what}: {rel:.3e} vs plain (limit {limit:.0e})")
@@ -3085,9 +3122,14 @@ def held_tile(what: str, kernel, plain, limit: float, checks: dict) -> float:
     return max((wide(g) - wide(w)).abs().max().item() for g, w in zip(got, plain()))
 
 
-def tile_times(fn) -> dict:
-    """Device ms of fn at C = T and at the kept C."""
-    return {"ms_at_T": at_t(lambda: time_ms(fn)[0]), "ms": time_ms(fn)[0]}
+def tile_times(fn, one_sm=None) -> dict:
+    """Device ms of fn at C = T and at the kept C; with `one_sm`, also at
+    that tile forced (`ms_one_sm`: the tile the cluster tile replaces)."""
+    out = {"ms_at_T": at_t(lambda: time_ms(fn)[0]), "ms": time_ms(fn)[0]}
+    if one_sm is not None:
+        with column_tile(one_sm):
+            out["ms_one_sm"] = time_ms(fn)[0]
+    return out
 
 
 def phase_column_tile(dev, gen, name: str, limit: str) -> dict:
@@ -3135,13 +3177,17 @@ def phase_column_tile(dev, gen, name: str, limit: str) -> dict:
 
     def strided(key, shape, fn, pfn, n, split=None):
         err = 0.0
+        one_sm = st.tile_shape(n, 4, 8, batch=math.prod(shape) // n)
+        before = clusters()
         for inverse in (False, True):
             x = rand_complex(shape, gen, dev)
             err = max(err, held_tile(f"{key} {list(shape)} inverse={inverse}",
                                      lambda: fn(x, inverse), lambda: pfn(x, inverse),
-                                     KERNEL_LIMIT, checks))
+                                     KERNEL_LIMIT, checks, one_sm))
+        cluster = clusters() > before
         x = rand_complex(shape, gen, dev)
-        row = {"n": n, "max_abs_err": err, **tile_times(lambda: fn(x, False))}
+        row = {"n": n, "max_abs_err": err, "cluster": cluster,
+               **tile_times(lambda: fn(x, False), one_sm if cluster else None)}
         out["strided"][(key, tuple(shape))] = row
         print(json.dumps({"phase": "column_tile", "kernel": key, "shape": list(shape), **row,
                           "card": name, "power_limit": limit}), flush=True)
@@ -3169,16 +3215,25 @@ def phase_column_tile(dev, gen, name: str, limit: str) -> dict:
             lambda x, inv: (f2.plain_fft2(x, inv),), m)
     xm = rand_complex((m, m), gen, dev)
     col, _, c, _ = _passes(xm, m, m, 1)
+    one_sm = st.tile_shape(m, 4, 8, batch=m)
+    before = clusters()
     col()
     kept = [t.clone() for t in c]
+    check(clusters() == before + 1, "column tile: the 4096^2 column pass took no cluster tile")
     at_t(col)
-    check(all(torch.equal(a, b) for a, b in zip(kept, c)),
-          "column tile: the 4096^2 column pass differs from the launch at C = T")
-    out["fft2_cols_main"] = {**tile_times(col),
+    rel = planes_rel(kept, c)
+    check(rel <= KERNEL_LIMIT,
+          f"column tile: the 4096^2 column pass {rel:.3e} vs the launch at C = T")
+    at_T = [t.clone() for t in c]
+    with column_tile(one_sm):
+        col()
+    check(all(torch.equal(a, b) for a, b in zip(at_T, c)),
+          "column tile: the 4096^2 column pass at the one-SM tile differs from C = T")
+    out["fft2_cols_main"] = {**tile_times(col, one_sm),
                              "library_ms": time_ms(lambda: torch.fft.fft(xm, dim=-2))[0],
                              "plain_ms": time_ms(lambda: col(plain=True), reps=3, warmup=1)[0],
-                             "C": st.tile_shape(m, 4, 8, batch=m)[0],
-                             "threads": st.tile_shape(m, 4, 8, batch=m)[1]}
+                             "C": st.CLUSTER_COLS, "cluster": m // st.CLUSTER_M,
+                             "one_sm_C": one_sm[0], "one_sm_threads": one_sm[1]}
     print(json.dumps({"phase": "column_tile", "kernel": "fft2_cols", "shape": [m, m],
                       **out["fft2_cols_main"], "card": name, "power_limit": limit}),
           flush=True)
@@ -3229,8 +3284,9 @@ def column_tile_rows(tile: dict, name: str, limit: str) -> list:
                  "replaces": "watfft_tpu/ops/large.py:136",
                  "also_replaces": ["watfft_tpu/ops/fft2.py:191"],
                  "launches": tile["launches"]["fft2_cols"], "max_abs_err": s["max_abs_err"],
-                 "ms": r["ms"], "ms_at_T": r["ms_at_T"], "cols": r["C"],
-                 "threads": r["threads"], "plain_ms": r["plain_ms"], "bound_ms": bnd[0], "bound_by": bnd[1],
+                 "ms": r["ms"], "ms_at_T": r["ms_at_T"], "ms_one_sm": r["ms_one_sm"],
+                 "cols": r["C"], "cluster": r["cluster"], "plain_ms": r["plain_ms"],
+                 "bound_ms": bnd[0], "bound_by": bnd[1],
                  "library_ms": r["library_ms"], "card": name, "power_limit": limit})
     return rows
 

@@ -61,10 +61,19 @@ library `_build.library` returns:
   [64, 2^16] and [5, 2^18], and the 2D column pass from and into
   complex64 on [3, 1024, 1024] and [5, 512, 2048],
 
+* the 2D passes at 4096^2 x 8 and 2048^2 x 3 on complex64 and pipe2 at
+  [2, 2^24], whose column passes (and stage 1) this build runs on the
+  cluster tile,
+
 at batch 3 and at 2^20 points per call (2^19 in FP64), or at the listed
 shapes, forward and inverse, with this checkout's tables for both. The
 outputs are compared with torch.equal (#20 past SIMT_MAX_N: within
-KERNEL_LIMIT). A build without the column tile
+KERNEL_LIMIT). Where this build takes the cluster tile (columns of 2048
+and 4096 points; `strided.cluster_tile` counts it) and the other build
+has no such entry, the other build runs the one-SM column tile it had
+and the two are held within KERNEL_LIMIT (the cluster tile's K x 512
+split is another order of the same operations), counted under
+`<kind>_cluster`. A build without the column tile
 ignores the C the wrappers pass it, and one without the strided kernel's
 8-byte stores the flag that asks for them. Where both builds were compiled in this
 run, each kernel instance of the other build is also held to the same
@@ -92,6 +101,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
+from watfft_tpu_torch import trace  # noqa: E402
 from watfft_tpu_torch.ops import _build  # noqa: E402
 from watfft_tpu_torch.ops import bluestein as bl  # noqa: E402
 from watfft_tpu_torch.ops import fft2 as f2  # noqa: E402
@@ -108,9 +118,13 @@ DFT_SIZES = [1 << k for k in range(8)] + [12, 100]
 
 
 def other_build(checkout: Path):
-    """The other checkout's `_build` module."""
+    """The other checkout's `_build` module, loaded as a module of this
+    checkout's `watfft_tpu_torch.ops`, so that its relative import of
+    `trace` resolves (to this checkout's counters); it builds and loads the
+    other checkout's sources into the other checkout's `build/`."""
     spec = importlib.util.spec_from_file_location(
-        "other_build", checkout / "watfft_tpu_torch" / "ops" / "_build.py")
+        "watfft_tpu_torch.ops._other_build",
+        checkout / "watfft_tpu_torch" / "ops" / "_build.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -178,13 +192,19 @@ def compare_ptxas(this_log: str, other_log: str) -> dict:
 
 @contextlib.contextmanager
 def using(lib):
-    """The wrappers launch `lib`'s entry points inside the block."""
-    own = _build.library
+    """The wrappers launch `lib`'s entry points inside the block; a library
+    without the cluster tile's entry gets the one-SM column tile it had
+    where this build takes the cluster tile."""
+    own, cluster = _build.library, st.cluster_tile
     _build.library = lambda: lib
+    try:
+        getattr(lib, "watfft_strided_cluster")
+    except AttributeError:
+        st.cluster_tile = lambda *args, **kwargs: 0
     try:
         yield
     finally:
-        _build.library = own
+        _build.library, st.cluster_tile = own, cluster
 
 
 def c2c(x, inverse, time_major):
@@ -270,15 +290,22 @@ def main() -> int:
 
     def same(kind, what, fn, entry=None, limit=None):
         """The outputs of both builds equal (within `limit`, max |diff| /
-        max |other|, where given)."""
+        max |other|, where given). Where this build takes the cluster tile
+        and the other has none (its one-SM column tile: another order of
+        the same operations), within KERNEL_LIMIT, counted under
+        `<kind>_cluster`."""
         if entry is not None and not all(has(lib, entry) for lib in libs):
             skipped[kind] = skipped.get(kind, 0) + 1
             return
         outs = []
         for lib in libs:
+            before = trace.counts["strided.cluster_tile"]
             with using(lib):
                 out = fn()
             outs.append(out if isinstance(out, (tuple, list)) else (out,))
+            if lib is libs[0] and trace.counts["strided.cluster_tile"] > before and not has(
+                    libs[1], "watfft_strided_cluster"):
+                kind, limit = f"{kind}_cluster", cs.KERNEL_LIMIT
         cases[kind] = cases.get(kind, 0) + 1
         if limit is None:
             ok = all(torch.equal(a, b) for a, b in zip(*outs))
@@ -389,8 +416,21 @@ def main() -> int:
             x2re, x2im = rand((n1, n2, b)), rand((n1, n2, b))
             same("column_tile_strided", ("stage2", (n1, n2, b), inverse),
                  lambda: lg.stage2(x2re, x2im, inverse))
+    # the 2D passes at h = 2048 and 4096, whose column pass this build runs
+    # on the cluster tile, as fft2 launches them on complex64 (the wstack
+    # cell's chunk shape at 4096), and pipe2 at 2^24 (its stage 1, n2 = 4096)
+    for b, h in ((8, 4096), (3, 2048)):
+        x = crand((b, h, h))
+        for inverse in (False, True):
+            same("strided_c2c", (h, h, b, "fft2-2pass", inverse),
+                 lambda: f2._complex_route(x, inverse, "fft2-2pass"))
+        del x
+    x = crand((2, 1 << 24))
+    for inverse in (False, True):
+        same("strided_c2c", (1 << 24, "pipe2", inverse),
+             lambda: lg.fft_large_complex(x, inverse, mode="pipe2"))
+    del x
     # the strided kernel's 8-byte stores (this build's launches count them)
-    from watfft_tpu_torch import trace
     for batch, n in ((16, 1 << 20), (64, 1 << 16), (5, 1 << 18)):
         x = crand((batch, n))
         for inverse in (False, True):

@@ -131,7 +131,9 @@ class _Recorder:
     tile C and its block's threads, and returns 0 (the outputs are left as
     allocated). They are the last two arguments, but for the f32 and FP64
     c2c entries, which take the batch-major walk and its pairs after
-    them, and the strided entry, which takes its 8-byte stores after them."""
+    them, and the strided entry, which takes its 8-byte stores after them.
+    A launch on the cluster tile records C as "cluster" and its blocks as
+    the threads (its last three arguments are the blocks and its pairs)."""
 
     def __init__(self):
         self.cols = []
@@ -139,6 +141,10 @@ class _Recorder:
 
     def __getattr__(self, name):
         def entry(*args):
+            if name == "watfft_strided_cluster":
+                self.cols.append((name, "cluster"))
+                self.threads.append(args[-3])
+                return 0
             at = 17 if name in ("watfft_stockham_c2c", "watfft_stockham_c2c_f64") else (
                 -3 if name == "watfft_strided_c2c" else -2)
             self.cols.append((name, args[at]))
@@ -193,11 +199,13 @@ def test_strided_launches_ask_for_the_tile(recorder):
         fn(*args)
         return [(c, t) if c else 0 for (_, c), t in zip(recorder.cols, recorder.threads)]
 
-    # native [h, w, B]: the w and B axes run on as one run of w * B columns
-    assert last(f2.fft2_cols, *_planes((4096, 2, 264))) == [(4, 512)]
+    # native [h, w, B]: the w and B axes run on as one run of w * B columns;
+    # at h = 4096 the one-SM tile (4, 512) gives way to the cluster tile
+    cluster = ("cluster", 4096 // st.CLUSTER_M)
+    assert last(f2.fft2_cols, *_planes((4096, 2, 264))) == [cluster]
     assert last(f2.fft2_cols, *_planes((1024, 2, 528))) == [(8, 256)]
     assert last(f2.fft2_cols, *_planes((4096, 2, 3))) == [0]      # 6 columns
-    assert last(f2.fft2_k2, *_planes((2, 4096, 264))) == [(4, 512)]
+    assert last(f2.fft2_k2, *_planes((2, 4096, 264))) == [cluster]
     # batch-major [B, h, w] at w = 2, in two passes (the planner takes the
     # cube at these sizes): the tile stays within the 2 columns; the row pass
     # (contiguous rows) keeps the engine's walk
@@ -213,3 +221,72 @@ def test_strided_launches_ask_for_the_tile(recorder):
     x = torch.complex(*_planes((132, 1 << 13)))
     assert last(lambda: lg.fft_large_complex(x, mode="pipe2", split=(8, 1024))) == [
         (8, 256), 0]
+
+
+# The launches of the strided kernel at each shape the rule tells apart:
+# (what, n, (x, y) point strides, the inner and outer batch axes as (count,
+# x stride, y stride), multiplier, config.COLUMN_TILE, the port's own
+# tables, the tile: (C, threads), 0 for the engine's T, or "cluster" for
+# the cluster tile of n / CLUSTER_M blocks). Strides in floats.
+W, B, N20 = 4096, 8, 1 << 20
+RULE_CASES = [
+    ("wstack: complex64 in, planes out", 4096, (2 * W, W),
+     [(W, 2, 1), (B, 2 * 4096 * W, 4096 * W)], 0, None, True, "cluster"),
+    ("planes 4096^2", 4096, (W, W), [(W, 1, 1), (B, 4096 * W, 4096 * W)], 0, None, True,
+     "cluster"),
+    ("complex64 into complex64", 4096, (2 * W, 2 * W),
+     [(W, 2, 2), (B, 2 * 4096 * W, 2 * 4096 * W)], 0, None, True, "cluster"),
+    ("complex64 2048^2", 2048, (4096, 2048), [(2048, 2, 1), (4, 2 * 2048 ** 2, 2048 ** 2)], 0,
+     None, True, "cluster"),
+    ("planes 2048^2", 2048, (2048, 2048), [(2048, 1, 1), (4, 2048 ** 2, 2048 ** 2)], 0, None,
+     True, "cluster"),
+    ("native [4096, 2, 264]", 4096, (528, 528), [(528, 1, 1), (1, 0, 0)], 0, None, True,
+     "cluster"),
+    ("h = 1024", 1024, (2048, 1024), [(1024, 2, 1), (16, 2 << 20, 1 << 20)], 0, None, True,
+     (8, 256)),
+    ("h = 512", 512, (1024, 512), [(512, 2, 1), (16, 1 << 19, 1 << 18)], 0, None, True,
+     (16, 256)),
+    ("rawspec stage 1 (pipe2's #11, n2 = 1024)", 1024, (2048, 1024),
+     [(1024, 2, 1), (128, 2 * N20, N20)], 0, None, True, (8, 256)),
+    ("#13's transposed store, n1 = 4096", 4096, (1, 8192), [(4096, 4096, 2), (1, 1 << 24, 0)],
+     1, None, True, (4, 512)),
+    ("a multiplier in the store (the 2d mode's first pass)", 4096, (4096, 4096),
+     [(4096, 1, 1), (1, 1 << 24, 1 << 24)], 2, None, True, (4, 512)),
+    ("an inner axis of 2 columns", 4096, (2, 2), [(2, 1, 1), (300, 8192, 8192)], 0, None, True,
+     (2, 512)),
+    ("6 columns", 4096, (6, 6), [(6, 1, 1), (1, 0, 0)], 0, None, True, 0),
+    ("a forced tile", 4096, (2 * W, W), [(W, 2, 1), (B, 2 * 4096 * W, 4096 * W)], 0, (4, 512),
+     True, (4, 512)),
+    ("no tile forced", 4096, (2 * W, W), [(W, 2, 1), (B, 2 * 4096 * W, 4096 * W)], 0, 0, True, 0),
+    ("a caller's own tables", 4096, (2 * W, W), [(W, 2, 1), (B, 2 * 4096 * W, 4096 * W)], 0,
+     None, False, (4, 512)),
+]
+
+
+@pytest.mark.parametrize("what,n,sn,axes,mul,forced,own,want", RULE_CASES,
+                         ids=[c[0] for c in RULE_CASES])
+def test_cluster_tile_rule(what, n, sn, axes, mul, forced, own, want, recorder, monkeypatch):
+    """Column walks at h = 2048 and 4096 (where the one-SM tile falls to
+    512 threads) take the cluster tile, on interleaved and planar inputs;
+    every other launch keeps the tile it had: the rawspec cell's stage 1,
+    #13's transposed store, a multiplier, h <= 1024, a narrow inner axis,
+    few columns, a forced `config.COLUMN_TILE` and a caller's own tables.
+    Each cluster launch counts one `strided.cluster_tile`."""
+    from watfft_tpu_torch import trace
+    monkeypatch.setattr(config, "COLUMN_TILE", forced)
+    tables = st.device_tables(n, False, "cpu")
+    if not own:
+        tables = st.make_tables(tables.stages, tables.offsets, tables.twre.numpy(),
+                                tables.twim.numpy(), "cpu")
+    z = torch.zeros(1)  # the stand-in reads no memory: one float stands for each operand
+    before = trace.counts["strided.cluster_tile"]
+    recorder.cols.clear()
+    recorder.threads.clear()
+    lg.strided_c2c((z, z), (z, z), n, (*sn, 0), [(*a, 0) for a in axes], False, tables,
+                   "fft2_cols", pm=(z, z), mul=mul)
+    (_, c), t = recorder.cols[-1], recorder.threads[-1]
+    got = "cluster" if c == "cluster" else ((c, t) if c else 0)
+    assert got == want
+    if want == "cluster":
+        assert t == n // st.CLUSTER_M and t in st.CLUSTER_SIZES
+    assert trace.counts["strided.cluster_tile"] - before == (want == "cluster")

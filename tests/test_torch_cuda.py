@@ -857,14 +857,39 @@ def test_column_tile_blocks_of_either_size_agree(dev, monkeypatch):
     assert all(torch.equal(a, b) for out in outs[1:] for a, b in zip(out, outs[0]))
 
 
+def _clusters():
+    from watfft_tpu_torch import trace
+    return trace.counts["strided.cluster_tile"]
+
+
+def _held_to_t(fn, monkeypatch, n, columns):
+    """fn() against the same launch at C = T: equal where it keeps a
+    column tile of the engine's arithmetic. Where it takes the cluster tile
+    (h = 2048, 4096), whose arithmetic is the K x 512 split, within
+    KERNEL_LIMIT, and the one-SM tile it replaces (`tile_shape`'s, forced)
+    still equal to C = T."""
+    from watfft_tpu_torch import config
+    before = _clusters()
+    got = fn()
+    same = _at_t(fn, monkeypatch)
+    if _clusters() == before:
+        assert all(torch.equal(a, b) for a, b in zip(got, same))
+        return got
+    assert _rel_planes(got, same) <= KERNEL_LIMIT
+    monkeypatch.setattr(config, "COLUMN_TILE", st.tile_shape(n, 4, 8, batch=columns))
+    tiled = fn()
+    monkeypatch.setattr(config, "COLUMN_TILE", None)
+    assert all(torch.equal(a, b) for a, b in zip(tiled, same))
+    return got
+
+
 @pytest.mark.parametrize("shape", [(4096, 2, 265), (1024, 2, 529), (2048, 16, 33),
                                    (1024, 4096, 1)])
 def test_column_tile_fft2_cols_matches(shape, dev, monkeypatch):
     re, im = _planes_on(shape, torch.float32, sum(shape), dev)
     for inverse in (False, True):
-        got = f2.fft2_cols(re, im, inverse)
-        same = _at_t(lambda: f2.fft2_cols(re, im, inverse), monkeypatch)
-        assert all(torch.equal(a, b) for a, b in zip(got, same))
+        got = _held_to_t(lambda: f2.fft2_cols(re, im, inverse), monkeypatch, shape[0],
+                         shape[1] * shape[2])
         assert _rel_planes(got, f2.plain_fft2_cols(re, im, inverse)) <= KERNEL_LIMIT
     # batch-major [B, h, w] at w = 2: a tile of the 2 columns of each image
     b, h, w = 265, 4096, 2
@@ -878,15 +903,11 @@ def test_column_tile_fft2_cols_matches(shape, dev, monkeypatch):
 def test_column_tile_pipe2_stages_match(n2, n1, b, dev, monkeypatch):
     re, im = _planes_on((n2, n1, b), torch.float32, n2 + b, dev)
     for inverse in (False, True):
-        for fn, plain in ((lg.stage1, lg.plain_stage1), (lg.stage2, lg.plain_stage2)):
-            got = fn(re, im, inverse)
-            same = _at_t(lambda: fn(re, im, inverse), monkeypatch)
-            assert all(torch.equal(a, c) for a, c in zip(got, same))
+        for fn, plain, n in ((lg.stage1, lg.plain_stage1, n2), (lg.stage2, lg.plain_stage2, n1)):
+            got = _held_to_t(lambda: fn(re, im, inverse), monkeypatch, n, n1 * n2 * b // n)
             assert _rel_planes(got, plain(re, im, inverse)) <= KERNEL_LIMIT
     re2, im2 = _planes_on((2, 4096, 265), torch.float32, 11, dev)
-    got = f2.fft2_k2(re2, im2)
-    assert all(torch.equal(a, c) for a, c in
-               zip(got, _at_t(lambda: f2.fft2_k2(re2, im2), monkeypatch)))
+    _held_to_t(lambda: f2.fft2_k2(re2, im2), monkeypatch, 4096, 2 * 265)
 
 
 def test_column_tile_refusals(dev, monkeypatch):
@@ -1014,9 +1035,10 @@ def test_pairs_store_counts_a_chunk_of_the_spectrometer(dev, monkeypatch):
     volts = torch.randint(-127, 128, (1, nfft * nint, 2, 2), generator=gen, device=dev,
                           dtype=torch.int8)
     monkeypatch.setattr(spectrometer, "CHUNK_POINTS", 2 * 2 * nfft)  # two spectra a chunk
-    before = _pairs_stores()
+    before, clusters = _pairs_stores(), _clusters()
     got = spectrometer.integrate(volts, nfft, nint)
     assert _pairs_stores() - before == 2
+    assert _clusters() == clusters    # pipe2 at 2^20 takes no cluster tile
     z = volts.view(1, nint, nfft, 2, 2).permute(0, 3, 1, 2, 4).double()
     spectra = torch.fft.fft(torch.complex(z[..., 0], z[..., 1]))
     want = torch.roll(spectra.abs().square().sum(dim=(1, 2)), nfft // 2, -1)
@@ -1049,6 +1071,124 @@ def test_pairs_store_refusals(dev):
     for y, cols, threads in ((ok, 0, 0), (ok, 8, 512), ((p, p + 4 * n * b, b, 1), 8, 256),
                              ((p + 4, p + 8, 2 * b, 2), 8, 256), ((p, p + 4, 2, 2 * n), 8, 256)):
         assert launch(y, cols, threads) == -8, (y, cols, threads)
+
+
+# -- the cluster tile (columns of 2048 and 4096 points) -------------------------------------
+
+def _cols_on(x, y, xs, ys, h, w, b, inverse, plain=False):
+    f2._cols(x, xs, y, ys, h, w, b, inverse, st.device_tables(h, inverse, x[0].device), plain)
+
+
+CLUSTER_LAYOUTS = ["complex_to_planes", "planes", "complex_to_complex", "misaligned", "native"]
+
+
+def _cluster_operands(x, layout):
+    """(x operand, x strides, y strides, a fresh y operand of zeros) of the
+    2D column pass on the complex [b, h, w] x in `layout`; operands are
+    (re, im) flat float views, strides (h, w, image) in floats."""
+    b, h, w = x.shape
+    cx, ps, nb = (2 * w, 2, 2 * h * w), (w, 1, h * w), (w * b, b, 1)
+    fx = torch.view_as_real(x).reshape(-1)
+    if layout == "native":
+        xn = x.permute(1, 2, 0)
+        src, xs, ys = (xn.real.contiguous().view(-1), xn.imag.contiguous().view(-1)), nb, nb
+    elif layout == "planes":
+        src, xs, ys = (x.real.contiguous().view(-1), x.imag.contiguous().view(-1)), ps, ps
+    elif layout == "misaligned":   # re one float past 8-byte alignment, in and out
+        flat = torch.cat([fx.new_zeros(1), fx])
+        src, xs, ys = (flat[1:], flat[2:]), cx, cx
+    else:
+        src, xs = (fx, fx[1:]), cx
+        ys = cx if layout == "complex_to_complex" else ps
+
+    def out():
+        if ys == cx:
+            buf = torch.zeros(2 * b * h * w + 2, device=x.device)
+            o = 1 if layout == "misaligned" else 0
+            return buf[o:], buf[o + 1:]
+        return torch.zeros(b * h * w, device=x.device), torch.zeros(b * h * w, device=x.device)
+    return src, xs, ys, out
+
+
+# (b, h, w, layout): every layout at h = 4096; at 2048 complex64 into
+# complex64 (aligned or not) fills a sector at three blocks an SM in 256
+# threads, so it keeps that tile (test_torch_column_tile.py holds the rule)
+CLUSTER_CASES = ([(2, 4096, 520, layout) for layout in CLUSTER_LAYOUTS]
+                 + [(3, 2048, 264, layout) for layout in ("complex_to_planes", "planes",
+                                                          "native")])
+
+
+@pytest.mark.parametrize("b,h,w,layout", CLUSTER_CASES)
+def test_cluster_tile_matches_the_one_sm_tile_and_plain(b, h, w, layout, dev, monkeypatch):
+    """The 2D column pass on the cluster tile (one launch, counted in
+    `strided.cluster_tile`), both directions, in five layouts (complex64
+    into planes as fft2 runs it, planes, complex64 into complex64, views
+    one float off 8-byte alignment, native [h, w, B] planes) with a ragged
+    last tile (w*b columns, not a multiple of the tile's): within
+    KERNEL_LIMIT of the one-SM tile it replaces (`tile_shape`'s, forced;
+    equal to it at h = 4096) and of the plain version of that tile
+    (`run_stages`); on native planes also of its own plain version
+    (`plain_cluster_stages`)."""
+    from watfft_tpu_torch import config
+    x = _x((b, h, w), seed=h + w + b, dev=dev)
+    src, xs, ys, out = _cluster_operands(x, layout)
+    for inverse in (False, True):
+        got, old, plain = out(), out(), out()
+        before = _clusters()
+        _cols_on(src, got, xs, ys, h, w, b, inverse)
+        assert _clusters() - before == 1
+        monkeypatch.setattr(config, "COLUMN_TILE", st.tile_shape(h, 4, 8, batch=w * b))
+        _cols_on(src, old, xs, ys, h, w, b, inverse)
+        monkeypatch.setattr(config, "COLUMN_TILE", None)
+        assert _clusters() - before == 1
+        _cols_on(src, plain, xs, ys, h, w, b, inverse, plain=True)
+        assert _rel_planes(got, old) <= KERNEL_LIMIT, inverse
+        if h == 4096:  # the split of the engine's own plan [16, 16, 16]
+            assert all(torch.equal(a, c) for a, c in zip(got, old)), inverse
+        assert _rel_planes(got, plain) <= KERNEL_LIMIT, inverse
+        if layout == "native":   # [h, w, b] planes are the [h, w*b] columns
+            m = st.CLUSTER_FFT
+            lt = lg.device_large_tables(h, inverse, dev, (m, h // m))
+            want = lg.plain_cluster_stages(*(t.view(h, w * b) for t in src), inverse, lt)
+            assert _rel_planes(tuple(t.view(h, w * b) for t in got), want) <= KERNEL_LIMIT
+
+
+@pytest.mark.parametrize("h", [2048, 4096])
+def test_fft2_on_the_cluster_tile_matches_torch_fft(h, dev):
+    """fft2 and ifft2 at 2048^2 and 4096^2 (their column pass on the
+    cluster tile) within MAX_REL of torch.fft in complex128."""
+    x = _x((2, h, h), seed=h, dev=dev)
+    want = x.to(torch.complex128)
+    for fn, ref in ((wtt.fft2, torch.fft.fft2), (wtt.ifft2, torch.fft.ifft2)):
+        before = _clusters()
+        got = fn(x)
+        assert _clusters() - before == 1
+        assert _rel(got.to(torch.complex128), ref(want)) <= MAX_REL["float32"]
+
+
+def test_cluster_tile_refusals(dev):
+    """The entry refuses (kErrCluster = -9) a cluster size or a length it
+    has no instance for, and (kErrPairs = -8) 8-byte pairs where re and im
+    are not adjacent in aligned points."""
+    lib = _build.library()
+    n, b = 4096, 64
+    x = torch.zeros(2 * n * b + 2, device=dev)
+    q = x.data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
+    lt = lg.device_large_tables(n, False, dev, (st.CLUSTER_FFT, n // st.CLUSTER_FFT))
+
+    def launch(size, k, re, pairs):
+        return lib.watfft_strided_cluster(
+            re, re + 4, q + 8 * n * b, q + 8 * n * b + 4, 2 * b, 2, 0, 2 * b, 2, 0, size, b,
+            b, lt.pmre.data_ptr(), lt.pmim.data_ptr(), lt.t2.twre.data_ptr(),
+            lt.t2.twim.data_ptr(), lt.t2.c_radices, lt.t2.c_offsets, len(lt.t2.stages), 0,
+            stream, k, pairs, 0)
+    assert launch(n, n // st.CLUSTER_M, q, 1) == 0
+    torch.cuda.synchronize()
+    assert launch(n, 2, q, 0) == -9            # n != K * m
+    assert launch(2 * n, 2 * n // st.CLUSTER_M, q, 0) == -9  # no instance
+    assert launch(n, n // st.CLUSTER_M, q + 4, 1) == -8      # re one float off
+    assert "cluster tile" in lib.watfft_error_string(-9).decode()
 
 
 # -- the redesigned kernels: the cube (#12) and the fused f32 r2c (#9) -------------------

@@ -102,6 +102,39 @@ def test_column_pass_matches_jax(inverse):
     assert _rel_to_max(_c(*f2.plain_fft2_cols(_t(xre), _t(xim), inverse)), want) <= JAX_LIMIT
 
 
+# max |kernel - plain| / max |plain| between the kernels' plain versions
+# on the same inputs: both f32, the arithmetic in another order
+KERNEL_LIMIT = 1e-6
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("h", [2048, 4096])
+def test_cluster_split_matches_numpy_and_the_stages(h, inverse):
+    """The column pass's cluster tile at h = 2048 and 4096 (csrc/large.cu
+    `strided_cluster_kernel`; its plain version `plain_cluster_stages`):
+    the CLUSTER_FFT-point FFTs of x[s + R*i], the twiddle w_h^{s*k1} and
+    the R-point DFTs across the blocks' halves, R = h / CLUSTER_FFT, within
+    KERNEL_LIMIT of the engine's h-point stages (`run_stages`, the plain
+    version of the one-SM tile; equal to them at 4096) and within MAX_REL of
+    numpy's fft / ifft in float64, on the columns of an [h, 5] block."""
+    from watfft_tpu_torch.ops import large as lg
+    from watfft_tpu_torch.ops import stockham as st
+    x = _cx((h, 5), h + inverse)
+    re, im = _t(x.real), _t(x.imag)
+    assert h // st.CLUSTER_M in st.CLUSTER_SIZES
+    m = st.CLUSTER_FFT
+    got = _c(*lg.plain_cluster_stages(re, im, inverse,
+                                      lg.device_large_tables(h, inverse, "cpu", (m, h // m))))
+    t = st.device_tables(h, inverse, "cpu")
+    stages = _c(*st.run_stages(re, im, h, inverse, t.offsets, t.stages, t.twre, t.twim))
+    assert _rel_to_max(got, stages) <= KERNEL_LIMIT
+    if h == 4096:  # 16 x 256 is the split of the engine's own plan [16, 16, 16]
+        assert np.array_equal(got, stages)
+    want = (np.fft.ifft if inverse else np.fft.fft)(x.astype(np.complex128), axis=0)
+    assert rel_errors(got, want)[0] <= MAX_REL["float32"]
+    assert rel_errors(stages, want)[0] <= MAX_REL["float32"]
+
+
 @pytest.mark.parametrize("inverse", [False, True])
 def test_row_pass_matches_jax(inverse):
     """#16 `_rowfft_lanes_kernel`: the row FFT of [rows, w] planes."""

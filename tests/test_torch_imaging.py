@@ -453,10 +453,30 @@ def test_matches_the_reference_on_the_card(on_host, dev):
     w, taper = w.to(dev), taper.to(dev)
     imaging.wstack_invert(grids[:1].to(dev), w[:1], ps, taper)  # the tables built
     launches, copies = registry.launch_counts(), trace.counts["h2d_copies"]
+    clusters = trace.counts["strided.cluster_tile"]
     got = imaging.wstack_invert(grids if on_host else grids.to(dev), w, ps, taper)
     after = registry.launch_counts()
     assert got.device.type == "cuda"
     assert trace.counts["h2d_copies"] - copies == (2 if on_host else 0)
     assert after["wstack_accum"] - launches["wstack_accum"] == 2
     assert after["fft2_cols"] - launches["fft2_cols"] == 2
+    assert trace.counts["strided.cluster_tile"] - clusters == 2  # each column pass
     assert ref.image_err(got, grids.to(dev), w, ps, taper) <= LIMIT
+
+
+@pytest.mark.cuda
+def test_a_request_takes_the_cluster_tile_a_chunk(dev):
+    """A request of the wstack_n4096.batch cell's size, 128 layers of
+    4096^2 made on the card: 16 chunks of 8 planes, each chunk's column
+    pass one launch on the cluster tile (`strided.cluster_tile` 16)."""
+    layers, n = 128, 4096
+    g = torch.Generator(device=dev).manual_seed(128)
+    grids = torch.randn((layers, n, n), generator=g, device=dev, dtype=torch.complex64)
+    w = torch.linspace(-2000.0, 2000.0, layers, dtype=torch.float64, device=dev)
+    taper = (1 - 2 * ((torch.arange(n, device=dev) - n // 2) / n) ** 2).float()
+    launches, clusters = registry.launch_counts(), trace.counts["strided.cluster_tile"]
+    image = imaging.wstack_invert(grids, w, FIELD / n, taper)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(image).all())
+    assert registry.launch_counts()["fft2_cols"] - launches["fft2_cols"] == 16
+    assert trace.counts["strided.cluster_tile"] - clusters == 16

@@ -138,6 +138,12 @@ def library() -> ctypes.CDLL:
                                        i64, i64, i64, i32, i32, i64, i64,
                                        p, p, ip, ip, i32, i32, p, i32, i32, i32]
     lib.watfft_strided_c2c.restype = i32
+    # (xre, xim, yre, yim, x_sn, x_sa, x_sb, y_sn, y_sa, y_sb, n, inner, batch,
+    #  pmre, pmim, the 256-point twre, twim, radices, offsets, nstages,
+    #  inverse, stream, cluster, pairs_x, pairs_y)
+    lib.watfft_strided_cluster.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, i64, i32, i64,
+                                           i64, p, p, p, p, ip, ip, i32, i32, p, i32, i32, i32]
+    lib.watfft_strided_cluster.restype = i32
     # (xre, xim, yre, yim, x_sn, x_sb, y_sn, y_sb, n1, n2, batch, pmre, pmim,
     #  the n2-point twre, twim, radices, offsets, nstages, the n1-point ones,
     #  inverse, stream, threads, pairs_x, pairs_y)

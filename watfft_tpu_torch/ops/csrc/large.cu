@@ -40,6 +40,54 @@
 // interleaved complex64 8 bytes a point. The tile opts in past 48 KB of
 // shared memory.
 //
+// The cluster tile (strided_cluster_kernel) replaces that tile where a
+// column is so long that it holds one block an SM: at n = 2048 and 4096 a
+// column takes 17.4 and 34.8 KB, the tile falls to C = 8 and 4 columns in
+// 512 threads (ops/stockham.py `tile_shape`), and the 2D column pass (#11
+// as fft2's column pass, the wstack cell's) then reads 32-byte runs of
+// interleaved complex64 a row and writes 16-byte runs a plane, while the
+// SM's one block loads, runs its stages and stores in turn, its memory
+// traffic stopped during the stages (2.52 ms at [8, 4096, 4096], 315 us a
+// plane against 80 of bytes). What bounds the pass is memory: 16 bytes a
+// point (each point's complex64 read and written once; the twiddle's 32 KB
+// table stays in L1 and L2). The cluster spreads one tile of 8 columns over
+// K = n / 512 blocks on neighbouring SMs (the portable cluster of 8 at
+// 4096, 4 at 2048): block r holds rows r + K*i of the 8 columns, 34 KB, so
+// six blocks share an SM and one tile's copies run during other tiles'
+// stages and exchanges. Its 256-point FFTs run in its own shared memory;
+// the 2K-point DFTs that finish the n-point transform read their inputs
+// from the other blocks' shared memory (distributed shared memory, after a
+// cluster barrier), so no pass goes through device memory in between; a
+// row copied or stored is 64 bytes of complex64, 32 a plane. The host
+// takes it (`stockham.cluster_tile`, counted in `strided.cluster_tile`)
+// for launches without a multiplier whose two sides walk down columns.
+// On the H100 at [8, 4096, 4096] (inverse column pass of ifft2, in turns;
+// PERF.md), in ms, against the one-SM tile's 2.41-2.58:
+//  * kept: 8 columns, 128 threads, six blocks an SM, two 256-point halves
+//    a column: 1.314 (0.160 at [4, 2048, 2048] against 0.201);
+//  * one 512-point FFT a column and a K-point exchange: 1.313-1.320, the
+//    same (0.165-0.167 at 2048, slower), and not the one-SM tile's bits;
+//  * 16 columns in 256 threads, three blocks an SM (68 KB): 1.684 (0.184);
+//    the same with the exchange in place by stores into the other blocks'
+//    shared memory (XOR partners, a barrier a group of partners) in place
+//    of reads: 1.672-1.684 (0.207), and 1.51 at 8 columns;
+//  * 8 columns reading two DFTs' inputs a thread at a time: 1.408;
+//    4 columns in 64 threads, twelve blocks an SM: 3.00; the tile
+//    row-major (a warp's stages across 4 columns, its remote reads 4 whole
+//    rows): 1.320 (0.181 at 2048, slower);
+//  * a cluster of 16 (non-portable) blocks of one 256-point half each: 1.68
+//    at 16 columns, 1.98-3.23 at 32;
+//  * what the 16-column design spent (1.684): the stages 0.37 (1.32 without
+//    them), the reads of other blocks' shared memory 0.62 (1.07 reading its
+//    own), the twiddle's loads nothing (1.69 without them); what the
+//    512-point design spends (1.314): the copy 0.34 (0.976 without it),
+//    the remote reads 0.15, the stages 0.12, each partly hidden behind the
+//    others: the stage engine, not the bytes, is the limit now.
+// The copy is cp.async with all of a thread's copies in flight; TMA was not
+// built: its box lands the tile's rows row-major and unpadded, where the
+// stages walk each column through the engine's padded rows (the row-major
+// tile above, which the engine can walk, measured no faster).
+//
 // The cube holds one whole N <= 2^14 transform in dynamic shared memory
 // (N + N/16 float2: 68 KB at 2^13, 136 KB at 2^14, over the 48 KB a launch
 // gets by default, so the launch opts in with cudaFuncSetAttribute). Its
@@ -79,8 +127,9 @@
 // launch, or a negative code (stockham.cuh) for arguments it refuses.
 // watfft_strided_c2c's last three arguments are the column tile C (0:
 // none), its block's threads and whether it stores 8 bytes a point;
-// watfft_large_cube's last three are the cube's threads and whether it
-// copies and stores 8 bytes a point.
+// watfft_strided_cluster's are the cluster's blocks and whether it copies
+// and stores 8 bytes a point; watfft_large_cube's last three are the
+// cube's threads and whether it copies and stores 8 bytes a point.
 
 #include "stockham.cuh"
 
@@ -277,6 +326,169 @@ int launch_mul(int mul, const float* xre, const float* xim, float* yre, float* y
 #undef WATFFT_LAUNCH
 }
 
+// The cluster tile: kClusterCols columns of n = 2K * M points (M =
+// kClusterFft) held by a cluster of K blocks, block r the rows r + K*i
+// (i < 2M) of every column, as two halves: the rows of even and of odd i,
+// x[s + 2K*i] for s = r and s = r + K. With X[k1 + M*k2] (k1 < M,
+// k2 < 2K), X[k1 + M*k2] = sum_s w_2K^{s*k2} w_n^{s*k1} Y_s[k1], Y_s the
+// M-point DFT of x[s + 2K*i] over i: each block runs its halves' M-point
+// FFTs in its own shared memory (the engine's stages, 1/M folded into the
+// inverse's last), and after the cluster's barrier block r' reads the
+// Y_s[k1] of its k1 in [r'*M/K, (r'+1)*M/K) from every block's shared
+// memory (Y_s in block s % K, half s / K), multiplies by the twiddle
+// T[s, k1] = w_n^{s*k1} (pm, at s*M + k1), runs the 2K-point DFTs (1/2K
+// for the inverse) and stores X[k1 + M*k2]. A second barrier keeps every
+// block's shared memory until the others have read it. At n = 4096 this is
+// the split of the engine's own plan [16, 16, 16], so the outputs are the
+// one-SM tile's bit for bit.
+constexpr int kClusterFft = 256;
+constexpr int kClusterCols = 8;       // 34 KB of shared memory a block
+constexpr int kClusterThreads = 128;  // the M-point FFTs of 8 halves at a time
+constexpr int kClusterBlocks = 6;     // blocks an SM (its shared memory): 80 registers
+
+// The block's rank in its cluster.
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+// Every thread of the cluster's blocks arrives, then waits for all: what
+// each wrote to the cluster's shared memory before is seen by all after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The cluster-window address of p (in this block's shared memory) in block
+// `rank`'s shared memory, and one 8-byte read there.
+__device__ __forceinline__ uint32_t cluster_map(const void* p, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"((uint32_t)__cvta_generic_to_shared(p)), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float2 cluster_load(uint32_t a) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(a));
+  return v;
+}
+
+template <bool INV, int K>
+__global__ void __launch_bounds__(kClusterThreads, kClusterBlocks)
+strided_cluster_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
+                       float* __restrict__ yre, float* __restrict__ yim,
+                       int64_t x_sn, Batch2 xb, int64_t y_sn, Batch2 yb, int64_t batch,
+                       bool pairs_x, bool pairs_y,
+                       const float* __restrict__ pmre, const float* __restrict__ pmim,
+                       const float* __restrict__ twre, const float* __restrict__ twim,
+                       Plan plan) {
+  extern __shared__ float2 smem[];
+  constexpr int C = kClusterCols, M = kClusterFft, R = 2 * K, J = M / K;
+  constexpr int H = (M + M / 16) | 1, S = 2 * H;  // a half's slots, a column's
+  constexpr int step = kClusterThreads / C;       // rows a pass of the block's threads covers
+  const int r = cluster_rank();
+  const int64_t first = (int64_t)(blockIdx.x / K) * C;
+  const int count = (int)min((int64_t)C, batch - first);
+  // thread i takes column i % C, so a warp's copies and stores cover
+  // 32 / C rows of C adjacent columns
+  const int t = threadIdx.x % C;
+  float2* const col = smem + t * S;
+
+  // rows r + K*i of the thread's column (row i at pad(i / 2) of half i % 2),
+  // every copy in flight before the wait
+  if (t < count) {
+    const int64_t g = xb(first + t) + (int64_t)r * x_sn, rs = (int64_t)K * x_sn;
+    for (int i = threadIdx.x / C; i < 2 * M; i += step) {
+      copy_point(col + (i & 1) * H + pad(i >> 1), xre + g + i * rs, xim + g + i * rs,
+                 pairs_x);
+    }
+  }
+  copy_commit();
+  copy_wait<0>();
+  __syncthreads();
+
+  // the M-point FFTs of the tile's 2C halves, kClusterThreads / (M/16) at a time
+  constexpr int tpt = M / 16;
+  const int th = threadIdx.x % tpt;
+  for (int c = threadIdx.x / tpt; c < 2 * C; c += kClusterThreads / tpt) {
+    run_stages<16, INV>(smem + (c >> 1) * S + (c & 1) * H, th, tpt, plan, twre, twim);
+  }
+  cluster_sync();
+
+  // the 2K-point DFTs of this block's k1, their inputs read from every
+  // block's shared memory
+  if (t < count) {
+    uint32_t part[K];
+#pragma unroll
+    for (int q = 0; q < K; ++q) part[q] = cluster_map(col, q);
+    const int64_t g = yb(first + t);
+    for (int k1 = r * J + threadIdx.x / C; k1 < (r + 1) * J; k1 += step) {
+      float2 v[R], out[R];
+#pragma unroll
+      for (int s = 0; s < R; ++s) {
+        v[s] = cluster_load(part[s % K] + ((s / K) * H + pad(k1)) * sizeof(float2));
+      }
+#pragma unroll
+      for (int s = 1; s < R; ++s) {
+        v[s] = cmul(v[s], make_float2(__ldg(pmre + s * M + k1), __ldg(pmim + s * M + k1)));
+      }
+      small_dft<R, 1, INV, float>(v, out);
+#pragma unroll
+      for (int s = 0; s < R; ++s) {
+        const int64_t o = g + (int64_t)(k1 + s * M) * y_sn;
+        store_point(yre + o, yim + o, INV ? cscale(out[s], 1.0f / R) : out[s], pairs_y);
+      }
+    }
+  }
+  cluster_sync();  // no block leaves while another reads its shared memory
+}
+
+constexpr int kMaxDevices = 64;
+
+template <bool INV, int K>
+int launch_cluster(const float* xre, const float* xim, float* yre, float* yim,
+                   int64_t x_sn, Batch2 xb, int64_t y_sn, Batch2 yb, int64_t batch,
+                   bool pairs_x, bool pairs_y, const float* pmre, const float* pmim,
+                   const float* twre, const float* twim, const Plan& plan, cudaStream_t stream) {
+  const auto kernel = strided_cluster_kernel<INV, K>;
+  constexpr int C = kClusterCols;
+  constexpr size_t smem = (size_t)C * 2 * ((kClusterFft + kClusterFft / 16) | 1) * sizeof(float2);
+  const int64_t blocks = (batch + C - 1) / C * K;
+  if (blocks > 0x7fffffff) return kErrArgs;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = K;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  // once per device and instance: the shared memory's opt-in, and whether
+  // a cluster fits the card at all (a launch of none would never run)
+  static bool ready[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= kMaxDevices) return kErrArgs;
+  if (!ready[dev]) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    int fit = 0;
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
+    if (e != cudaSuccess) return (int)e;
+    if (fit < 1) return kErrCluster;
+    ready[dev] = true;
+  }
+  return (int)cudaLaunchKernelEx(&cfg, kernel, xre, xim, yre, yim, x_sn, xb, y_sn, yb, batch,
+                                 pairs_x, pairs_y, pmre, pmim, twre, twim, plan);
+}
+
 // The cube (#12): the whole four-step of N = n1*n2 points of sequence
 // blockIdx.x in one block (p1: the n2-point plan, p2: the n1-point plan,
 // pm: the twiddle T[k2, j1] at k2*n1 + j1). The sequence lands by
@@ -466,6 +678,54 @@ int watfft_strided_c2c(const float* xre, const float* xim, float* yre, float* yi
   }
 #undef WATFFT_LAUNCH
   return err ? err : (int)cudaGetLastError();
+}
+
+// y = DFT_n(x) as watfft_strided_c2c computes it without a multiplier, on
+// the cluster tile of `cluster` blocks: n = cluster * 512, cluster 4 or 8,
+// both sides walking down columns. pm holds T[s, k1] = w_n^{s*k1} at
+// s*256 + k1 (s < 2 * cluster); the plan is the 256-point one, of the
+// direction asked for. pairs_x, pairs_y: 8-byte copies of x and stores of
+// y, refused (kErrPairs) where re and im are not adjacent in aligned points
+// (`complex_pairs` on the point and inner strides; an even outer stride
+// where the batch spans more than one outer entry).
+int watfft_strided_cluster(const float* xre, const float* xim, float* yre, float* yim,
+                           int64_t x_sn, int64_t x_sa, int64_t x_sb,
+                           int64_t y_sn, int64_t y_sa, int64_t y_sb,
+                           int n, int64_t inner, int64_t batch,
+                           const float* pmre, const float* pmim,
+                           const float* twre, const float* twim,
+                           const int* radices, const int* twoffsets, int nstages,
+                           int inverse, void* stream, int cluster, int pairs_x, int pairs_y) {
+  Plan plan;
+  int maxr, T;
+  if (const int err = make_plan(kClusterFft, batch, radices, twoffsets, nstages, plan, maxr, T)) {
+    return err;
+  }
+  if (inner < 1 || inner > 0x7fffffff || batch > 0x7fffffff) return kErrArgs;
+  if ((cluster != 4 && cluster != 8) || n != 2 * cluster * kClusterFft || maxr != 16) {
+    return kErrCluster;
+  }
+  const auto pairs_ok = [&](const float* re, const float* im, int64_t sn, int64_t sa,
+                            int64_t sb) {
+    return complex_pairs(re, im, sn, sa) && (batch <= inner || sb % 2 == 0);
+  };
+  if ((pairs_x && !pairs_ok(xre, xim, x_sn, x_sa, x_sb)) ||
+      (pairs_y && !pairs_ok(yre, yim, y_sn, y_sa, y_sb))) {
+    return kErrPairs;
+  }
+  const uint32_t in = (uint32_t)inner;
+  const Batch2 xb{x_sa, x_sb, in}, yb{y_sa, y_sb, in};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define WATFFT_LAUNCH(INV, K)                                                                 \
+  return launch_cluster<INV, K>(xre, xim, yre, yim, x_sn, xb, y_sn, yb, batch, pairs_x != 0, \
+                                pairs_y != 0, pmre, pmim, twre, twim, plan, st)
+  switch ((cluster == 8 ? 2 : 0) + (inverse ? 1 : 0)) {
+    case 0:  WATFFT_LAUNCH(false, 4);
+    case 1:  WATFFT_LAUNCH(true, 4);
+    case 2:  WATFFT_LAUNCH(false, 8);
+    default: WATFFT_LAUNCH(true, 8);
+  }
+#undef WATFFT_LAUNCH
 }
 
 // y = DFT_N(x) by the four-step in one block per sequence, N = n1*n2:

@@ -427,6 +427,8 @@ const char* watfft_error_string(int code) {
     case kErrPairs: return "8-byte pairs refused: re and im must be adjacent (4 bytes apart in "
                            "8-byte aligned points, 8 in 16-byte aligned points for float64), "
                            "with even point and batch strides, on a walk that takes pairs";
+    case kErrCluster: return "cluster tile refused: n must be K * 512 for K = 4 or 8 on a "
+                             "256-point plan of largest radix 16, and a cluster must fit the card";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

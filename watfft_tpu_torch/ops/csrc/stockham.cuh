@@ -46,6 +46,8 @@ constexpr int kErrTile = -6;      // column tile not a power of two, below T, to
 constexpr int kErrCube = -7;      // cube block not 256 or 512 threads
 constexpr int kErrPairs = -8;     // pairs asked for where re and im are not adjacent in
                                   // aligned points, or on a walk that takes none
+constexpr int kErrCluster = -9;   // cluster tile refused: a cluster size or length without an
+                                  // instance, or no cluster fits the card
 
 struct Plan {
   int log2n;

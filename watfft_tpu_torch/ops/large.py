@@ -28,7 +28,12 @@ batch over two axes and an optional complex multiply by a table with its
 own strides (0 over the sequences, so the [n2, n1] twiddle is never tiled
 across the batch). The cube is a kernel of its own in the same file. Each
 counts its launches in `trace.launches` under its own key (`large_stage1`,
-`large_stage2`, `large_cube`, `large_postmul`, `large_outer`).
+`large_stage2`, `large_cube`, `large_postmul`, `large_outer`). A column
+walk of 2048 or 4096 points without a multiplier, on the port's own
+tables, takes the strided kernel's cluster tile (`stockham.cluster_tile`;
+the launch `_launch_cluster` under the same key, its plain version
+`plain_cluster_stages`, counted in `strided.cluster_tile`): the n-point
+DFT as a split into 256-point FFTs across a thread-block cluster.
 
 The wrappers take any strides, so one code path serves time-major planes
 [N, ...] (`fft_large_nb`), batch-major planes [..., N] (`fft_large_bm`),
@@ -59,7 +64,7 @@ __all__ = ["large_split", "pm_grid", "LargeTables", "make_large_tables",
            "fft_large_bm", "fft_large_complex", "fft_large", "plain_fft_large",
            "rfft_large", "irfft_large", "rfft_large_bm", "irfft_large_bm",
            "rfft_large_nb", "irfft_large_nb", "cube_threads", "complex_pairs", "cube_launch",
-           "store_pairs", "MODES"]
+           "store_pairs", "plain_cluster_stages", "MODES"]
 
 MODES = ("cube", "pipe2", "2d")
 MUL_NONE, MUL_LOAD, MUL_STORE = 0, 1, 2
@@ -194,9 +199,13 @@ def strided_c2c(x, y, n: int, sn, axes, inverse: bool, tables: Tables, key: str,
     # x and y (one run of na * nb columns). On every device, so a tile the
     # kernel would refuse raises on the CPU too.
     runs_on = nb == 1 or (xb == na * xa and yb == na * ya)
-    cols = stockham.column_tile(n, ((x_sn, xa), (y_sn, ya)), 4, 8, tables.radix, na * nb,
-                                None if runs_on else na)
+    walks, inner = ((x_sn, xa), (y_sn, ya)), None if runs_on else na
+    cols = stockham.column_tile(n, walks, 4, 8, tables.radix, na * nb, inner)
     if _build.use_kernel(x[0], plain):
+        k = 0 if mul != MUL_NONE else stockham.cluster_tile(n, cols, walks, inner)
+        if k and tables is stockham.device_tables(n, inverse, x[0].device):
+            _launch_cluster(x, y, n, (x_sn, xa, xb), (y_sn, ya, yb), na, nb, inverse, key, k)
+            return
         _launch(x, y, n, (x_sn, xa, xb), (y_sn, ya, yb), pm, (m_sn, ma, mb), mul,
                 na, nb, inverse, tables, key, cols)
         return
@@ -226,6 +235,58 @@ def _launch(x, y, n, xs, ys, pm, ms, mul, inner, outer, inverse, tables, key, co
                   lambda: f"n={n}, batch={batch}")
     if pairs:
         trace.counts["strided.pairs_store"] += 1
+
+
+def _launch_cluster(x, y, n, xs, ys, inner, outer, inverse, key, k) -> None:
+    """The launch on the cluster tile of k blocks (`stockham.cluster_tile`):
+    the CLUSTER_FFT-point plan of the direction and the twiddle
+    T[s, k1] = w_n^{s*k1} at s*CLUSTER_FFT + k1, the four-step tables of
+    the split (CLUSTER_FFT, n / CLUSTER_FFT); 8-byte copies and stores where
+    `complex_pairs` (and an even outer stride where the outer axis has more
+    than one entry) allows. Counted in `strided.cluster_tile`."""
+    _build.kernel_dtype(x[0], torch.float32)
+    m = stockham.CLUSTER_FFT
+    lt = device_large_tables(n, inverse, x[0].device, (m, n // m))
+    ptrs = [t.data_ptr() for t in (*x, *y)]
+    pairs = [int(complex_pairs(re, im, sn, sa) and (outer == 1 or sb % 2 == 0))
+             for re, im, (sn, sa, sb) in ((*ptrs[:2], xs), (*ptrs[2:], ys))]
+    t, batch = lt.t2, inner * outer
+    _build.launch(key, x[0].device, "watfft_strided_cluster",
+                  (*ptrs, *xs, *ys, n, inner, batch, lt.pmre.data_ptr(), lt.pmim.data_ptr(),
+                   t.twre.data_ptr(), t.twim.data_ptr(), t.c_radices, t.c_offsets, len(t.stages),
+                   int(inverse)), (k, *pairs),
+                  lambda: f"n={n}, batch={batch}, cluster of {k}")
+    trace.counts["strided.cluster_tile"] += 1
+
+
+def plain_cluster_stages(xre, xim, inverse: bool, lt: LargeTables):
+    """The cluster tile's arithmetic (csrc/large.cu
+    `strided_cluster_kernel`) in torch ops: DFT_n along axis 0 of [n, ...]
+    planes, n = R * m for the split (m, R) of `lt` (n1 = m, n2 = R; the
+    kernel's is (CLUSTER_FFT, n / CLUSTER_FFT)). The m-point FFTs of
+    x[s + R*i] over i for each s (the m-point plan, 1/m folded into the
+    inverse's last stage), each times T[s, k1] = w_n^{s*k1}, then the
+    R-point DFTs over s (times 1/R for the inverse), stored at
+    X[k1 + m*k2]. The kernel's plain version: it computes what the kernel
+    computes, in the same order, in f32 ops rounded one at a time."""
+    m, k = lt.n1, lt.n2
+    rest = tuple(xre.shape[1:])
+    t = lt.t2
+    yre, yim = run_stages(xre.reshape(m, k, *rest), xim.reshape(m, k, *rest), m, inverse,
+                          t.offsets, t.stages, t.twre, t.twim)
+    shape = (m,) + (1,) * len(rest)
+    pre, pim = (p.view(k, m) for p in (lt.pmre, lt.pmim))
+    are, aim = [yre[:, 0]], [yim[:, 0]]
+    for r in range(1, k):
+        twr, twi = pre[r].reshape(shape), pim[r].reshape(shape)
+        vr, vi = _cmul(yre[:, r], yim[:, r], twr, twi)
+        are.append(vr)
+        aim.append(vi)
+    ore, oim = stockham._small_dft(are, aim, inverse)
+    ore, oim = torch.stack(ore), torch.stack(oim)
+    if inverse:
+        ore, oim = ore * (1.0 / k), oim * (1.0 / k)
+    return ore.reshape(m * k, *rest), oim.reshape(m * k, *rest)
 
 
 def _launch_cube(x, y, xs, ys, batch, lt: LargeTables) -> None:

@@ -59,7 +59,11 @@ each row: at n >= 1024 (T <= 4) a fraction of each 32-byte sector. There
 (and at every n >= 16, where it measured faster too) the wrappers ask the
 kernels for a column tile of C > T adjacent transforms in a block of 256
 or 512 threads, as `tile_shape` gives it; `config.COLUMN_TILE` sets the
-tile by hand. The transforms' arithmetic is the same at every tile.
+tile by hand. The transforms' arithmetic is the same at every tile. Where
+that tile would hold one block an SM (f32 columns of 2048 and 4096 points),
+the strided c2c kernel's column walks take the cluster tile instead
+(`cluster_tile`, `ops/large.py`), whose arithmetic is the n-point DFT as a
+2K x 256 split: at n = 4096 the engine's own, so the outputs do not change.
 
 Where both sides walk along their rows (batch-major planes, interleaved
 complex, the real core's views, the 2D row pass) and no tile is taken, the
@@ -87,8 +91,8 @@ __all__ = ["stage_plan", "make_twiddle_pack", "run_stages", "plain_fft",
            "Tables", "make_tables", "device_tables", "fft_views", "stockham_fft_nb",
            "plain_fft_nb", "plain_fft_bm",
            "stockham_fft_bm", "stockham_fft", "stockham_fft_nb_postmul", "plain_postmul",
-           "engine_transforms", "tile_shape", "check_tile", "column_tile", "c2c_walk",
-           "c2c_launch", "complex_pairs", "fft_addresses"]
+           "engine_transforms", "tile_shape", "check_tile", "column_tile", "cluster_tile",
+           "c2c_walk", "c2c_launch", "complex_pairs", "fft_addresses"]
 
 _REAL = {torch.float32: torch.float32, torch.float64: torch.float64,
          torch.complex64: torch.float32, torch.complex128: torch.float64}
@@ -392,6 +396,37 @@ def column_tile(n: int, walks, elem_bytes: int, point_bytes: int, radix: int, ba
         cols, threads = forced if isinstance(forced, tuple) else (forced, 256)
         check_tile(cols, n, point_bytes, radix, threads)
     return (0, 0) if cols == engine_transforms(n, radix) else (cols, threads)
+
+
+# The cluster tile of the strided c2c kernel (csrc/large.cu
+# `strided_cluster_kernel`): one tile of CLUSTER_COLS adjacent columns of
+# n = K * CLUSTER_M points, held by a thread-block cluster of K blocks on
+# neighbouring SMs, block r the rows r + K*i of every column as two
+# CLUSTER_FFT-point halves. It takes the place of the one-SM tile where a
+# column is so long that that tile falls to its 512-thread branch, one
+# block an SM (f32 stages at n = 2048 and 4096). The kernel's constants
+# (kClusterCols, 2 * kClusterFft); PERF.md has the times.
+CLUSTER_COLS = 8
+CLUSTER_M = 512
+CLUSTER_FFT = 256
+CLUSTER_SIZES = (4, 8)       # the kernel's instances: n = 2048 and 4096
+
+
+def cluster_tile(n: int, cols: tuple[int, int], walks, inner: int | None = None) -> int:
+    """K, the blocks of the cluster tile a column walk at n points takes in
+    place of the tile `column_tile` gave it (`cols`), or 0 where it keeps
+    that tile: where the helper did not give a 512-thread tile (a forced
+    `config.COLUMN_TILE` keeps its meaning: every column walk at that
+    tile), where a side does not walk down columns (walks: the (row
+    stride, batch stride) of the load and of the store), where the inner
+    batch axis of a batch over two axes holds fewer than CLUSTER_COLS
+    columns, or where n is not K * CLUSTER_M for a K of CLUSTER_SIZES."""
+    if config.COLUMN_TILE is not None or cols[1] != 2 * BLOCK_THREADS:
+        return 0
+    if any(sn <= sb for sn, sb in walks) or (inner is not None and inner < CLUSTER_COLS):
+        return 0
+    k = n // CLUSTER_M
+    return k if k in CLUSTER_SIZES and k * CLUSTER_M == n else 0
 
 
 # -- device tables -------------------------------------------------------------

@@ -42,8 +42,10 @@ a call is not a span: the launch spans name its kernels). `counts`:
 STFT window built), `spec.spectra` (the spectra the spectrometer detected
 and integrated, one a channel, polarisation and nfft samples),
 `strided.pairs_store` (launches of the strided kernel that store 8 bytes a
-point, `ops/large.py` `store_pairs`) and `wstack.layers` (the w-planes the
-imager summed). `counters()` returns all three.
+point, `ops/large.py` `store_pairs`), `strided.cluster_tile` (launches of
+the strided kernel's column walk on the cluster tile, `ops/stockham.py`
+`cluster_tile`) and `wstack.layers` (the w-planes the imager summed).
+`counters()` returns all three.
 
 `align()` lays the spans on a device trace's clock. With CUDA activity
 alone `torch.profiler` still records the host's CUDA runtime calls
@@ -80,7 +82,7 @@ __all__ = ["CAPACITY", "Span", "begin", "end", "call", "h2d", "to", "counts", "r
 CAPACITY = 1 << 20
 
 counts = {"h2d_copies": 0, "h2d_bytes": 0, "tables_built": 0, "spec.spectra": 0,
-          "strided.pairs_store": 0, "wstack.layers": 0}
+          "strided.pairs_store": 0, "strided.cluster_tile": 0, "wstack.layers": 0}
 # FFTContext's routes (`planner.c2c_kernel`), each counted as it is taken: a
 # plain dict with every key in place, the cheapest count on the hot path
 routes = dict.fromkeys(("stockham", "large-cube", "large-pipe2", "fourstep"), 0)
