@@ -111,7 +111,21 @@ Phases (any failure exits nonzero and prints no result):
    the cluster tile, the first image within MAX_REL of torch.fft.ifft2 in
    complex128), each pass timed alone, the column pass in turns with the
    one-SM tile it replaces, beside torch.fft.ifft2 (the `fft2_b8_n4096`
-   row).
+   row). Then the ptycho_dm_n128.batch cell's request through the main
+   path: the cell's own state (its configuration's `Workload`, 16,384
+   frames of 128^2, the 2160^2 object) and one `ptycho.dm_iterate` with the
+   counts set to 0 before it and torch.fft refused, which launches the cube
+   twice a chunk, each chunk's pass once a chunk and the probe's sums once
+   (16 chunks: 32, 16, 16, 16, 1), counts 16,384 frames and is within the
+   cell's limits of its float64 reference (`fftbench/reference/ptycho.py`),
+   timed; the two rows below report those counts. Then the cell's chunk,
+   [1024, 128, 128] complex64 frames: each of the difference map's four
+   passes alone
+   against its plain version on the same arrays (exit, the projection and
+   the new frames the same bits, err and the sums within 1e-6), timed
+   beside it (the `ptycho_kernels` row); and `fft2` / `ifft2` there on the
+   cube, one launch each, within MAX_REL of torch.fft in complex128,
+   timed beside torch.fft (the `fft2_cube_b1024_n128` row).
 16. 2D kernels against their plain versions: the 2D cube at every
    power-of-two h, w >= 2 with h*w <= 2^14, forward and inverse, at batch 3
    in three layouts (batch-major planes, interleaved complex64, native
@@ -359,12 +373,14 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import torch
 
 import watfft_tpu_torch as wtt
 from watfft_tpu_torch import (config, create_fft, create_fft_f32, create_rfft, create_rfft_f32,
                               fftlib, planner, registry, spectrometer, trace)
+from watfft_tpu_torch import ptycho as wptycho
 from watfft_tpu_torch import stft as wstft
 from watfft_tpu_torch.ops import _build
 from watfft_tpu_torch.ops import bluestein as bl
@@ -373,6 +389,7 @@ from watfft_tpu_torch.ops import fft2 as f2
 from watfft_tpu_torch.ops import large as lg
 from watfft_tpu_torch.ops import mxu_dft as md
 from watfft_tpu_torch.ops import ola
+from watfft_tpu_torch.ops import ptycho as pt
 from watfft_tpu_torch.ops import rfft as rf
 from watfft_tpu_torch.ops import stockham as st
 from watfft_tpu_torch.ops import wstack as ws
@@ -410,6 +427,10 @@ FFT2_MAIN = 4096                           # one 4096 x 4096 image (BASELINE con
 WSTACK_PLANES, WSTACK_N = 8, 4096
 WSTACK_PIXEL = 20 * math.pi / (180 * 3600)
 WSTACK_W_MAX = 2000.0
+# the ptycho_dm_n128.batch cell's chunk: 1024 frames of 128^2, 8 rows of its
+# 128-position raster, 16 px apart
+PTYCHO_M, PTYCHO_STEP, PTYCHO_SCAN, PTYCHO_FRAMES = 128, 16, 128, 1024
+PTYCHO_SEED = 2 ** 31 + 29  # the cell's state for the main path's request
 FFT2_CUBE_SHAPE, FFT2_2PASS_SHAPE = (1024, 128, 128), (64, 512, 512)
 FFT2_TIME_SHAPES = [(1 << k, 1 << k) for k in range(4, 13)] + [(128, 8192), (8192, 128),
                                                                   (2, 4096)]
@@ -1579,6 +1600,181 @@ def fft2_b8_row(dev, gen, name: str, limit: str) -> dict:
            "rows_us_a_plane": times["rows_ms"] * 1e3 / p, "plain_ms": None,
            "bound_ms": bnd[0], "bound_by": bnd[1], "card": name, "power_limit": limit}
     print(json.dumps({"phase": "fft2_b8_n4096", **row}), flush=True)
+    return row
+
+
+def ptycho_chunk(gen, dev) -> tuple:
+    """The ptycho_dm_n128.batch cell's chunk: 1024 frames of 128^2 at 8
+    rows of its raster (128 positions 16 px apart), a 240 x 2160 object
+    around 1, the model probe (a disc 64 px across, 4 turns of quadratic
+    phase at its edge), frames of its views plus 10% and magnitudes of the
+    order of their transforms'."""
+    m, step, scan, rows = PTYCHO_M, PTYCHO_STEP, PTYCHO_SCAN, PTYCHO_FRAMES // PTYCHO_SCAN
+    k = torch.arange(scan, dtype=torch.int32, device=dev) * step
+    pos = torch.stack((k[:rows].repeat_interleave(scan), k.repeat(rows)), 1).contiguous()
+    obj = 1 + 0.1 * rand_complex(((rows - 1) * step + m, (scan - 1) * step + m), gen, dev)
+    y = torch.arange(m, dtype=torch.float32, device=dev) - m // 2
+    r2 = (y[:, None] ** 2 + y[None, :] ** 2) / 32.0 ** 2
+    probe = torch.where(r2 <= 1, torch.polar(torch.ones_like(r2), 8 * math.pi * r2), 0)
+    exits = probe * pt.views(obj, pos, m) + 0.1 * rand_complex((len(pos), m, m), gen, dev)
+    amp = torch.rand((len(pos), m, m), generator=gen, device=dev) * 64
+    return exits, obj, probe, amp, pos
+
+
+def phase_ptycho_request(dev) -> dict:
+    """The ptycho_dm_n128.batch cell's request through the main path, as
+    the cell runs it: the state its configuration's `Workload` makes from a
+    seed, then one `ptycho.dm_iterate` into the workload's `out` with the
+    launch counts set to 0 just before it and torch.fft refused during it;
+    its launches, frames counted, errors against the float64 reference
+    (the cell's check) and time a request."""
+    import importlib.util
+
+    root = Path(__file__).resolve().parent / "fftbench"
+    cfg = json.loads((root / "configs" / "ptycho_dm_n128.json").read_text())
+    traffic = json.loads((root / "traffic" / "pipeline_f16384.json").read_text())
+    spec = importlib.util.spec_from_file_location("ptycho_dm_n128",
+                                                  root / "configs" / "ptycho_dm_n128.py")
+    adapter = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(adapter)
+    wl = adapter.Workload(cfg, traffic["request"], dev)
+    x = wl.make_pool(PTYCHO_SEED, 1)[0]
+    chunks = -(-wl.frames // wptycho.frames_per_chunk(wl.frames, wl.m))
+    frames = trace.counts["ptycho.frames"]
+    torch.cuda.synchronize()
+    zero_counts()
+    with no_library_fft():
+        got = wptycho.dm_iterate(x, wl.obj, wl.probe, wl.fmag, wl.pos, out=wl.out, device=dev)
+        torch.cuda.synchronize()
+    launches = counts()
+    want = expect(fft2_cube=2 * chunks, ptycho_exit=chunks, ptycho_fourier=chunks,
+                  ptycho_update=chunks, ptycho_probe=1)
+    check(launches == want, f"ptycho request: launches {launches}, want {want}")
+    check(trace.counts["ptycho.frames"] - frames == wl.frames,
+          f"ptycho request: {trace.counts['ptycho.frames'] - frames} frames counted")
+    errs = wl.check(x, got)
+    res = {"frames": wl.frames, "chunks": chunks,
+           "launches": {k: v for k, v in launches.items() if v}, "errors": errs,
+           "limits": cfg["limits"]}
+    print(json.dumps({"phase": "ptycho_request", **res}), flush=True)
+    check(all(errs[k] <= lim for k, lim in cfg["limits"].items()),
+          f"ptycho request against the reference: {errs}, limits {cfg['limits']}")
+    del got
+    device_ms, call_ms = time_ms(lambda: wptycho.dm_iterate(x, wl.obj, wl.probe, wl.fmag,
+                                                            wl.pos, out=wl.out, device=dev),
+                                 reps=5, warmup=1)
+    res.update(ms=device_ms, call_ms=call_ms)
+    print(json.dumps({"phase": "ptycho_request_time", "ms": device_ms, "call_ms": call_ms}),
+          flush=True)
+    return res
+
+
+def ptycho_kernels_row(dev, gen, name: str, limit: str, request: dict) -> dict:
+    """The kernels line's `ptycho_kernels` row: each pass of the difference
+    map alone at the ptycho_dm_n128.batch cell's chunk, [1024, 128, 128]
+    complex64 frames, beside its plain version on the same arrays: exit,
+    the projection and the new frames the same bits; err and the object's
+    and the probe's sums (atomics, in the hardware's order) within 1e-6 of
+    the largest; one launch a call. Bytes a frame pixel: exit 16, Fourier
+    20, update 24, probe 8 (the configuration's least bytes; the object's
+    band and the probe come from the L2). `request` is the main path's
+    run (`phase_ptycho_request`): its launches, errors and time."""
+    exits, obj, probe, amp, pos = ptycho_chunk(gen, dev)
+    f = torch.fft.fft2(pt.plain_exit(exits, obj, probe, pos))
+    back = torch.fft.ifft2(f)
+    err = torch.empty(len(exits), device=dev)
+    sums = torch.zeros((*obj.shape, 4), device=dev)
+    psums = torch.zeros((PTYCHO_M, PTYCHO_M, 4), device=dev)
+    out, fw = torch.empty_like(exits), f.clone()  # fw: projected again at each timed call
+    # timed as the iteration launches them: no flag to read (check=False),
+    # which would add a fill and a synchronize to each call
+    runs = {"exit": (lambda: pt.exit_kernel(exits, obj, probe, pos, check=False),
+                     lambda: pt.plain_exit(exits, obj, probe, pos), 16),
+            "fourier": (lambda: pt.fourier_kernel(fw, amp, err),
+                        lambda: pt.plain_fourier(fw, amp, err), 20),
+            "update": (lambda: pt.update_kernel(exits, back, obj, probe, pos, out, sums,
+                                                check=False),
+                       lambda: pt.plain_update(exits, back, obj, probe, pos, out, sums), 24),
+            "probe": (lambda: pt.probe_kernel(exits, obj, pos, psums, check=False),
+                      lambda: pt.plain_probe(exits, obj, pos, psums), 8)}
+    # the kernel against the plain version
+    zero_counts()
+    t = pt.exit_kernel(exits, obj, probe, pos)
+    same = {"exit": torch.equal(t, pt.plain_exit(exits, obj, probe, pos))}
+    f1, f2, e1, e2 = f.clone(), f.clone(), err.clone(), err.clone()
+    pt.fourier_kernel(f1, amp, e1)
+    pt.plain_fourier(f2, amp, e2)
+    same["fourier"] = torch.equal(f1, f2)
+    o1, o2, s1, s2 = out.clone(), out.clone(), sums.clone(), sums.clone()
+    pt.update_kernel(exits, back, obj, probe, pos, o1, s1)
+    pt.plain_update(exits, back, obj, probe, pos, o2, s2)
+    same["update"] = torch.equal(o1, o2)
+    p1, p2 = psums.clone(), psums.clone()
+    pt.probe_kernel(o1, obj, pos, p1)
+    pt.plain_probe(o1, obj, pos, p2)
+    torch.cuda.synchronize()
+    launches = counts()
+    check(launches == expect(ptycho_exit=1, ptycho_fourier=1, ptycho_update=1, ptycho_probe=1),
+          f"ptycho passes: launches {launches}")
+    diffs = {"err": rel_diff(e1, e2), "object_sums": rel_diff(s1, s2),
+             "probe_sums": rel_diff(p1, p2)}
+    print(json.dumps({"phase": "ptycho_kernels_at_cell_chunk", "frames": list(exits.shape),
+                      "same_bits": same, "sums_rel_diff": diffs}), flush=True)
+    check(all(same.values()), f"ptycho passes: same bits {same}")
+    check(max(diffs.values()) <= KERNEL_LIMIT, f"ptycho sums vs plain: {diffs}")
+    points = exits.numel()
+    passes = {}
+    for key, (kernel, plain, per) in runs.items():
+        ms = time_ms(kernel)[0]
+        passes[key] = {"ms": ms, "tb_per_s": per * points / ms / 1e9,
+                       "bound_ms": bound(per * points, 0)[0],
+                       "plain_ms": time_ms(plain, reps=3, warmup=1)[0]}
+    total = sum(v["ms"] for v in passes.values())
+    return {"name": "ptycho_kernels", "shape": f"[{len(exits)}, {PTYCHO_M}, {PTYCHO_M}]",
+            "route": "cuda", "source": "watfft_tpu_torch/ops/csrc/ptycho.cu", "replaces": None,
+            "replaces_of": "no TPU kernel: the JAX package has no ptychography",
+            "also_replaces": [], "launches": sum(launches.values()), "same_bits": same,
+            "sums_rel_diff": diffs, "passes": passes, "ms": total,
+            "request_launches": request["launches"], "request_errors": request["errors"],
+            "request_ms": request["ms"],
+            "bound_ms": bound(68 * points, 0)[0], "bound_by": "bytes", "library_ms": None,
+            "card": name, "power_limit": limit}
+
+
+def fft2_cube_b1024_row(dev, gen, name: str, limit: str, request: dict) -> dict:
+    """The kernels line's `fft2_cube_b1024_n128` row: `fft2` and `ifft2` on
+    [1024, 128, 128] interleaved complex64, the ptycho_dm_n128.batch cell's
+    chunk, through the public entries (the planner's fft2-cube: one launch
+    each), within MAX_REL of torch.fft in complex128 on the first images,
+    each direction timed beside torch.fft.fft2 / ifft2. Bound: 16 B a point
+    (each point's complex64 read and written once). `request_launches`: the
+    cube's launches in the cell's request (`phase_ptycho_request`)."""
+    x = rand_complex((PTYCHO_FRAMES, PTYCHO_M, PTYCHO_M), gen, dev)
+    errs, launches = {}, {}
+    for key, port, lib in (("fft2", wtt.fft2, torch.fft.fft2),
+                           ("ifft2", wtt.ifft2, torch.fft.ifft2)):
+        zero_counts()
+        y = port(x)
+        torch.cuda.synchronize()
+        launches[key] = counts()
+        check(launches[key] == expect(fft2_cube=1), f"{key} [1024, 128, 128]: {launches[key]}")
+        errs[key] = max(rel_diff(y[i].to(torch.complex128), lib(x[i].to(torch.complex128)))
+                        for i in (0, PTYCHO_FRAMES - 1))
+        check(errs[key] <= MAX_REL["float32"], f"{key} [1024, 128, 128]: {errs[key]:.3e}")
+    times = {"fft2_ms": time_ms(lambda: wtt.fft2(x))[0],
+             "ifft2_ms": time_ms(lambda: wtt.ifft2(x))[0],
+             "library_fft2_ms": time_ms(lambda: torch.fft.fft2(x))[0],
+             "library_ifft2_ms": time_ms(lambda: torch.fft.ifft2(x))[0]}
+    points = x.numel()
+    row = {"name": "fft2_cube_b1024_n128", "shape": "fft2 / ifft2 [1024, 128, 128]",
+           "route": "cuda", "source": FFT2_SRC, "replaces": "watfft_tpu/ops/fft2.py:129",
+           "also_replaces": [], "launches": 2,
+           "request_launches": request["launches"]["fft2_cube"],
+           "max_rel_err": max(errs.values()),
+           **times, "ms": times["fft2_ms"], "library_ms": times["library_fft2_ms"],
+           "plain_ms": None, "bound_ms": bound(16 * points, 0)[0], "bound_by": "bytes",
+           "card": name, "power_limit": limit}
+    print(json.dumps({"phase": "fft2_cube_b1024_n128", **row}), flush=True)
     return row
 
 
@@ -3828,12 +4024,12 @@ SHARDED_LARGE_N, SHARDED_REAL_N = 1 << 24, 1 << 25
 @contextlib.contextmanager
 def no_library_fft():
     """torch.fft's functions raise while the block runs: no library call
-    hides in a sharded face."""
+    hides in a sharded face or a path that must not make one."""
     saved = {k: v for k, v in vars(torch.fft).items()
              if callable(v) and not isinstance(v, type) and not k.startswith("_")}
 
     def refuse(*args, **kwargs):
-        raise Failed("a torch.fft call inside a sharded face")
+        raise Failed("a torch.fft call where the port's own transforms must run")
 
     for k in saved:
         setattr(torch.fft, k, refuse)
@@ -4523,6 +4719,9 @@ def main() -> int:
         detect_row = detect_kernel_row(dev, gen, name, limit)
         wstack_row = wstack_kernel_row(dev, gen, name, limit)
         fft2_b8 = fft2_b8_row(dev, gen, name, limit)
+        ptycho_req = phase_ptycho_request(dev)
+        ptycho_row = ptycho_kernels_row(dev, gen, name, limit, ptycho_req)
+        cube_b1024 = fft2_cube_b1024_row(dev, gen, name, limit, ptycho_req)
         phase_fft2_kernel_vs_plain(dev, gen)
         fft2_main = phase_fft2_main_path(dev, gen)
         fft2_times = phase_fft2_times(dev, gen, name, limit)
@@ -4559,6 +4758,7 @@ def main() -> int:
     line["kernels"].append(rawspec_row)
     line["kernels"].append(detect_row)
     line["kernels"].extend([wstack_row, fft2_b8])
+    line["kernels"].extend([ptycho_row, cube_b1024])
     line["kernels"].extend(bl_rows)
     line["kernels"].extend(f64_rows)
     line["kernels"].extend(dft_rows)

@@ -5,8 +5,9 @@ A launch that returns 0 counts 1 under its key and, inside a profiler
 session alone, records one `launch.<key>` span; a nonzero code raises with
 the key, the launch's fields and the library's message, and counts
 nothing. The table holds the 24 names `registry.launch_counts()` has
-always given, the spectrometer's detection and the imager's accumulation,
-and every wrapper launches under a key of it. No JAX is needed.
+always given, the spectrometer's detection, the imager's accumulation and
+the difference map's four passes, and every wrapper launches under a key
+of it. No JAX is needed.
 """
 
 import contextlib
@@ -25,6 +26,7 @@ from watfft_tpu_torch.ops import fft2 as f2
 from watfft_tpu_torch.ops import large as lg
 from watfft_tpu_torch.ops import mxu_dft as md
 from watfft_tpu_torch.ops import ola
+from watfft_tpu_torch.ops import ptycho as pt
 from watfft_tpu_torch.ops import rfft as rf
 from watfft_tpu_torch.ops import stockham as st
 from watfft_tpu_torch.ops import wstack as ws
@@ -34,9 +36,11 @@ NAMES = {"bluestein_fwd", "bluestein_inv", "bluestein_onepass", "fft2_cols", "ff
          "large_cube", "large_outer", "large_postmul", "large_stage1", "large_stage2",
          "mxu_dft", "real_core_fwd", "real_core_inv", "rfft_r2c_fused", "rfft_r2c_fused_f64",
          "stockham_c2c", "stockham_c2c_bf16", "stockham_c2c_bf16c", "stockham_c2c_f64",
-         "spec_detect", "wstack_accum"}
+         "spec_detect", "wstack_accum", "ptycho_exit", "ptycho_fourier", "ptycho_update",
+         "ptycho_probe"}
 # the routes counted beside the kernels: their launches count as the c2c kernel's
 ROUTES = {"real_core_fwd", "real_core_inv", "fft2_rows"}
+PTYCHO = ("ptycho_exit", "ptycho_fourier", "ptycho_update", "ptycho_probe")
 
 
 class _Library:
@@ -135,10 +139,10 @@ def test_the_refusals_before_a_launch():
 # -- the table ---------------------------------------------------------------------------
 
 def test_the_table_has_the_24_names():
-    """The 24 names the table has always had, the detection's and the
-    accumulation's: 26."""
-    assert set(trace.launches) == NAMES and len(trace.launches) == 26
-    assert len(NAMES - {"spec_detect", "wstack_accum"}) == 24
+    """The 24 names the table has always had, the detection's, the
+    accumulation's and the difference map's four: 30."""
+    assert set(trace.launches) == NAMES and len(trace.launches) == 30
+    assert len(NAMES - {"spec_detect", "wstack_accum"} - set(PTYCHO)) == 24
     assert registry.launch_counts() == trace.launches
     assert registry.launch_counts() is not trace.launches  # a copy to diff against
     counters = trace.counters()
@@ -152,7 +156,7 @@ def test_registry_counters_name_table_keys():
         assert registry.launches(name) == sum(trace.launches[k] for k in keys)
         named.update(keys)
     # no FFT surface launches these
-    assert named == NAMES - {"istft_ola", "spec_detect", "wstack_accum"}
+    assert named == NAMES - {"istft_ola", "spec_detect", "wstack_accum", *PTYCHO}
 
 
 def _f(shape, dtype=torch.float32, seed=0):
@@ -162,6 +166,14 @@ def _f(shape, dtype=torch.float32, seed=0):
 
 def _pair(shape, dtype=torch.float32):
     return _f(shape, dtype, 1), _f(shape, dtype, 2)
+
+
+def _views():
+    """Two 8 x 8 frames, a 10 x 12 object, the probe and two positions in
+    it: the difference map's operands."""
+    frames, probe = torch.complex(*_pair((2, 8, 8))), torch.complex(*_pair((8, 8)))
+    obj = torch.complex(*_pair((10, 12)))
+    return frames, obj, probe, torch.tensor([[0, 0], [2, 4]], dtype=torch.int32)
 
 
 # Each kernel key and a call that launches it (among others).
@@ -190,6 +202,12 @@ DRIVES = {
     "spec_detect": lambda: dt.power_add(torch.complex(*_pair((2, 2, 1, 8))), _f((2, 8))),
     "wstack_accum": lambda: ws.accum_kernel(torch.complex(*_pair((2, 8, 8))), _f((8, 8)),
                                             _f(2, torch.float64), 1e-3, _f(8), True, True),
+    "ptycho_exit": lambda: pt.exit_kernel(*_views()),
+    "ptycho_fourier": lambda: pt.fourier_kernel(_views()[0], _f((2, 8, 8)), _f(2)),
+    "ptycho_update": lambda: pt.update_kernel(_views()[0], *_views(), torch.empty(2, 8, 8,
+                                              dtype=torch.complex64), torch.zeros(10, 12, 4)),
+    "ptycho_probe": lambda: pt.probe_kernel(_views()[0], _views()[1], _views()[3],
+                                            torch.zeros(8, 8, 4)),
 }
 
 

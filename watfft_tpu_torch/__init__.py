@@ -15,6 +15,7 @@ n, `axis`/`axes`/`s`/`n`/`norm`), the STFT pipeline on the real FFT
 (`watfft_tpu_torch.stft`), a fine-channel spectrometer of 8-bit voltages
 on the complex FFT (`watfft_tpu_torch.spectrometer`), a wide-field radio
 imager's w-stacking inversion on the 2D FFT (`watfft_tpu_torch.imaging`),
+difference-map ptychography on the 2D FFT (`watfft_tpu_torch.ptycho`),
 the small-n FFT as one DFT matrix product (`dft_matmul_nb`, n <= 128) and
 the bf16 tiers of the plane transforms
 (`ops.stockham.stockham_fft_nb` / `stockham_fft_bm` on bfloat16 planes;
@@ -25,7 +26,7 @@ built with nvcc at first use); with `device="cpu"` they run the kernels'
 plain torch versions. Needs torch and numpy, never JAX.
 """
 
-from . import imaging, spectrometer, stft
+from . import imaging, ptycho, spectrometer, stft
 from .api import (FFTContext, RFFTContext, create_fft, create_fft_f32, create_rfft,
                   create_rfft_f32, fft, fft2, ifft, ifft2, irfft, irfft2, rfft, rfft2)
 from . import fftlib
@@ -38,4 +39,5 @@ __all__ = ["FFTContext", "RFFTContext", "create_fft", "create_fft_f32", "create_
            "create_rfft_f32",
            "fft", "ifft", "rfft", "irfft", "fft2", "ifft2", "rfft2", "irfft2", "fft2_nb",
            "fft_large", "fft_large_nb", "rfft_large_nb", "irfft_large_nb", "large_split",
-           "bluestein_fft_nb", "dft_matmul_nb", "fftlib", "imaging", "spectrometer", "stft"]
+           "bluestein_fft_nb", "dft_matmul_nb", "fftlib", "imaging", "ptycho",
+           "spectrometer", "stft"]

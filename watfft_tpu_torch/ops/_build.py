@@ -182,6 +182,16 @@ def library() -> ctypes.CDLL:
     # (planes, image, w, taper, layers, n, pixel_scale, first, last, vec, stream)
     lib.watfft_wstack_accum.argtypes = [p, p, p, p, i64, i64, ctypes.c_double, i32, i32, i32, p]
     lib.watfft_wstack_accum.restype = i32
+    # the difference map's passes: (psi, obj, probe, pos, t, frames, m, obj_w,
+    # stream); (f, amp, err, frames, m, stream); (psi, back, obj, probe, pos,
+    # out, sums, frames, m, obj_w, stream); (psi, obj, pos, sums, frames, m,
+    # obj_w, stream)
+    lib.watfft_ptycho_exit.argtypes = [p, p, p, p, p, p, i64, i64, i64, i64, p]
+    lib.watfft_ptycho_fourier.argtypes = [p, p, p, i64, i64, p]
+    lib.watfft_ptycho_update.argtypes = [p, p, p, p, p, p, p, p, i64, i64, i64, i64, p]
+    lib.watfft_ptycho_probe.argtypes = [p, p, p, p, p, i64, i64, i64, i64, p]
+    for name in ("exit", "fourier", "update", "probe"):
+        getattr(lib, "watfft_ptycho_" + name).restype = i32
     lib.watfft_error_string.argtypes = [i32]
     lib.watfft_error_string.restype = ctypes.c_char_p
     build_info.update(path=str(out), log=log)

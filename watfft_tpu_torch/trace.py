@@ -18,6 +18,10 @@ layers:
   imaging.wstack, and its steps (wstack.accum, wstack.finalise: each
                   holds a chunk's launch of the accumulation, the last
                   chunk's in finalise); a root
+  ptycho.dm, and its steps (ptycho.exit, ptycho.fourier, ptycho.update:
+                  each holds a chunk's launch of its pass; ptycho.object:
+                  the object's division, torch ops; ptycho.probe: the
+                  probe's launch and division); a root
   launch.<name>   one call into the CUDA library, which launches one
                   kernel (`ops/_build.launch`); <name> is the kernel's key
                   in `launches`
@@ -44,7 +48,8 @@ and integrated, one a channel, polarisation and nfft samples),
 `strided.pairs_store` (launches of the strided kernel that store 8 bytes a
 point, `ops/large.py` `store_pairs`), `strided.cluster_tile` (launches of
 the strided kernel's column walk on the cluster tile, `ops/stockham.py`
-`cluster_tile`) and `wstack.layers` (the w-planes the imager summed).
+`cluster_tile`), `wstack.layers` (the w-planes the imager summed) and
+`ptycho.frames` (the frames a difference-map iteration projected).
 `counters()` returns all three.
 
 `align()` lays the spans on a device trace's clock. With CUDA activity
@@ -82,14 +87,16 @@ __all__ = ["CAPACITY", "Span", "begin", "end", "call", "h2d", "to", "counts", "r
 CAPACITY = 1 << 20
 
 counts = {"h2d_copies": 0, "h2d_bytes": 0, "tables_built": 0, "spec.spectra": 0,
-          "strided.pairs_store": 0, "strided.cluster_tile": 0, "wstack.layers": 0}
+          "strided.pairs_store": 0, "strided.cluster_tile": 0, "wstack.layers": 0,
+          "ptycho.frames": 0}
 # FFTContext's routes (`planner.c2c_kernel`), each counted as it is taken: a
 # plain dict with every key in place, the cheapest count on the hot path
 routes = dict.fromkeys(("stockham", "large-cube", "large-pipe2", "fourstep"), 0)
 # The kernels' launches by key, the name of each launch's span past
 # `launch.`: the c2c kernel's four instances, the real kernels, the four-step
 # kernels, the 2D passes, Bluestein, #20, the overlap-add, the
-# spectrometer's detection and the imager's accumulation
+# spectrometer's detection, the imager's accumulation and the difference
+# map's four passes
 launches = dict.fromkeys((
     "stockham_c2c", "stockham_c2c_f64", "stockham_c2c_bf16", "stockham_c2c_bf16c",
     "rfft_r2c_fused", "irfft_c2r_fused", "real_core_fwd", "real_core_inv",
@@ -97,7 +104,8 @@ launches = dict.fromkeys((
     "large_stage1", "large_stage2", "large_cube", "large_postmul", "large_outer",
     "fft2_cube", "fft2_cols", "fft2_k2", "fft2_rows",
     "bluestein_fwd", "bluestein_inv", "bluestein_onepass", "mxu_dft", "istft_ola",
-    "spec_detect", "wstack_accum"), 0)
+    "spec_detect", "wstack_accum", "ptycho_exit", "ptycho_fourier", "ptycho_update",
+    "ptycho_probe"), 0)
 
 
 class Span(NamedTuple):
